@@ -5,32 +5,55 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phases (any failure exits nonzero; no result line is printed then):
 
-1. build   — prints the card's name and power limit, compiles the
-             ``gain_reduce`` CUDA kernel from
-             ``src/repro_torch/kernels/gain_reduce/csrc/`` with nvcc for
-             sm_90a, and prints nvcc's register/shared-memory report.
-2. kernel  — holds the kernel against its plain PyTorch version and
-             against the exact (float64) sum on the card, at the fleet's
-             (64, 32), the m=4096 fleet's (4096, 32), one (1, 2^26) row
-             and the ragged (64, 33), (4096, 31) and (3, 1_000_003), in
-             fp32 and bf16, each aligned and one element off alignment;
-             integer-valued inputs must come out exact, and a repeated
-             launch bitwise equal.
-3. slice   — serves the n=32, m=64, N=32 tiered fleet with its metered
-             tiers gated by ``gain_quadratic(kernel=true)`` through the
-             hybrid dispatch for 200 rounds, with the launch counter set
-             to 0 just before and read just after: exactly one kernel
-             launch per round, finite losses, a falling loss, and the
-             first 10 rounds equal to the same session on the CPU.
-4. times   — the kernel's, its plain version's and ``torch.linalg.vecdot``'s
-             times at each shape beside the bytes-over-bandwidth bound:
-             per call by CUDA events (median of 100 calls after
-             warm-up), and on the device by the profiler.
-5. profile — 20 more rounds of the same session under torch.profiler:
-             device ops per round, device-busy time per round, the
-             device's idle share against the unprofiled round time, the
-             kernels that take the most device time, and the host
-             operators that take the most host time.
+1. build    — prints the card's name and power limit, compiles both CUDA
+              kernels (``gain_reduce`` and ``swa_attention``, one nvcc per
+              source, started together) from the sources under
+              ``src/repro_torch/kernels/*/csrc/`` for sm_90a, and prints
+              nvcc's register/shared-memory/spill report.
+2. kernel   — holds ``gain_reduce`` against its plain PyTorch version and
+              against the exact (float64) sum on the card, at the fleet's
+              (64, 32), the m=4096 fleet's (4096, 32), one (1, 2^26) row
+              and the ragged (64, 33), (4096, 31) and (3, 1_000_003), in
+              fp32 and bf16, each aligned and one element off alignment;
+              integer-valued inputs must come out exact, and a repeated
+              launch bitwise equal.
+3. slice    — serves the n=32, m=64, N=32 tiered fleet with its metered
+              tiers gated by ``gain_quadratic(kernel=true)`` through the
+              hybrid dispatch for 200 rounds, with the launch counter set
+              to 0 just before and read just after: exactly one kernel
+              launch per round, finite losses, a falling loss, and the
+              first 10 rounds equal to the same session on the CPU.
+4. swa      — holds ``swa_attention`` against its plain version on the
+              card in fp32 (2e-5) and bf16 (3e-2): the served shapes, one
+              hd = 128 shape and the JAX tests' S × W grid; a repeated
+              launch is bitwise equal, and a head-major tensor viewed in
+              the model layout gives the contiguous tensor's result.
+5. lm       — serves smollm-135m at full width and depth (30 layers,
+              d 576, vocab 49152, fp32, weights from seed 0) through the
+              serving CLI's prefill and greedy decode: (a) batch 4,
+              prompt 1024, 32 tokens, plain causal; (b) the
+              long-context variant (W = 4096), batch 1, prompt 6000, 16
+              tokens.  Each: the counter shows 30 ``swa_attention``
+              launches in the prefill and none in decode, finite logits,
+              prefill ms, decode ms per step and tokens/s, and decode
+              against a fresh prefill of the same tokens.  Then the same
+              weights at 256 tokens on the card and on the CPU: prefill
+              logits within 1e-4, the 16 greedy tokens equal.
+6. times    — ``gain_reduce``'s, its plain version's and
+              ``torch.linalg.vecdot``'s times at each shape beside the
+              bytes-over-bandwidth bound: per call by CUDA events (median
+              of 100 calls after warm-up), and on the device by the
+              profiler.
+7. swa times — the same for ``swa_attention`` at the two served shapes,
+              fp32 and bf16, beside its plain version,
+              ``scaled_dot_product_attention`` with the same boolean mask
+              and the GQA heads expanded (timed only, never on the path),
+              and the bound max(flops / peak, bytes / HBM rate).
+8. profile  — 20 more fleet rounds under torch.profiler (device ops,
+              busy time and idle share per round, top kernels and host
+              operators); then one prefill and 16 decode steps of LM run
+              (a): the kernel's share of the prefill's device time and
+              the device's idle share in decode.
 
 Before the last line come the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -60,6 +83,28 @@ TIMED_RUNS = 100
 ROUNDS = 200
 CHECK_ROUNDS = 10
 PROFILED_ROUNDS = 20
+
+# the tensor-core bf16 rate (data sheet), the peak for bf16 inputs
+BF16_FLOP_PER_S = 989e12
+
+# swa_attention shapes (B, S, H, KV, hd, W): the two the LM runs serve
+# (smollm-135m's 9 query and 3 kv heads of 64), one hd = 128 shape, and
+# the JAX tests' grid (W = 2^30 is plain causal attention)
+SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096))
+SWA_CHECK = SWA_SERVED + ((1, 2048, 24, 8, 128, 512),) + tuple(
+    (2, s, 4, 2, 64, w) for s in (64, 200, 384) for w in (32, 128, 1 << 30))
+# kernel vs plain, |err| ≤ tol + tol·|plain| (the JAX tests' tolerances):
+# fp32 differs only in the order of the sums; bf16 by one output rounding
+SWA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+LM_ARCH = "smollm-135m"
+LM_RUNS = {"a": dict(batch=4, prompt=1024, gen=32, long_context=False),
+           "b": dict(batch=1, prompt=6000, gen=16, long_context=True)}
+LM_CHECK = dict(batch=2, prompt=256, gen=16)
+# card vs CPU and decode vs prefill, fp32 logits: 30 layers of fp32 sums
+# in other orders; bf16 or TF32 arithmetic would miss it by 10-100x
+LM_LOGIT_TOL = 1e-4
+LM_PROFILED_STEPS = 16
 
 
 def nvidia_smi() -> str:
@@ -149,17 +194,31 @@ def bound(rows: int, n: int, itemsize: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_build(gr_ops) -> dict:
+def phase_build(*kernel_ops) -> dict:
+    """Build every kernel at once: one nvcc per source, all started
+    together (each build waits on its own nvcc process)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(ops):
+        t0 = time.perf_counter()
+        lib = ops.build()
+        return lib, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = gr_ops.build()
-    seconds = time.perf_counter() - t0
-    log = Path(f"{lib}.log")
-    print(f"[build] {lib.relative_to(REPO)} in {seconds:.1f} s")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {line.strip()}")
-    return {"library": str(lib.relative_to(REPO)), "seconds": seconds}
+    with ThreadPoolExecutor(len(kernel_ops)) as pool:
+        built = list(pool.map(timed, kernel_ops))
+    record = {"wall_seconds": time.perf_counter() - t0}
+    for ops, (lib, seconds) in zip(kernel_ops, built):
+        print(f"[build] {lib.relative_to(REPO)} in {seconds:.1f} s")
+        log = Path(f"{lib}.log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    print(f"[build] {line.strip()}")
+        record[ops.SOURCE.stem] = {"library": str(lib.relative_to(REPO)),
+                                   "seconds": seconds}
+    print(f"[build] both kernels in {record['wall_seconds']:.1f} s")
+    return record
 
 
 def _rows(make, rows: int, n: int, offset: int):
@@ -487,6 +546,363 @@ def phase_times(torch, gr_ops, ref) -> list:
     return [row for row, _ in cases]
 
 
+# ----------------------------------------------------------------------
+# swa_attention and the LM slice
+# ----------------------------------------------------------------------
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _swa_inputs(torch, gen, shape, dtype, head_major: bool = False):
+    """Normal q, k, v in the model layout (B, S, heads, hd); with
+    ``head_major`` each is a (B, heads, S, hd) tensor viewed in that
+    layout (other strides, same values)."""
+    b, s, h, kv, hd, _ = shape
+    out = []
+    for heads in (h, kv, kv):
+        dims = (b, heads, s, hd) if head_major else (b, s, heads, hd)
+        x = torch.randn(dims, generator=gen, device="cuda").to(dtype)
+        out.append(x.transpose(1, 2) if head_major else x)
+    return out
+
+
+def swa_bound(shape, itemsize: int):
+    """Least time (ms) for one call: 4·hd flops per (query, visible key)
+    pair at the fp32 CUDA-core peak (fp32 inputs) or the bf16 tensor-core
+    peak, against q, k, v read and o written once over HBM bandwidth."""
+    b, s, h, kv, hd, w = shape
+    w = min(w, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w  # Σ_q min(q + 1, W)
+    flops = 4 * hd * h * b * pairs
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
+    peak = FP32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes")), flops, nbytes
+
+
+def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
+    """``swa_attention`` against its plain version on the card, at every
+    SWA_CHECK shape in fp32 and bf16; a repeated launch bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = []
+    for shape in SWA_CHECK:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = _dtype_name(dtype)
+            q, k, v = _swa_inputs(torch, gen, shape, dtype)
+            w = shape[-1]
+            got = swa_ops.swa_attention(q, k, v, window=w)
+            again = swa_ops.swa_attention(q, k, v, window=w)
+            want = swa_ref.swa_attention_ref(q, k, v, window=w)
+            torch.cuda.synchronize()
+            name = f"swa_attention {shape[:5]} W={w} {dt}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: repeated launch differs")
+            if got.dtype != dtype or got.shape != q.shape:
+                raise AssertionError(f"{name}: output {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            err = (got.float() - want.float()).abs()
+            tol = SWA_TOL[dt]
+            if not bool((err <= tol + tol * want.float().abs()).all()):
+                raise AssertionError(f"{name}: kernel disagrees with its "
+                                     f"plain version (max err "
+                                     f"{err.max().item():.3e})")
+            results.append({"shape": list(shape[:5]), "window": w,
+                            "dtype": dt, "max_abs_err": err.max().item(),
+                            "tol": tol, "bitwise_repeat": True})
+            print(f"[swa] B,S,H,KV,hd={shape[:5]} W={w} {dt}: vs plain "
+                  f"{err.max().item():.3e} within {tol} + {tol}·|plain|; "
+                  f"repeat bitwise equal")
+            del q, k, v, got, again, want, err
+    shape = SWA_SERVED[0]
+    q, k, v = _swa_inputs(torch, gen, shape, torch.float32, head_major=True)
+    strided = swa_ops.swa_attention(q, k, v, window=shape[-1])
+    dense = swa_ops.swa_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=shape[-1])
+    torch.cuda.synchronize()
+    if not torch.equal(strided, dense):
+        raise AssertionError("swa_attention: a strided (head-major) input "
+                             "differs from its contiguous copy")
+    print(f"[swa] head-major inputs viewed as {shape[:5]}: equal to the "
+          f"contiguous inputs' result")
+    return results
+
+
+def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
+            label: str) -> dict:
+    """One served batch through the serving CLI's prefill and greedy
+    decode: warm-up, then the counted and timed run, then decode against
+    a fresh prefill of the same tokens."""
+    b, s = prompts.shape
+    cache_len = s + gen + 8
+    toks, _, cache = serve.prefill_prompt(model, params, prompts, cache_len)
+    serve.decode_tokens(model, params, cache, toks, s, 2)
+    del toks, cache
+    torch.cuda.synchronize()
+
+    swa_ops.swa_attention.launches = 0
+    t0 = time.perf_counter()
+    toks, logits, cache = serve.prefill_prompt(model, params, prompts,
+                                               cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    in_prefill = swa_ops.swa_attention.launches
+    t0 = time.perf_counter()
+    rest, last = serve.decode_tokens(model, params, cache, toks, s, gen - 1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = swa_ops.swa_attention.launches
+    layers = model.cfg.num_layers
+    if in_prefill != layers or launches != layers:
+        raise AssertionError(
+            f"LM run ({label}): swa_attention launched {in_prefill} times "
+            f"in the prefill and {launches - in_prefill} in decode (want "
+            f"{layers} and 0)")
+    if logits.shape != (b, s, model.cfg.vocab_size):
+        raise AssertionError(f"LM run ({label}): logits {logits.shape}")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(last).all())):
+        raise AssertionError(f"LM run ({label}): non-finite logits")
+    tokens = torch.cat([toks, rest], 1)
+    del logits, cache
+
+    # decode through the cache against a prefill of prompt + the tokens
+    # fed to decode: the last decode step's logits are that prefill's
+    # last row, where the cache holds every position (no window)
+    full = torch.cat([prompts, tokens[:, :-1].to(prompts.dtype)], 1)
+    ref_logits, _ = model.prefill(params, {"tokens": full},
+                                  cache_len=full.shape[1])
+    gap = (last - ref_logits[:, -1]).abs().max().item()
+    del ref_logits
+    window = model.cfg.swa_window
+    exact = window is None or s % window == 0
+    if exact and not gap <= LM_LOGIT_TOL * (1 + last.abs().max().item()):
+        raise AssertionError(f"LM run ({label}): decode differs from a "
+                             f"fresh prefill by {gap:.3e}")
+    steps = gen - 1
+    row = {"batch": b, "prompt": s, "gen": gen, "window": window,
+           "launches": launches, "launches_prefill": in_prefill,
+           "launches_decode": launches - in_prefill,
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": b * s / prefill_s,
+           "decode_ms_per_step": decode_s / steps * 1e3,
+           "decode_tokens_per_s": b * steps / decode_s,
+           "decode_vs_prefill_max_abs": gap,
+           "decode_vs_prefill_checked": exact,
+           "first_tokens": tokens[0, :8].tolist()}
+    note = ("" if exact else " (not checked: the reference's ring buffer "
+            "overwrites a live key when S % W ≠ 0, ROADMAP §3)")
+    print(f"[lm] ({label}) B={b} S={s} W={window}: swa_attention launches "
+          f"{in_prefill} in prefill, {launches - in_prefill} in decode; "
+          f"prefill {row['prefill_ms']:.2f} ms "
+          f"({row['prefill_tokens_per_s']:.0f} tok/s); decode "
+          f"{row['decode_ms_per_step']:.3f} ms/step "
+          f"({row['decode_tokens_per_s']:.1f} tok/s); decode vs fresh "
+          f"prefill max |gap| {gap:.3e}{note}")
+    return row
+
+
+def _card_vs_cpu(torch, serve, model, params, prompts) -> dict:
+    """The same weights and prompts through the port on the card (the
+    kernels) and on the CPU (their plain versions)."""
+    from repro_torch.utils.tree import tree_map
+
+    b, s = prompts.shape
+    gen = LM_CHECK["gen"]
+    runs = {}
+    for where, p, x in (("card", params, prompts),
+                        ("cpu", tree_map(lambda t: t.cpu(), params),
+                         prompts.cpu())):
+        t0 = time.perf_counter()
+        toks, logits, cache = serve.prefill_prompt(model, p, x, s + gen + 8)
+        rest, _ = serve.decode_tokens(model, p, cache, toks, s, gen - 1)
+        runs[where] = (logits.cpu(), torch.cat([toks, rest], 1).cpu(),
+                       time.perf_counter() - t0)
+    (lc, tc, _), (lh, th, cpu_s) = runs["card"], runs["cpu"]
+    gap = (lc - lh).abs()
+    if not bool((gap <= LM_LOGIT_TOL + LM_LOGIT_TOL * lh.abs()).all()):
+        raise AssertionError(f"card vs CPU: prefill logits differ by "
+                             f"{gap.max().item():.3e}")
+    if not torch.equal(tc, th):
+        raise AssertionError(f"card vs CPU: greedy tokens differ:\n{tc}\n"
+                             f"{th}")
+    top2 = lh[:, -1].topk(2, -1).values
+    margin = (top2[:, 0] - top2[:, 1]).min().item()
+    print(f"[lm] card vs CPU, B={b} S={s}: prefill logits max |gap| "
+          f"{gap.max().item():.3e} (tol {LM_LOGIT_TOL} + {LM_LOGIT_TOL}"
+          f"·|cpu|), {gen} greedy tokens equal; CPU run {cpu_s:.1f} s")
+    return {"batch": b, "prompt": s, "gen": gen,
+            "logits_max_abs_gap": gap.max().item(), "tol": LM_LOGIT_TOL,
+            "tokens_equal": True, "last_row_top2_margin": margin}
+
+
+def phase_lm(torch, swa_ops) -> tuple:
+    """The LM serving slice on the card: runs (a) and (b), then the card
+    against the CPU.  Returns (record, run (a)'s model, params, prompts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import sample_lm_tokens
+    from repro_torch.launch import serve
+    from repro_torch.models import build, long_context_variant
+    from repro_torch.utils.tree import tree_size
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(LM_ARCH)
+    models = {label: build(long_context_variant(cfg) if run["long_context"]
+                           else cfg) for label, run in LM_RUNS.items()}
+    params, _ = models["a"].init(torch.Generator(device=dev).manual_seed(0))
+    n_params = tree_size(params)
+    longest = max(r["prompt"] for r in LM_RUNS.values())
+    widest = max(r["batch"] for r in LM_RUNS.values())
+    t0 = time.perf_counter()
+    prompts = sample_lm_tokens(torch.Generator(device=dev).manual_seed(7),
+                               widest, longest, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the 9.7 GB bigram table
+    print(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim_}, "
+          f"vocab {cfg.vocab_size}, {n_params / 1e6:.1f}M parameters "
+          f"(fp32, seed 0); prompts drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    record = {"arch": cfg.name, "params": n_params}
+    for label, run in LM_RUNS.items():
+        record[label] = _lm_run(
+            torch, swa_ops, serve, models[label], params,
+            prompts[:run["batch"], :run["prompt"]].contiguous(),
+            run["gen"], label)
+    record["card_vs_cpu"] = _card_vs_cpu(
+        torch, serve, models["a"], params,
+        prompts[:LM_CHECK["batch"], :LM_CHECK["prompt"]].contiguous())
+    run_a = LM_RUNS["a"]
+    return record, models["a"], params, prompts[
+        :run_a["batch"], :run_a["prompt"]].contiguous()
+
+
+def phase_swa_times(torch, swa_ops, swa_ref) -> list:
+    """Per served shape and dtype: the kernel, its plain version and
+    ``scaled_dot_product_attention`` (the same boolean window mask, GQA
+    heads expanded beforehand, head-major layout), per call by CUDA
+    events and on the device by the profiler, beside the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for shape in SWA_SERVED:
+        b, s, h, kv, hd, w = shape
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - w)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _swa_inputs(torch, gen, shape, dtype)
+            qh = q.transpose(1, 2).contiguous()
+            kh = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+            vh = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+            kh, vh = kh.contiguous(), vh.contiguous()
+            fns = {
+                "": lambda q=q, k=k, v=v, w=w: swa_ops.swa_attention(
+                    q, k, v, window=w),
+                "plain_": lambda q=q, k=k, v=v, w=w: swa_ref.swa_attention_ref(
+                    q, k, v, window=w),
+                "library_": lambda qh=qh, kh=kh, vh=vh, m=mask:
+                    F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m),
+            }
+            lib_err = (fns["library_"]().transpose(1, 2).float()
+                       - fns["plain_"]().float()).abs().max().item()
+            (bound_ms, bound_by), flops, nbytes = swa_bound(
+                shape, q.element_size())
+            cases.append(({"shape": list(shape[:5]), "window": w,
+                           "dtype": _dtype_name(dtype), "flops": flops,
+                           "bytes": nbytes, "bound_ms": bound_ms,
+                           "bound_by": bound_by,
+                           "library_max_abs_err": lib_err}, fns))
+    before = swa_ops.swa_attention.launches
+    for row, fns in cases:
+        for key, fn in fns.items():
+            row[f"{key}ms"] = time_ms(fn)
+    for row, fns in cases:
+        for key, fn in fns.items():
+            row[f"{key}device_ms"] = device_ms(torch, fn)
+    swa_ops.swa_attention.launches = before  # timing launches do not count
+    for row, _ in cases:
+        row["roofline_share"] = row["bound_ms"] / row["device_ms"]
+        row["tflop_per_s"] = row["flops"] / row["device_ms"] / 1e9
+        print(f"[swa times] {tuple(row['shape'])} W={row['window']} "
+              f"{row['dtype']}: per call (events) kernel {row['ms']:.4f} / "
+              f"plain {row['plain_ms']:.4f} / sdpa {row['library_ms']:.4f}"
+              f" ms; on the device kernel {row['device_ms']:.4f} / plain "
+              f"{row['plain_device_ms']:.4f} / sdpa "
+              f"{row['library_device_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}): "
+              f"{row['roofline_share']:.1%} of it, "
+              f"{row['tflop_per_s']:.2f} TFLOP/s; sdpa vs plain "
+              f"{row['library_max_abs_err']:.2e}")
+    return [row for row, _ in cases]
+
+
+def _device_intervals(prof):
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def phase_lm_profile(torch, model, params, prompts, run: dict) -> dict:
+    """One prefill and LM_PROFILED_STEPS decode steps of LM run (a) under
+    torch.profiler: the kernel's share of the prefill's device time, and
+    the device's idle share against the unprofiled times of run (a)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    b, s = prompts.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        toks, _, cache = serve.prefill_prompt(
+            model, params, prompts, s + LM_PROFILED_STEPS + 8)
+        torch.cuda.synchronize()
+    pre = _device_intervals(prof)
+    with profile(activities=acts) as prof:
+        serve.decode_tokens(model, params, cache, toks, s, LM_PROFILED_STEPS)
+        torch.cuda.synchronize()
+    dec = _device_intervals(prof)
+    if not pre or not dec:
+        raise AssertionError("the profiler saw no device activity")
+    pre_ms = sum(t for _, t in pre) / 1e3
+    swa_ms = sum(t for n, t in pre if "swa_attention" in n) / 1e3
+    swa_calls = sum(1 for n, _ in pre if "swa_attention" in n)
+    if swa_calls != model.cfg.num_layers:
+        raise AssertionError(f"profiled prefill ran {swa_calls} "
+                             f"swa_attention kernels")
+    by_name: dict = {}
+    for n, t in pre:
+        by_name[n] = by_name.get(n, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    dec_busy = sum(t for _, t in dec) / 1e3 / LM_PROFILED_STEPS
+    record = {
+        "prefill_device_ms": pre_ms, "swa_device_ms": swa_ms,
+        "swa_share_of_prefill": swa_ms / pre_ms,
+        "prefill_idle_share": 1.0 - pre_ms / run["prefill_ms"],
+        "decode_device_ops_per_step": len(dec) / LM_PROFILED_STEPS,
+        "decode_busy_ms_per_step": dec_busy,
+        "decode_idle_share": 1.0 - dec_busy / run["decode_ms_per_step"],
+        "prefill_top": [{"name": n, "ms": t / 1e3} for n, t in top],
+    }
+    print(f"[profile] LM (a) prefill: {pre_ms:.3f} ms on the device, "
+          f"swa_attention {swa_ms:.3f} ms in {swa_calls} launches = "
+          f"{record['swa_share_of_prefill']:.1%}; idle share "
+          f"{record['prefill_idle_share']:.3f} against the unprofiled "
+          f"{run['prefill_ms']:.2f} ms")
+    for n, t in top:
+        print(f"[profile]   prefill {t / 1e3:.4f} ms  {n[:90]}")
+    print(f"[profile] LM (a) decode: {record['decode_device_ops_per_step']:.0f}"
+          f" device ops and {dec_busy:.4f} ms busy per step against the "
+          f"unprofiled {run['decode_ms_per_step']:.3f} ms -> idle share "
+          f"{record['decode_idle_share']:.3f}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -505,17 +921,27 @@ def main() -> int:
 
     from repro_torch.kernels.gain_reduce import ops as gr_ops
     from repro_torch.kernels.gain_reduce import ref
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.swa_attention import ref as swa_ref
 
     card = nvidia_smi()
     print(f"[card] {card}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
-    record = {"card": card, "build": phase_build(gr_ops)}
+    t_start = time.perf_counter()
+    record = {"card": card, "build": phase_build(gr_ops, swa_ops)}
     record["kernel_checks"] = phase_kernel(torch, gr_ops, ref)
     session, record["slice"] = phase_slice(torch, gr_ops)
+    record["swa_checks"] = phase_swa_kernel(torch, swa_ops, swa_ref)
+    record["lm"], lm_model, lm_params, lm_prompts = phase_lm(torch, swa_ops)
+    # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
+    record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
     record["profile"] = phase_profile(
         torch, session, 1e3 / record["slice"]["rounds_per_s"])
+    record["lm_profile"] = phase_lm_profile(
+        torch, lm_model, lm_params, lm_prompts, record["lm"]["a"])
+    record["seconds"] = time.perf_counter() - t_start
 
     main_shape = record["times"][0]
     assert main_shape["shape"] == [64, 32] and main_shape["dtype"] == "float32"
@@ -538,6 +964,32 @@ def main() -> int:
         "shape": main_shape["shape"],
         "dtype": main_shape["dtype"],
     }]}
+    # swa_attention at LM run (a)'s shape and dtype: what its prefill runs
+    swa_time = record["swa_times"][0]
+    swa_check = record["swa_checks"][0]
+    assert swa_time["shape"] == swa_check["shape"] == list(SWA_SERVED[0][:5])
+    assert swa_time["dtype"] == swa_check["dtype"] == "float32"
+    kernels["kernels"].append({
+        "name": "swa_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/swa_attention/csrc/"
+                  "swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention/kernel.py:81",
+        "launches": record["lm"]["a"]["launches"],
+        "max_abs_err": swa_check["max_abs_err"],
+        "ms": swa_time["ms"],
+        "plain_ms": swa_time["plain_ms"],
+        "bound_ms": swa_time["bound_ms"],
+        "bound_by": swa_time["bound_by"],
+        "library_ms": swa_time["library_ms"],
+        "device_ms": swa_time["device_ms"],
+        "plain_device_ms": swa_time["plain_device_ms"],
+        "library_device_ms": swa_time["library_device_ms"],
+        "shape": swa_time["shape"],
+        "window": swa_time["window"],
+        "dtype": swa_time["dtype"],
+        "launches_long_context": record["lm"]["b"]["launches"],
+    })
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=2))

@@ -2,7 +2,8 @@
 
 Inputs are the JAX package's values with numpy-convertible leaves
 (``np.asarray`` of a JAX array, or ``jax.device_get`` output): a
-``TrainState``, a ``Problem``, a round's batch.  Nothing here imports
+``TrainState``, a ``Problem``, a round's batch, an LM's parameters and
+KV cache.  Nothing here imports
 JAX; the objects are read through their attributes and ``np.asarray``.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.core.api import TrainState
 from repro_torch.core.regression import Problem
+from repro_torch.models.attention import KVCache
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import todo
 
@@ -75,3 +77,21 @@ def problem_from_jax(problem, *, device: DeviceLike = "cuda") -> Problem:
         n_samples=int(problem.n_samples),
         num_agents=int(problem.num_agents),
     )
+
+
+def params_from_jax(params, *, device: DeviceLike = "cuda"):
+    """An LM's JAX parameter tree (nested dicts of arrays, the ``blocks``
+    leaves stacked on a leading layer axis) as the port's: the same
+    paths, shapes, layouts (``wq (d,H,hd)``, ``wo (H,hd,d)``, ...) and
+    dtypes, leaf for leaf."""
+    if not isinstance(params, dict):
+        raise TypeError(f"expected a dict of parameters, got "
+                        f"{type(params).__name__}")
+    return to_torch(params, device)
+
+
+def cache_from_jax(cache, *, device: DeviceLike = "cuda") -> KVCache:
+    """A JAX ``KVCache`` (per layer, or stacked on a layer axis) as the
+    port's."""
+    return KVCache(k=to_torch(cache.k, device), v=to_torch(cache.v, device),
+                   pos_ids=to_torch(cache.pos_ids, device))

@@ -7,8 +7,8 @@ fp32 or bf16.  For tensors on the CPU it computes the plain version in
 raises — nothing falls back.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
-``build/`` beside this file (named by a hash of the source, so an edited
-source is rebuilt), and loaded with ``ctypes``.
+``build/`` beside this file (:mod:`repro_torch.kernels.build`), and
+loaded with ``ctypes``.
 ``gain_reduce.launches`` counts the kernel launches made through this
 wrapper.
 """
@@ -16,62 +16,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels.gain_reduce.ref import gain_reduce_ref
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "gain_reduce.cu"
-BUILD_DIR = _HERE / "build"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gain_reduce.cu"
+BUILD_DIR = SOURCE.parent.parent / "build"
+NVCC_FLAGS = _build.NVCC_FLAGS
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: building gain_reduce needs the "
-                       "CUDA toolkit")
 
 
 def library_path() -> Path:
     """Where the shared library for the current source lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libgain_reduce_{tag}.so"
+    return _build.library_path(SOURCE)
 
 
 def build() -> Path:
-    """Compile the kernel if its library is not built yet; returns the
-    library's path.  ``nvcc``'s messages (``-Xptxas -v``: registers,
-    shared memory, spills) are kept beside it as ``<lib>.log``."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile the kernel if its library is not built yet (see
+    :mod:`repro_torch.kernels.build`); returns the library's path."""
+    return _build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,0 +1,121 @@
+"""Wrapper of the ``swa_attention`` CUDA kernel (``csrc/swa_attention.cu``).
+
+``swa_attention(q, k, v, *, window)`` is sliding-window causal attention
+in the model layout — q ``(B, S, H, hd)``, k/v ``(B, S, KV, hd)`` — over
+the keys ``(t − window, t]`` of each query ``t``; a window ≥ S is plain
+causal attention.  Any S; hd 64 or 128; fp32 or bf16; the output is
+``(B, S, H, hd)`` in ``q.dtype``.  This is the contract of the JAX
+package's wrapper (``repro.kernels.swa_attention.ops``), which pads and
+transposes for its kernel; this kernel reads the model layout through
+strides and masks the ragged edge itself.
+
+For tensors on the CPU it computes the plain version in ``ref.py``; for
+tensors on a CUDA device it launches the kernel, or raises — nothing
+falls back.  The kernel is built at first use (:mod:`repro_torch.kernels.build`)
+and loaded with ``ctypes``.  ``swa_attention.launches`` counts the kernel
+launches made through this wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.swa_attention.ref import swa_attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+
+def library_path() -> Path:
+    """Where the shared library for the current source lives."""
+    return _build.library_path(SOURCE)
+
+
+def build() -> Path:
+    """Compile the kernel if its library is not built yet; returns the
+    library's path."""
+    return _build.build(SOURCE)
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    lib.swa_attention_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.swa_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"swa_attention: expected q (B,S,H,hd) and k, v "
+                         f"(B,S,KV,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd:
+        raise ValueError(f"swa_attention: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if min(b, s, h, kv) < 1 or h % kv:
+        raise ValueError(f"swa_attention: need non-empty shapes and KV "
+                         f"dividing H, got H={h}, KV={kv}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"swa_attention: head dim {hd} not supported "
+                         f"(the kernel is built for {HEAD_DIMS})")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"swa_attention: dtypes differ {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"swa_attention: takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"swa_attention: devices differ {q.device}, "
+                         f"{k.device}, {v.device}")
+    if window < 1:
+        raise ValueError(f"swa_attention: window must be ≥ 1, got {window}")
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int) -> torch.Tensor:
+    """Sliding-window causal attention, ``(B, S, H, hd)`` in ``q.dtype``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return swa_attention_ref(q, k, v, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"swa_attention: unsupported device {q.device}")
+    if any(x.stride(-1) != 1 for x in (q, k, v)):
+        raise ValueError("swa_attention: the head dim must be contiguous")
+    b, s, h, hd = q.shape
+    if b > 65535 or h > 65535:
+        raise ValueError(f"swa_attention: shape {tuple(q.shape)} exceeds "
+                         f"the kernel's grid (B, H ≤ 65535)")
+    lib = _library()
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*(st for x in (q, k, v, out)
+                                      for st in x.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.swa_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, h, k.shape[2], hd, min(window, s), strides,
+            _DTYPE_CODES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"swa_attention: kernel launch failed with CUDA "
+                           f"error {err}")
+    swa_attention.launches += 1
+    return out
+
+
+swa_attention.launches = 0

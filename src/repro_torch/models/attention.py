@@ -1,0 +1,197 @@
+"""Attention: GQA with RoPE, optional QK-norm and sliding windows (port of
+``repro.models.attention``).
+
+Paths:
+
+* ``attention(causal=True)`` — causal self-attention, with or without a
+  sliding window, goes through the hand-written ``swa_attention`` kernel
+  (:mod:`repro_torch.kernels.swa_attention`), any S.  In the JAX package
+  the model computes it with ``attend``/``attend_blockwise`` and the
+  Pallas kernel is that math's drop-in; the port wires the kernel in.
+* ``attend`` — direct masked attention, for ``causal=False``
+  (encoders, cross-attention); not on the dense serving path.
+* ``decode_attend`` — one new token against a KV cache (ring buffer for
+  sliding windows), plain torch as in the JAX package.
+
+Layout convention: activations (B, S, D); q (B, S, H, hd); k/v
+(B, S, KV, hd); caches (B, C, KV, hd).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.utils.todo import not_ported, todo
+
+BLOCKWISE_THRESHOLD = 8192
+
+NEG_INF = -1e30
+
+
+def build_attention(scope, cfg):
+    hd = cfg.head_dim_
+    scope.param("wq", (cfg.d_model, cfg.num_heads, hd),
+                ("embed", "heads", None))
+    scope.param("wk", (cfg.d_model, cfg.num_kv_heads, hd),
+                ("embed", "kv_heads", None))
+    scope.param("wv", (cfg.d_model, cfg.num_kv_heads, hd),
+                ("embed", "kv_heads", None))
+    scope.param("wo", (cfg.num_heads, hd, cfg.d_model),
+                ("heads", None, "embed"))
+    if cfg.qk_norm:
+        scope.param("q_norm", (hd,), (None,), init="ones")
+        scope.param("k_norm", (hd,), (None,), init="ones")
+
+
+def qkv(p, cfg, x, positions, *, rope: bool = True):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """GQA: (B,S,KV,hd) -> (B,S,H,hd) by repeating each kv head."""
+    b, s, kv, hd = k.shape
+    rep = num_heads // kv
+    return k[:, :, :, None, :].expand(b, s, kv, rep, hd).reshape(
+        b, s, num_heads, hd)
+
+
+def _mask(q_pos, k_pos, causal: bool, window: Optional[int]):
+    """(Q, K) additive mask from absolute positions."""
+    m = torch.zeros((q_pos.shape[0], k_pos.shape[0]), dtype=torch.float32,
+                    device=q_pos.device)
+    if causal:
+        m = m.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+    if window is not None:
+        m = m.masked_fill(k_pos[None, :] <= q_pos[:, None] - window, NEG_INF)
+    return m
+
+
+def attend(q, k, v, *, causal=True, window=None, q_offset=0):
+    """Direct attention. q (B,Sq,H,hd); k/v (B,Sk,KV,hd)."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float()
+    scores = scores / math.sqrt(hd)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(sk, device=q.device)
+    scores = scores + _mask(q_pos, k_pos, causal, window)[None, None]
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", w, v)
+
+
+def attention(q, k, v, *, causal=True, window=None, q_block=None):
+    """Self-attention.  Causal: the ``swa_attention`` kernel, whose window
+    ``None`` means plain causal (window = S).  ``q_block`` selects the
+    JAX package's blockwise path, which bounds the score tile's memory;
+    the kernel never forms that tile, so it reads no ``q_block``."""
+    if causal:
+        return swa_ops.swa_attention(q, k, v, window=window or q.shape[1])
+    s = q.shape[1]
+    if (q_block is not None and s > q_block) or s > BLOCKWISE_THRESHOLD:
+        raise todo("attend_blockwise (non-causal attention over long "
+                   "sequences)", "queue 1 item 10")
+    return attend(q, k, v, causal=False, window=window)
+
+
+# ----------------------------------------------------------------------
+# Decode path (KV cache)
+# ----------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Per-layer cache. ``k``/``v``: (B, C, KV, hd) where C = cache_len
+    (= window size for SWA ring buffers). ``pos_ids``: (C,) absolute
+    position stored in each slot, −1 when empty (rope is pre-applied to
+    cached keys, so slots need no rotation at read time)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos_ids: torch.Tensor
+
+
+def init_kv_cache(batch: int, cache_len: int, kv_heads: int, head_dim: int,
+                  dtype: torch.dtype, device) -> KVCache:
+    shape = (batch, cache_len, kv_heads, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos_ids=torch.full((cache_len,), -1, dtype=torch.int32,
+                                      device=device))
+
+
+def decode_attend(p, cfg, x, cache: KVCache, pos: int):
+    """One-token attention against the cache.
+
+    x: (B, 1, D); pos: the new token's absolute position.  Returns
+    (out (B,1,H,hd), cache).  Unlike the JAX package, which returns a
+    new cache, the new key, value and position are written into
+    ``cache``'s tensors in place (one slot each): the returned cache is
+    the argument, and no copy of the whole cache is made per token.
+    """
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = qkv(p, cfg, x, positions, rope=True)
+    C = cache.k.shape[1]
+    if cfg.swa_window is not None:
+        slot = pos % C  # ring buffer: cache holds only the window
+    else:
+        slot = min(pos, C - 1)
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    cache.pos_ids[slot] = pos
+
+    h = cfg.num_heads
+    kv_heads = cfg.num_kv_heads
+    rep = h // kv_heads
+    hd = cfg.head_dim_
+    # GQA-native grouped attention: the rep-expanded K/V never exist
+    qg = q.reshape(b, 1, kv_heads, rep, hd)
+    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, cache.k).float()
+    scores = scores / math.sqrt(hd)
+    pos_ids = cache.pos_ids
+    valid = (pos_ids >= 0) & (pos_ids <= pos)
+    if cfg.swa_window is not None:
+        valid &= pos_ids > pos - cfg.swa_window
+    scores = scores.masked_fill(~valid[None, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrqs,bsgd->bqgrd", w, cache.v).reshape(b, 1, h, hd)
+    return out, cache
+
+
+def prefill_into_cache(p, cfg, k, v, cache_len: int) -> KVCache:
+    """Build a cache from prefill K/V (B,S,KV,hd); keeps the last
+    ``cache_len`` positions (all of them when S ≤ cache_len)."""
+    b, s, kv, hd = k.shape
+    if s >= cache_len:
+        k_c, v_c = k[:, s - cache_len:], v[:, s - cache_len:]
+        pos_ids = torch.arange(s - cache_len, s, dtype=torch.int32,
+                               device=k.device)
+    else:
+        pad = cache_len - s
+        zk = torch.zeros((b, pad, kv, hd), dtype=k.dtype, device=k.device)
+        k_c = torch.cat([k, zk], dim=1)
+        v_c = torch.cat([v, zk], dim=1)
+        pos_ids = torch.cat([
+            torch.arange(s, dtype=torch.int32, device=k.device),
+            torch.full((pad,), -1, dtype=torch.int32, device=k.device)])
+    return KVCache(k=k_c, v=v_c, pos_ids=pos_ids)
+
+
+__getattr__ = not_ported(__name__, {
+    "attend_blockwise": "queue 1 item 10",
+    "abstract_kv_cache": "queue 1 item 12",
+    "kv_cache_axes": "queue 1 item 11",
+    "Q_BLOCK": "queue 1 item 10",
+})

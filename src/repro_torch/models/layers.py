@@ -1,0 +1,76 @@
+"""Shared neural-net layers: norm, RoPE, SwiGLU, embeddings (port of
+``repro.models.layers``).
+
+All functions are pure; parameters come in as trees built by
+:class:`repro_torch.models.param.Scope`.  The matrix products are plain
+``torch.matmul`` (the JAX package leaves them to XLA, outside Pallas).
+The losses arrive with the LM train path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.utils.todo import not_ported
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+def build_rms_norm(scope, name: str, dim: int, axis: str = "embed"):
+    return scope.param(name, (dim,), (axis,), init="ones")
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (...,S,1,hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def build_swiglu(scope, d_model: int, d_ff: int):
+    scope.param("w_gate", (d_model, d_ff), ("embed", "ff"))
+    scope.param("w_up", (d_model, d_ff), ("embed", "ff"))
+    scope.param("w_down", (d_ff, d_model), ("ff", "embed"))
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(x @ p["w_gate"])
+    return (gate * (x @ p["w_up"])) @ p["w_down"]
+
+
+def build_embedding(scope, vocab: int, d_model: int, name: str = "embedding"):
+    return scope.param(name, (vocab, d_model), ("vocab", "embed"), scale=0.02)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype):
+    return table[tokens].to(dtype)
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """logits = x @ tableᵀ; fp32 for a stable softmax."""
+    return x.float() @ table.float().T
+
+
+__getattr__ = not_ported(__name__, {
+    "sinusoidal_positions": "queue 1 item 10",
+    "build_gelu_mlp": "queue 1 item 10",
+    "gelu_mlp": "queue 1 item 10",
+    "cross_entropy": "queue 1 item 10",
+    "cross_entropy_fused": "queue 1 item 10",
+})

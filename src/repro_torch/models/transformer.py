@@ -1,0 +1,157 @@
+"""The model stack, dense family (port of ``repro.models.transformer``).
+
+Pre-norm decoder blocks (GQA attention + SwiGLU) over a stacked
+parameter layer axis.  A Python loop over that axis replaces the JAX
+package's ``lax.scan``; ``constrain_params`` (a sharding annotation) has
+no counterpart on one card.  The causal self-attention runs the
+``swa_attention`` kernel (:func:`repro_torch.models.attention.attention`).
+
+Public entry points: ``init`` / ``forward`` (``loss_fn`` comes with the
+LM train path).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (
+    build_embedding,
+    build_rms_norm,
+    build_swiglu,
+    embed,
+    rms_norm,
+    swiglu,
+    unembed,
+)
+from repro_torch.models.param import Scope, init_pair
+from repro_torch.utils.todo import not_ported, todo
+from repro_torch.utils.tree import tree_map
+
+DENSE = ("dense",)
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise for the families whose model code is not ported yet."""
+    if cfg.arch_type not in DENSE:
+        raise todo(f"the {cfg.arch_type!r} model family", "queue 1 item 10")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def layer(stacked, i: int):
+    """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
+    return tree_map(lambda t: t[i], stacked)
+
+
+# ======================================================================
+# Blocks: parameters
+# ======================================================================
+
+def _build_attn_block(scope: Scope, cfg: ModelConfig):
+    build_rms_norm(scope, "ln_attn", cfg.d_model)
+    A.build_attention(scope.sub("attn"), cfg)
+
+
+def _build_ff(scope: Scope, cfg: ModelConfig):
+    build_rms_norm(scope, "ln_ff", cfg.d_model)
+    build_swiglu(scope.sub("mlp"), cfg.d_model, cfg.d_ff)
+
+
+def _build_decoder_block(scope: Scope, cfg: ModelConfig):
+    _build_attn_block(scope, cfg)
+    _build_ff(scope, cfg)
+
+
+def _attn_out(p, o):
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+
+
+def _self_attn(p, cfg, x, positions):
+    q, k, v = A.qkv(p["attn"], cfg, x, positions)
+    o = A.attention(q, k, v, causal=True, window=cfg.swa_window,
+                    q_block=cfg.attn_q_block)
+    return _attn_out(p["attn"], o)
+
+
+def _ff(p, cfg, x):
+    """Returns (out, aux)."""
+    h = rms_norm(x, p["ln_ff"], cfg.norm_eps)
+    return swiglu(p["mlp"], h), 0.0
+
+
+def _decoder_block(p, cfg, x, positions):
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    x = x + _self_attn(p, cfg, h, positions)
+    ff, aux = _ff(p, cfg, x)
+    return x + ff, aux
+
+
+# ======================================================================
+# init
+# ======================================================================
+
+def init(cfg: ModelConfig, gen: torch.Generator, *,
+         dtype: Optional[torch.dtype] = None):
+    """Returns (params, logical_axes), drawn from ``gen`` onto its
+    device.  The tree, names, shapes and init distributions are the
+    JAX package's; the draws are not."""
+    check_dense(cfg)
+    dtype = dtype or dtype_of(cfg.param_dtype)
+
+    def build(sc: Scope):
+        build_embedding(sc, cfg.vocab_size, cfg.d_model)
+        if not cfg.tie_embeddings:
+            sc.param("out_embed", (cfg.vocab_size, cfg.d_model),
+                     ("vocab", "embed"), scale=0.02)
+        build_rms_norm(sc, "final_norm", cfg.d_model)
+        sc.stacked("blocks", cfg.num_layers,
+                   lambda s: _build_decoder_block(s, cfg))
+
+    return init_pair(gen, dtype, build)
+
+
+# ======================================================================
+# forward (train / prefill)
+# ======================================================================
+
+def positions_of(x: torch.Tensor) -> torch.Tensor:
+    """(B, S) absolute positions 0 … S−1 of a (B, S, D) activation."""
+    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+
+
+def forward_hidden(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor,
+                                                              float, int]:
+    """Backbone only. Returns (final hidden (B,S,D), aux_loss, prefix_len)."""
+    check_dense(cfg)
+    x = embed(params["embedding"], batch["tokens"],
+              dtype_of(cfg.compute_dtype))
+    positions = positions_of(x)
+    aux = 0.0
+    for i in range(cfg.num_layers):
+        x, al = _decoder_block(layer(params["blocks"], i), cfg, x, positions)
+        aux = aux + al
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux, 0
+
+
+def output_table(cfg: ModelConfig, params):
+    if cfg.tie_embeddings or cfg.is_encoder_decoder:
+        return params["embedding"]
+    return params["out_embed"]
+
+
+def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
+    """Returns (logits over token positions, aux_loss)."""
+    x, aux, _ = forward_hidden(cfg, params, batch)
+    return unembed(output_table(cfg, params), x), aux
+
+
+__getattr__ = not_ported(__name__, {
+    "loss_fn": "queue 1 item 10",
+    "whisper_encode": "queue 1 item 10",
+})

@@ -1,0 +1,326 @@
+"""The port's dense LM serving path against the JAX package's, on the CPU.
+
+Weights are the JAX package's, carried across by
+``convert.params_from_jax``; prompts are JAX-drawn tokens (the port's
+``torch.Generator`` draws differ from threefry's).  On the CPU the
+causal self-attention runs the ``swa_attention`` kernel's plain version.
+
+Tolerances: both packages compute in fp32 and differ only in the order
+of their sums (XLA's against ATen's matmuls and softmax), about 1e-6
+absolute on logits of magnitude ~1.5 at these sizes; logits are held to
+``atol = rtol = 1e-5`` and the cache's keys and values, which are larger
+(up to ~20 after RoPE), to ``atol = 5e-5, rtol = 1e-5``.  Greedy tokens
+must be equal, except where the JAX logits' top two lie within 1e-4 of
+each other (a near-tie that a last-bit gap may flip).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.data import synthetic as JD
+from repro.models import build as jax_build
+from repro.models import long_context_variant as jax_long_context
+from repro_torch import convert
+from repro_torch.configs import get_config, list_archs, reduced
+from repro_torch.data import synthetic as TD
+from repro_torch.launch import serve
+from repro_torch.models import build, long_context_variant
+from repro_torch.utils import tree as T
+
+torch.set_num_threads(1)
+
+DENSE = ("deepseek-7b", "llama3.2-3b", "qwen3-32b", "smollm-135m")
+NOT_PORTED = ("kimi-k2-1t-a32b", "mixtral-8x7b", "phi-3-vision-4.2b",
+              "whisper-medium", "xlstm-350m", "zamba2-1.2b")
+LOGIT_TOL = dict(atol=1e-5, rtol=1e-5)
+CACHE_TOL = dict(atol=5e-5, rtol=1e-5)
+NEAR_TIE = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch: str, long_context: bool):
+    """(JAX model, port model, JAX params, port params), reduced."""
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    if long_context:
+        jcfg, tcfg = jax_long_context(jcfg), long_context_variant(tcfg)
+    jcfg, tcfg = jax_reduced(jcfg), reduced(tcfg)
+    jm, tm = jax_build(jcfg), build(tcfg)
+    jp, _ = jm.init(jax.random.key(0))
+    tp = convert.params_from_jax(jax.device_get(jp), device="cpu")
+    return jm, tm, jp, tp
+
+
+@functools.lru_cache(maxsize=None)
+def _tokens(seq: int, vocab: int) -> np.ndarray:
+    """Two prompts from the JAX package's bigram chain (key 7)."""
+    return np.asarray(JD.sample_lm_tokens(jax.random.key(7), 2, seq, vocab))
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode(arch: str, long_context: bool):
+    return jax.jit(_pair(arch, long_context)[0].decode_step)
+
+
+# ----------------------------------------------------------------------
+# configs and trees
+# ----------------------------------------------------------------------
+
+VARIANTS = (
+    (lambda c: c, lambda c: c),
+    (jax_reduced, reduced),
+    (jax_long_context, long_context_variant),
+    (lambda c: jax_reduced(jax_long_context(c)),
+     lambda c: reduced(long_context_variant(c))),
+)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_configs_match_jax(arch):
+    assert arch in list_archs()
+    for jax_fn, port_fn in VARIANTS:
+        want = jax_fn(jax_get_config(arch))
+        got = port_fn(get_config(arch))
+        assert got.__dict__ == want.__dict__
+        assert got.param_count() == want.param_count()
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_other_families_raise_todo(arch):
+    jax_get_config(arch)  # known to the JAX package
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        get_config(arch)
+
+
+def _axes_leaves(axes: dict) -> list:
+    """The axis-name tuples of an axes tree, in sorted-key order."""
+    return [leaf for k in sorted(axes) for leaf in (
+        _axes_leaves(axes[k]) if isinstance(axes[k], dict) else [axes[k]])]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_tree_matches_jax(arch):
+    """Same paths (in the same leaf order), shapes, dtypes and logical
+    axes as JAX ``init``; the init distributions by their moments."""
+    jcfg = jax_reduced(jax_get_config(arch))
+    tcfg = reduced(get_config(arch))
+    jp, jaxes = jax_build(jcfg).init(jax.random.key(0))
+    tp, taxes = build(tcfg).init(torch.Generator().manual_seed(0))
+    jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    tflat = T.tree_flatten_with_path(tp)
+    assert [tuple(k.key for k in path) for path, _ in jflat] == \
+        [path for path, _ in tflat]
+    for (_, a), (path, b) in zip(jflat, tflat):
+        assert tuple(a.shape) == tuple(b.shape), path
+        assert b.dtype == torch.float32, path
+    jax_axes = jax.tree_util.tree_leaves(
+        jaxes, is_leaf=lambda x: isinstance(x, tuple))
+    assert jax_axes == _axes_leaves(taxes)
+    assert T.tree_size(tp) == sum(int(np.prod(a.shape)) for _, a in jflat)
+    blocks = tp["blocks"]
+    assert torch.equal(blocks["ln_attn"], torch.ones_like(blocks["ln_attn"]))
+    assert abs(float(tp["embedding"].std()) - 0.02) < 0.002
+    wq = blocks["attn"]["wq"]  # (L, d, H, hd): fan_in d
+    assert abs(float(wq.std()) * tcfg.d_model ** 0.5 - 1.0) < 0.05
+    # layers draw independently
+    assert not torch.equal(wq[0], wq[1])
+
+
+def test_nested_tree_helpers():
+    tree = {"b": {"y": torch.ones(2), "x": torch.zeros(3)},
+            "a": torch.full((2, 2), 2.0)}
+    assert [p for p, _ in T.tree_flatten_with_path(tree)] == [
+        ("a",), ("b", "x"), ("b", "y")]
+    assert T.tree_size(tree) == 9
+    doubled = T.tree_scale(tree, 2.0)
+    assert float(doubled["b"]["y"].sum()) == 4.0
+    assert T.tree_cast(tree, torch.bfloat16)["a"].dtype == torch.bfloat16
+    assert float(T.tree_norm_sq(T.tree_zeros_like(tree))) == 0.0
+    assert float(T.tree_vdot(tree, tree)) == 16.0 + 2.0
+
+
+# ----------------------------------------------------------------------
+# forward, prefill, decode
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,long_context",
+                         [(a, False) for a in DENSE]
+                         + [("smollm-135m", True)])
+def test_forward_matches_jax(arch, long_context):
+    jm, tm, jp, tp = _pair(arch, long_context)
+    toks = _tokens(100, jm.cfg.vocab_size)
+    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got, _ = tm.forward(tp, {"tokens": _t(toks)})
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
+def _greedy(logits) -> np.ndarray:
+    return np.asarray(logits).argmax(-1)
+
+
+def _assert_same_tokens(got: np.ndarray, want_logits: np.ndarray, step):
+    want = want_logits.argmax(-1)
+    for row in np.nonzero(got != want)[0]:
+        top2 = np.sort(want_logits[row])[-2:]
+        assert top2[1] - top2[0] < NEAR_TIE, (
+            f"step {step}, row {row}: token {got[row]} vs {want[row]} "
+            f"with top-2 gap {top2[1] - top2[0]:.3g}")
+
+
+@pytest.mark.parametrize("seq", [100, 128])
+@pytest.mark.parametrize("long_context", [False, True],
+                         ids=["causal", "window64"])
+def test_prefill_and_greedy_decode_match_jax(long_context, seq):
+    """Prefill logits and cache, then 8 greedy decode steps.  With the
+    window (W = 64), seq 100 ≥ W is not a multiple of W: the ring-buffer
+    path, defect included (ROADMAP §3), must match too."""
+    arch = "smollm-135m"
+    jm, tm, jp, tp = _pair(arch, long_context)
+    toks = _tokens(seq, jm.cfg.vocab_size)
+    cache_len = seq + 16
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                        cache_len=cache_len)
+    tl, tc = tm.prefill(tp, {"tokens": _t(toks)}, cache_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    C = 64 if long_context else cache_len
+    assert tc.k.shape == (2, 2, C, 2, 64)
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), **CACHE_TOL)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), **CACHE_TOL)
+    np.testing.assert_array_equal(tc.pos_ids.numpy(), np.asarray(jc.pos_ids))
+
+    decode = _jax_decode(arch, long_context)
+    want_logits = np.asarray(jl[:, -1])
+    for i in range(8):
+        got_tok = tl[:, -1].argmax(-1).numpy() if i == 0 else \
+            tl[:, 0].argmax(-1).numpy()
+        _assert_same_tokens(got_tok, want_logits, i)
+        # both continue from the JAX package's token (teacher forcing
+        # past a near-tie keeps the two on one trajectory)
+        tok = _greedy(want_logits)[:, None].astype(np.int32)
+        jl, jc = decode(jp, jc, jnp.asarray(tok), jnp.int32(seq + i))
+        tl, tc = tm.decode_step(tp, tc, _t(tok), seq + i)
+        want_logits = np.asarray(jl[:, 0])
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    np.testing.assert_array_equal(tc.pos_ids.numpy(), np.asarray(jc.pos_ids))
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), **CACHE_TOL)
+
+
+def test_decode_from_a_jax_cache():
+    """``cache_from_jax``: the JAX package's prefill cache, decoded one
+    step by the port, gives the JAX package's logits."""
+    jm, tm, jp, tp = _pair("smollm-135m", True)
+    toks = _tokens(100, jm.cfg.vocab_size)
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, cache_len=116)
+    tc = convert.cache_from_jax(jax.device_get(jc), device="cpu")
+    assert tc.pos_ids.dtype == torch.int32
+    tok = np.full((2, 1), 5, np.int32)
+    want, _ = _jax_decode("smollm-135m", True)(jp, jc, jnp.asarray(tok),
+                                               jnp.int32(100))
+    got, _ = tm.decode_step(tp, tc, _t(tok), 100)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("seq", [100, 128])
+def test_ring_buffer_gap_matches_the_reference(seq, capsys):
+    """A documented property of the JAX reference, not a port fault
+    (ROADMAP §3): with a window W = 64, ``prefill_into_cache`` stores
+    positions s−W … s−1 in slots 0 … W−1 and ``decode_attend`` then
+    writes position s into slot s % W.  When s % W ≠ 0 that slot holds a
+    key still inside the window, so decode after a prefill of s tokens
+    differs from the last position of a prefill of s+1 tokens.  The port
+    mirrors the reference: its gap equals the reference's."""
+    arch = "smollm-135m"
+    jm, tm, jp, tp = _pair(arch, True)
+    toks = _tokens(seq + 1, jm.cfg.vocab_size)
+    prompt, nxt = toks[:, :seq], toks[:, seq:]
+    gaps = {}
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(prompt)}, cache_len=seq)
+    jdec, _ = _jax_decode(arch, True)(jp, jc, jnp.asarray(nxt),
+                                      jnp.int32(seq))
+    jfull, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                          cache_len=seq + 1)
+    gaps["jax"] = float(np.abs(np.asarray(jdec[:, 0] - jfull[:, -1])).max())
+    _, tc = tm.prefill(tp, {"tokens": _t(prompt)}, seq)
+    tdec, _ = tm.decode_step(tp, tc, _t(nxt), seq)
+    tfull, _ = tm.prefill(tp, {"tokens": _t(toks)}, seq + 1)
+    gaps["port"] = float((tdec[:, 0] - tfull[:, -1]).abs().max())
+    np.testing.assert_allclose(tdec.numpy(), np.asarray(jdec), **LOGIT_TOL)
+    with capsys.disabled():
+        print(f"\n[ring buffer] W=64 s={seq}: decode-after-prefill vs "
+              f"fresh prefill, max |gap| JAX {gaps['jax']:.4g}, port "
+              f"{gaps['port']:.4g}")
+    assert abs(gaps["port"] - gaps["jax"]) < 1e-4
+    if seq % 64:
+        assert gaps["jax"] > 0.05  # the slot of a live key is overwritten
+    else:
+        assert gaps["jax"] < 1e-5
+
+
+# ----------------------------------------------------------------------
+# serving CLI, synthetic data
+# ----------------------------------------------------------------------
+
+def test_serve_cli_on_the_cpu(capsys):
+    assert serve.main(["--device", "cpu", "--reduced", "--batch", "3",
+                       "--prompt-len", "12", "--gen", "5"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=smollm-135m") and "batch=3" in lines[0]
+    assert "cache_len=25" in lines[0]
+    assert lines[1].startswith("prefill: 12 tokens")
+    assert lines[2].startswith("decode:  5 steps")
+    assert len(lines) == 5 and lines[3].startswith("request 0: prompt…")
+    generated = eval(lines[3].split("-> ")[1])
+    assert len(generated) == 5 and all(0 <= t < 512 for t in generated)
+
+
+def test_serve_cli_unported_modes_raise():
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        serve.main(["--fleet", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        serve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+
+
+def test_greedy_serving_equals_prefill_argmax():
+    """The CLI's prefill + decode loop on the port equals teacher-free
+    greedy decoding built from ``forward`` (plain causal, no window, so
+    the cache holds every position)."""
+    _, tm, _, tp = _pair("smollm-135m", False)
+    prompts = _t(_tokens(20, tm.cfg.vocab_size)).long()
+    first, _, cache = serve.prefill_prompt(tm, tp, prompts, cache_len=30)
+    rest, _ = serve.decode_tokens(tm, tp, cache, first, 20, 4)
+    got = torch.cat([first, rest], 1)
+    seq = prompts
+    for _ in range(5):
+        logits, _ = tm.forward(tp, {"tokens": seq})
+        seq = torch.cat([seq, logits[:, -1].argmax(-1, keepdim=True)], 1)
+    assert torch.equal(got, seq[:, 20:])
+
+
+def test_sample_lm_tokens():
+    gen = torch.Generator().manual_seed(3)
+    toks = TD.sample_lm_tokens(gen, 3, 40, 64)
+    assert toks.shape == (3, 40) and toks.dtype == torch.int32
+    assert int(toks.min()) >= 0 and int(toks.max()) < 64
+    again = TD.sample_lm_tokens(torch.Generator().manual_seed(3), 3, 40, 64)
+    assert torch.equal(toks, again)
+
+
+def test_markov_logits_are_gumbel():
+    """Standard Gumbel: mean γ ≈ 0.5772, variance π²/6 ≈ 1.645 (as
+    ``jax.random.gumbel``); a table from one generator seed is fixed."""
+    table = TD.markov_logits(512, torch.Generator().manual_seed(0))
+    assert table.shape == (512, 512) and torch.isfinite(table).all()
+    assert abs(float(table.mean()) - 0.5772) < 0.01
+    assert abs(float(table.var()) - np.pi ** 2 / 6) < 0.02
+    again = TD.markov_logits(512, torch.Generator().manual_seed(0))
+    assert torch.equal(table, again)
