@@ -11,6 +11,11 @@ The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 loaded with ``ctypes``.
 ``gain_reduce.launches`` counts the kernel launches made through this
 wrapper.
+
+The kernel has no gradient and no ``vmap`` rule, and no path of the
+port needs either (the trigger calls it on plain, stacked rows): a CUDA
+input that requires grad, or one wrapped by a ``torch.func`` transform,
+raises instead of giving a result detached from the graph.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import functools
 from pathlib import Path
 
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.gain_reduce.ref import gain_reduce_ref
@@ -82,6 +88,12 @@ def gain_reduce(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return gain_reduce_ref(g, h)
     if g.device.type != "cuda":
         raise ValueError(f"gain_reduce: unsupported device {g.device}")
+    for x in (g, h):
+        if x.requires_grad or is_functorch_wrapped_tensor(x):
+            raise RuntimeError(
+                "gain_reduce: the kernel has no gradient and no vmap rule; "
+                "call it on plain tensors, outside autograd and torch.func "
+                "transforms")
     code = _DTYPE_CODES.get(g.dtype)
     if code is None:
         raise TypeError(f"gain_reduce: the kernel takes float32 or "

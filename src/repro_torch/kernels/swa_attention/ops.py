@@ -14,17 +14,29 @@ tensors on a CUDA device it launches the kernel, or raises — nothing
 falls back.  The kernel is built at first use (:mod:`repro_torch.kernels.build`)
 and loaded with ``ctypes``.  ``swa_attention.launches`` counts the kernel
 launches made through this wrapper.
+
+The call is a ``torch.autograd.Function`` in the form ``torch.func``
+composes with (``forward`` without ``ctx``, ``setup_context``, a
+``vmap`` rule), on both devices:
+
+* its backward is plain PyTorch, the same math the JAX package
+  differentiates (``repro.models.attention.attend``): the masked scores
+  are recomputed from the saved q, k, v, and the gradients formed from
+  them and the saved output;
+* its ``vmap`` rule folds the mapped dimension into the batch, so the
+  kernel launches once per call however many agents are mapped over.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.swa_attention.ref import swa_attention_ref
+from repro_torch.kernels.swa_attention.ref import NEG, swa_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
 
@@ -86,10 +98,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"swa_attention: window must be ≥ 1, got {window}")
 
 
-def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int) -> torch.Tensor:
-    """Sliding-window causal attention, ``(B, S, H, hd)`` in ``q.dtype``."""
-    _check(q, k, v, window)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on a CUDA device."""
     if q.device.type == "cpu":
         return swa_attention_ref(q, k, v, window=window)
     if q.device.type != "cuda":
@@ -116,6 +127,83 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     swa_attention.launches += 1
     return out
+
+
+def swa_attention_backward(q, k, v, o, do, *, window: int):
+    """(dq, dk, dv) of sliding-window causal attention, in plain PyTorch.
+
+    With the masked scores S = q·kᵀ/√hd recomputed as the kernel forms
+    them (−1e30 outside ``(t − window, t]``), P = softmax(S):
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(dO ⊙ O)),
+    dQ = dS·K/√hd, dK = dSᵀ·Q/√hd; the query heads of a kv group
+    (``h // (H/KV)``) sum into its dK and dV.  Arithmetic in fp32;
+    the gradients come back in the inputs' dtypes.  Only tensor
+    operations, so ``torch.func.vmap`` maps it like any function.
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    # (B, S, KV, rep, hd): query head h is row h % rep of kv group h // rep
+    qg = q.float().unflatten(2, (kv, h // kv))
+    og = o.float().unflatten(2, (kv, h // kv))
+    dog = do.float().unflatten(2, (kv, h // kv))
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    p = torch.softmax(scores.masked_fill(~keep, NEG), dim=-1)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)  # (B, KV, rep, S)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * scale
+    return (dq.flatten(2, 3).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class SwaAttention(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) with a plain
+    backward and a ``vmap`` rule."""
+
+    @staticmethod
+    def forward(q, k, v, window):
+        return _forward(q, k, v, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, window = inputs
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, output)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*swa_attention_backward(q, k, v, o, do, window=ctx.window),
+                None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, window):
+        # fold the mapped dim into B (an unmapped input is expanded to
+        # it): one launch for every mapped slice at once
+        n = info.batch_size
+
+        def fold(x, dim):
+            x = (x.expand(n, *x.shape) if dim is None
+                 else x.movedim(dim, 0))
+            return x.flatten(0, 1)
+
+        out = SwaAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                 fold(v, in_dims[2]), window)
+        return out.unflatten(0, (n, -1)), 0
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int) -> torch.Tensor:
+    """Sliding-window causal attention, ``(B, S, H, hd)`` in ``q.dtype``;
+    differentiable, and mapped by ``torch.func.vmap`` in one launch."""
+    _check(q, k, v, window)
+    return SwaAttention.apply(q, k, v, window)
 
 
 swa_attention.launches = 0

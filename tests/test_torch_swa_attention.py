@@ -8,7 +8,15 @@ at the shapes and tolerances of tests/test_kernels.py: 2e-5 for fp32
 their sums), 3e-2 for bf16 (one bf16 rounding of the output).  The CUDA
 kernel itself is built and held against the plain version on the card
 by ``chip_smoke.py``.
+
+The wrapper is a ``torch.autograd.Function`` on both devices, so its
+plain backward and its ``vmap`` rule run here: gradients are held to
+autograd through the plain version and to ``jax.grad`` of the JAX
+oracle within ``rtol = atol = 1e-5`` (fp32, sums in other orders), and
+``torch.func.vmap`` of its gradient to a loop over the mapped dimension
+bit for bit (the same ops on the same slices).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +26,7 @@ from repro.kernels.swa_attention import ops as jax_ops
 from repro.kernels.swa_attention import ref as jax_ref
 from repro.models.attention import attend as jax_attend
 from repro_torch.kernels.swa_attention import ops
+from repro_torch.kernels.swa_attention import ref
 from repro_torch.models import attention as A
 from repro_torch.utils.device import resolve_device
 
@@ -140,3 +149,72 @@ def test_kernel_build_is_named_by_source_hash():
     assert lib.parent == ops.SOURCE.parent.parent / "build"
     assert lib.name.startswith("libswa_attention_")
     assert ops.SOURCE.name == "swa_attention.cu" and ops.SOURCE.exists()
+
+
+# ----------------------------------------------------------------------
+# the gradient (plain backward) and the vmap rule
+# ----------------------------------------------------------------------
+
+GRAD_SHAPE = (2, 96, 4, 2, 64)
+GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _weights(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("window", [32, 96, 1 << 30])
+def test_swa_gradient_matches_autograd_and_jax(window):
+    """d/d(q, k, v) of Σ w ⊙ attention: the Function's backward against
+    autograd through the plain version and ``jax.grad`` of the JAX
+    oracle."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(*GRAD_SHAPE, seed=17)
+    w = _weights(qt.shape, 18)
+    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+    out = ops.swa_attention(*leaves, window=window)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), leaves)
+    plain = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+    want = torch.autograd.grad(
+        (ref.swa_attention_ref(*plain, window=window)
+         * torch.from_numpy(w)).sum(), plain)
+    jgrads = jax.grad(
+        lambda q, k, v: jnp.sum(jax_ref.swa_attention_ref(q, k, v,
+                                                          window=window) * w),
+        argnums=(0, 1, 2))(qj, kj, vj)
+    for g, p, j in zip(got, want, jgrads):
+        assert g.shape == p.shape
+        np.testing.assert_allclose(g.numpy(), p.numpy(), **GRAD_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("window", [32, 1 << 30])
+def test_swa_vmap_of_grad_equals_a_loop(window, monkeypatch):
+    """``vmap(grad)`` over a mapped q, k (v shared) equals a Python loop
+    over the mapped dimension, and the forward runs ONCE for all three
+    slices (the vmap rule folds them into the batch)."""
+    b, s, h, kv, hd = GRAD_SHAPE
+    rng = np.random.default_rng(23)
+    qa = torch.from_numpy(rng.standard_normal((3, b, s, h, hd), np.float32))
+    ka = torch.from_numpy(rng.standard_normal((3, b, s, kv, hd), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, s, kv, hd), np.float32))
+    w = torch.from_numpy(_weights((b, s, h, hd), 24))
+
+    def loss(q, k, v):
+        return (ops.swa_attention(q, k, v, window=window) * w).sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    calls = []
+    plain = ops.swa_attention_ref
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(ops, "swa_attention_ref", counted)
+    mapped = torch.func.vmap(grad, in_dims=(0, 0, None))(qa, ka, v)
+    assert calls == [torch.Size((3 * b, s, h, hd))]
+    looped = [grad(qa[i], ka[i], v) for i in range(3)]
+    for j in range(3):
+        assert torch.equal(mapped[j], torch.stack([g[j] for g in looped]))
