@@ -5,18 +5,20 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phases (any failure exits nonzero; no result line is printed then):
 
-1. build    — prints the card's name and power limit, compiles both CUDA
-              kernels (``gain_reduce`` and ``swa_attention``, one nvcc per
-              source, started together) from the sources under
-              ``src/repro_torch/kernels/*/csrc/`` for sm_90a, and prints
-              nvcc's register/shared-memory/spill report.
+1. build    — prints the card's name and power limit, compiles the three
+              CUDA kernels (``gain_reduce``, ``swa_attention`` and
+              ``fused_ce``, one nvcc per source, started together) from
+              the sources under ``src/repro_torch/kernels/*/csrc/`` for
+              sm_90a, and prints nvcc's register/shared-memory/spill
+              report.
 2. kernel   — holds ``gain_reduce`` against its plain PyTorch version and
               against the exact (float64) sum on the card, at the fleet's
               (64, 32), the m=4096 fleet's (4096, 32), one (1, 2^26) row
               and the ragged (64, 33), (4096, 31) and (3, 1_000_003), in
               fp32 and bf16, each aligned and one element off alignment;
               integer-valued inputs must come out exact, and a repeated
-              launch bitwise equal.
+              launch bitwise equal; an input that requires grad, or one
+              under ``torch.func.vmap``, raises.
 3. slice    — serves the n=32, m=64, N=32 tiered fleet with its metered
               tiers gated by ``gain_quadratic(kernel=true)`` through the
               hybrid dispatch for 200 rounds, with the launch counter set
@@ -27,7 +29,19 @@ Phases (any failure exits nonzero; no result line is printed then):
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes, one
               hd = 128 shape and the JAX tests' S × W grid; a repeated
               launch is bitwise equal, and a head-major tensor viewed in
-              the model layout gives the contiguous tensor's result.
+              the model layout gives the contiguous tensor's result.  The
+              Function's gradients at the served shape match autograd
+              through the plain version, and ``torch.func.vmap`` over 3
+              slices is ONE launch, bitwise equal to a loop of three.
+   ce       — holds ``fused_ce`` against its plain version on the card over
+              T ∈ {64, 1000, 8192}, D ∈ {64, 576, 3072}, V ∈ {7, 1000,
+              49152, 50257, 128256}, fp32 and bf16 (1e-5 + 1e-5·|plain|:
+              both sum exact fp32 products, in other orders), labels at 0,
+              V − 1 and on tile edges; a repeated launch is bitwise equal,
+              a strided x gives the contiguous x's result, the Function's
+              (dx, dtable) match autograd through the plain version, and
+              both vmap cases (shared table, per-agent tables) are one
+              launch each and match a loop.
 5. lm       — serves smollm-135m at full width and depth (30 layers,
               d 576, vocab 49152, fp32, weights from seed 0) through the
               serving CLI's prefill and greedy decode: (a) batch 4,
@@ -39,6 +53,18 @@ Phases (any failure exits nonzero; no result line is printed then):
               against a fresh prefill of the same tokens.  Then the same
               weights at 256 tokens on the card and on the CPU: prefill
               logits within 1e-4, the 16 greedy tokens equal.
+   train    — trains smollm-135m at full width and depth (fp32, weights
+              from seed 0) through the training CLI's `build_train_step`: m = 4
+              agents, global batch 8 × 1024 tokens, ``gain_lookahead(lam=
+              0.01)|int8+ef``, sgd lr 0.05; 3 warm-up and 10 timed steps.
+              Each step launches ``fused_ce`` twice (the agents' losses,
+              the lookahead probe) and ``swa_attention`` 60 times (30
+              layers, twice); ms per step, tokens/s, the losses, num_tx,
+              peak memory; every loss finite and the loss on the first
+              batch lower after the 13 steps.  Then one step at 2 layers
+              and full width on the card and on the CPU: loss and
+              grad_norm within 1e-4 relative, params within 1e-4 of each
+              leaf's largest value, the same decisions.
 6. times    — ``gain_reduce``'s, its plain version's and
               ``torch.linalg.vecdot``'s times at each shape beside the
               bytes-over-bandwidth bound: per call by CUDA events (median
@@ -49,11 +75,16 @@ Phases (any failure exits nonzero; no result line is printed then):
               ``scaled_dot_product_attention`` with the same boolean mask
               and the GQA heads expanded (timed only, never on the path),
               and the bound max(flops / peak, bytes / HBM rate).
+   ce times — the same for ``fused_ce`` at (8192, 576, 49152) and (4096,
+              3072, 128256), fp32 and bf16, beside its plain version,
+              ``F.cross_entropy(x @ table.T, labels, reduction="none")``
+              and the bound.
 8. profile  — 20 more fleet rounds under torch.profiler (device ops,
               busy time and idle share per round, top kernels and host
               operators); then one prefill and 16 decode steps of LM run
               (a): the kernel's share of the prefill's device time and
-              the device's idle share in decode.
+              the device's idle share in decode; then one train step:
+              device time by kernel, device ops and idle share.
 
 Before the last line come the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -96,6 +127,10 @@ SWA_CHECK = SWA_SERVED + ((1, 2048, 24, 8, 128, 512),) + tuple(
 # kernel vs plain, |err| ≤ tol + tol·|plain| (the JAX tests' tolerances):
 # fp32 differs only in the order of the sums; bf16 by one output rounding
 SWA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Function gradients vs autograd of the plain version, per tensor, of its
+# largest entry: the same fp32 backward math on forward outputs that
+# differ by the kernel's ~1e-6
+SWA_GRAD_TOL = 1e-5
 
 LM_ARCH = "smollm-135m"
 LM_RUNS = {"a": dict(batch=4, prompt=1024, gen=32, long_context=False),
@@ -105,6 +140,31 @@ LM_CHECK = dict(batch=2, prompt=256, gen=16)
 # in other orders; bf16 or TF32 arithmetic would miss it by 10-100x
 LM_LOGIT_TOL = 1e-4
 LM_PROFILED_STEPS = 16
+
+# fused_ce shapes (T, D, V): token counts from a decode batch to the train
+# step's 8 × 1024, widths of smollm-135m (576) and llama3.2-3b (3072) and
+# a narrow one, vocabularies from a toy 7 to llama3's 128256 (smollm's
+# 49152, gpt2's 50257); the pairs the train path and a large model run
+CE_T = (64, 1000, 8192)
+CE_D = (64, 576, 3072)
+CE_V = (7, 1000, 49152, 50257, 128256)
+CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256))
+# kernel vs plain, |err| ≤ tol + tol·|plain|: both sum the same exact
+# fp32 products (bf16 inputs widen exactly) in other orders
+CE_TOL = 1e-5
+# (dx, dtable) of the Function vs autograd of the plain version, per
+# tensor, of its largest entry: fp32 backward math in other orders
+CE_GRAD_TOL = 1e-5
+CE_GRAD_SHAPE = (1000, 576, 49152)
+
+# the train slice: smollm-135m at full width and depth, fp32
+TRAIN = dict(agents=4, batch=8, seq=1024, warmup=3, timed=10, lr=0.05,
+             comm="gain_lookahead(lam=0.01)|int8+ef")
+# card vs CPU: one step of the same model cut to 2 layers, full width
+TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=128)
+# fp32 forward and backward of 2 layers and a 49152-way softmax, sums in
+# other orders on the card and the CPU
+TRAIN_TOL = 1e-4
 
 
 def nvidia_smi() -> str:
@@ -217,7 +277,8 @@ def phase_build(*kernel_ops) -> dict:
                     print(f"[build] {line.strip()}")
         record[ops.SOURCE.stem] = {"library": str(lib.relative_to(REPO)),
                                    "seconds": seconds}
-    print(f"[build] both kernels in {record['wall_seconds']:.1f} s")
+    print(f"[build] {len(kernel_ops)} kernels in "
+          f"{record['wall_seconds']:.1f} s")
     return record
 
 
@@ -341,6 +402,21 @@ def phase_kernel(torch, gr_ops, ref) -> list:
     covered = {(r["loads"], r["splits"] > 1) for r in results}
     if len(covered) != 4:
         raise AssertionError(f"load/split paths not all covered: {covered}")
+    # no gradient and no vmap rule: both must raise, never detach
+    g = torch.ones((2, 64), device="cuda")
+    for name, call in (
+            ("requires_grad", lambda: gr_ops.gain_reduce(
+                g.clone().requires_grad_(True), g)),
+            ("vmap", lambda: torch.func.vmap(
+                lambda r: gr_ops.gain_reduce(r, r))(g))):
+        try:
+            call()
+        except RuntimeError as err:
+            if "no gradient" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"gain_reduce under {name} did not raise")
+    print("[kernel] an input that requires grad, or one under vmap, raises")
     return results
 
 
@@ -352,18 +428,16 @@ def phase_slice(torch, gr_ops):
     )
     from repro_torch.convert import to_numpy
     from repro_torch.core import regression as R
-    from repro_torch.launch.session import (
-        build_linreg_fleet_session,
-        round_generator,
-    )
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.launch.session import build_linreg_fleet_session
 
     cfg = TIERED_M64_CFG
     seed = 0
     dev = torch.device("cuda", torch.cuda.current_device())
-    problem = R.make_problem(cfg, round_generator(seed, 0, dev), device=dev)
+    problem = R.make_problem(cfg, step_generator(seed, 0, dev), device=dev)
 
     def batch_fn(k):
-        return R.agent_batches(problem, round_generator(seed + 1, k, dev))
+        return R.agent_batches(problem, step_generator(seed + 1, k, dev))
 
     history, history_loss, stamps = [], [], []
 
@@ -627,7 +701,54 @@ def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
                              "differs from its contiguous copy")
     print(f"[swa] head-major inputs viewed as {shape[:5]}: equal to the "
           f"contiguous inputs' result")
+    results.append(_swa_grad_and_vmap(torch, swa_ops, swa_ref, gen))
     return results
+
+
+def _swa_grad_and_vmap(torch, swa_ops, swa_ref, gen) -> dict:
+    """The Function's gradients at the served shape against autograd
+    through the plain version (the same backward math; they differ only
+    through the kernel's and the plain forward's outputs), and vmap over
+    3 slices: one launch, bitwise equal to three."""
+    shape = SWA_SERVED[0]
+    w = shape[-1]
+    q, k, v = _swa_inputs(torch, gen, shape, torch.float32)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = swa_ops.swa_attention.launches
+    got = torch.autograd.grad(
+        (swa_ops.swa_attention(*leaves, window=w) * dout).sum(), leaves)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(
+        (swa_ref.swa_attention_ref(*plain, window=w) * dout).sum(), plain)
+    errs = []
+    for name, g, p in zip("qkv", got, want):
+        err = (g - p).abs().max().item()
+        scale = p.abs().max().item()
+        if not err <= SWA_GRAD_TOL * scale:
+            raise AssertionError(f"swa_attention d{name}: {err:.3e} vs "
+                                 f"autograd of the plain version (scale "
+                                 f"{scale:.3e})")
+        errs.append(err / scale)
+    mapped_in = [torch.stack([x, x.flip(1), 0.5 * x]) for x in (q, k, v)]
+    swa_ops.swa_attention.launches = 0
+    mapped = torch.func.vmap(
+        lambda a, b, c: swa_ops.swa_attention(a, b, c, window=w))(*mapped_in)
+    torch.cuda.synchronize()
+    folded = swa_ops.swa_attention.launches
+    looped = torch.stack([swa_ops.swa_attention(*(x[i] for x in mapped_in),
+                                                window=w) for i in range(3)])
+    swa_ops.swa_attention.launches = before  # check launches do not count
+    if folded != 1 or not torch.equal(mapped, looped):
+        raise AssertionError(f"swa_attention under vmap: {folded} launches, "
+                             f"equal to a loop: {torch.equal(mapped, looped)}")
+    print(f"[swa] gradients at {shape[:5]} W={w}: dq, dk, dv within "
+          f"{max(errs):.2e}·max|g| of autograd through the plain version "
+          f"(tol {SWA_GRAD_TOL}); vmap over 3 slices: {folded} launch, "
+          f"bitwise equal to 3 launches")
+    return {"shape": list(shape[:5]), "window": w,
+            "grad_max_err_over_scale": max(errs), "grad_tol": SWA_GRAD_TOL,
+            "vmap_launches": folded, "vmap_equal_to_loop": True}
 
 
 def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
@@ -840,6 +961,437 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
     return [row for row, _ in cases]
 
 
+# ----------------------------------------------------------------------
+# fused_ce and the LM train slice
+# ----------------------------------------------------------------------
+
+def _ce_inputs(torch, gen, t, d, v, dtype):
+    """x ~ N(0, 1), table ~ 2·N(0, 1)/√D (logits of spread ~2 at every
+    width), int64 labels with 0, V − 1 and the 64-entry tile edges
+    first."""
+    x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+    table = (torch.randn((v, d), generator=gen, device="cuda")
+             * (2.0 / math.sqrt(d))).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, device="cuda")
+    edges = [c for c in (0, v - 1, 63, 64, 65, 127, 128, v // 2) if c < v]
+    labels[:len(edges)] = torch.tensor(edges[:t], device="cuda")
+    return x, table, labels
+
+
+def _ce_check(torch, ce_ops, ce_ref, x, table, labels, name: str) -> float:
+    got = ce_ops.fused_ce_nll(x, table, labels)
+    again = ce_ops.fused_ce_nll(x, table, labels)
+    want = ce_ref.fused_ce_ref(x, table, labels)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: repeated launch differs")
+    if got.dtype != torch.float32 or got.shape != labels.shape:
+        raise AssertionError(f"{name}: output {got.dtype} "
+                             f"{tuple(got.shape)}")
+    err = (got - want).abs()
+    if not bool((err <= CE_TOL + CE_TOL * want.abs()).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max err {err.max().item():.3e})")
+    return err.max().item()
+
+
+def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
+    """``fused_ce`` against its plain version on the card at every
+    (T, D, V) of CE_T × CE_D × CE_V in fp32 and bf16; then a strided x,
+    the Function's gradients and both vmap cases."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = []
+    for t in CE_T:
+        for d in CE_D:
+            for v in CE_V:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
+                    dt = _dtype_name(dtype)
+                    err = _ce_check(torch, ce_ops, ce_ref, x, table, labels,
+                                    f"fused_ce ({t}, {d}, {v}) {dt}")
+                    results.append({"shape": [t, d, v], "dtype": dt,
+                                    "max_abs_err": err, "tol": CE_TOL,
+                                    "bitwise_repeat": True})
+                    del x, table, labels
+            print(f"[ce] T={t} D={d}: V ∈ {CE_V}, fp32 and bf16: vs plain "
+                  f"max {max(r['max_abs_err'] for r in results[-10:]):.3e} "
+                  f"within {CE_TOL} + {CE_TOL}·|plain|; repeats bitwise "
+                  f"equal")
+    torch.cuda.empty_cache()
+    # a strided x (rows of a wider buffer, one element in) reads the same
+    for dtype in (torch.float32, torch.bfloat16):
+        x, table, labels = _ce_inputs(torch, gen, 1000, 576, 50257, dtype)
+        wide = torch.zeros((1000, 600), dtype=dtype, device="cuda")
+        wide[:, 1:577] = x
+        strided = wide[:, 1:577]
+        assert not strided.is_contiguous()
+        a = ce_ops.fused_ce_nll(strided, table, labels)
+        b = ce_ops.fused_ce_nll(x, table, labels)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"fused_ce: a strided {dtype} x differs "
+                                 "from its contiguous copy")
+    print("[ce] strided x (row stride 600, offset 1), fp32 and bf16: equal "
+          "to the contiguous x's result")
+    results.append(_ce_grad(torch, ce_ops, ce_ref, gen))
+    results.append(_ce_vmap(torch, ce_ops, gen))
+    return results
+
+
+def _ce_grad(torch, ce_ops, ce_ref, gen) -> dict:
+    t, d, v = CE_GRAD_SHAPE
+    x, table, _ = _ce_inputs(torch, gen, t, d, v, torch.float32)
+    labels = torch.randint(0, v, (t,), generator=gen, device="cuda")
+    w = torch.rand((t,), generator=gen, device="cuda")
+    before = ce_ops.fused_ce.launches
+    leaves = [x.clone().requires_grad_(True), table.clone().requires_grad_(True)]
+    got = torch.autograd.grad((ce_ops.fused_ce_nll(*leaves, labels) * w).sum(),
+                              leaves)
+    plain = [x.clone().requires_grad_(True), table.clone().requires_grad_(True)]
+    want = torch.autograd.grad((ce_ref.fused_ce_ref(*plain, labels) * w).sum(),
+                               plain)
+    ce_ops.fused_ce.launches = before  # check launches do not count
+    errs = []
+    for name, g, p in zip(("dx", "dtable"), got, want):
+        err, scale = (g - p).abs().max().item(), p.abs().max().item()
+        if not err <= CE_GRAD_TOL * scale:
+            raise AssertionError(f"fused_ce {name}: {err:.3e} vs autograd "
+                                 f"of the plain version (scale {scale:.3e})")
+        errs.append(err / scale)
+    print(f"[ce] gradients at {CE_GRAD_SHAPE}: dx, dtable within "
+          f"{max(errs):.2e}·max|g| of autograd through the plain version "
+          f"(tol {CE_GRAD_TOL})")
+    return {"grad_shape": list(CE_GRAD_SHAPE),
+            "grad_max_err_over_scale": max(errs), "grad_tol": CE_GRAD_TOL}
+
+
+def _ce_vmap(torch, ce_ops, gen) -> dict:
+    """The train path's two mapped calls at its shape (4 agents of 2048
+    tokens, D 576, V 49152): one launch each, matching a loop of
+    per-agent launches (whose vocab split, and so order of summation,
+    differs: within CE_TOL, not bitwise)."""
+    a, t, d, v = TRAIN["agents"], 2048, 576, 49152
+    xs = torch.randn((a, t, d), generator=gen, device="cuda")
+    tables = torch.randn((a, v, d), generator=gen, device="cuda") / 12.0
+    labels = torch.randint(0, v, (a, t), generator=gen, device="cuda")
+    before = ce_ops.fused_ce.launches
+    out = {}
+    for case, dims, tbl in (("shared table", (0, None, 0), tables[0]),
+                            ("per-agent tables", (0, 0, 0), tables)):
+        ce_ops.fused_ce.launches = 0
+        mapped = torch.func.vmap(ce_ops.fused_ce_nll, in_dims=dims)(
+            xs, tbl, labels)
+        torch.cuda.synchronize()
+        n = ce_ops.fused_ce.launches
+        looped = torch.stack([ce_ops.fused_ce_nll(
+            xs[i], tbl if dims[1] is None else tbl[i], labels[i])
+            for i in range(a)])
+        err = (mapped - looped).abs()
+        if n != 1 or not bool((err <= CE_TOL + CE_TOL * looped.abs()).all()):
+            raise AssertionError(f"fused_ce under vmap ({case}): {n} "
+                                 f"launches, max err vs a loop "
+                                 f"{err.max().item():.3e}")
+        out[case] = {"launches": n, "max_abs_err_vs_loop": err.max().item()}
+        print(f"[ce] vmap over {a} agents, {case}: {n} launch, vs a loop of "
+              f"{a} launches max {err.max().item():.3e}")
+    ce_ops.fused_ce.launches = before
+    return {"vmap": out}
+
+
+def _train_parts(cfg, agents: int, batch: int, seq: int, device):
+    """What the training CLI builds: the plan, its step, the model and
+    its optimizer (``repro_torch.launch.train.main``'s calls)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as S
+    from repro_torch.models import build
+    from repro_torch.optim import optimizers as opt_lib
+
+    shape = InputShape("train_smoke", seq_len=seq, global_batch=batch,
+                       kind="train")
+    plan = S.plan_run(cfg, shape, num_agents=agents, comm=TRAIN["comm"],
+                      optimizer="sgd", lr=TRAIN["lr"])
+    step = S.build_train_step(plan, compute_dtype="float32", device=device)
+    return (plan, shape, step, build(plan.cfg),
+            opt_lib.from_config(plan.train_cfg))
+
+
+def phase_train(torch, ce_ops, swa_ops, cfg, dev) -> tuple:
+    """The LM train slice of ``cfg`` on ``dev`` (the card).  Returns
+    (record, what the profile phase needs)."""
+    from repro_torch.core.api import init_train_state
+    from repro_torch.data.synthetic import batch_iterator
+    from repro_torch.utils.tree import tree_size
+
+    agents, gbatch, seq = TRAIN["agents"], TRAIN["batch"], TRAIN["seq"]
+    plan, shape, step, model, opt = _train_parts(cfg, agents, gbatch, seq,
+                                                 dev)
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    t0 = time.perf_counter()
+    stream = batch_iterator(cfg, shape, num_agents=agents, seed=0, device=dev)
+    batches = [next(stream) for _ in range(steps + 1)]  # +1: the profile
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    del stream  # frees the stream's 9.7 GB bigram table
+    torch.cuda.empty_cache()
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = init_train_state(params, opt, plan.train_cfg, device=dev)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    layers = cfg.num_layers
+    print(f"[train] {cfg.name}: {layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {tree_size(state.params) / 1e6:.1f}M "
+          f"parameters (fp32, seed 0); {agents} agents × "
+          f"{gbatch // agents} × {seq} tokens, comm={TRAIN['comm']!r}, sgd "
+          f"lr {TRAIN['lr']}; {steps + 1} batches drawn in {draw_s:.1f} s")
+
+    ce_ops.fused_ce.launches = 0
+    swa_ops.swa_attention.launches = 0
+    rows = []
+    for k in range(steps):
+        ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
+        t0 = time.perf_counter()
+        state, m = step(state, batches[k])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append({"step": k, "ms": dt * 1e3, "loss": float(m["loss"]),
+                     "num_tx": float(m["num_tx"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "fused_ce": ce_ops.fused_ce.launches - ce0,
+                     "swa_attention": swa_ops.swa_attention.launches - swa0})
+    launches = {"fused_ce": ce_ops.fused_ce.launches,
+                "swa_attention": swa_ops.swa_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in rows:
+        if r["fused_ce"] != 2 or r["swa_attention"] != 2 * layers:
+            raise AssertionError(
+                f"train step {r['step']}: fused_ce launched {r['fused_ce']} "
+                f"times (want 2: the agents' losses, the lookahead probe), "
+                f"swa_attention {r['swa_attention']} (want {2 * layers})")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    # the first batch's loss, before (step 0's metric) and after the run
+    after = torch.func.vmap(model.loss_fn, in_dims=(None, 0))(
+        state.params, batches[0])
+    loss_after = float(after.mean())
+    ce_ops.fused_ce.launches, swa_ops.swa_attention.launches = (
+        launches["fused_ce"], launches["swa_attention"])
+    if not loss_after < losses[0]:
+        raise AssertionError(f"train loss did not fall: first batch "
+                             f"{losses[0]:.5f} before, {loss_after:.5f} "
+                             f"after {steps} steps")
+    timed = [r["ms"] for r in rows[TRAIN["warmup"]:]]
+    mean_ms = statistics.mean(timed)
+    tokens_per_s = gbatch * seq / (mean_ms / 1e3)
+    for r in rows:
+        print(f"[train] step {r['step']:2d}: {r['ms']:8.2f} ms  loss "
+              f"{r['loss']:.5f}  num_tx {r['num_tx']:.0f}/{agents}  |g| "
+              f"{r['grad_norm']:.4f}  launches fused_ce {r['fused_ce']}, "
+              f"swa_attention {r['swa_attention']}")
+    print(f"[train] {TRAIN['timed']} timed steps: {mean_ms:.2f} ms per step "
+          f"(median {statistics.median(timed):.2f}), {tokens_per_s:.0f} "
+          f"tokens/s; first batch's loss {losses[0]:.5f} -> "
+          f"{loss_after:.5f} after {steps} steps; peak memory "
+          f"{peak_gb:.2f} GB; launches fused_ce {launches['fused_ce']}, "
+          f"swa_attention {launches['swa_attention']} in {steps} steps")
+    record = {"arch": cfg.name, "agents": agents, "global_batch": gbatch,
+              "seq": seq, "comm": TRAIN["comm"], "lr": TRAIN["lr"],
+              "steps": rows, "ms_per_step": mean_ms,
+              "ms_per_step_median": statistics.median(timed),
+              "tokens_per_s": tokens_per_s, "launches": launches,
+              "loss_first_batch_before": losses[0],
+              "loss_first_batch_after": loss_after,
+              "peak_memory_gb": peak_gb, "batch_draw_s": draw_s}
+    check_batch = {k: v[:TRAIN_CHECK["agents"], :TRAIN_CHECK["per_agent"],
+                         :TRAIN_CHECK["seq"]].contiguous()
+                   for k, v in batches[0].items()}
+    record["card_vs_cpu"] = _train_card_vs_cpu(torch, cfg, check_batch, dev)
+    return record, (step, state, batches[-1], mean_ms)
+
+
+def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
+    """One step of the model cut to TRAIN_CHECK["layers"] layers at full
+    width, from the same weights and batch, on the card and the CPU.
+
+    The int8 wire quantizes each agent's gradient with a per-tensor
+    scale; card and CPU gradients differ in their last bits, so an
+    element within that gap of a rounding boundary may land one int8
+    level apart (ROADMAP §3).  Elements whose CPU gradient lies within
+    ``TRAIN_TOL``·max|g| of a boundary may so differ by at most one
+    level per agent (lr · level / agents); every other element is held
+    to ``TRAIN_TOL`` of its leaf's largest value."""
+    from repro_torch.comm.bank import batch_prologue
+    from repro_torch.core.api import init_train_state
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map
+
+    small = cfg.replace(num_layers=TRAIN_CHECK["layers"])
+    agents = TRAIN_CHECK["agents"]
+    n = agents * TRAIN_CHECK["per_agent"]
+    params = None
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        plan, _, step, model, opt = _train_parts(small, agents, n,
+                                                 TRAIN_CHECK["seq"], d)
+        if params is None:
+            params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+        state = init_train_state(tree_map(lambda t: t.to(d), params), opt,
+                                 plan.train_cfg, device=d)
+        t0 = time.perf_counter()
+        new, m = step(state, {k: v.to(d) for k, v in batch.items()})
+        runs[where] = (dict(tree_flatten_with_path(
+            tree_map(lambda t: t.cpu(), new.params))),
+            {k: v.cpu() for k, v in m.items()}, time.perf_counter() - t0)
+    # the CPU's per-agent gradients (EF memory starts at 0: g + ef = g)
+    _, grads = batch_prologue(model.loss_fn)(
+        state.params, {k: v.cpu() for k, v in batch.items()})
+    g_cpu = dict(tree_flatten_with_path(grads))
+    (pc, mc, _), (ph, mh, cpu_s) = runs["card"], runs["cpu"]
+    if not torch.equal(mc["num_tx"], mh["num_tx"]):
+        raise AssertionError(f"train card vs CPU: num_tx {mc['num_tx']} vs "
+                             f"{mh['num_tx']}")
+    gaps = {}
+    for key in ("loss", "grad_norm"):
+        gaps[key] = abs(float(mc[key]) - float(mh[key])) / abs(float(mh[key]))
+        if not gaps[key] <= TRAIN_TOL:
+            raise AssertionError(f"train card vs CPU: {key} {float(mc[key])} "
+                                 f"vs {float(mh[key])}")
+    worst, tied = 0.0, 0
+    for path, want in ph.items():
+        scale = want.abs().max().item()
+        diff = (pc[path] - want).abs()
+        g = g_cpu[path]
+        level = g.abs().amax(dim=tuple(range(1, g.ndim)), keepdim=True) / 127
+        r = (g / level).abs()
+        tie = (r - r.floor() - 0.5).abs() <= 127 * TRAIN_TOL
+        allowed = torch.where(
+            tie.any(0), TRAIN["lr"] * (level * tie).sum(0) / agents, 0.0)
+        if not bool((diff <= TRAIN_TOL * scale + allowed).all()):
+            raise AssertionError(f"train card vs CPU: params {path} differ "
+                                 f"by {diff.max().item() / scale:.3e} of "
+                                 f"their largest value")
+        tied += int((diff > TRAIN_TOL * scale).sum())
+        worst = max(worst, (diff * ~tie.any(0)).max().item() / scale)
+    print(f"[train] card vs CPU, {small.num_layers} layers at full width, "
+          f"{agents} agents × {TRAIN_CHECK['per_agent']} × "
+          f"{TRAIN_CHECK['seq']} tokens: loss {float(mh['loss']):.6f} "
+          f"(rel gap {gaps['loss']:.2e}), grad_norm rel gap "
+          f"{gaps['grad_norm']:.2e}, num_tx {float(mh['num_tx']):.0f} equal, "
+          f"params within {worst:.2e} of each leaf's max (tol {TRAIN_TOL}) "
+          f"apart from {tied} elements at an int8 rounding boundary, each "
+          f"within one level; CPU step {cpu_s:.1f} s")
+    return {"layers": small.num_layers, "agents": agents,
+            "seq": TRAIN_CHECK["seq"], "rel_gaps": gaps,
+            "params_max_gap_over_leaf_max": worst, "tol": TRAIN_TOL,
+            "int8_boundary_elements_one_level_apart": tied,
+            "num_tx": float(mh["num_tx"])}
+
+
+def ce_bound(t: int, d: int, v: int, itemsize: int):
+    """Least time (ms) for one call: 2·T·D·V flops at the fp32 CUDA-core
+    peak (fp32 inputs) or the bf16 tensor-core peak, against x and the
+    table read once, the int64 labels read and the fp32 NLL written once
+    over HBM bandwidth."""
+    flops = 2 * t * d * v
+    nbytes = (t * d + v * d) * itemsize + t * 8 + t * 4
+    peak = FP32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes")), flops, nbytes
+
+
+def phase_ce_times(torch, ce_ops, ce_ref) -> list:
+    """Per timed shape and dtype: the kernel, its plain version and
+    ``F.cross_entropy`` over ``x @ table.T`` (timed only, never on the
+    path), per call by CUDA events and on the device by the profiler,
+    beside the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for t, d, v in CE_TIMED:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
+            fns = {
+                "": lambda x=x, w=table, y=labels: ce_ops.fused_ce_nll(x, w, y),
+                "plain_": lambda x=x, w=table, y=labels: ce_ref.fused_ce_ref(
+                    x, w, y),
+                "library_": lambda x=x, w=table, y=labels: F.cross_entropy(
+                    x @ w.T, y, reduction="none"),
+            }
+            lib_err = (fns["library_"]().float()
+                       - fns["plain_"]()).abs().max().item()
+            (bound_ms, bound_by), flops, nbytes = ce_bound(
+                t, d, v, x.element_size())
+            row = {"shape": [t, d, v], "dtype": _dtype_name(dtype),
+                   "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_max_abs_err": lib_err}
+            before = ce_ops.fused_ce.launches
+            for key, fn in fns.items():
+                row[f"{key}ms"] = time_ms(fn)
+            for key, fn in fns.items():
+                row[f"{key}device_ms"] = device_ms(torch, fn)
+            ce_ops.fused_ce.launches = before  # timing launches do not count
+            row["roofline_share"] = row["bound_ms"] / row["device_ms"]
+            row["tflop_per_s"] = flops / row["device_ms"] / 1e9
+            rows.append(row)
+            print(f"[ce times] ({t}, {d}, {v}) {row['dtype']}: per call "
+                  f"(events) kernel {row['ms']:.3f} / plain "
+                  f"{row['plain_ms']:.3f} / F.cross_entropy "
+                  f"{row['library_ms']:.3f} ms; on the device kernel "
+                  f"{row['device_ms']:.3f} / plain "
+                  f"{row['plain_device_ms']:.3f} / F.cross_entropy "
+                  f"{row['library_device_ms']:.3f} ms; bound "
+                  f"{bound_ms:.3f} ms ({bound_by}): "
+                  f"{row['roofline_share']:.1%} of it, "
+                  f"{row['tflop_per_s']:.2f} TFLOP/s; library vs plain "
+                  f"{lib_err:.2e}")
+            del x, table, labels, fns
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_profile(torch, step, state, batch, step_ms: float) -> dict:
+    """One train step under torch.profiler: device time by kernel
+    (the kernels, the backward's and the model's cuBLAS products, the
+    elementwise ops), device ops and the idle share against the
+    unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    ivals = _device_intervals(prof)
+    if not ivals:
+        raise AssertionError("the profiler saw no device activity")
+    busy = sum(t for _, t in ivals) / 1e3
+    by_name: dict = {}
+    for n, t in ivals:
+        ms, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + t / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    kernel_ms = {k: sum(ms for n, (ms, _) in by_name.items() if k in n)
+                 for k in ("fused_ce", "swa_attention")}
+    gemm_ms = sum(ms for n, (ms, _) in by_name.items()
+                  if "gemm" in n.lower() or "xmma" in n.lower())
+    record = {"device_ms": busy, "device_ops": len(ivals),
+              "step_ms_unprofiled": step_ms,
+              "idle_share": 1.0 - busy / step_ms,
+              "kernel_device_ms": kernel_ms, "gemm_device_ms": gemm_ms,
+              "top": [{"name": n, "ms": ms, "count": c}
+                      for n, (ms, c) in top]}
+    print(f"[profile] train step: {busy:.2f} ms on the device in "
+          f"{len(ivals)} device ops against the unprofiled {step_ms:.2f} ms "
+          f"-> idle share {record['idle_share']:.3f}; fused_ce "
+          f"{kernel_ms['fused_ce']:.2f} ms, swa_attention "
+          f"{kernel_ms['swa_attention']:.2f} ms, GEMMs {gemm_ms:.2f} ms")
+    for n, (ms, c) in top:
+        print(f"[profile]   train {ms:9.3f} ms x{c:<5d} {n[:90]}")
+    return record
+
+
 def _device_intervals(prof):
     from torch.autograd import DeviceType
 
@@ -921,6 +1473,8 @@ def main() -> int:
 
     from repro_torch.kernels.gain_reduce import ops as gr_ops
     from repro_torch.kernels.gain_reduce import ref
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.fused_ce import ref as ce_ref
     from repro_torch.kernels.swa_attention import ops as swa_ops
     from repro_torch.kernels.swa_attention import ref as swa_ref
 
@@ -929,18 +1483,27 @@ def main() -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    record = {"card": card, "build": phase_build(gr_ops, swa_ops)}
+    record = {"card": card,
+              "build": phase_build(gr_ops, swa_ops, ce_ops)}
     record["kernel_checks"] = phase_kernel(torch, gr_ops, ref)
     session, record["slice"] = phase_slice(torch, gr_ops)
     record["swa_checks"] = phase_swa_kernel(torch, swa_ops, swa_ref)
+    record["ce_checks"] = phase_ce_kernel(torch, ce_ops, ce_ref)
     record["lm"], lm_model, lm_params, lm_prompts = phase_lm(torch, swa_ops)
+    from repro_torch.configs import get_config
+
+    record["train"], train_run = phase_train(
+        torch, ce_ops, swa_ops, get_config(LM_ARCH),
+        torch.device("cuda", torch.cuda.current_device()))
     # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
     record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
+    record["ce_times"] = phase_ce_times(torch, ce_ops, ce_ref)
     record["profile"] = phase_profile(
         torch, session, 1e3 / record["slice"]["rounds_per_s"])
     record["lm_profile"] = phase_lm_profile(
         torch, lm_model, lm_params, lm_prompts, record["lm"]["a"])
+    record["train_profile"] = phase_train_profile(torch, *train_run)
     record["seconds"] = time.perf_counter() - t_start
 
     main_shape = record["times"][0]
@@ -989,6 +1552,32 @@ def main() -> int:
         "window": swa_time["window"],
         "dtype": swa_time["dtype"],
         "launches_long_context": record["lm"]["b"]["launches"],
+        "launches_train": record["train"]["launches"]["swa_attention"],
+    })
+    # fused_ce at the train step's token count, width and vocabulary
+    ce_time = record["ce_times"][0]
+    ce_check = next(r for r in record["ce_checks"]
+                    if r.get("shape") == ce_time["shape"]
+                    and r["dtype"] == ce_time["dtype"])
+    assert ce_time["shape"] == list(CE_TIMED[0])
+    assert ce_time["dtype"] == "float32"
+    kernels["kernels"].append({
+        "name": "fused_ce",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
+        "replaces": "src/repro/kernels/fused_ce/kernel.py:76",
+        "launches": record["train"]["launches"]["fused_ce"],
+        "max_abs_err": ce_check["max_abs_err"],
+        "ms": ce_time["ms"],
+        "plain_ms": ce_time["plain_ms"],
+        "bound_ms": ce_time["bound_ms"],
+        "bound_by": ce_time["bound_by"],
+        "library_ms": ce_time["library_ms"],
+        "device_ms": ce_time["device_ms"],
+        "plain_device_ms": ce_time["plain_device_ms"],
+        "library_device_ms": ce_time["library_device_ms"],
+        "shape": ce_time["shape"],
+        "dtype": ce_time["dtype"],
     })
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -20,6 +20,7 @@ from repro_torch.comm.error_feedback import ef_add, ef_init, ef_residual
 from repro_torch.comm.policy import (
     CommPolicy,
     ctrl_init,
+    from_train_config,
     normalize_policy,
     resolve_policy,
     trigger_spec_from_config,
@@ -77,6 +78,7 @@ __all__ = [
     "ef_init",
     "ef_residual",
     "fold_sum",
+    "from_train_config",
     "normalize_policy",
     "per_agent_wire_bytes",
     "resolve_policy",

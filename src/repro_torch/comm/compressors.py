@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.comm.registry import Registry, StageSpec
 from repro_torch.utils.todo import not_ported, todo
+from repro_torch.utils.tree import tree_map
 
 COMPRESSORS = Registry("compressor")
 
@@ -224,8 +225,8 @@ class CompressorChain:
         return x
 
     def compress_tree(self, tree):
-        """Fake-compress a gradient dict with a leading agent axis."""
-        return {k: self.compress(tree[k]) for k in sorted(tree)}
+        """Fake-compress a gradient tree with a leading agent axis."""
+        return tree_map(self.compress, tree)
 
     def wire_format(self, dense_bits: float = 32.0) -> WireFormat:
         fmt = WireFormat(value_bits=dense_bits, dense_bits=dense_bits)

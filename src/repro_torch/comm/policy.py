@@ -178,6 +178,25 @@ def trigger_spec_from_config(trig_cfg) -> StageSpec:
     return TRIGGERS.spec(name, **kw)
 
 
+def from_train_config(cfg) -> CommPolicy:
+    """A CommPolicy from the legacy flag set: ``cfg.trigger`` (a
+    ``TriggerConfig``) and the flags ``quantize_grads``, ``topk_frac``
+    and ``error_feedback`` (an absent flag is off).  The JAX package's
+    ``TrainConfig`` carries these flags; the training CLI passes its
+    legacy command-line flags.  ``quantize_grads`` wins over
+    ``topk_frac``, as in the seed's if/elif."""
+    comps: Tuple[StageSpec, ...] = ()
+    if getattr(cfg, "quantize_grads", False):
+        comps = (COMPRESSORS.spec("int8"),)
+    elif getattr(cfg, "topk_frac", 0.0) > 0:
+        comps = (COMPRESSORS.spec("topk", frac=cfg.topk_frac),)
+    return CommPolicy(
+        trigger=trigger_spec_from_config(cfg.trigger),
+        compressors=comps,
+        error_feedback=bool(getattr(cfg, "error_feedback", False) and comps),
+    )
+
+
 def with_kernel(policy: Union[CommPolicy, Tuple[CommPolicy, ...]]
                 ) -> Union[CommPolicy, Tuple[CommPolicy, ...]]:
     """Enable the trigger-level ``kernel=true`` option wherever the

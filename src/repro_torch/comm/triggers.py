@@ -43,6 +43,7 @@ from repro_torch.utils.todo import not_ported, todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_agents,
+    tree_map,
     tree_norm_sq,
     tree_vdot,
 )
@@ -196,7 +197,7 @@ def _lookahead_gain_fn(ctx: TriggerContext, who: str):
     eps = _f32(ctx.probe_eps)
 
     def gain_of(params, grads, batch, losses):
-        shared = {k: v.unsqueeze(0) for k, v in params.items()}
+        shared = tree_map(lambda v: v.unsqueeze(0), params)
         probes = tree_add_scaled(shared, grads, -eps)
         probed = torch.func.vmap(loss_fn)(probes, batch)
         return probed - losses

@@ -147,6 +147,16 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    """An assigned (seq_len, global_batch) workload."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
 class TriggerConfig:
     """The paper's communication trigger, as a legacy policy config.
 
@@ -189,7 +199,6 @@ class TrainConfig:
 
 
 __getattr__ = not_ported(__name__, {
-    "InputShape": "queue 1 item 12",
     "SHAPES": "queue 1 item 12",
     "ShardingConfig": "queue 1 item 11",
 })

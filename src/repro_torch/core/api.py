@@ -58,7 +58,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregation import masked_mean
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import not_ported, todo
-from repro_torch.utils.tree import tree_add_scaled, tree_leaves
+from repro_torch.utils.tree import tree_add_scaled, tree_leaves, tree_map
 
 METRIC_KEYS = ("loss", "comm_rate", "any_tx", "num_tx", "mean_gain",
                "grad_norm", "wire_bytes")
@@ -109,7 +109,7 @@ class StepOptions:
 
 class TrainState(NamedTuple):
     step: int                         # round index (a host-side int)
-    params: Any                       # {name: tensor}
+    params: Any                       # a tree (dict) of tensors
     opt_state: Any
     ef_memory: Optional[Any] = None   # error-feedback residuals (A, *param)
     ctrl_state: Optional[Any] = None  # adaptive controllers (not ported)
@@ -125,7 +125,7 @@ def init_train_state(params, optimizer, cfg: TrainConfig, policy=None, *,
     """The initial state on ``device``; EF memory is allocated iff the
     resolved policy (or any per-agent policy) carries error feedback."""
     dev = resolve_device(device)
-    params = {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
+    params = tree_map(lambda v: torch.as_tensor(v).to(dev), params)
     resolved = normalize_policy(resolve_policy(cfg, policy), cfg.num_agents)
     if any(p.needs_net for p in _policies(resolved)):
         raise todo("lossy '@ channel' wires", "queue 1 item 7")
@@ -154,11 +154,7 @@ def _take(tree, rows):
     """Rows ``rows`` (a slice or an index tensor) of every leaf."""
     if tree is None:
         return None
-    if isinstance(tree, dict):
-        return {k: v[rows] for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(x[rows] for x in tree)
-    return tree[rows]
+    return tree_map(lambda v: v[rows], tree)
 
 
 def _block_index(rows: Tuple[int, ...], device: torch.device):

@@ -5,14 +5,21 @@ over the vocabulary, whose transition logits are Gumbel draws.  The
 distribution is the JAX package's; the draws come from a
 ``torch.Generator`` and so differ from JAX's threefry draws (ROADMAP
 queue 1 item 2): tests that need the JAX package's tokens pass them in.
+
+At a 49152-token vocabulary the bigram table is a 9.7 GB fp32 tensor,
+so a stream draws it once (:func:`batch_iterator`) and hands it to every
+batch through ``logits=``, where the JAX package draws it anew per call.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.utils.todo import not_ported
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.todo import not_ported, todo
 
 
 def _gumbel(shape, gen: torch.Generator) -> torch.Tensor:
@@ -30,16 +37,27 @@ def markov_logits(vocab: int, gen: torch.Generator,
     return _gumbel((vocab, vocab), gen).div_(temperature)
 
 
+def table_generator(device: DeviceLike) -> torch.Generator:
+    """The bigram table's generator: seeded with 7, as the JAX package's
+    table key ``PRNGKey(7)``."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(7)
+
+
 def sample_lm_tokens(gen: torch.Generator, batch: int, seq_len: int,
                      vocab: int,
-                     table_gen: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     table_gen: Optional[torch.Generator] = None, *,
+                     logits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(batch, seq_len) int32 tokens from a fixed bigram chain, on
-    ``gen``'s device.  The table comes from ``table_gen`` (by default a
-    generator seeded with 7, as the JAX package's table key)."""
-    if table_gen is None:
-        table_gen = torch.Generator(device=gen.device).manual_seed(7)
-    logits = markov_logits(vocab, table_gen)
+    ``gen``'s device.  The chain's table is ``logits`` when given (a
+    :func:`markov_logits` table drawn once per stream), else drawn here
+    from ``table_gen`` (by default :func:`table_generator`)."""
+    if logits is None:
+        if table_gen is None:
+            table_gen = table_generator(gen.device)
+        logits = markov_logits(vocab, table_gen)
+    elif logits.shape != (vocab, vocab):
+        raise ValueError(f"bigram table {tuple(logits.shape)} does not "
+                         f"match vocab {vocab}")
     tok = torch.randint(0, vocab, (batch,), generator=gen, device=gen.device)
     out = [tok]
     for _ in range(seq_len - 1):
@@ -49,9 +67,60 @@ def sample_lm_tokens(gen: torch.Generator, batch: int, seq_len: int,
     return torch.stack(out, 1).to(torch.int32)
 
 
+def step_generator(seed: int, step: int, device: DeviceLike) -> torch.Generator:
+    """The generator of step (or serving round) ``step`` of a seeded
+    stream: seeded from ``(seed, step)`` through numpy's SeedSequence
+    (distinct streams for distinct pairs), as the JAX streams fold the
+    step into their key."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        2, np.uint32)
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed((int(state[0]) << 32 | int(state[1])) & ((1 << 63) - 1))
+    return gen
+
+
+def lm_batch(cfg: ModelConfig, shape: InputShape, gen: torch.Generator,
+             num_agents: int = 1, global_batch: Optional[int] = None,
+             seq_len: Optional[int] = None, *,
+             logits: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+    """One training batch on ``gen``'s device: ``tokens`` and ``labels``
+    (the tokens shifted by one), int32, shaped ``(num_agents,
+    per_agent_batch, S)``.  ``logits`` is the stream's bigram table."""
+    if cfg.arch_type != "dense":
+        raise todo(f"{cfg.arch_type!r} batches", "queue 1 item 10")
+    b = global_batch or shape.global_batch
+    s = seq_len or shape.seq_len
+    if b % num_agents:
+        raise ValueError(f"global batch {b} does not split over "
+                         f"{num_agents} agents")
+    per = b // num_agents
+    toks = sample_lm_tokens(gen, b, s + 1, cfg.vocab_size, logits=logits)
+    return {
+        "tokens": toks[:, :-1].reshape(num_agents, per, s),
+        "labels": toks[:, 1:].reshape(num_agents, per, s),
+    }
+
+
+def batch_iterator(cfg: ModelConfig, shape: InputShape, *,
+                   num_agents: int = 1, seed: int = 0,
+                   global_batch: Optional[int] = None,
+                   seq_len: Optional[int] = None,
+                   device: DeviceLike = "cuda"
+                   ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite deterministic batch stream on ``device``: batch ``k``
+    from :func:`step_generator` ``(seed, k)``, every batch from one
+    bigram table drawn when the stream starts."""
+    logits = markov_logits(cfg.vocab_size, table_generator(device))
+    step = 0
+    while True:
+        yield lm_batch(cfg, shape, step_generator(seed, step, device),
+                       num_agents=num_agents, global_batch=global_batch,
+                       seq_len=seq_len, logits=logits)
+        step += 1
+
+
 __getattr__ = not_ported(__name__, {
-    "lm_batch": "queue 1 item 10",
-    "batch_iterator": "queue 1 item 10",
     "drifting_problem": "queue 1 item 3",
     "drifting_batch_fn": "queue 1 item 3",
 })

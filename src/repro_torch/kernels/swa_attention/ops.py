@@ -34,6 +34,7 @@ import math
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.swa_attention.ref import NEG, swa_attention_ref
@@ -177,6 +178,7 @@ class SwaAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, output)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         return (*swa_attention_backward(q, k, v, o, do, window=ctx.window),

@@ -20,26 +20,14 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.comm.rollup import CommRollup
+from repro_torch.data.synthetic import step_generator
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import not_ported, todo
 
 _SERVING_ITEM = "queue 1 item 9"
-
-
-def round_generator(seed: int, k: int,
-                    device: torch.device) -> torch.Generator:
-    """The generator of round ``k``'s observations: seeded from
-    ``(seed, k)`` through numpy's SeedSequence (distinct streams for
-    distinct pairs)."""
-    state = np.random.SeedSequence([int(seed), int(k)]).generate_state(
-        2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(state[0]) << 32 | int(state[1])) & ((1 << 63) - 1))
-    return gen
 
 
 class FleetSession:
@@ -147,12 +135,12 @@ def build_linreg_fleet_session(
         {"w": torch.zeros(cfg_lr.n, dtype=torch.float32)}, opt, cfg,
         device=dev)
     if batch_fn is None:
-        problem = R.make_problem(cfg_lr, round_generator(seed, 0, dev),
+        problem = R.make_problem(cfg_lr, step_generator(seed, 0, dev),
                                  device=dev)
 
         def batch_fn(k):
             return R.agent_batches(problem,
-                                   round_generator(seed + 1, k, dev))
+                                   step_generator(seed + 1, k, dev))
 
     rollup = CommRollup(
         tier_names=tuple(t.name for t in net.tiers),

@@ -1,0 +1,163 @@
+"""End-to-end training entry point: event-triggered data-parallel training of
+a dense LM on the deterministic synthetic token stream (port of
+``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --reduced --steps 200 --comm "gain_lookahead(lam=0.01)"
+
+The communication stack is one ``--comm`` spec (repro_torch.comm
+syntax): trigger, then optional chained compressors, then ``+ef``::
+
+    --comm "gain_lookahead(lam=0.01,decay=inv_t)|topk(0.05)|int8+ef"
+    --comm "always|int8 ; never"     # per-agent heterogeneous (needs --agents 2)
+
+The legacy ``--trigger/--lam/--mu/--period/--quantize/--topk/
+--error-feedback`` flags still work and map onto the same spec.
+
+It runs on the card unless ``--device cpu`` is given; all ``--agents``
+run batched on the one device (default 1, the JAX CLI's data-axis size
+on one device).  Each step computes every agent's gradient and its
+lookahead probe through the ``swa_attention`` and ``fused_ce`` kernels.
+Weights come from ``--seed``; batches from one bigram stream on the
+device.  Metrics reach the host only on log steps; the transmission and
+wire-byte totals are summed on the device and read once at the end.
+Checkpoints (``--ckpt-dir``/``--resume``) are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs import get_config, list_archs, reduced
+from repro_torch.configs.base import InputShape, TriggerConfig
+from repro_torch.core.api import init_train_state
+from repro_torch.data import synthetic as D
+from repro_torch.launch import steps as S
+from repro_torch.models import build
+from repro_torch.models.transformer import dtype_of
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.todo import todo
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="smollm-135m", choices=list(list_archs()))
+    ap.add_argument("--reduced", action="store_true", help="smoke-scale variant")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--d-model", type=int, default=None)
+    ap.add_argument("--vocab", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--agents", type=int, default=None, help="default: 1")
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--optimizer", default="sgd", choices=["sgd", "momentum", "adamw"])
+    ap.add_argument("--comm", default=None, metavar="SPEC",
+                    help="communication policy spec, e.g. "
+                         "'gain_lookahead(lam=0.01)|topk(0.05)|int8+ef'; "
+                         "';'-separated for per-agent policies. Supersedes "
+                         "the legacy trigger/compression flags below.")
+    # legacy flag spellings — assembled into a --comm spec when --comm is
+    # not given:
+    ap.add_argument("--trigger", default="gain_lookahead",
+                    choices=["gain_lookahead", "gain_quadratic", "grad_norm",
+                             "periodic", "always", "never"])
+    ap.add_argument("--lam", type=float, default=0.0)
+    ap.add_argument("--lam-decay", default="const",
+                    choices=["const", "inv_t", "geometric"],
+                    help="diminishing-λ schedule (paper eq.-23 remark)")
+    ap.add_argument("--mu", type=float, default=0.0)
+    ap.add_argument("--period", type=int, default=1)
+    ap.add_argument("--quantize", action="store_true", help="int8 wire format")
+    ap.add_argument("--topk", type=float, default=0.0,
+                    help="top-k sparsified wire (fraction of entries kept)")
+    ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    return ap.parse_args(argv)
+
+
+def _legacy_comm_spec(args) -> str:
+    """Assemble the legacy trigger/compression flags into a --comm spec."""
+    from repro_torch.comm import from_train_config
+
+    trig = TriggerConfig(kind=args.trigger, lam=args.lam, mu=args.mu,
+                         period=args.period, lam_decay=args.lam_decay)
+    legacy = argparse.Namespace(trigger=trig, quantize_grads=args.quantize,
+                                topk_frac=args.topk,
+                                error_feedback=args.error_feedback)
+    return str(from_train_config(legacy))
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    if args.ckpt_dir or args.resume:
+        raise todo("training checkpoints (--ckpt-dir/--resume)",
+                   "queue 1 item 9")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    over = {}
+    if args.layers:
+        over["num_layers"] = args.layers
+    if args.d_model:
+        over["d_model"] = args.d_model
+        over["head_dim"] = args.d_model // cfg.num_heads
+    if args.vocab:
+        over["vocab_size"] = args.vocab
+    if over:
+        cfg = cfg.replace(**over)
+
+    shape = InputShape("train_cli", seq_len=args.seq, global_batch=args.batch,
+                       kind="train")
+    comm = args.comm or _legacy_comm_spec(args)
+    plan = S.plan_run(cfg, shape, num_agents=args.agents or 1, comm=comm,
+                      optimizer=args.optimizer, lr=args.lr,
+                      microbatches=args.microbatches)
+    print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
+          f"agents={plan.num_agents} comm={comm!r} device={dev}")
+
+    step_fn = S.build_train_step(plan, compute_dtype=args.dtype, device=dev)
+    model = build(plan.cfg.replace(compute_dtype=args.dtype))
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+                           dtype=dtype_of(args.dtype))
+    opt = opt_lib.from_config(plan.train_cfg)
+    state = init_train_state(params, opt, plan.train_cfg, device=dev)
+    batches = D.batch_iterator(cfg, shape, num_agents=plan.num_agents,
+                               seed=args.seed, device=dev)
+
+    # summed on the device in float64, as the JAX CLI sums host floats
+    tx_total = bytes_total = torch.zeros((), dtype=torch.float64, device=dev)
+    t0 = time.time()
+    for step in range(args.steps):
+        state, m = step_fn(state, next(batches))
+        tx_total = tx_total + m["num_tx"]
+        bytes_total = bytes_total + m["wire_bytes"]
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d}  loss {float(m['loss']):.4f}  "
+                  f"comm_rate {float(m['comm_rate']):.2f}  "
+                  f"gain {float(m['mean_gain']):+.2e}  "
+                  f"|g| {float(m['grad_norm']):.3f}  "
+                  f"({(time.time()-t0)/(step+1):.2f}s/step)", flush=True)
+
+    total_rounds = args.steps * plan.num_agents
+    tx, wire = float(tx_total), float(bytes_total)
+    print(f"\ndone: {args.steps} steps, transmissions {tx:.0f}/"
+          f"{total_rounds} ({100 * tx / max(total_rounds, 1):.1f}% of dense), "
+          f"effective wire {wire / 1e6:.2f} MB")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@
 All functions are pure; parameters come in as trees built by
 :class:`repro_torch.models.param.Scope`.  The matrix products are plain
 ``torch.matmul`` (the JAX package leaves them to XLA, outside Pallas).
-The losses arrive with the LM train path.
+The losses here are the plain ones; the model's loss runs the
+``fused_ce`` kernel (:func:`repro_torch.models.transformer.loss_fn`).
 """
 from __future__ import annotations
 
@@ -67,10 +68,49 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ table.float().T
 
 
+def _masked_mean(nll: torch.Tensor, mask) -> torch.Tensor:
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    """Mean token-level CE.  logits (..., V) fp32, labels (...) int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return _masked_mean(logz - gold, mask)
+
+
+def cross_entropy_fused(table: torch.Tensor, x: torch.Tensor,
+                        labels: torch.Tensor, mask=None, chunk: int = 512):
+    """Mean token CE from hidden states (B, S, D), one sequence chunk of
+    fp32 logits (B, chunk, V) at a time.  The JAX version also
+    rematerializes each chunk in its backward; here autograd keeps them,
+    and the memory-bounded loss is the ``fused_ce`` kernel's, whose
+    backward recomputes the logits chunk by chunk."""
+    b, s, _ = x.shape
+    if s % chunk:
+        chunk = s
+    tf = table.float()
+    tot = cnt = 0.0
+    for c0 in range(0, s, chunk):
+        logits = x[:, c0:c0 + chunk].float() @ tf.T
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk].long()[..., None])[..., 0]
+        nll = logz - gold
+        if mask is None:
+            tot, cnt = tot + nll.sum(), cnt + nll.numel()
+        else:
+            m = mask[:, c0:c0 + chunk].float()
+            tot, cnt = tot + (nll * m).sum(), cnt + m.sum()
+    return tot / torch.clamp(torch.as_tensor(cnt, dtype=torch.float32,
+                                             device=x.device), min=1.0)
+
+
 __getattr__ = not_ported(__name__, {
     "sinusoidal_positions": "queue 1 item 10",
     "build_gelu_mlp": "queue 1 item 10",
     "gelu_mlp": "queue 1 item 10",
-    "cross_entropy": "queue 1 item 10",
-    "cross_entropy_fused": "queue 1 item 10",
 })

@@ -1,7 +1,7 @@
 """Model facade (port of ``repro.models.model_zoo``).
 
 ``build(cfg)`` returns a :class:`Model` bundling the init / forward /
-decode closures of the dense family.  The workload specs and axes
+loss / decode closures of the dense family.  The workload specs and axes
 (``input_specs``/``input_axes``/``runs_shape``) belong to the dry-run,
 which the port has not reached.
 """
@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
-from repro_torch.utils.todo import not_ported, todo
+from repro_torch.utils.todo import not_ported
 
 
 class Model(NamedTuple):
@@ -26,17 +26,12 @@ class Model(NamedTuple):
     prefill: Callable              # (params, batch, cache_len)
 
 
-def _loss_fn(cfg, params, batch):
-    raise todo("the LM loss (loss_fn, with the fused_ce kernel)",
-               "queue 1 item 10")
-
-
 def build(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(T.init, cfg),
         forward=functools.partial(T.forward, cfg),
-        loss_fn=functools.partial(_loss_fn, cfg),
+        loss_fn=functools.partial(T.loss_fn, cfg),
         init_cache=functools.partial(D.init_cache, cfg),
         decode_step=functools.partial(D.decode_step, cfg),
         prefill=functools.partial(D.prefill, cfg),

@@ -6,8 +6,11 @@ package's ``lax.scan``; ``constrain_params`` (a sharding annotation) has
 no counterpart on one card.  The causal self-attention runs the
 ``swa_attention`` kernel (:func:`repro_torch.models.attention.attention`).
 
-Public entry points: ``init`` / ``forward`` (``loss_fn`` comes with the
-LM train path).
+Public entry points: ``init`` / ``forward`` / ``loss_fn``.  The loss
+runs the ``fused_ce`` kernel on the output table; gradients flow
+through it and through ``swa_attention`` (both are autograd Functions
+with a ``vmap`` rule, so the train step's per-agent ``vmap(grad)`` keeps
+one launch per call).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_ce.ops import fused_ce_nll
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (
     build_embedding,
@@ -151,7 +155,30 @@ def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
     return unembed(output_table(cfg, params), x), aux
 
 
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Mean token CE over the batch's ``loss_mask`` (all tokens without
+    one), from the ``fused_ce`` kernel's per-token NLL on the output
+    table: the full (B, S, V) logits never exist."""
+    if cfg.moe is not None:
+        raise todo("the router load-balance aux term of the moe loss",
+                   "queue 1 item 10")
+    x, _, prefix = forward_hidden(cfg, params, batch)
+    if prefix:
+        x = x[:, prefix:]
+    table = output_table(cfg, params)
+    if x.dtype != table.dtype:
+        # the kernel takes one dtype; widening is exact (the JAX loss
+        # computes its logits in fp32 either way)
+        x, table = x.float(), table.float()
+    nll = fused_ce_nll(x.reshape(-1, x.shape[-1]), table,
+                       batch["labels"].reshape(-1))
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return nll.mean()
+    mask = mask.reshape(-1).float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
 __getattr__ = not_ported(__name__, {
-    "loss_fn": "queue 1 item 10",
     "whisper_encode": "queue 1 item 10",
 })

@@ -1,27 +1,29 @@
-"""Optimizers as functional ``init``/``update`` pairs.
+"""Optimizers (SGD / momentum / AdamW) as functional ``init``/``update``
+pairs over trees of tensors.
 
 The port of ``repro.optim.optimizers`` (not ``torch.optim``, so the
 update order matches the reference)::
 
-    opt = sgd(lr)
+    opt = adamw(schedule, ...)
     opt_state = opt.init(params)
     updates, opt_state = opt.update(grads, opt_state, params, step)
     params = tree_add_scaled(params, updates, 1.0)
 
-Updates are *deltas to add*, cast back to the parameter dtype.  Only
-plain SGD with a constant (optionally warmed-up) learning rate is
-ported: the paper's eq. (3)/(6) update.
+Updates are *deltas to add*, cast back to the parameter dtype.  All
+moments are fp32 whatever the parameter dtype.  ``step`` is the round
+index, a Python int; schedules turn it into an fp32 rate
+(:mod:`repro_torch.optim.schedules`).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Union
 
 import numpy as np
+import torch
 
-from repro_torch.utils.todo import not_ported, todo
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
-_OPTIM_ITEM = "queue 1 item 5"
+Schedule = Callable[[int], float]
 
 
 class Optimizer(NamedTuple):
@@ -29,23 +31,29 @@ class Optimizer(NamedTuple):
     update: Callable[..., Any]  # (grads, state, params, step) -> (updates, state)
 
 
-def _schedule(cfg) -> Callable[[int], float]:
-    """The config's learning-rate schedule as an fp32 value per step
-    (``step`` is the Python round index)."""
-    if cfg.schedule != "constant":
-        raise todo(f"the {cfg.schedule!r} learning-rate schedule",
-                   _OPTIM_ITEM)
-    lr = np.float32(cfg.lr)
-    warmup = int(cfg.warmup_steps)
-    if warmup <= 0:
-        return lambda step: float(lr)
-    return lambda step: float(lr * min(
-        np.float32(1.0), np.float32(step + 1) / np.float32(warmup)))
+def _as_schedule(lr: Union[float, Schedule]) -> Schedule:
+    if callable(lr):
+        return lr
+    return lambda step: float(np.float32(lr))
 
 
-def sgd(lr: Union[float, Callable[[int], float]]) -> Optimizer:
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale ``grads`` so their global L2 norm is at most ``max_norm``."""
+    if max_norm <= 0:
+        return grads
+    norm = torch.sqrt(sum(g.float().square().sum()
+                          for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+
+
+def sgd(lr: Union[float, Schedule]) -> Optimizer:
     """Plain SGD — the paper's eq. (3)/(6) update."""
-    sched = lr if callable(lr) else (lambda step: float(np.float32(lr)))
+    sched = _as_schedule(lr)
 
     def init(params):
         return ()
@@ -57,17 +65,86 @@ def sgd(lr: Union[float, Callable[[int], float]]) -> Optimizer:
     return Optimizer(init, update)
 
 
+def momentum(lr: Union[float, Schedule], beta: float = 0.9,
+             nesterov: bool = False) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return tree_map(_zeros_f32, params)
+
+    def update(grads, m, params, step):
+        s = sched(step)
+        m = tree_map(lambda mi, g: beta * mi + g.float(), m, grads)
+        if nesterov:
+            upd = tree_map(
+                lambda mi, g: (-s * (beta * mi + g.float())).to(g.dtype),
+                m, grads)
+        else:
+            upd = tree_map(lambda mi, g: (-s * mi).to(g.dtype), m, grads)
+        return upd, m
+
+    return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    mu: Any
+    nu: Any
+
+
+def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return AdamState(mu=tree_map(_zeros_f32, params),
+                         nu=tree_map(_zeros_f32, params))
+
+    def update(grads, state, params, step):
+        s = sched(step)
+        t = np.float32(step + 1)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+                      state.mu, grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.float().square(),
+                      state.nu, grads)
+        # bias corrections in fp32, as the reference forms them from an
+        # fp32 step count
+        bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
+        bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
+
+        def upd(m, v, p):
+            step_ = m / bc1 / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                step_ = step_ + weight_decay * p.float()
+            return (-s * step_).to(p.dtype)
+
+        return tree_map(upd, mu, nu, params), AdamState(mu, nu)
+
+    return Optimizer(init, update)
+
+
+def with_grad_clip(opt: Optimizer, max_norm: float) -> Optimizer:
+    if max_norm <= 0:
+        return opt
+
+    def update(grads, state, params, step):
+        return opt.update(clip_by_global_norm(grads, max_norm), state,
+                          params, step)
+
+    return Optimizer(opt.init, update)
+
+
 def from_config(cfg) -> Optimizer:
     """Build the optimizer described by a :class:`TrainConfig`."""
-    if cfg.optimizer != "sgd":
-        raise todo(f"the {cfg.optimizer!r} optimizer", _OPTIM_ITEM)
-    if cfg.grad_clip > 0:
-        raise todo("gradient clipping", _OPTIM_ITEM)
-    return sgd(_schedule(cfg))
+    from repro_torch.optim.schedules import from_config as sched_from_config
 
-
-__getattr__ = not_ported(__name__, {
-    name: _OPTIM_ITEM
-    for name in ("clip_by_global_norm", "momentum", "AdamState", "adamw",
-                 "with_grad_clip")
-})
+    sched = sched_from_config(cfg)
+    if cfg.optimizer == "sgd":
+        opt = sgd(sched)
+    elif cfg.optimizer == "momentum":
+        opt = momentum(sched, beta=cfg.beta1)
+    elif cfg.optimizer == "adamw":
+        opt = adamw(sched, b1=cfg.beta1, b2=cfg.beta2, eps=cfg.eps,
+                    weight_decay=cfg.weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    return with_grad_clip(opt, cfg.grad_clip)

@@ -356,8 +356,10 @@ def test_unported_paths_raise_with_roadmap_pointer():
         make_triggered_train_step(tloss, opt, adaptive, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         build_linreg_fleet_session(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        opt_lib.from_config(TrainConfig(optimizer="adamw"))
+    micro = TrainConfig(optimizer="sgd", num_agents=2, comm="always",
+                        microbatches=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        make_triggered_train_step(tloss, opt, micro, device="cpu")
     from repro_torch.core import regression
 
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
