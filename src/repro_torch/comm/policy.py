@@ -180,20 +180,20 @@ def trigger_spec_from_config(trig_cfg) -> StageSpec:
 
 def from_train_config(cfg) -> CommPolicy:
     """A CommPolicy from the legacy flag set: ``cfg.trigger`` (a
-    ``TriggerConfig``) and the flags ``quantize_grads``, ``topk_frac``
-    and ``error_feedback`` (an absent flag is off).  The JAX package's
-    ``TrainConfig`` carries these flags; the training CLI passes its
-    legacy command-line flags.  ``quantize_grads`` wins over
-    ``topk_frac``, as in the seed's if/elif."""
+    ``TriggerConfig``), ``cfg.quantize_grads``, ``cfg.topk_frac`` and
+    ``cfg.error_feedback`` — the fields of the JAX package's
+    ``TrainConfig``; the training CLI passes its legacy command-line
+    flags.  ``quantize_grads`` wins over ``topk_frac``, as in the seed's
+    if/elif."""
     comps: Tuple[StageSpec, ...] = ()
-    if getattr(cfg, "quantize_grads", False):
+    if cfg.quantize_grads:
         comps = (COMPRESSORS.spec("int8"),)
-    elif getattr(cfg, "topk_frac", 0.0) > 0:
+    elif cfg.topk_frac > 0:
         comps = (COMPRESSORS.spec("topk", frac=cfg.topk_frac),)
     return CommPolicy(
         trigger=trigger_spec_from_config(cfg.trigger),
         compressors=comps,
-        error_feedback=bool(getattr(cfg, "error_feedback", False) and comps),
+        error_feedback=bool(cfg.error_feedback and comps),
     )
 
 
