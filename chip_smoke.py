@@ -27,17 +27,23 @@ Phases (any failure exits nonzero; no result line is printed then):
               first 10 rounds equal to the same session on the CPU.
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes, one
-              hd = 128 shape and the JAX tests' S × W grid; a repeated
-              launch is bitwise equal, and a head-major tensor viewed in
-              the model layout gives the contiguous tensor's result.  The
+              hd = 128 shape, the JAX tests' S × W grid and the tensor-core
+              tiles' edges (S = 1000 at hd = 128, S = 77 with W = 5); a
+              repeated launch is bitwise equal, a head-major tensor viewed
+              in the model layout gives the contiguous tensor's result,
+              and inputs one element off the 16-byte alignment (plain loads
+              instead of cp.async) the aligned inputs' result.  The
+              wrappers' shared-memory plans equal the kernels' own.  The
               Function's gradients at the served shape match autograd
               through the plain version, and ``torch.func.vmap`` over 3
               slices is ONE launch, bitwise equal to a loop of three.
-   ce       — holds ``fused_ce`` against its plain version on the card over
+   ce       — holds ``fused_ce`` against its plain version on the card at
+              the tensor-core tiles' edges (T, D, V) ∈ {(129, 100, 129),
+              (1000, 100, 50257), (257, 200, 49153)} and over
               T ∈ {64, 1000, 8192}, D ∈ {64, 576, 3072}, V ∈ {7, 1000,
               49152, 50257, 128256}, fp32 and bf16 (1e-5 + 1e-5·|plain|:
-              both sum exact fp32 products, in other orders), labels at 0,
-              V − 1 and on tile edges; a repeated launch is bitwise equal,
+              fp32 in 3×TF32, bf16 products exact, sums in other orders),
+              labels at 0, V − 1 and on tile edges; a repeated launch is bitwise equal,
               a strided x gives the contiguous x's result, the Function's
               (dx, dtable) match autograd through the plain version, and
               both vmap cases (shared table, per-agent tables) are one
@@ -74,11 +80,14 @@ Phases (any failure exits nonzero; no result line is printed then):
               fp32 and bf16, beside its plain version,
               ``scaled_dot_product_attention`` with the same boolean mask
               and the GQA heads expanded (timed only, never on the path),
-              and the bound max(flops / peak, bytes / HBM rate).
+              and two bounds max(flops / peak, bytes / HBM rate): the
+              kernel's path (``tf32x3``: 3 × flops at the TF32 rate;
+              ``bf16-mma``: flops at the bf16 rate) and the fp32 CUDA
+              cores' (67 TFLOP/s), each with the kernel's share of it.
    ce times — the same for ``fused_ce`` at (8192, 576, 49152) and (4096,
               3072, 128256), fp32 and bf16, beside its plain version,
               ``F.cross_entropy(x @ table.T, labels, reduction="none")``
-              and the bound.
+              and both bounds.
 8. profile  — 20 more fleet rounds under torch.profiler (device ops,
               busy time and idle share per round, top kernels and host
               operators); then one prefill and 16 decode steps of LM run
@@ -86,7 +95,9 @@ Phases (any failure exits nonzero; no result line is printed then):
               the device's idle share in decode; then one train step:
               device time by kernel, device ops and idle share.
 
-Before the last line come the ``{"kernels": [...]}`` record and the
+Before the last line come the ``{"kernels": [...]}`` record (each kernel
+with its arithmetic path, ``tf32x3``, ``bf16-mma`` or ``fp32-fma``, and
+both bounds) and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  The full record is also
 written to ``chiprun_out/chip_smoke.json``.
@@ -105,7 +116,7 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# fp32 rate outside the tensor cores (the kernel's arithmetic is fp32 FMA)
+# fp32 rate outside the tensor cores (gain_reduce's arithmetic is fp32 FMA)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -115,8 +126,11 @@ ROUNDS = 200
 CHECK_ROUNDS = 10
 PROFILED_ROUNDS = 20
 
-# the tensor-core bf16 rate (data sheet), the peak for bf16 inputs
+# the dense tensor-core rates (data sheet): bf16, the peak for bf16
+# inputs, and TF32, which fp32 inputs reach through 3×TF32 (three TF32
+# products per fp32 product)
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494.7e12
 
 # swa_attention shapes (B, S, H, KV, hd, W): the two the LM runs serve
 # (smollm-135m's 9 query and 3 kv heads of 64), one hd = 128 shape, and
@@ -124,6 +138,9 @@ BF16_FLOP_PER_S = 989e12
 SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096))
 SWA_CHECK = SWA_SERVED + ((1, 2048, 24, 8, 128, 512),) + tuple(
     (2, s, 4, 2, 64, w) for s in (64, 200, 384) for w in (32, 128, 1 << 30))
+# the tensor-core tiles' edges: S not a multiple of the 64-row tiles with
+# hd = 128 (fp32 and bf16) and a window shorter than a tile
+SWA_EDGE = ((1, 1000, 8, 2, 128, 300), (1, 77, 6, 3, 64, 5))
 # kernel vs plain, |err| ≤ tol + tol·|plain| (the JAX tests' tolerances):
 # fp32 differs only in the order of the sums; bf16 by one output rounding
 SWA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -149,6 +166,10 @@ CE_T = (64, 1000, 8192)
 CE_D = (64, 576, 3072)
 CE_V = (7, 1000, 49152, 50257, 128256)
 CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256))
+# the tensor-core tiles' edges: T and V not multiples of the 128-row and
+# 128-entry tiles, and D not a multiple of the 32 (fp32) or 64 (bf16)
+# columns of a k-chunk (D = 100 in bf16 is also off the 16-byte copies)
+CE_EDGE = ((129, 100, 129), (1000, 100, 50257), (257, 200, 49153))
 # kernel vs plain, |err| ≤ tol + tol·|plain|: both sum the same exact
 # fp32 products (bf16 inputs widen exactly) in other orders
 CE_TOL = 1e-5
@@ -641,28 +662,52 @@ def _swa_inputs(torch, gen, shape, dtype, head_major: bool = False):
     return out
 
 
+def path_bounds(flops: int, nbytes: int, itemsize: int) -> dict:
+    """Least times (ms) for a kernel's work on its tensor-core path —
+    fp32 inputs in 3×TF32 (3 · flops at the dense TF32 rate), bf16 at the
+    bf16 rate — and, for fp32, on the fp32 CUDA cores (flops at 67
+    TFLOP/s, the design before the tensor cores), each the larger of the
+    operations' time and the bytes' time over HBM bandwidth.
+    ``bound_ms`` is the path's: the least time the arithmetic the kernel
+    runs could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if itemsize == 4:
+        t_tc = 3 * flops / TF32_FLOP_PER_S * 1e3
+        t_fma = flops / FP32_FLOP_PER_S * 1e3
+    else:
+        t_tc = flops / BF16_FLOP_PER_S * 1e3
+        t_fma = None
+    return {"bound_ms": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "bound_fp32_fma_ms": (None if t_fma is None
+                                  else max(t_fma, t_bytes))}
+
+
 def swa_bound(shape, itemsize: int):
-    """Least time (ms) for one call: 4·hd flops per (query, visible key)
-    pair at the fp32 CUDA-core peak (fp32 inputs) or the bf16 tensor-core
-    peak, against q, k, v read and o written once over HBM bandwidth."""
+    """The bounds of :func:`path_bounds` for one call: 4·hd flops per
+    (query, visible key) pair, q, k, v read and o written once."""
     b, s, h, kv, hd, w = shape
     w = min(w, s)
     pairs = w * (w + 1) // 2 + (s - w) * w  # Σ_q min(q + 1, W)
     flops = 4 * hd * h * b * pairs
     nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
-    peak = FP32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ((t_ops, "operations") if t_ops >= t_bytes
-            else (t_bytes, "bytes")), flops, nbytes
+    return path_bounds(flops, nbytes, itemsize), flops, nbytes
 
 
 def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
     """``swa_attention`` against its plain version on the card, at every
     SWA_CHECK shape in fp32 and bf16; a repeated launch bitwise equal."""
     gen = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in swa_ops.HEAD_DIMS:
+            plan = swa_ops.smem_bytes(dtype, hd)
+            if not plan == swa_ops.kernel_smem_bytes(dtype, hd) <= \
+                    swa_ops.MAX_SMEM:
+                raise AssertionError(f"swa_attention {dtype} hd={hd}: the "
+                                     f"wrapper's shared-memory plan {plan} "
+                                     f"differs from the kernel's")
     results = []
-    for shape in SWA_CHECK:
+    for shape in SWA_CHECK + SWA_EDGE:
         for dtype in (torch.float32, torch.bfloat16):
             dt = _dtype_name(dtype)
             q, k, v = _swa_inputs(torch, gen, shape, dtype)
@@ -701,6 +746,22 @@ def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
                              "differs from its contiguous copy")
     print(f"[swa] head-major inputs viewed as {shape[:5]}: equal to the "
           f"contiguous inputs' result")
+    # inputs one element off the 16-byte alignment take the kernel's plain
+    # loads instead of cp.async: the same staged tiles, the same result
+    shape = SWA_EDGE[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _swa_inputs(torch, gen, shape, dtype)
+        off = [_rows(lambda n: torch.empty(n, dtype=dtype, device="cuda"),
+                     1, x.numel(), 1).view(x.shape).copy_(x)
+               for x in (q, k, v)]
+        a = swa_ops.swa_attention(*off, window=shape[-1])
+        b = swa_ops.swa_attention(q, k, v, window=shape[-1])
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"swa_attention: unaligned {dtype} inputs "
+                                 "differ from aligned ones")
+    print(f"[swa] inputs one element off alignment at {shape[:5]}, fp32 "
+          f"and bf16: equal to the aligned inputs' result")
     results.append(_swa_grad_and_vmap(torch, swa_ops, swa_ref, gen))
     return results
 
@@ -930,12 +991,11 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
             }
             lib_err = (fns["library_"]().transpose(1, 2).float()
                        - fns["plain_"]().float()).abs().max().item()
-            (bound_ms, bound_by), flops, nbytes = swa_bound(
-                shape, q.element_size())
+            bounds, flops, nbytes = swa_bound(shape, q.element_size())
             cases.append(({"shape": list(shape[:5]), "window": w,
-                           "dtype": _dtype_name(dtype), "flops": flops,
-                           "bytes": nbytes, "bound_ms": bound_ms,
-                           "bound_by": bound_by,
+                           "dtype": _dtype_name(dtype),
+                           "path": swa_ops.PATHS[dtype], "flops": flops,
+                           "bytes": nbytes, **bounds,
                            "library_max_abs_err": lib_err}, fns))
     before = swa_ops.swa_attention.launches
     for row, fns in cases:
@@ -946,19 +1006,34 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
             row[f"{key}device_ms"] = device_ms(torch, fn)
     swa_ops.swa_attention.launches = before  # timing launches do not count
     for row, _ in cases:
-        row["roofline_share"] = row["bound_ms"] / row["device_ms"]
-        row["tflop_per_s"] = row["flops"] / row["device_ms"] / 1e9
+        _shares(row)
         print(f"[swa times] {tuple(row['shape'])} W={row['window']} "
-              f"{row['dtype']}: per call (events) kernel {row['ms']:.4f} / "
-              f"plain {row['plain_ms']:.4f} / sdpa {row['library_ms']:.4f}"
-              f" ms; on the device kernel {row['device_ms']:.4f} / plain "
+              f"{row['dtype']} ({row['path']}): per call (events) kernel "
+              f"{row['ms']:.4f} / plain {row['plain_ms']:.4f} / sdpa "
+              f"{row['library_ms']:.4f} ms; on the device kernel "
+              f"{row['device_ms']:.4f} / plain "
               f"{row['plain_device_ms']:.4f} / sdpa "
-              f"{row['library_device_ms']:.4f} ms; bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}): "
-              f"{row['roofline_share']:.1%} of it, "
-              f"{row['tflop_per_s']:.2f} TFLOP/s; sdpa vs plain "
-              f"{row['library_max_abs_err']:.2e}")
+              f"{row['library_device_ms']:.4f} ms; {_share_text(row)}; "
+              f"sdpa vs plain {row['library_max_abs_err']:.2e}")
     return [row for row, _ in cases]
+
+
+def _shares(row: dict) -> None:
+    """The roofline share against the path's bound (at most 1), the
+    share of the fp32 CUDA-core bound beside it, and the rate."""
+    row["roofline_share"] = row["bound_ms"] / row["device_ms"]
+    fma = row["bound_fp32_fma_ms"]
+    row["fp32_fma_share"] = None if fma is None else fma / row["device_ms"]
+    row["tflop_per_s"] = row["flops"] / row["device_ms"] / 1e9
+
+
+def _share_text(row: dict) -> str:
+    text = (f"bound {row['bound_ms']:.4f} ms ({row['path']}, "
+            f"{row['bound_by']}): {row['roofline_share']:.1%} of it")
+    if row["bound_fp32_fma_ms"] is not None:
+        text += (f"; fp32 CUDA-core bound {row['bound_fp32_fma_ms']:.4f} "
+                 f"ms: {row['fp32_fma_share']:.1%} of it")
+    return text + f"; {row['tflop_per_s']:.2f} TFLOP/s"
 
 
 # ----------------------------------------------------------------------
@@ -1000,7 +1075,25 @@ def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
     (T, D, V) of CE_T × CE_D × CE_V in fp32 and bf16; then a strided x,
     the Function's gradients and both vmap cases."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = ce_ops.smem_bytes(dtype)
+        if not plan == ce_ops.kernel_smem_bytes(dtype) <= ce_ops.MAX_SMEM:
+            raise AssertionError(f"fused_ce {dtype}: the wrapper's shared-"
+                                 f"memory plan {plan} differs from the "
+                                 f"kernel's")
     results = []
+    for t, d, v in CE_EDGE:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
+            dt = _dtype_name(dtype)
+            err = _ce_check(torch, ce_ops, ce_ref, x, table, labels,
+                            f"fused_ce ({t}, {d}, {v}) {dt}")
+            results.append({"shape": [t, d, v], "dtype": dt,
+                            "max_abs_err": err, "tol": CE_TOL,
+                            "bitwise_repeat": True})
+    print(f"[ce] tile edges {CE_EDGE}, fp32 and bf16: vs plain max "
+          f"{max(r['max_abs_err'] for r in results):.3e} within {CE_TOL} + "
+          f"{CE_TOL}·|plain|; repeats bitwise equal")
     for t in CE_T:
         for d in CE_D:
             for v in CE_V:
@@ -1287,17 +1380,12 @@ def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
 
 
 def ce_bound(t: int, d: int, v: int, itemsize: int):
-    """Least time (ms) for one call: 2·T·D·V flops at the fp32 CUDA-core
-    peak (fp32 inputs) or the bf16 tensor-core peak, against x and the
-    table read once, the int64 labels read and the fp32 NLL written once
-    over HBM bandwidth."""
+    """The bounds of :func:`path_bounds` for one call: 2·T·D·V flops, x
+    and the table read once, the int64 labels read and the fp32 NLL
+    written once."""
     flops = 2 * t * d * v
     nbytes = (t * d + v * d) * itemsize + t * 8 + t * 4
-    peak = FP32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ((t_ops, "operations") if t_ops >= t_bytes
-            else (t_bytes, "bytes")), flops, nbytes
+    return path_bounds(flops, nbytes, itemsize), flops, nbytes
 
 
 def phase_ce_times(torch, ce_ops, ce_ref) -> list:
@@ -1321,31 +1409,26 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
             }
             lib_err = (fns["library_"]().float()
                        - fns["plain_"]()).abs().max().item()
-            (bound_ms, bound_by), flops, nbytes = ce_bound(
-                t, d, v, x.element_size())
+            bounds, flops, nbytes = ce_bound(t, d, v, x.element_size())
             row = {"shape": [t, d, v], "dtype": _dtype_name(dtype),
-                   "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_max_abs_err": lib_err}
+                   "path": ce_ops.PATHS[dtype], "flops": flops,
+                   "bytes": nbytes, **bounds, "library_max_abs_err": lib_err}
             before = ce_ops.fused_ce.launches
             for key, fn in fns.items():
                 row[f"{key}ms"] = time_ms(fn)
             for key, fn in fns.items():
                 row[f"{key}device_ms"] = device_ms(torch, fn)
             ce_ops.fused_ce.launches = before  # timing launches do not count
-            row["roofline_share"] = row["bound_ms"] / row["device_ms"]
-            row["tflop_per_s"] = flops / row["device_ms"] / 1e9
+            _shares(row)
             rows.append(row)
-            print(f"[ce times] ({t}, {d}, {v}) {row['dtype']}: per call "
-                  f"(events) kernel {row['ms']:.3f} / plain "
-                  f"{row['plain_ms']:.3f} / F.cross_entropy "
-                  f"{row['library_ms']:.3f} ms; on the device kernel "
-                  f"{row['device_ms']:.3f} / plain "
+            print(f"[ce times] ({t}, {d}, {v}) {row['dtype']} "
+                  f"({row['path']}): per call (events) kernel "
+                  f"{row['ms']:.3f} / plain {row['plain_ms']:.3f} / "
+                  f"F.cross_entropy {row['library_ms']:.3f} ms; on the "
+                  f"device kernel {row['device_ms']:.3f} / plain "
                   f"{row['plain_device_ms']:.3f} / F.cross_entropy "
-                  f"{row['library_device_ms']:.3f} ms; bound "
-                  f"{bound_ms:.3f} ms ({bound_by}): "
-                  f"{row['roofline_share']:.1%} of it, "
-                  f"{row['tflop_per_s']:.2f} TFLOP/s; library vs plain "
-                  f"{lib_err:.2e}")
+                  f"{row['library_device_ms']:.3f} ms; {_share_text(row)}; "
+                  f"library vs plain {lib_err:.2e}")
             del x, table, labels, fns
             torch.cuda.empty_cache()
     return rows
@@ -1518,8 +1601,10 @@ def main() -> int:
         "max_abs_err": main_check["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
+        "path": "fp32-fma",
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
+        "bound_fp32_fma_ms": main_shape["bound_ms"],
         "library_ms": main_shape["library_ms"],
         "device_ms": main_shape["device_ms"],
         "plain_device_ms": main_shape["plain_device_ms"],
@@ -1542,8 +1627,10 @@ def main() -> int:
         "max_abs_err": swa_check["max_abs_err"],
         "ms": swa_time["ms"],
         "plain_ms": swa_time["plain_ms"],
+        "path": swa_time["path"],
         "bound_ms": swa_time["bound_ms"],
         "bound_by": swa_time["bound_by"],
+        "bound_fp32_fma_ms": swa_time["bound_fp32_fma_ms"],
         "library_ms": swa_time["library_ms"],
         "device_ms": swa_time["device_ms"],
         "plain_device_ms": swa_time["plain_device_ms"],
@@ -1570,8 +1657,10 @@ def main() -> int:
         "max_abs_err": ce_check["max_abs_err"],
         "ms": ce_time["ms"],
         "plain_ms": ce_time["plain_ms"],
+        "path": ce_time["path"],
         "bound_ms": ce_time["bound_ms"],
         "bound_by": ce_time["bound_by"],
+        "bound_fp32_fma_ms": ce_time["bound_fp32_fma_ms"],
         "library_ms": ce_time["library_ms"],
         "device_ms": ce_time["device_ms"],
         "plain_device_ms": ce_time["plain_device_ms"],

@@ -3,9 +3,11 @@
 Each kernel keeps one ``csrc/<name>.cu`` with a plain C interface.  It is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/`` beside the
 kernel's package, as ``lib<name>_<hash>.so`` named by a hash of the
-source (an edited source is rebuilt), and loaded with ``ctypes`` by the
-kernel's ``ops.py``.  ``nvcc``'s messages (``-Xptxas -v``: registers,
-shared memory, spills) are kept beside the library as ``<lib>.log``.
+source and of the headers the kernels share (``csrc/*.cuh`` beside this
+module, on the include path), so that an edited source or header is
+rebuilt, and loaded with ``ctypes`` by the kernel's ``ops.py``.
+``nvcc``'s messages (``-Xptxas -v``: registers, shared memory, spills)
+are kept beside the library as ``<lib>.log``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from pathlib import Path
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# headers shared by the kernels' sources
+INCLUDE = Path(__file__).resolve().parent / "csrc"
 
 
 def nvcc() -> str:
@@ -31,8 +35,13 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the shared library for the current ``source`` lives."""
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    """Where the shared library for the current ``source`` (and the
+    current shared headers) lives."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(INCLUDE.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
     return source.parent.parent / "build" / f"lib{source.stem}_{tag}.so"
 
 
@@ -44,7 +53,8 @@ def build(source: Path) -> Path:
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(tmp),
+           str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -50,13 +50,25 @@ _LABEL_CODES = {torch.int32: 0, torch.int64: 1}
 
 # the kernel's tiles (csrc/fused_ce.cu) and the sizes it is built for:
 # every model config of the repository (D ≤ 5120, V ≤ 151936) fits
-BLOCK_T = 64
-BLOCK_V = 64
+BLOCK_T = 128
+BLOCK_V = 128
 MAX_D = 16384
 MAX_V = 1 << 24
 MAX_GRID = 65535
-# blocks to aim for per SM when the vocab is split into ranges
-BLOCKS_PER_SM = 4
+# the cp.async ring: STAGES k-chunks of CHUNK_BYTES of D for the x tile's
+# and the table tile's rows; fp32 keeps a second (lo) plane per stage for
+# its 3×TF32 split
+STAGES = 3
+CHUNK_BYTES = 128
+_PLANES = {torch.float32: 2, torch.bfloat16: 1}
+# the largest dynamic shared memory a block can have on the H100
+MAX_SMEM = 232448
+# blocks to aim for per SM over the launch when the vocab is split into
+# ranges (one block fits an SM at a time: 8 waves keep the last one short)
+BLOCKS_PER_SM = 8
+# the arithmetic each dtype runs on: 3×TF32 tensor-core products for fp32
+# inputs, bf16 tensor-core products for bf16 (fp32 sums in both)
+PATHS = {torch.float32: "tf32x3", torch.bfloat16: "bf16-mma"}
 # tokens per recomputed logits chunk in the backward (the JAX package's
 # default chunk of cross_entropy_fused)
 BACKWARD_CHUNK = 512
@@ -84,7 +96,24 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.fused_ce_launch.restype = ctypes.c_int
+    lib.fused_ce_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_ce_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(dtype: torch.dtype) -> int:
+    """The partial kernel's dynamic shared memory for ``dtype`` (the same
+    for every D: D is staged in chunks), as ``csrc/fused_ce.cu`` sizes it
+    (``fused_ce_smem_bytes``)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_ce: no kernel for {dtype}")
+    # plus 1 KB to align the ring to the 1024-byte swizzle pattern
+    return STAGES * _PLANES[dtype] * (BLOCK_T + BLOCK_V) * CHUNK_BYTES + 1024
+
+
+def kernel_smem_bytes(dtype: torch.dtype) -> int:
+    """The same size as the built kernel reports it (needs the library)."""
+    return _library().fused_ce_smem_bytes(_DTYPE_CODES[dtype])
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +122,10 @@ def _sm_count(index: int) -> int:
 
 
 def vocab_split(groups: int, tokens: int, vocab: int, sms: int):
-    """``(nsplit, tiles_per_split)``: the vocab's 64-entry tiles cut into
-    ranges so that about ``BLOCKS_PER_SM`` blocks per SM are in flight
-    (the kernel's plan; a function of the shapes and the card only, so
-    repeated launches sum in the same order)."""
+    """``(nsplit, tiles_per_split)``: the vocab's ``BLOCK_V``-entry tiles
+    cut into ranges so that the launch holds about ``BLOCKS_PER_SM``
+    blocks per SM (the kernel's plan; a function of the shapes and the
+    card only, so repeated launches sum in the same order)."""
     tiles_v = -(-vocab // BLOCK_V)
     blocks = groups * -(-tokens // BLOCK_T)
     nsplit = max(1, min(tiles_v, -(-BLOCKS_PER_SM * sms // blocks)))
