@@ -3,18 +3,17 @@
 //
 //   - cp_async16 / cp_async_commit / cp_async_wait: 16-byte global→shared
 //     copies that bypass the registers, zero-filling a copy whose source
-//     lies outside the tensor (src_bytes = 0);
+//     lies outside the tensor (src_bytes = 0), and stage16, which stages a
+//     segment by them or, off the 16-byte alignment, by plain loads;
 //   - split_tf32 and mma_tf32, for fp32 products a·b on the TF32 tensor
 //     cores in three passes ("3×TF32"), a·b ≈ a_lo·b_hi + a_hi·b_lo +
 //     a_hi·b_hi, where hi = rna_tf32(a) and lo = rna_tf32(a − hi):
 //     hi carries the top 11 significant bits of a, lo the next 11, so only
 //     a_lo·b_lo (≈ 2^-22 relative) and the rounding of lo are dropped.  The
-//     kernels run the small terms first, each pass over all of a warp's
-//     tiles before the next;
+//     kernels run the small terms first;
 //   - mma_bf16: bf16 × bf16 with fp32 accumulation (each product is exact
 //     in fp32);
-//   - ldmatrix_x4 / ldmatrix_x4_trans: four 8×8 b16 tiles from shared
-//     memory, as they are or transposed;
+//   - ldmatrix_x4_trans: four transposed 8×8 b16 tiles from shared memory;
 //   - exp2_approx: 2^x on the special-function unit.
 //
 // The tensor cores round their fp32 sums toward zero, not to nearest, so
@@ -40,6 +39,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
+}
+
+// Stage one 16-byte segment whose first n_valid elements (0 … 16 /
+// sizeof(T)) are src's: by cp.async when `vec` (the segment is then whole
+// or empty, and an empty one reads nothing at `base`), else by plain loads
+// and one 16-byte store, zeros past n_valid.  Both give the same bytes.
+template <typename T>
+__device__ __forceinline__ void stage16(void* dst, const T* src,
+                                        const T* base, int n_valid,
+                                        bool vec) {
+  constexpr int kEpv = 16 / sizeof(T);
+  if (vec) {
+    cp_async16(dst, n_valid > 0 ? src : base, n_valid > 0 ? 16 : 0);
+  } else {
+    alignas(16) T v[kEpv];
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e) v[e] = e < n_valid ? src[e] : T(0.f);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -89,17 +107,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8×8 b16 tiles (8 rows of 16 bytes each): lane l gives the address of
-// row (l & 7) of tile (l >> 3); r[j] holds 32-bit word (l & 3) of row l >> 2
-// of tile j
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
 }
 
 // four 8×8 b16 tiles, transposed: lane l gives the address of row (l & 7)
@@ -196,43 +203,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d = A·B (+ d when accumulate), m64n128k8, TF32, A from registers: warp w
-// of the warpgroup holds rows 16w … 16w + 15 of A's 64 × 8 in the
-// m16n8k8 A fragment layout; the registers must stay unchanged until the
-// MMA completes
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
 }
 
 // d = A·B (+ d when accumulate), m64n128k16, bf16 operands, both K-major

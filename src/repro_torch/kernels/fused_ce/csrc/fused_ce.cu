@@ -18,27 +18,26 @@
 // vocab tiles of its range itself:
 //
 //   - 2 warpgroups (8 warps); warpgroup g computes rows 64g … 64g + 63 of
-//     the 128 × 128 logits tile with wgmma (m64n128, the table's operand
-//     read from shared memory, the accumulators in registers: 64 a thread).
+//     the 128 × 128 logits tile with wgmma (m64n128, both operands read
+//     from shared memory, the accumulators in registers: 64 a thread).
 //   - D is staged in k-chunks of 128 bytes per row (32 fp32 or 64 bf16
-//     columns) through a 4-stage cp.async ring in dynamic shared memory,
+//     columns) through a 3-stage cp.async ring in dynamic shared memory,
 //     written straight into the wgmma's 128-byte swizzle (x cannot stay
 //     resident: 128 × 576 fp32 is 295 KB, so the x tile is streamed again
 //     for each vocab tile, from L2).  The ring runs on across vocab tiles,
 //     and while one stage's MMAs run the next is waited for and prepared
-//     and a later one is requested.
+//     and the one after is requested.
 //   - fp32 inputs run in 3×TF32: a = hi + lo with hi = tf32(a) and
 //     lo = tf32(a − hi), and a·b ≈ lo·hi + hi·lo + hi·hi, the small terms
 //     first, on TF32 wgmmas: about fp32 accuracy at the TF32 tensor-core
-//     rate.  Each thread splits the table values it copied in place, the
-//     lo parts into a third tile of the stage; x's fragments are loaded by
-//     ldmatrix and split in registers, from which the wgmmas read them (so
-//     x is read from shared memory once, not three times).  bf16 inputs go
-//     straight to bf16 wgmmas with both operands in shared memory (exact
-//     products).  Each k-chunk accumulates into a fresh accumulator (the
-//     first wgmma does not read it) that is added to the tile's logits in
-//     round-to-nearest on the CUDA cores: the tensor cores round their sums
-//     toward zero, which would drift over D.
+//     rate.  Each thread splits the values it copied, x's and the table's,
+//     in place, the lo parts into a second plane of the stage.  bf16 inputs
+//     go straight to bf16 wgmmas (exact products).  Each k-chunk
+//     accumulates into a fresh accumulator (the first wgmma does not read
+//     it) that is added to the tile's logits in round-to-nearest on the
+//     CUDA cores: the tensor cores round their sums toward zero, which
+//     would drift over D.  (Feeding x to the TF32 wgmmas from registers,
+//     split there, and a fourth stage was no faster on the card.)
 //   - After a vocab tile's last chunk each lane updates its own running
 //     (m, l, gold) for its 2 rows over its 32 columns of the tile (no
 //     shuffles in the loop); at the end of the range the 4 lanes of a
@@ -74,7 +73,7 @@
 // (494.7 TFLOP/s); bf16's is 2·T·V·D at the bf16 rate (989 TFLOP/s).  What
 // holds it back from them: re-staging x for every vocab tile costs L2
 // bandwidth (bf16 moves 2 bytes per 16 flops of a chunk through L2), the
-// 3×TF32 wgmmas read the table's tiles three times from shared memory, and
+// 3×TF32 wgmmas read both operands three times from shared memory, and
 // one block of 2 warpgroups per SM waits on each chunk's MMAs before
 // adding them up.
 
@@ -104,24 +103,22 @@ namespace {
 constexpr int kBT = 128;       // token rows per block: 2 warpgroups × 64
 constexpr int kBV = 128;       // vocab entries per tile
 constexpr int kThreads = 256;  // 2 warpgroups of 4 warps
-constexpr int kStages = 4;     // cp.async ring depth
+constexpr int kStages = 3;     // cp.async ring depth
 constexpr int kRowBytes = 128;  // bytes of D per row per stage: one swizzle row
-constexpr int kTileBytes = kBT * kRowBytes;  // one operand's rows (kBT == kBV)
+constexpr int kPlaneBytes = (kBT + kBV) * kRowBytes;  // x rows, then table rows
 constexpr float kNeg = -1e30f;
 
 // A stage holds the x and table rows of one k-chunk, in the wgmma's 128-byte
-// swizzle: x, then the table (for fp32 its hi parts, split in place where
-// the copy landed), then for fp32 the table's lo parts.  The ring is
-// 1024-byte aligned inside the dynamic shared memory, which has 1 KB more
-// for that.
+// swizzle: fp32 in two planes, hi (where the copy lands, split in place)
+// and lo; bf16 in one.  The ring is 1024-byte aligned inside the dynamic
+// shared memory, which has 1 KB more for that.
 template <typename T>
 struct Stage {
-  static constexpr int kTiles = std::is_same<T, float>::value ? 3 : 2;
-  static constexpr int kBytes = kTiles * kTileBytes;
+  static constexpr int kPlanes = std::is_same<T, float>::value ? 2 : 1;
+  static constexpr int kBytes = kPlanes * kPlaneBytes;
   static constexpr int kSmemBytes = kStages * kBytes + 1024;
   static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
 };
-static_assert(kBT == kBV, "x and table tiles share one layout");
 
 struct Args {
   int T, V, D, nsplit, tiles_per_split;
@@ -149,33 +146,23 @@ __device__ __forceinline__ void stage_rows(char* dst, const T* base,
     const int r = seg >> 3, c = seg & 7;
     const int row = r_begin + r;
     const int d = d0 + c * kEpv;
-    char* out = dst + swizzled(r, c);
-    const T* src = base + (int64_t)row * row_stride + d;
-    if (vec) {
-      const bool in = row < n_rows && d < D;  // D % kEpv == 0 here
-      tc::cp_async16(out, in ? src : base, in ? 16 : 0);
-    } else {
-      alignas(16) T v[kEpv];
-#pragma unroll
-      for (int e = 0; e < kEpv; ++e)
-        v[e] = row < n_rows && d + e < D ? src[e] : T(0.f);
-      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(v);
-    }
+    const int n_valid = row < n_rows ? min(max(D - d, 0), kEpv) : 0;
+    tc::stage16(dst + swizzled(r, c), base + (int64_t)row * row_stride + d,
+                base, n_valid, vec);  // vec: D % kEpv == 0, whole or empty
   }
 }
 
-// Split the table's fp32 values this thread staged (its segments of
-// stage_rows) in place: hi = tf32(a) where a was, lo = tf32(a − hi) at the
-// same offset of the next tile.  A thread splits its own copies right after
-// waiting for them, so the block's one barrier per stage suffices.  (x is
-// split in registers, as its fragments are loaded.)
-__device__ __forceinline__ void split_own(char* w_hi, int tid) {
+// Split the fp32 values this thread staged (the segments of stage_rows, x's
+// and the table's) in place: hi = tf32(a) where a was, lo = tf32(a − hi) at
+// the same offset of the lo plane.  A thread splits its own copies right
+// after waiting for them, so the block's one barrier per stage suffices.
+__device__ __forceinline__ void split_own(char* hi, int tid) {
 #pragma unroll
-  for (int i = 0; i < kBV * 8 / kThreads; ++i) {
-    const int seg = tid + i * kThreads;
-    uint4* ph = reinterpret_cast<uint4*>(w_hi + swizzled(seg >> 3, seg & 7));
+  for (int i = 0; i < 2 * kBT * 8 / kThreads; ++i) {
+    const int seg = tid + i * kThreads;  // rows ≥ kBT: the table's
+    uint4* ph = reinterpret_cast<uint4*>(hi + swizzled(seg >> 3, seg & 7));
     uint4* pl = reinterpret_cast<uint4*>(reinterpret_cast<char*>(ph) +
-                                         kTileBytes);
+                                         kPlaneBytes);
     uint4 h = *ph, l;
     tc::split_tf32(__uint_as_float(h.x), h.x, l.x);
     tc::split_tf32(__uint_as_float(h.y), h.y, l.y);
@@ -186,47 +173,27 @@ __device__ __forceinline__ void split_own(char* w_hi, int tid) {
   }
 }
 
-// c = this chunk's 64 × 128 slab of the warpgroup: its 64 x rows at xs,
-// the table's 128 rows at ws (fp32: the hi parts; the lo parts one tile
-// beyond); four k-steps of 32 bytes.  The first MMA starts c from zero.
-//   fp32: 3×TF32, the small terms first (lo·hi, hi·lo, then hi·hi).  x's
-//   fragments come from shared memory by ldmatrix (8 × 16-byte rows = 8 × 4
-//   fp32; lane l receives word l % 4 of row l / 4, the A fragment's
-//   layout) and are split in registers, which the MMAs read; the table's
-//   hi and lo tiles are read by the MMAs from shared memory.
-//   bf16: both operands from shared memory, one product.
+// c = this chunk's 64 × 128 slab of the warpgroup: x rows at xs, the
+// table's 128 rows at ws (hi planes; fp32's lo planes lie kPlaneBytes
+// beyond); four k-steps of 32 bytes.  fp32: 3×TF32, the small terms first,
+// lo·hi and hi·lo before hi·hi; bf16: one product.  The first MMA starts
+// c from zero.
 template <typename T>
-__device__ __forceinline__ void chunk_mma(float (&c)[64], uint32_t (&a)[4][2][4],
-                                          const char* xs, const char* ws,
-                                          int warp, int lane) {
-  const uint64_t wd = tc::wgmma_desc(ws);
-  if constexpr (std::is_same<T, float>::value) {
-    // matrices (rows 0-7, k 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of
-    // the warp's 16 rows
-    const int row = (warp & 3) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+__device__ __forceinline__ void chunk_mma(float (&c)[64], const char* xs,
+                                          const char* ws) {
+  const uint64_t xd = tc::wgmma_desc(xs), wd = tc::wgmma_desc(ws);
+  constexpr uint64_t kLo = kPlaneBytes >> 4;  // descriptor units
+  tc::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t r[4];
-      tc::ldmatrix_x4(r, xs + swizzled(row, 2 * ks + (lane >> 4)));
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        tc::split_tf32(__uint_as_float(r[j]), a[ks][0][j], a[ks][1][j]);
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t k = 2 * ks;  // 32 bytes
+    if constexpr (std::is_same<T, float>::value) {
+      tc::wgmma_tf32(c, xd + kLo + k, wd + k, ks > 0);
+      tc::wgmma_tf32(c, xd + k, wd + kLo + k, 1);
+      tc::wgmma_tf32(c, xd + k, wd + k, 1);
+    } else {
+      tc::wgmma_bf16(c, xd + k, wd + k, ks > 0);
     }
-    constexpr uint64_t kLo = kTileBytes >> 4;  // descriptor units
-    tc::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t k = 2 * ks;  // 32 bytes
-      tc::wgmma_tf32_rs(c, a[ks][1], wd + k, ks > 0);
-      tc::wgmma_tf32_rs(c, a[ks][0], wd + kLo + k, 1);
-      tc::wgmma_tf32_rs(c, a[ks][0], wd + k, 1);
-    }
-  } else {
-    const uint64_t xd = tc::wgmma_desc(xs);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      tc::wgmma_bf16(c, xd + 2 * ks, wd + 2 * ks, ks > 0);
   }
   tc::wgmma_commit();
 }
@@ -277,7 +244,8 @@ fused_ce_partial(const T* __restrict__ x, const T* __restrict__ w,
     const int v0 = (tv_first + it / n_kc) * kBV;
     const int d0 = (it % n_kc) * kBK;
     stage_rows<T>(st, xp, a.xt, t0, a.T, d0, a.D, a.x_vec, tid);
-    stage_rows<T>(st + kTileBytes, wp, a.wv, v0, a.V, d0, a.D, a.w_vec, tid);
+    stage_rows<T>(st + kBT * kRowBytes, wp, a.wv, v0, a.V, d0, a.D, a.w_vec,
+                  tid);
   };
 
   float acc[64];
@@ -287,31 +255,29 @@ fused_ce_partial(const T* __restrict__ x, const T* __restrict__ w,
   // stage `it` is split (fp32) and visible to the wgmma when iteration
   // `it` starts; while its MMAs run, the next stage is waited for and
   // split, and the one after is requested
+  static_assert(kStages == 3, "the loop keeps two stages in flight");
   auto prepare = [&](int it) {  // this thread's part of stage `it`
     if constexpr (std::is_same<T, float>::value)
-      split_own(smem + (it % kStages) * kStageBytes + kTileBytes, tid);
+      split_own(smem + (it % kStages) * kStageBytes, tid);
     tc::fence_proxy_async();  // the copies and splits, for the wgmma
   };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_it) load(s);
-    tc::cp_async_commit();
-  }
-  tc::cp_async_wait<kStages - 2>();
+  if (n_it > 0) load(0);
+  tc::cp_async_commit();
+  if (n_it > 1) load(1);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();
   prepare(0);
   __syncthreads();
   for (int it = 0; it < n_it; ++it) {
     const char* st = smem + (it % kStages) * kStageBytes;
     float c[64];
-    uint32_t xa[4][2][4];  // x's hi/lo fragments, read by the fp32 MMAs
     tc::fence_regs(c);
-    chunk_mma<T>(c, xa, st + wg * 64 * kRowBytes, st + kTileBytes, warp,
-                 lane);
-    // stage it + kStages − 1 reuses the buffer of it − 1, whose MMAs all
-    // finished before the last barrier
-    if (it + kStages - 1 < n_it) load(it + kStages - 1);
+    chunk_mma<T>(c, st + wg * 64 * kRowBytes, st + kBT * kRowBytes);
+    // stage it + 2 reuses the buffer of it − 1, whose MMAs all finished
+    // before the last barrier
+    if (it + 2 < n_it) load(it + 2);
     tc::cp_async_commit();
-    tc::cp_async_wait<kStages - 2>();  // this thread's copies of it + 1
+    tc::cp_async_wait<1>();  // this thread's copies of stage it + 1
     if (it + 1 < n_it) prepare(it + 1);
     tc::wgmma_wait_all();
     tc::fence_regs(c);

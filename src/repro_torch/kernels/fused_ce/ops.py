@@ -56,11 +56,11 @@ MAX_D = 16384
 MAX_V = 1 << 24
 MAX_GRID = 65535
 # the cp.async ring: STAGES k-chunks of CHUNK_BYTES of D for the x tile's
-# and the table tile's rows; fp32 keeps a third tile per stage, the lo
-# parts of the table's 3×TF32 split
-STAGES = 4
+# and the table tile's rows; fp32 keeps a second (lo) plane per stage for
+# its 3×TF32 split
+STAGES = 3
 CHUNK_BYTES = 128
-_TILES = {torch.float32: 3, torch.bfloat16: 2}
+_PLANES = {torch.float32: 2, torch.bfloat16: 1}
 # the largest dynamic shared memory a block can have on the H100
 MAX_SMEM = 232448
 # blocks to aim for per SM over the launch when the vocab is split into
@@ -108,7 +108,7 @@ def smem_bytes(dtype: torch.dtype) -> int:
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_ce: no kernel for {dtype}")
     # plus 1 KB to align the ring to the 1024-byte swizzle pattern
-    return STAGES * _TILES[dtype] * BLOCK_T * CHUNK_BYTES + 1024
+    return STAGES * _PLANES[dtype] * (BLOCK_T + BLOCK_V) * CHUNK_BYTES + 1024
 
 
 def kernel_smem_bytes(dtype: torch.dtype) -> int:

@@ -137,16 +137,9 @@ __device__ __forceinline__ void stage_tile(uint32_t* dst, const T* base,
     const int seg = tid + i * kThreads;
     const int r = seg / kSegs, c = seg % kSegs;
     const int row = r0 + r;
-    uint32_t* out = dst + r * kLd + c * 4;
-    const T* src = base + (int64_t)row * stride + c * kEpv;
-    if (vec) {
-      tc::cp_async16(out, row < S ? src : base, row < S ? 16 : 0);
-    } else {
-      alignas(16) T v[kEpv];
-#pragma unroll
-      for (int e = 0; e < kEpv; ++e) v[e] = row < S ? src[e] : T(0.f);
-      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(v);
-    }
+    tc::stage16(dst + r * kLd + c * 4,
+                base + (int64_t)row * stride + c * kEpv, base,
+                row < S ? kEpv : 0, vec);
   }
 }
 

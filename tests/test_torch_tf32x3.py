@@ -225,14 +225,14 @@ def test_vocab_split_plan_within_grid_limits(groups, tokens, vocab):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_shared_memory_within_a_block(dtype, d):
     """D is staged in chunks, so the size depends on the dtype only (fp32
-    keeps a third tile per stage, the table's lo parts)."""
+    keeps a second plane per stage for the lo parts)."""
     x = torch.zeros((2, d), dtype=dtype)
     ce_ops._check(x, torch.zeros((3, d), dtype=dtype),
                   torch.zeros(2, dtype=torch.int64))
     size = ce_ops.smem_bytes(dtype)
     assert 48 * 1024 < size <= ce_ops.MAX_SMEM == 232448
-    tiles = 3 if dtype == torch.float32 else 2
-    assert size == (ce_ops.STAGES * tiles * ce_ops.BLOCK_T
+    planes = 2 if dtype == torch.float32 else 1
+    assert size == (ce_ops.STAGES * planes * (ce_ops.BLOCK_T + ce_ops.BLOCK_V)
                     * ce_ops.CHUNK_BYTES + 1024)
 
 
