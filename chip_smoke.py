@@ -33,7 +33,6 @@ Phases (any failure exits nonzero; no result line is printed then):
               in the model layout gives the contiguous tensor's result,
               and inputs one element off the 16-byte alignment (plain loads
               instead of cp.async) the aligned inputs' result.  The
-              wrappers' shared-memory plans equal the kernels' own.  The
               Function's gradients at the served shape match autograd
               through the plain version, and ``torch.func.vmap`` over 3
               slices is ONE launch, bitwise equal to a loop of three.
@@ -82,12 +81,14 @@ Phases (any failure exits nonzero; no result line is printed then):
               and the GQA heads expanded (timed only, never on the path),
               and two bounds max(flops / peak, bytes / HBM rate): the
               kernel's path (``tf32x3``: 3 × flops at the TF32 rate;
-              ``bf16-mma``: flops at the bf16 rate) and the fp32 CUDA
-              cores' (67 TFLOP/s), each with the kernel's share of it.
+              ``bf16-mma``: Q·Kᵀ once and P·V twice, P in two bf16
+              parts, at the bf16 rate) and the fp32 CUDA cores' (67
+              TFLOP/s), each with the kernel's share of it.  Only the
+              path's bound goes into the ``kernels`` record.
    ce times — the same for ``fused_ce`` at (8192, 576, 49152) and (4096,
               3072, 128256), fp32 and bf16, beside its plain version,
               ``F.cross_entropy(x @ table.T, labels, reduction="none")``
-              and both bounds.
+              and both bounds (``bf16-mma``: flops at the bf16 rate).
 8. profile  — 20 more fleet rounds under torch.profiler (device ops,
               busy time and idle share per round, top kernels and host
               operators); then one prefill and 16 decode steps of LM run
@@ -97,8 +98,7 @@ Phases (any failure exits nonzero; no result line is printed then):
 
 Before the last line come the ``{"kernels": [...]}`` record (each kernel
 with its arithmetic path, ``tf32x3``, ``bf16-mma`` or ``fp32-fma``, and
-both bounds) and the
-card's ``nvidia-smi`` name and power limit; the last line is
+the path's bound) and the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  The full record is also
 written to ``chiprun_out/chip_smoke.json``.
 """
@@ -143,7 +143,7 @@ SWA_CHECK = SWA_SERVED + ((1, 2048, 24, 8, 128, 512),) + tuple(
 SWA_EDGE = ((1, 1000, 8, 2, 128, 300), (1, 77, 6, 3, 64, 5))
 # kernel vs plain, |err| ≤ tol + tol·|plain| (the JAX tests' tolerances):
 # fp32 by 3×TF32 products (~2^-21 relative) and the order of the sums;
-# bf16 by one output rounding and P rounded to bf16 for P·V
+# bf16 by one output rounding (P·V with P in two bf16 parts, ~2^-17)
 SWA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # Function gradients vs autograd of the plain version, per tensor, of its
 # largest entry: the same fp32 backward math on forward outputs that
@@ -663,21 +663,20 @@ def _swa_inputs(torch, gen, shape, dtype, head_major: bool = False):
     return out
 
 
-def path_bounds(flops: int, nbytes: int, itemsize: int) -> dict:
-    """Least times (ms) for a kernel's work on its tensor-core path —
-    fp32 inputs in 3×TF32 (3 · flops at the dense TF32 rate), bf16 at the
-    bf16 rate — and, for fp32, on the fp32 CUDA cores (flops at 67
-    TFLOP/s, the design before the tensor cores), each the larger of the
+def path_bounds(flops: int, tc_flops: int, nbytes: int,
+                itemsize: int) -> dict:
+    """Least times (ms) for a kernel's work: on its tensor-core path, the
+    ``tc_flops`` it runs there (fp32 inputs in 3×TF32, three products
+    per product, at the dense TF32 rate; bf16 at the bf16 rate) and, for
+    fp32, the function's ``flops`` on the fp32 CUDA cores (67 TFLOP/s,
+    the design before the tensor cores), each the larger of the
     operations' time and the bytes' time over HBM bandwidth.
     ``bound_ms`` is the path's: the least time the arithmetic the kernel
     runs could take."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if itemsize == 4:
-        t_tc = 3 * flops / TF32_FLOP_PER_S * 1e3
-        t_fma = flops / FP32_FLOP_PER_S * 1e3
-    else:
-        t_tc = flops / BF16_FLOP_PER_S * 1e3
-        t_fma = None
+    rate = TF32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    t_tc = tc_flops / rate * 1e3
+    t_fma = flops / FP32_FLOP_PER_S * 1e3 if itemsize == 4 else None
     return {"bound_ms": max(t_tc, t_bytes),
             "bound_by": "operations" if t_tc >= t_bytes else "bytes",
             "bound_fp32_fma_ms": (None if t_fma is None
@@ -686,27 +685,22 @@ def path_bounds(flops: int, nbytes: int, itemsize: int) -> dict:
 
 def swa_bound(shape, itemsize: int):
     """The bounds of :func:`path_bounds` for one call: 4·hd flops per
-    (query, visible key) pair, q, k, v read and o written once."""
+    (query, visible key) pair, q, k, v read and o written once; the
+    tensor cores run them three times in fp32 (3×TF32) and Q·Kᵀ once and
+    P·V twice (P in two bf16 parts) in bf16."""
     b, s, h, kv, hd, w = shape
     w = min(w, s)
     pairs = w * (w + 1) // 2 + (s - w) * w  # Σ_q min(q + 1, W)
     flops = 4 * hd * h * b * pairs
+    tc_flops = 3 * flops if itemsize == 4 else 3 * flops // 2
     nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
-    return path_bounds(flops, nbytes, itemsize), flops, nbytes
+    return path_bounds(flops, tc_flops, nbytes, itemsize), flops, nbytes
 
 
 def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
     """``swa_attention`` against its plain version on the card, at every
     SWA_CHECK shape in fp32 and bf16; a repeated launch bitwise equal."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for dtype in (torch.float32, torch.bfloat16):
-        for hd in swa_ops.HEAD_DIMS:
-            plan = swa_ops.smem_bytes(dtype, hd)
-            if not plan == swa_ops.kernel_smem_bytes(dtype, hd) <= \
-                    swa_ops.MAX_SMEM:
-                raise AssertionError(f"swa_attention {dtype} hd={hd}: the "
-                                     f"wrapper's shared-memory plan {plan} "
-                                     f"differs from the kernel's")
     results = []
     for shape in SWA_CHECK + SWA_EDGE:
         for dtype in (torch.float32, torch.bfloat16):
@@ -729,12 +723,17 @@ def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
                 raise AssertionError(f"{name}: kernel disagrees with its "
                                      f"plain version (max err "
                                      f"{err.max().item():.3e})")
+            # the share of outputs not equal to the plain version's: in
+            # bf16, where the two round fp32 results that differ to
+            # different bf16 values
+            differs = (got != want).float().mean().item()
             results.append({"shape": list(shape[:5]), "window": w,
                             "dtype": dt, "max_abs_err": err.max().item(),
-                            "tol": tol, "bitwise_repeat": True})
+                            "tol": tol, "differs_share": differs,
+                            "bitwise_repeat": True})
             print(f"[swa] B,S,H,KV,hd={shape[:5]} W={w} {dt}: vs plain "
-                  f"{err.max().item():.3e} within {tol} + {tol}·|plain|; "
-                  f"repeat bitwise equal")
+                  f"{err.max().item():.3e} within {tol} + {tol}·|plain|, "
+                  f"{differs:.2e} of outputs differ; repeat bitwise equal")
             del q, k, v, got, again, want, err
     shape = SWA_SERVED[0]
     q, k, v = _swa_inputs(torch, gen, shape, torch.float32, head_major=True)
@@ -1076,12 +1075,6 @@ def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
     (T, D, V) of CE_T × CE_D × CE_V in fp32 and bf16; then a strided x,
     the Function's gradients and both vmap cases."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for dtype in (torch.float32, torch.bfloat16):
-        plan = ce_ops.smem_bytes(dtype)
-        if not plan == ce_ops.kernel_smem_bytes(dtype) <= ce_ops.MAX_SMEM:
-            raise AssertionError(f"fused_ce {dtype}: the wrapper's shared-"
-                                 f"memory plan {plan} differs from the "
-                                 f"kernel's")
     results = []
     for t, d, v in CE_EDGE:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1385,8 +1378,9 @@ def ce_bound(t: int, d: int, v: int, itemsize: int):
     and the table read once, the int64 labels read and the fp32 NLL
     written once."""
     flops = 2 * t * d * v
+    tc_flops = 3 * flops if itemsize == 4 else flops  # 3×TF32 in fp32
     nbytes = (t * d + v * d) * itemsize + t * 8 + t * 4
-    return path_bounds(flops, nbytes, itemsize), flops, nbytes
+    return path_bounds(flops, tc_flops, nbytes, itemsize), flops, nbytes
 
 
 def phase_ce_times(torch, ce_ops, ce_ref) -> list:
@@ -1605,7 +1599,6 @@ def main() -> int:
         "path": "fp32-fma",
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
-        "bound_fp32_fma_ms": main_shape["bound_ms"],
         "library_ms": main_shape["library_ms"],
         "device_ms": main_shape["device_ms"],
         "plain_device_ms": main_shape["plain_device_ms"],
@@ -1631,7 +1624,6 @@ def main() -> int:
         "path": swa_time["path"],
         "bound_ms": swa_time["bound_ms"],
         "bound_by": swa_time["bound_by"],
-        "bound_fp32_fma_ms": swa_time["bound_fp32_fma_ms"],
         "library_ms": swa_time["library_ms"],
         "device_ms": swa_time["device_ms"],
         "plain_device_ms": swa_time["plain_device_ms"],
@@ -1661,7 +1653,6 @@ def main() -> int:
         "path": ce_time["path"],
         "bound_ms": ce_time["bound_ms"],
         "bound_by": ce_time["bound_by"],
-        "bound_fp32_fma_ms": ce_time["bound_fp32_fma_ms"],
         "library_ms": ce_time["library_ms"],
         "device_ms": ce_time["device_ms"],
         "plain_device_ms": ce_time["plain_device_ms"],

@@ -12,7 +12,7 @@
 //     a_lo·b_lo (≈ 2^-22 relative) and the rounding of lo are dropped.  The
 //     kernels run the small terms first;
 //   - mma_bf16: bf16 × bf16 with fp32 accumulation (each product is exact
-//     in fp32);
+//     in fp32), and split_bf16x2, an fp32 operand as two bf16 parts;
 //   - ldmatrix_x4_trans: four transposed 8×8 b16 tiles from shared memory;
 //   - exp2_approx: 2^x on the special-function unit.
 //
@@ -128,9 +128,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// (x0, x1) as two bf16 pairs, hi = bf16(x) and lo = bf16(x − hi) (x − hi is
+// exact in fp32), x0 in the low halves: the A operand of a bf16 MMA that
+// keeps about 17 significant bits of x
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // ---- warpgroup MMA (wgmma): a warpgroup of 4 warps computes a 64 × 128

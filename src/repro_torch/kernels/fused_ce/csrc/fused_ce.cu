@@ -86,8 +86,6 @@
 //       labels.  part: G·nsplit·T·3 floats of scratch; nll, lse: (G, T)
 //       fp32, contiguous.  dtype: 0 = float32, 1 = bfloat16;
 //       label_dtype: 0 = int32, 1 = int64.
-//   int fused_ce_smem_bytes(dtype)
-//       the partial kernel's dynamic shared memory in bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -399,12 +397,6 @@ cudaError_t launch(const void* x, const void* w, const void* labels,
 }
 
 }  // namespace
-
-extern "C" int fused_ce_smem_bytes(int dtype) {
-  if (dtype == 0) return Stage<float>::kSmemBytes;
-  if (dtype == 1) return Stage<__nv_bfloat16>::kSmemBytes;
-  return -1;
-}
 
 extern "C" int fused_ce_launch(const void* x, const void* table,
                                const void* labels, void* part, void* nll,

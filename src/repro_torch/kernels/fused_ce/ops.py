@@ -55,14 +55,6 @@ BLOCK_V = 128
 MAX_D = 16384
 MAX_V = 1 << 24
 MAX_GRID = 65535
-# the cp.async ring: STAGES k-chunks of CHUNK_BYTES of D for the x tile's
-# and the table tile's rows; fp32 keeps a second (lo) plane per stage for
-# its 3×TF32 split
-STAGES = 3
-CHUNK_BYTES = 128
-_PLANES = {torch.float32: 2, torch.bfloat16: 1}
-# the largest dynamic shared memory a block can have on the H100
-MAX_SMEM = 232448
 # blocks to aim for per SM over the launch when the vocab is split into
 # ranges (one block fits an SM at a time: 8 waves keep the last one short)
 BLOCKS_PER_SM = 8
@@ -96,24 +88,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.fused_ce_launch.restype = ctypes.c_int
-    lib.fused_ce_smem_bytes.argtypes = [ctypes.c_int]
-    lib.fused_ce_smem_bytes.restype = ctypes.c_int
     return lib
-
-
-def smem_bytes(dtype: torch.dtype) -> int:
-    """The partial kernel's dynamic shared memory for ``dtype`` (the same
-    for every D: D is staged in chunks), as ``csrc/fused_ce.cu`` sizes it
-    (``fused_ce_smem_bytes``)."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_ce: no kernel for {dtype}")
-    # plus 1 KB to align the ring to the 1024-byte swizzle pattern
-    return STAGES * _PLANES[dtype] * (BLOCK_T + BLOCK_V) * CHUNK_BYTES + 1024
-
-
-def kernel_smem_bytes(dtype: torch.dtype) -> int:
-    """The same size as the built kernel reports it (needs the library)."""
-    return _library().fused_ce_smem_bytes(_DTYPE_CODES[dtype])
 
 
 @functools.lru_cache(maxsize=None)

@@ -37,7 +37,10 @@
 //     once at the end.
 //   - O += P·V with P kept in registers as the A operand.  bf16: the S
 //     accumulators of two neighbouring n8 tiles are exactly the m16n8k16 A
-//     fragment (P packed to bf16), and V comes in with ldmatrix.trans.  fp32:
+//     fragment, and V comes in with ldmatrix.trans; P is split into two
+//     bf16 parts, hi = bf16(p) and lo = bf16(p − hi), and P·V runs as
+//     lo·V + hi·V (exact products), so P keeps about 17 bits as the TPU
+//     kernel's fp32 P·V does, where one bf16 P would keep 8.  fp32:
 //     a lane holds the scores of keys 2c, 2c + 1 where the m16n8k8 A
 //     fragment wants keys c, c + 4; rather than shuffle, the 8 keys of each
 //     k-step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7) for P and V
@@ -65,11 +68,12 @@
 // Bound: operations.  4·hd flops per (query, visible key) pair against
 // (q, k, v, o) read or written once — hundreds of flops per byte at
 // hd = 64.  fp32 runs three TF32 products per product, so its floor is
-// 3 · 4·hd flops per pair at the dense TF32 rate (494.7 TFLOP/s); bf16's is
-// 4·hd at the bf16 rate (989 TFLOP/s).  Fragments come from shared memory
-// by 32-bit loads and are split on the CUDA cores, which with the softmax
-// keeps mma.sync well short of either (the instructions per MMA, not the
-// bytes, bound it); wgmma with TMA-fed tiles is the later step.
+// 3 · 4·hd flops per pair at the dense TF32 rate (494.7 TFLOP/s); bf16
+// runs Q·Kᵀ once and P·V twice, 6·hd at the bf16 rate (989 TFLOP/s).
+// Fragments come from shared memory by 32-bit loads and are split on the
+// CUDA cores, which with the softmax keeps mma.sync well short of either
+// (the instructions per MMA, not the bytes, bound it); wgmma with TMA-fed
+// tiles is the later step.
 //
 // C interface (loaded with ctypes by ops.py):
 //   int swa_attention_launch(q, k, v, o, B, S, H, KV, hd, window,
@@ -77,8 +81,6 @@
 //       enqueues the forward on `stream`; returns cudaGetLastError().
 //       strides: 12 int64 element strides, (batch, seq, head) for each of
 //       q, k, v, o.  hd ∈ {64, 128}; dtype: 0 = float32, 1 = bfloat16.
-//   int swa_attention_smem_bytes(dtype, hd)
-//       the kernel's dynamic shared memory in bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,18 +257,23 @@ __device__ __forceinline__ void add_pv(float (&o)[HD / 8][4],
     const int col_words = (lane >> 4) * 4;
 #pragma unroll
     for (int jj = 0; jj < kNT / 2; ++jj) {
-      const uint32_t a[4] = {tc::pack_bf16(p[2 * jj][0], p[2 * jj][1]),
-                             tc::pack_bf16(p[2 * jj][2], p[2 * jj][3]),
-                             tc::pack_bf16(p[2 * jj + 1][0], p[2 * jj + 1][1]),
-                             tc::pack_bf16(p[2 * jj + 1][2], p[2 * jj + 1][3])};
+      // P in two bf16 parts, so that P·V keeps fp32 P as the TPU kernel
+      // does (hi + lo carries p to about 2^-17)
+      uint32_t a_hi[4], a_lo[4];
+      tc::split_bf16x2(p[2 * jj][0], p[2 * jj][1], a_hi[0], a_lo[0]);
+      tc::split_bf16x2(p[2 * jj][2], p[2 * jj][3], a_hi[1], a_lo[1]);
+      tc::split_bf16x2(p[2 * jj + 1][0], p[2 * jj + 1][1], a_hi[2], a_lo[2]);
+      tc::split_bf16x2(p[2 * jj + 1][2], p[2 * jj + 1][3], a_hi[3], a_lo[3]);
 #pragma unroll
       for (int np = 0; np < kN / 2; ++np) {
         uint32_t r[4];
         tc::ldmatrix_x4_trans(r,
                               Vb + (jj * 16 + key) * kLd + np * 8 + col_words);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        tc::mma_bf16(c[2 * np], a, b0);
-        tc::mma_bf16(c[2 * np + 1], a, b1);
+        tc::mma_bf16(c[2 * np], a_lo, b0);  // the small terms first
+        tc::mma_bf16(c[2 * np + 1], a_lo, b1);
+        tc::mma_bf16(c[2 * np], a_hi, b0);
+        tc::mma_bf16(c[2 * np + 1], a_hi, b1);
       }
     }
   }
@@ -438,14 +445,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace
-
-extern "C" int swa_attention_smem_bytes(int dtype, int hd) {
-  if (dtype == 0 && hd == 64) return smem_bytes<float, 64>();
-  if (dtype == 0 && hd == 128) return smem_bytes<float, 128>();
-  if (dtype == 1 && hd == 64) return smem_bytes<__nv_bfloat16, 64>();
-  if (dtype == 1 && hd == 128) return smem_bytes<__nv_bfloat16, 128>();
-  return -1;
-}
 
 extern "C" int swa_attention_launch(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,

@@ -43,15 +43,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-# the kernel's tiles (csrc/swa_attention.cu): 64 query rows per block, and
-# the Q tile and two buffers each of 32-key K and V tiles in shared
-# memory, rows padded by 16 bytes
+# query rows per block of the kernel (csrc/swa_attention.cu)
 BLOCK_Q = 64
-BLOCK_K = 32
-# the largest dynamic shared memory a block can have on the H100
-MAX_SMEM = 232448
 # the arithmetic each dtype runs on: 3×TF32 tensor-core products for fp32
-# inputs, bf16 tensor-core products for bf16 (fp32 softmax and sums)
+# inputs, bf16 tensor-core products for bf16 (P in two bf16 parts for
+# P·V; fp32 softmax and sums)
 PATHS = {torch.float32: "tf32x3", torch.bfloat16: "bf16-mma"}
 
 
@@ -76,24 +72,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.swa_attention_launch.restype = ctypes.c_int
-    lib.swa_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.swa_attention_smem_bytes.restype = ctypes.c_int
     return lib
-
-
-def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
-    """The kernel's dynamic shared memory for ``dtype`` and ``head_dim``,
-    as ``csrc/swa_attention.cu`` sizes it (``swa_attention_smem_bytes``)."""
-    if dtype not in _DTYPE_CODES or head_dim not in HEAD_DIMS:
-        raise ValueError(f"swa_attention: no kernel for {dtype}, "
-                         f"hd={head_dim}")
-    row = head_dim * torch.empty((), dtype=dtype).element_size() + 16
-    return (BLOCK_Q + 4 * BLOCK_K) * row
-
-
-def kernel_smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
-    """The same size as the built kernel reports it (needs the library)."""
-    return _library().swa_attention_smem_bytes(_DTYPE_CODES[dtype], head_dim)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
