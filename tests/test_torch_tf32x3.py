@@ -6,7 +6,7 @@ hi = tf32(a) and lo = tf32(a − hi), tf32 rounding to nearest (ties away)
 at 10 mantissa bits, and a·b ≈ lo·hi + hi·lo + hi·hi.  bf16 inputs go to
 bf16 MMAs; ``swa_attention`` splits its fp32 P into two bf16 parts for
 P·V.  The CUDA kernels run only on the card, so here a model of their
-arithmetic, in the order the kernels issue it, is held to the exact
+arithmetic, in the order the kernels run it, is held to the exact
 (fp64) result:
 
 * an MMA's products are exact; the tensor cores add them to the
@@ -120,7 +120,7 @@ def tc_add(c: np.ndarray, prods: np.ndarray, block: int) -> np.ndarray:
 def mma_chunk(passes, k0: int, k1: int, step: int, block: int):
     """One k-chunk [k0, k1) into a fresh accumulator: k-steps of ``step``
     columns, each running the ``passes`` ((A, B) pairs, A (M, K), B (N,
-    K), in issue order)."""
+    K), in the order they run)."""
     a0, b0 = passes[0]
     c = np.zeros((a0.shape[0], b0.shape[0]))
     for ks in range(k0, k1, step):
