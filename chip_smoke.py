@@ -25,6 +25,22 @@ Phases (any failure exits nonzero; no result line is printed then):
               to 0 just before and read just after: exactly one kernel
               launch per round, finite losses, a falling loss, and the
               first 10 rounds equal to the same session on the CPU.
+   fleet adaptive — the served fleet's default, ``TIERED_M64_ADAPTIVE``
+              (budget_window / budget_dual controllers on the metered
+              tiers), on the same problem and batches for 200 rounds:
+              rounds/s beside [slice]'s, each metered tier's bytes per
+              agent and round over the last 50 rounds against its wire
+              budget, a falling loss, and the first 10 rounds equal to
+              the CPU session's (decisions exactly; metrics and
+              controller rows within rtol 1e-4).
+   sim      — the paper's closed-form simulator: the five figure
+              drivers (``repro_torch.figures``) at full trials, each
+              asserting its claims, the README Quickstart's λ loop, and
+              one sweep at the fleet's size (TIERED_M64_CFG, 10 λs of
+              gain_estimated and 10 of gain_exact, 512 trials): ms per
+              sweep, and its first 8 trials against the CPU on the same
+              batches (decisions exactly but at a gain within 1e-4 of its
+              threshold, J_traj within rtol 1e-4).
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes, one
               hd = 128 shape, the JAX tests' S × W grid and the tensor-core
@@ -69,12 +85,22 @@ Phases (any failure exits nonzero; no result line is printed then):
               batch lower after the 13 steps.  Then one step at 2 layers
               and full width on the card and on the CPU: loss and
               grad_norm within 1e-4 relative, params within 1e-4 of each
-              leaf's largest value, the same decisions.
+              leaf's largest value, the same decisions; the peak memory
+              may exceed the earlier runs' 36.75 GB by at most 1 %.
+   train quadratic — the same model, shape and batches gated by
+              ``gain_quadratic(lam=0.01)|int8+ef``: each agent's gain from
+              a Hessian-vector product, forward over reverse through both
+              kernels; 1 warm-up and 3 timed steps, 2 ``fused_ce`` and 60
+              ``swa_attention`` launches per step, finite gains, ms per
+              step and peak memory; one 2-layer step against the CPU as
+              above, the mean gain within 1e-4 too.
 6. times    — ``gain_reduce``'s, its plain version's and
               ``torch.linalg.vecdot``'s times at each shape beside the
               bytes-over-bandwidth bound: per call by CUDA events (median
               of 100 calls after warm-up), and on the device by the
-              profiler.
+              profiler, whose trace must hold as many device records as
+              the calls make (counted in one-call traces; a short trace is
+              taken again, and the tenth fails the run).
 7. swa times — the same for ``swa_attention`` at the two served shapes,
               fp32 and bf16, beside its plain version,
               ``scaled_dot_product_attention`` with the same boolean mask
@@ -94,7 +120,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               operators); then one prefill and 16 decode steps of LM run
               (a): the kernel's share of the prefill's device time and
               the device's idle share in decode; then one train step:
-              device time by kernel, device ops and idle share.
+              device time by kernel, device ops and idle share; then one
+              simulator sweep: device time, device ops and idle share.
 
 Before the last line come the ``{"kernels": [...]}`` record (each kernel
 with its arithmetic path, ``tf32x3``, ``bf16-mma`` or ``fp32-fma``, and
@@ -122,6 +149,18 @@ FP32_FLOP_PER_S = 67e12
 
 SHAPES = ((64, 32), (4096, 32), (1, 1 << 26))
 TIMED_RUNS = 100
+# traces of a timed call's device records taken before device_ms fails
+# on a trace that lost records
+DEVICE_TRACE_ATTEMPTS = 10
+# the [fleet adaptive] phase: bytes/round per tier over the last rounds
+ADAPTIVE_TAIL = 50
+# the [sim] phase's sweep at the fleet's size (TIERED_M64_CFG: n = 32,
+# m = 64, N = 32, K = 40): 10 λs of gain_estimated and 10 of gain_exact
+# over 512 trials; the CPU holds the first 8 trials on the same batches
+SIM_LAMS = (0.0, 0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0)
+SIM_TRIALS, SIM_CHECK_TRIALS = 512, 8
+# card vs CPU: 40 rounds of fp32 sums in other orders, free-running
+SIM_TOL = 1e-4
 ROUNDS = 200
 CHECK_ROUNDS = 10
 PROFILED_ROUNDS = 20
@@ -182,6 +221,14 @@ CE_GRAD_SHAPE = (1000, 576, 49152)
 # the train slice: smollm-135m at full width and depth, fp32
 TRAIN = dict(agents=4, batch=8, seq=1024, warmup=3, timed=10, lr=0.05,
              comm="gain_lookahead(lam=0.01)|int8+ef")
+# the gradient-only path's peak memory in the earlier runs of this phase
+# (NVIDIA H100 80GB HBM3, 700 W): the forward-mode rules of the LM
+# kernels must not bring back the double-backward graph's memory
+TRAIN_PEAK_GB, TRAIN_PEAK_SLACK = 36.75, 0.01
+# the same slice gated by eq. (28): each agent's gain from a
+# Hessian-vector product (forward over reverse through both kernels)
+TRAIN_QUAD = dict(TRAIN, warmup=1, timed=3,
+                  comm="gain_quadratic(lam=0.01)|int8+ef")
 # card vs CPU: one step of the same model cut to 2 layers, full width
 TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=128)
 # fp32 forward and backward of 2 layers and a 49152-way softmax, sums in
@@ -526,6 +573,274 @@ def phase_slice(torch, gr_ops):
     }
 
 
+def phase_fleet_adaptive(torch, slice_rounds_per_s: float) -> dict:
+    """The served fleet's default: ``build_linreg_fleet_session`` with no
+    ``net`` serves ``TIERED_M64_ADAPTIVE`` (budget_window / budget_dual
+    controllers on the metered tiers, their rows in the state) on the
+    [slice] phase's problem and batch stream, for ROUNDS rounds; then
+    the first CHECK_ROUNDS rounds against the same session on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_ADAPTIVE,
+        TIERED_M64_CFG,
+    )
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.launch.session import build_linreg_fleet_session
+
+    net, cfg, seed = TIERED_M64_ADAPTIVE, TIERED_M64_CFG, 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problem = R.make_problem(cfg, step_generator(seed, 0, dev), device=dev)
+
+    def batch_fn(k):
+        return R.agent_batches(problem, step_generator(seed + 1, k, dev))
+
+    tier_of = np.asarray(net.tier_index())
+    history, losses, stamps, tier_bytes = [], [], [], []
+    session = None
+
+    def on_round(k, metrics):
+        stamps.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+        tier_bytes.append(np.bincount(tier_of, weights=metrics["agent_bytes"],
+                                      minlength=len(net.tiers)))
+        if k < CHECK_ROUNDS:
+            history.append((metrics, session.state.ctrl_state.cpu().numpy()))
+
+    session = build_linreg_fleet_session(seed=seed, device=dev,
+                                         batch_fn=batch_fn, on_round=on_round)
+    if session.state.ctrl_state is None or tuple(
+            session.state.ctrl_state.shape) != (cfg.num_agents, 3):
+        raise AssertionError("the default fleet carries no controller rows")
+    session.run(ROUNDS)
+    torch.cuda.synchronize()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("fleet adaptive: non-finite loss on the card")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fleet adaptive: loss did not fall: "
+                             f"{losses[0]} -> {losses[-1]}")
+    steady = (len(stamps) - 1 - CHECK_ROUNDS) / (stamps[-1]
+                                                 - stamps[CHECK_ROUNDS])
+    tail = np.mean(tier_bytes[-ADAPTIVE_TAIL:], axis=0)
+    tiers = []
+    for t, spec in enumerate(net.tiers):
+        # wire_budget is per agent and round (None: unmetered)
+        budget = spec.wire_budget
+        tiers.append({"tier": spec.name, "agents": int(spec.count),
+                      "bytes_per_agent_round": float(tail[t] / spec.count),
+                      "wire_budget": budget if math.isfinite(budget)
+                      else None})
+    cpu_hist = []
+    cpu = build_linreg_fleet_session(
+        seed=seed, device="cpu",
+        batch_fn=lambda k: tuple(x.cpu() for x in batch_fn(k)),
+        on_round=lambda k, m: cpu_hist.append(
+            (m, cpu.state.ctrl_state.numpy().copy())))
+    cpu.run(CHECK_ROUNDS)
+    # decisions exact; floats and controller rows as [slice] holds them
+    for k, ((a, ca), (b, cb)) in enumerate(zip(history, cpu_hist)):
+        for key in ("agent_tx", "num_tx", "any_tx"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"fleet adaptive round {k}: {key} "
+                                     f"differs card vs CPU")
+        for key in b:
+            if not np.allclose(a[key], b[key], rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"fleet adaptive round {k}: {key} "
+                                     f"differs card vs CPU: {a[key]} vs "
+                                     f"{b[key]}")
+        if not np.allclose(ca, cb, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"fleet adaptive round {k}: controller "
+                                 f"rows differ card vs CPU (max "
+                                 f"{np.abs(ca - cb).max():.3e})")
+    budgets = ", ".join(
+        f"{r['tier']} {r['bytes_per_agent_round']:.2f}"
+        + (f"/{r['wire_budget']:.2f}" if r["wire_budget"] is not None
+           else "") for r in tiers)
+    print(f"[fleet adaptive] {net.name} on {cfg.name}, {ROUNDS} rounds: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {steady:.1f} rounds/s "
+          f"after round {CHECK_ROUNDS} (the [slice] fleet: "
+          f"{slice_rounds_per_s:.1f}); bytes per agent and round over the "
+          f"last {ADAPTIVE_TAIL} rounds vs wire budget: {budgets}; first "
+          f"{CHECK_ROUNDS} rounds (decisions, metrics, controller rows) "
+          f"match the CPU session")
+    return {
+        "net": net.name, "rounds": ROUNDS, "loss_first": losses[0],
+        "loss_last": losses[-1], "rounds_per_s": steady,
+        "slice_rounds_per_s": slice_rounds_per_s, "tiers": tiers,
+        "tail_rounds": ADAPTIVE_TAIL, "cpu_rounds_checked": CHECK_ROUNDS,
+        "lam_final": session.state.ctrl_state[:, 0].tolist()}
+
+
+def _sim_check(card, cpu, grid, problem, trials: int) -> int:
+    """The card's first ``trials`` trials of a sweep against the CPU's on
+    the same batches: decisions exact except a gain within SIM_TOL
+    (relative) of its threshold — the run is then compared up to that
+    round — and J_traj within rtol SIM_TOL.  Returns the runs cut."""
+    import numpy as np
+
+    mode, lam, mu, decay = (x.numpy().astype(np.float64) for x in grid)
+    K = cpu.alphas.shape[2]
+    ks = np.arange(K, dtype=np.float64)
+    rho = float(((1.0 - problem.eps * problem.sigma_diag.cpu().double()) ** 2)
+                .max())
+    lam_k = np.where(decay[:, None] == 0, lam[:, None],
+                     np.where(decay[:, None] == 1, lam[:, None] / (1 + ks),
+                              lam[:, None] * rho ** ks))
+    thr = np.where(mode[:, None] == 2, -problem.eps * mu[:, None], -lam_k)
+    ca, cg = card.alphas[:, :trials].cpu().numpy(), cpu.alphas.numpy()
+    cj, hj = card.J_traj[:, :trials].cpu().numpy(), cpu.J_traj.numpy()
+    gains = cpu.gains.numpy()
+    cut = 0
+    for g in range(ca.shape[0]):
+        for t in range(trials):
+            rounds = K
+            if not np.array_equal(ca[g, t], cg[g, t]):
+                k, i = np.argwhere(ca[g, t] != cg[g, t])[0]
+                if not abs(gains[g, t, k, i] - thr[g, k]) <= SIM_TOL * max(
+                        1.0, abs(thr[g, k])):
+                    raise AssertionError(
+                        f"sim card vs CPU: point {g} trial {t} round {k} "
+                        f"agent {i}: decision differs at gain "
+                        f"{gains[g, t, k, i]} (threshold {thr[g, k]})")
+                rounds, cut = k, cut + 1
+            if not np.allclose(cj[g, t, :rounds + 1], hj[g, t, :rounds + 1],
+                               rtol=SIM_TOL, atol=0.0):
+                raise AssertionError(f"sim card vs CPU: J_traj of point {g} "
+                                     f"trial {t} differs")
+    return cut
+
+
+def phase_sim(torch) -> tuple:
+    """The paper's closed-form simulator on the card: the five figure
+    drivers at full trials (each asserting its claims), the README
+    Quickstart's λ loop, then one sweep at the fleet's size, timed and
+    held to the CPU on SIM_CHECK_TRIALS trials' batches."""
+    import importlib
+
+    from repro_torch.configs.paper_linreg import FIG2_LEFT, TIERED_M64_CFG
+    from repro_torch.core import regression as R
+    from repro_torch.core.regression import Problem
+    from repro_torch.figures import FIGURES, seeded
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    record = {"figures": {}}
+    for name in FIGURES:
+        mod = importlib.import_module(f"repro_torch.figures.{name}")
+        mod.run(device=dev)  # warm-up (and the claims, asserted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = mod.run(device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        claims = payload.get("claims", {"all_bounds_hold":
+                                        payload.get("all_bounds_hold")})
+        record["figures"][name] = {"ms": ms, "payload": payload}
+        print(f"[sim] {name}: {payload['trials']} trials in {ms:.1f} ms; "
+              f"claims {claims}")
+    problem = R.make_problem(FIG2_LEFT, seeded(0, dev), device=dev)
+    quick = []
+    for lam in (0.0, 0.5, 2.0, 5.0):
+        res = R.run_many(problem, seeded(1, dev), steps=10, num_trials=64,
+                         policy=f"gain_estimated(lam={lam})")
+        quick.append({"lam": lam, "final_J": float(res.J_traj[:, -1].mean()),
+                      "transmissions": float(res.alphas.sum((1, 2)).mean())})
+    tx = [q["transmissions"] for q in quick]
+    if not all(a > b for a, b in zip(tx, tx[1:])):
+        raise AssertionError(f"quickstart: transmissions do not fall as λ "
+                             f"rises: {quick}")
+    record["quickstart"] = quick
+    print("[sim] quickstart: " + "; ".join(
+        f"lam={q['lam']}: final J={q['final_J']:.3f} mean transmissions="
+        f"{q['transmissions']:.1f}" for q in quick))
+
+    cfg = TIERED_M64_CFG
+    fleet = R.make_problem(cfg, seeded(0, dev), device=dev)
+    grid = R.grid_concat(R.lambda_grid(SIM_LAMS),
+                         R.lambda_grid(SIM_LAMS, mode="gain_exact"))
+    T, K = SIM_TRIALS, cfg.steps
+    R.sweep(fleet, seeded(1, dev), K, grid, T)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = R.sweep(fleet, seeded(1, dev), K, grid, T)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sweep_ms = statistics.median(times)
+    if not bool(torch.isfinite(res.J_traj).all()):
+        raise AssertionError("sim: non-finite J on the card")
+    # the same sweep again, keeping the first trials' batches for the CPU
+    kept = []
+    gen = seeded(1, dev)
+
+    def source(k):
+        xs, ys = R.trial_batches(fleet, gen, T)
+        kept.append((xs[:SIM_CHECK_TRIALS].cpu(), ys[:SIM_CHECK_TRIALS].cpu()))
+        return xs, ys
+
+    card = R.sweep(fleet, source, K, grid, T)
+    if not all(torch.equal(a, b) for a, b in zip(card, res)):
+        raise AssertionError("sim: the same sweep twice differs on the card")
+    cpu_problem = Problem(fleet.sigma_diag.cpu(), fleet.w_star.cpu(),
+                          fleet.noise_std, fleet.eps, fleet.n_samples,
+                          fleet.num_agents)
+    t0 = time.perf_counter()
+    cpu = R.sweep(cpu_problem, lambda k: kept[k], K, grid, SIM_CHECK_TRIALS)
+    cpu_s = time.perf_counter() - t0
+    cut = _sim_check(card, cpu, grid, fleet, SIM_CHECK_TRIALS)
+    batch_mb = 4 * T * cfg.num_agents * cfg.samples_per_agent * (cfg.n + 1) / 1e6
+    J, comm, _ = (x.tolist() for x in R.frontier(res))
+    record["fleet_sweep"] = {
+        "config": cfg.name, "grid_points": len(grid.mode), "trials": T,
+        "steps": K, "ms_per_sweep": sweep_ms, "ms_runs": times,
+        "batch_mb_per_round": batch_mb, "mean_final_J": J,
+        "mean_total_comm": comm, "cpu_trials_checked": SIM_CHECK_TRIALS,
+        "cpu_runs_cut_at_threshold": cut, "cpu_seconds": cpu_s}
+    print(f"[sim] sweep at {cfg.name} (n={cfg.n}, m={cfg.num_agents}, "
+          f"N={cfg.samples_per_agent}, K={K}): {len(grid.mode)} grid points "
+          f"× {T} trials, {batch_mb:.0f} MB of batch per round: "
+          f"{sweep_ms:.2f} ms per sweep (median of {times}); first "
+          f"{SIM_CHECK_TRIALS} trials match the CPU on the same batches "
+          f"({cut} runs cut at a near-threshold decision)")
+    return record, (fleet, grid, K, sweep_ms)
+
+
+def phase_sim_profile(torch, fleet, grid, steps: int,
+                      sweep_ms: float) -> dict:
+    """One fleet-size sweep under torch.profiler: device time, device
+    ops and the idle share against the unprofiled sweep time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import regression as R
+    from repro_torch.figures import seeded
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        R.sweep(fleet, seeded(1, fleet.device), steps, grid, SIM_TRIALS)
+        torch.cuda.synchronize()
+    ivals = _device_intervals(prof)
+    if not ivals:
+        raise AssertionError("the profiler saw no device activity")
+    busy = sum(t for _, t in ivals) / 1e3
+    by_name: dict = {}
+    for n, t in ivals:
+        ms, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + t / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    record = {"device_ms": busy, "device_ops": len(ivals),
+              "sweep_ms_unprofiled": sweep_ms,
+              "idle_share": 1.0 - busy / sweep_ms,
+              "top": [{"name": n, "ms": ms, "count": c}
+                      for n, (ms, c) in top]}
+    print(f"[profile] sim sweep: {busy:.2f} ms on the device in "
+          f"{len(ivals)} device ops against the unprofiled {sweep_ms:.2f} "
+          f"ms -> idle share {record['idle_share']:.3f}")
+    for n, (ms, c) in top:
+        print(f"[profile]   sim {ms:8.3f} ms x{c:<5d} {n[:90]}")
+    return record
+
+
 def phase_profile(torch, session, round_ms: float) -> dict:
     """Device time of served rounds, from a torch.profiler trace.
 
@@ -581,24 +896,72 @@ def phase_profile(torch, session, round_ms: float) -> dict:
                          for n, t, c in host_top]}
 
 
+def _device_records(torch, fn, calls: int):
+    """The device records (name, µs) of ``calls`` calls of ``fn`` in a
+    torch.profiler trace.  The trace is the second cycle of a profiler
+    schedule: a first cycle of one call, dropped, lets device tracing
+    start before the recorded calls are made (a trace begun with them
+    kept none of a single long call's records).  A record of that first
+    call can still arrive in the second cycle: only records that start
+    inside the ``record_function`` range around the calls are kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        record_function,
+        schedule,
+    )
+
+    mark = "chip_smoke.device_ms"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        with record_function(mark):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        prof.step()
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == mark and e.device_type == DeviceType.CPU)
+    return [(e.name, e.time_range.elapsed_us()) for e in events
+            if e.device_type == DeviceType.CUDA and e.name != mark
+            and e.time_range.start >= start]
+
+
 def device_ms(torch, fn, calls: int = 20) -> float:
     """Device time of one ``fn()`` call: the summed durations of the
-    kernels it runs, from a torch.profiler trace of ``calls`` calls
-    (free of the host's dispatch time that CUDA events include)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    device records of a torch.profiler trace of ``calls`` calls (free of
+    the host's dispatch time that CUDA events include).
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
+    The trace must hold every record the calls make.  The profiler
+    drops a few records of some traces, so ``fn``'s
+    records per call are counted as the most that five one-call traces
+    hold, and a trace of ``calls`` calls with fewer than ``calls`` times
+    as many is incomplete: it is taken again, and after
+    ``DEVICE_TRACE_ATTEMPTS`` incomplete traces the measurement fails.
+    ``device_ms.last`` keeps the counts of the last measurement."""
+    per_call = max(len(_device_records(torch, fn, 1)) for _ in range(5))
+    if per_call == 0:
         raise AssertionError("the profiler saw no device activity")
-    return total_us / calls / 1e3
+    want = per_call * calls
+    seen = []
+    for _ in range(DEVICE_TRACE_ATTEMPTS):
+        recs = _device_records(torch, fn, calls)
+        seen.append(len(recs))
+        if len(recs) >= want:
+            device_ms.last = {"records_per_call": per_call,
+                              "records": len(recs), "expected": want,
+                              "attempts": len(seen)}
+            return sum(t for _, t in recs) / calls / 1e3
+    raise AssertionError(
+        f"device_ms: the profiler kept {seen} device records in "
+        f"{len(seen)} traces of {calls} calls, fewer than the {want} "
+        f"({per_call} per call) the calls make")
 
 
 def phase_times(torch, gr_ops, ref) -> list:
@@ -630,6 +993,7 @@ def phase_times(torch, gr_ops, ref) -> list:
     for row, fns in cases:
         for key, fn in fns.items():
             row[f"{key}device_ms"] = device_ms(torch, fn)
+            row[f"{key}device_records"] = dict(device_ms.last)
     gr_ops.gain_reduce.launches = before  # timing launches do not count
     for row, _ in cases:
         (rows, n), dt = row["shape"], row["dtype"]
@@ -1004,6 +1368,7 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
     for row, fns in cases:
         for key, fn in fns.items():
             row[f"{key}device_ms"] = device_ms(torch, fn)
+            row[f"{key}device_records"] = dict(device_ms.last)
     swa_ops.swa_attention.launches = before  # timing launches do not count
     for row, _ in cases:
         _shares(row)
@@ -1185,7 +1550,8 @@ def _ce_vmap(torch, ce_ops, gen) -> dict:
     return {"vmap": out}
 
 
-def _train_parts(cfg, agents: int, batch: int, seq: int, device):
+def _train_parts(cfg, agents: int, batch: int, seq: int, device,
+                 comm: str = TRAIN["comm"]):
     """What the training CLI builds: the plan, its step, the model and
     its optimizer (``repro_torch.launch.train.main``'s calls)."""
     from repro_torch.configs.base import InputShape
@@ -1195,7 +1561,7 @@ def _train_parts(cfg, agents: int, batch: int, seq: int, device):
 
     shape = InputShape("train_smoke", seq_len=seq, global_batch=batch,
                        kind="train")
-    plan = S.plan_run(cfg, shape, num_agents=agents, comm=TRAIN["comm"],
+    plan = S.plan_run(cfg, shape, num_agents=agents, comm=comm,
                       optimizer="sgd", lr=TRAIN["lr"])
     step = S.build_train_step(plan, compute_dtype="float32", device=device)
     return (plan, shape, step, build(plan.cfg),
@@ -1241,6 +1607,7 @@ def phase_train(torch, ce_ops, swa_ops, cfg, dev) -> tuple:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rows.append({"step": k, "ms": dt * 1e3, "loss": float(m["loss"]),
+                     "mean_gain": float(m["mean_gain"]),
                      "num_tx": float(m["num_tx"]),
                      "grad_norm": float(m["grad_norm"]),
                      "fused_ce": ce_ops.fused_ce.launches - ce0,
@@ -1248,6 +1615,10 @@ def phase_train(torch, ce_ops, swa_ops, cfg, dev) -> tuple:
     launches = {"fused_ce": ce_ops.fused_ce.launches,
                 "swa_attention": swa_ops.swa_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not peak_gb <= TRAIN_PEAK_GB * (1 + TRAIN_PEAK_SLACK):
+        raise AssertionError(
+            f"train peak memory {peak_gb:.2f} GB exceeds the earlier "
+            f"{TRAIN_PEAK_GB} GB by more than {TRAIN_PEAK_SLACK:.0%}")
     for r in rows:
         if r["fused_ce"] != 2 or r["swa_attention"] != 2 * layers:
             raise AssertionError(
@@ -1293,10 +1664,91 @@ def phase_train(torch, ce_ops, swa_ops, cfg, dev) -> tuple:
                          :TRAIN_CHECK["seq"]].contiguous()
                    for k, v in batches[0].items()}
     record["card_vs_cpu"] = _train_card_vs_cpu(torch, cfg, check_batch, dev)
-    return record, (step, state, batches[-1], mean_ms)
+    return record, (step, state, batches, mean_ms)
 
 
-def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
+def phase_train_quadratic(torch, ce_ops, swa_ops, cfg, dev, batches) -> dict:
+    """The LM train slice gated by ``gain_quadratic``: each agent's gain
+    −ε‖g‖² + ½ε²·gᵀHg from a Hessian-vector product, forward over
+    reverse (``torch.func.jvp`` of ``torch.func.grad``) through both
+    kernels' forward-mode rules and first-order backwards, on the
+    [train] phase's batches."""
+    from repro_torch.core.api import init_train_state
+
+    run = TRAIN_QUAD
+    agents, gbatch, seq = run["agents"], run["batch"], run["seq"]
+    plan, _, step, model, opt = _train_parts(cfg, agents, gbatch, seq, dev,
+                                             comm=run["comm"])
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = init_train_state(params, opt, plan.train_cfg, device=dev)
+    del params
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    layers = cfg.num_layers
+    steps = run["warmup"] + run["timed"]
+    ce_ops.fused_ce.launches = 0
+    swa_ops.swa_attention.launches = 0
+    rows = []
+    for k in range(steps):
+        ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
+        t0 = time.perf_counter()
+        state, m = step(state, batches[k])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append({"step": k, "ms": dt * 1e3, "loss": float(m["loss"]),
+                     "mean_gain": float(m["mean_gain"]),
+                     "num_tx": float(m["num_tx"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "fused_ce": ce_ops.fused_ce.launches - ce0,
+                     "swa_attention": swa_ops.swa_attention.launches - swa0})
+    launches = {"fused_ce": ce_ops.fused_ce.launches,
+                "swa_attention": swa_ops.swa_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in rows:
+        # one launch per call under vmap: the agents' losses and the
+        # HVP's forward (its tangents by the jvp rules, no launch)
+        if r["fused_ce"] != 2 or r["swa_attention"] != 2 * layers:
+            raise AssertionError(
+                f"train quadratic step {r['step']}: fused_ce launched "
+                f"{r['fused_ce']} times (want 2: the agents' losses, the "
+                f"HVP's forward), swa_attention {r['swa_attention']} (want "
+                f"{2 * layers})")
+        if not (math.isfinite(r["mean_gain"]) and math.isfinite(r["loss"])):
+            raise AssertionError(f"train quadratic step {r['step']}: "
+                                 f"non-finite gain or loss: {r}")
+    timed = [r["ms"] for r in rows[run["warmup"]:]]
+    mean_ms = statistics.mean(timed)
+    for r in rows:
+        print(f"[train quadratic] step {r['step']}: {r['ms']:8.2f} ms  loss "
+              f"{r['loss']:.5f}  mean gain {r['mean_gain']:.6e}  num_tx "
+              f"{r['num_tx']:.0f}/{agents}  |g| {r['grad_norm']:.4f}  "
+              f"launches fused_ce {r['fused_ce']}, swa_attention "
+              f"{r['swa_attention']}")
+    print(f"[train quadratic] {cfg.name}, {agents} agents × "
+          f"{gbatch // agents} × {seq} tokens, comm={run['comm']!r}: "
+          f"{run['timed']} timed steps {mean_ms:.2f} ms per step "
+          f"({gbatch * seq / (mean_ms / 1e3):.0f} tokens/s); peak memory "
+          f"{peak_gb:.2f} GB (with {base_gb:.2f} GB allocated before the "
+          f"phase: {peak_gb - base_gb:.2f} GB above it)")
+    record = {"arch": cfg.name, "agents": agents, "global_batch": gbatch,
+              "seq": seq, "comm": run["comm"], "lr": run["lr"],
+              "steps": rows, "ms_per_step": mean_ms,
+              "tokens_per_s": gbatch * seq / (mean_ms / 1e3),
+              "launches": launches, "peak_memory_gb": peak_gb,
+              "allocated_before_gb": base_gb}
+    del state
+    torch.cuda.empty_cache()
+    check_batch = {k: v[:TRAIN_CHECK["agents"], :TRAIN_CHECK["per_agent"],
+                         :TRAIN_CHECK["seq"]].contiguous()
+                   for k, v in batches[0].items()}
+    record["card_vs_cpu"] = _train_card_vs_cpu(
+        torch, cfg, check_batch, dev, comm=run["comm"], gains=True)
+    return record
+
+
+def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
+                       gains: bool = False) -> dict:
     """One step of the model cut to TRAIN_CHECK["layers"] layers at full
     width, from the same weights and batch, on the card and the CPU.
 
@@ -1306,7 +1758,9 @@ def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
     level apart (ROADMAP §3).  Elements whose CPU gradient lies within
     ``TRAIN_TOL``·max|g| of a boundary may so differ by at most one
     level per agent (lr · level / agents); every other element is held
-    to ``TRAIN_TOL`` of its leaf's largest value."""
+    to ``TRAIN_TOL`` of its leaf's largest value.  With ``gains`` the
+    mean gain is held to ``TRAIN_TOL`` too, beside loss and grad_norm;
+    the gates (num_tx) are equal."""
     from repro_torch.comm.bank import batch_prologue
     from repro_torch.core.api import init_train_state
     from repro_torch.utils.tree import tree_flatten_with_path, tree_map
@@ -1318,7 +1772,7 @@ def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
     runs = {}
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         plan, _, step, model, opt = _train_parts(small, agents, n,
-                                                 TRAIN_CHECK["seq"], d)
+                                                 TRAIN_CHECK["seq"], d, comm)
         if params is None:
             params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
         state = init_train_state(tree_map(lambda t: t.to(d), params), opt,
@@ -1337,7 +1791,7 @@ def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
         raise AssertionError(f"train card vs CPU: num_tx {mc['num_tx']} vs "
                              f"{mh['num_tx']}")
     gaps = {}
-    for key in ("loss", "grad_norm"):
+    for key in ("loss", "grad_norm") + (("mean_gain",) if gains else ()):
         gaps[key] = abs(float(mc[key]) - float(mh[key])) / abs(float(mh[key]))
         if not gaps[key] <= TRAIN_TOL:
             raise AssertionError(f"train card vs CPU: {key} {float(mc[key])} "
@@ -1358,15 +1812,19 @@ def _train_card_vs_cpu(torch, cfg, batch, dev) -> dict:
                                  f"their largest value")
         tied += int((diff > TRAIN_TOL * scale).sum())
         worst = max(worst, (diff * ~tie.any(0)).max().item() / scale)
-    print(f"[train] card vs CPU, {small.num_layers} layers at full width, "
+    tag = "[train quadratic]" if gains else "[train]"
+    gain_text = (f", mean gain {float(mh['mean_gain']):.6e} (rel gap "
+                 f"{gaps['mean_gain']:.2e})" if gains else "")
+    print(f"{tag} card vs CPU, {small.num_layers} layers at full width, "
           f"{agents} agents × {TRAIN_CHECK['per_agent']} × "
           f"{TRAIN_CHECK['seq']} tokens: loss {float(mh['loss']):.6f} "
           f"(rel gap {gaps['loss']:.2e}), grad_norm rel gap "
-          f"{gaps['grad_norm']:.2e}, num_tx {float(mh['num_tx']):.0f} equal, "
+          f"{gaps['grad_norm']:.2e}{gain_text}, num_tx "
+          f"{float(mh['num_tx']):.0f} equal, "
           f"params within {worst:.2e} of each leaf's max (tol {TRAIN_TOL}) "
           f"apart from {tied} elements at an int8 rounding boundary, each "
           f"within one level; CPU step {cpu_s:.1f} s")
-    return {"layers": small.num_layers, "agents": agents,
+    return {"layers": small.num_layers, "agents": agents, "comm": comm,
             "seq": TRAIN_CHECK["seq"], "rel_gaps": gaps,
             "params_max_gap_over_leaf_max": worst, "tol": TRAIN_TOL,
             "int8_boundary_elements_one_level_apart": tied,
@@ -1413,6 +1871,7 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
                 row[f"{key}ms"] = time_ms(fn)
             for key, fn in fns.items():
                 row[f"{key}device_ms"] = device_ms(torch, fn)
+                row[f"{key}device_records"] = dict(device_ms.last)
             ce_ops.fused_ce.launches = before  # timing launches do not count
             _shares(row)
             rows.append(row)
@@ -1565,14 +2024,19 @@ def main() -> int:
               "build": phase_build(gr_ops, swa_ops, ce_ops)}
     record["kernel_checks"] = phase_kernel(torch, gr_ops, ref)
     session, record["slice"] = phase_slice(torch, gr_ops)
+    record["fleet_adaptive"] = phase_fleet_adaptive(
+        torch, record["slice"]["rounds_per_s"])
+    record["sim"], sim_run = phase_sim(torch)
     record["swa_checks"] = phase_swa_kernel(torch, swa_ops, swa_ref)
     record["ce_checks"] = phase_ce_kernel(torch, ce_ops, ce_ref)
     record["lm"], lm_model, lm_params, lm_prompts = phase_lm(torch, swa_ops)
     from repro_torch.configs import get_config
 
-    record["train"], train_run = phase_train(
-        torch, ce_ops, swa_ops, get_config(LM_ARCH),
-        torch.device("cuda", torch.cuda.current_device()))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    record["train"], (step, state, batches, step_ms) = phase_train(
+        torch, ce_ops, swa_ops, get_config(LM_ARCH), dev)
+    record["train_quadratic"] = phase_train_quadratic(
+        torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches)
     # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
     record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
@@ -1581,7 +2045,9 @@ def main() -> int:
         torch, session, 1e3 / record["slice"]["rounds_per_s"])
     record["lm_profile"] = phase_lm_profile(
         torch, lm_model, lm_params, lm_prompts, record["lm"]["a"])
-    record["train_profile"] = phase_train_profile(torch, *train_run)
+    record["train_profile"] = phase_train_profile(torch, step, state,
+                                                  batches[-1], step_ms)
+    record["sim_profile"] = phase_sim_profile(torch, *sim_run)
     record["seconds"] = time.perf_counter() - t_start
 
     main_shape = record["times"][0]

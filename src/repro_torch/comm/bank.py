@@ -21,7 +21,11 @@ residual update — is built per DISTINCT policy by
 
 where every per-agent operand carries the leading axis of the block of
 agents that hold the policy (:meth:`StageBank.policy_blocks`), and
-``pre`` is that block's ``(B, P)`` precursor matrix.
+``pre`` is that block's ``(B, P)`` precursor matrix.  ``ctrl`` is the
+block's ``(B, CTRL_WIDTH)`` controller rows, or ``None`` when the state
+carries no controller slot: an adaptive branch then gates open-loop at
+its ``lam0`` and returns ``None``; a plain branch passes its rows
+through untouched.
 
 This slice serves ideal wires only: a bank policy naming any other
 ``@ channel`` raises when the bank is built.
@@ -75,10 +79,16 @@ class StageBank:
     triggers: Tuple[TriggerFn, ...]
     chains: Tuple[CompressorChain, ...]
     ef_flags: Tuple[bool, ...]
+    adaptive_flags: Tuple[bool, ...] = ()
 
     @property
     def needs_ef(self) -> bool:
         return any(self.ef_flags)
+
+    @property
+    def needs_ctrl(self) -> bool:
+        """Any bank policy carrying closed-loop controller state?"""
+        return any(self.adaptive_flags)
 
     def agent_chains(self) -> Tuple[CompressorChain, ...]:
         """Per-AGENT compressor chains (for wire-byte accounting)."""
@@ -133,29 +143,49 @@ class StageBank:
             index.append(keys.index(key))
         return tuple(fns), tuple(index)
 
-    def epilogues(self, has_ef_memory: bool) -> Tuple[AgentEpilogue, ...]:
+    def epilogues(self, has_ef_memory: bool,
+                  has_ctrl_state: bool = False) -> Tuple[AgentEpilogue, ...]:
         """The comm-epilogue branch per bank policy.  With
         ``has_ef_memory=False`` EF is off for every branch and all of
-        them return ``None`` memory."""
+        them return ``None`` memory; with ``has_ctrl_state=False`` the
+        controllers run open-loop and every branch returns ``None``
+        rows."""
+        adaptive = self.adaptive_flags or (False,) * len(self.triggers)
         _, pre_index = self.prologues()
         return tuple(
             _make_epilogue(trig, chain, use_ef=ef and has_ef_memory,
+                           adaptive=ad, use_ctrl=has_ctrl_state,
                            pre_index=pidx)
-            for trig, chain, ef, pidx in zip(
-                self.triggers, self.chains, self.ef_flags, pre_index
+            for trig, chain, ef, ad, pidx in zip(
+                self.triggers, self.chains, self.ef_flags, adaptive,
+                pre_index
             )
         )
 
 
 def _make_epilogue(trig: TriggerFn, chain: CompressorChain, *,
-                   use_ef: bool, pre_index: int = -1) -> AgentEpilogue:
+                   use_ef: bool, adaptive: bool = False,
+                   use_ctrl: bool = False,
+                   pre_index: int = -1) -> AgentEpilogue:
     def epilogue(params, grads, batch, losses, step, ef_mem, ctrl=None,
                  scale=None, pre=None):
         # the branch selects its own column of the (B, P) precursors
         kw = {"pre": pre[:, pre_index]} if (
             pre is not None and pre_index >= 0
         ) else {}
-        alpha, gain = trig(params, grads, batch, losses, step, scale, **kw)
+        if adaptive:
+            # the controller reads its rows (or, with no slot, its static
+            # initial row: open-loop lam0 gating) and emits new rows only
+            # when there is a slot to carry them
+            rows = ctrl if use_ctrl else trig.ctrl0.to(
+                losses.device).expand(losses.shape[0], -1)
+            (alpha, gain), new_rows = trig(params, grads, batch, losses,
+                                           step, rows, scale, **kw)
+            new_ctrl = new_rows if use_ctrl else None
+        else:
+            alpha, gain = trig(params, grads, batch, losses, step, scale,
+                               **kw)
+            new_ctrl = ctrl  # pass the (unused) rows through unchanged
         g_eff = ef_add(grads, ef_mem if use_ef else None)
         sent = chain.compress_tree(g_eff) if chain else g_eff
         if ef_mem is None:
@@ -165,7 +195,7 @@ def _make_epilogue(trig: TriggerFn, chain: CompressorChain, *,
         else:
             # silent bank members never leak stale memory
             new_mem = tree_map(torch.zeros_like, ef_mem)
-        return alpha, gain, sent, new_mem, ctrl
+        return alpha, gain, sent, new_mem, new_ctrl
 
     return epilogue
 
@@ -175,6 +205,7 @@ def build_stage_bank(
     *,
     loss_fn: Optional[Callable] = None,
     probe_eps: float = 1e-2,
+    oracle: Optional[tuple] = None,
 ) -> StageBank:
     """Dedupe per-agent policies and build their trigger/chain stages."""
     if not policies:
@@ -193,9 +224,11 @@ def build_stage_bank(
         policies=tuple(bank),
         agent_index=tuple(index),
         triggers=tuple(
-            p.build_trigger(loss_fn=loss_fn, probe_eps=probe_eps)
+            p.build_trigger(loss_fn=loss_fn, probe_eps=probe_eps,
+                            oracle=oracle)
             for p in bank
         ),
         chains=tuple(p.chain() for p in bank),
         ef_flags=tuple(p.needs_ef for p in bank),
+        adaptive_flags=tuple(p.is_adaptive for p in bank),
     )

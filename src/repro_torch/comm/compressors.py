@@ -163,16 +163,16 @@ def _topk(args, spec):
     )
 
 
-@COMPRESSORS.register("fp16", doc="IEEE half-precision values on the wire")
-def _fp16(args, spec):
-    bits = 16.0
+def _cast_compressor(spec, dtype: torch.dtype, bits: float) -> Compressor:
+    """Value cast through a narrower float dtype; the ratio is
+    dtype-aware: ``value_bits = min(current, bits)``."""
 
     def compress(x):
         # a gradient already ≤ 16 bits wide passes through untouched,
         # mirroring the byte model's no-op
         if x.element_size() * 8 <= bits:
             return x
-        return x.to(torch.float16).to(x.dtype)
+        return x.to(dtype).to(x.dtype)
 
     return Compressor(
         spec,
@@ -182,9 +182,14 @@ def _fp16(args, spec):
     )
 
 
+@COMPRESSORS.register("fp16", doc="IEEE half-precision values on the wire")
+def _fp16(args, spec):
+    return _cast_compressor(spec, torch.float16, 16.0)
+
+
 @COMPRESSORS.register("bf16", doc="bfloat16 values on the wire")
 def _bf16(args, spec):
-    raise todo("the 'bf16' compressor", "queue 1 item 4")
+    return _cast_compressor(spec, torch.bfloat16, 16.0)
 
 
 @COMPRESSORS.register("randk", params=(("frac", 0.01), ("seed", 0)),

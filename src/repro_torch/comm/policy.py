@@ -15,6 +15,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple, Union
 
+import torch
+
 from repro_torch.comm import spec as spec_mod
 from repro_torch.comm.compressors import (
     COMPRESSORS,
@@ -27,9 +29,9 @@ from repro_torch.comm.triggers import (
     TriggerContext,
     TriggerFn,
     build_trigger,
+    ctrl_init_row,
     spec_is_adaptive,
 )
-from repro_torch.utils.todo import todo
 
 PolicyLike = Union["CommPolicy", str]
 PoliciesLike = Union[PolicyLike, Sequence[PolicyLike]]
@@ -99,12 +101,12 @@ class CommPolicy:
     def __str__(self) -> str:
         return self.to_spec()
 
-    def build_trigger(self, *, loss_fn=None,
-                      probe_eps: float = 1e-2) -> TriggerFn:
+    def build_trigger(self, *, loss_fn=None, probe_eps: float = 1e-2,
+                      oracle=None) -> TriggerFn:
         return build_trigger(
             self.trigger,
             TriggerContext(
-                loss_fn=loss_fn, probe_eps=probe_eps,
+                loss_fn=loss_fn, probe_eps=probe_eps, oracle=oracle,
                 ratio_for=self.chain().ratio_for if self.compressors else None,
             ),
         )
@@ -125,6 +127,11 @@ class CommPolicy:
     def is_adaptive(self) -> bool:
         """Does the trigger carry closed-loop controller state?"""
         return spec_is_adaptive(self.trigger)
+
+    def ctrl0(self):
+        """This policy's initial ``(CTRL_WIDTH,)`` controller row (fp32,
+        on the CPU)."""
+        return ctrl_init_row(self.trigger)
 
     def channel_model(self):
         """The built channel model, or ``None`` when none is named."""
@@ -158,7 +165,8 @@ _KIND_TO_TRIGGER = {
 }
 
 
-def trigger_spec_from_config(trig_cfg) -> StageSpec:
+def trigger_spec_from_config(trig_cfg, *,
+                             use_kernel: bool = False) -> StageSpec:
     """TriggerConfig → registry StageSpec (the documented kinds all resolve)."""
     name = _KIND_TO_TRIGGER.get(trig_cfg.kind)
     if name is None:
@@ -175,6 +183,9 @@ def trigger_spec_from_config(trig_cfg) -> StageSpec:
         kw = dict(mu=trig_cfg.mu)
     elif name == "periodic":
         kw = dict(period=trig_cfg.period)
+    if use_kernel and name in ("gain_lookahead", "gain_quadratic",
+                               "grad_norm"):
+        kw["kernel"] = True
     return TRIGGERS.spec(name, **kw)
 
 
@@ -224,13 +235,15 @@ def resolve_policy(cfg, policy: Optional[PoliciesLike] = None
 
 def ctrl_init(policy: Union[CommPolicy, Tuple[CommPolicy, ...]],
               num_agents: int):
-    """The controller slot: ``None`` when no trigger is adaptive (the
-    adaptive triggers are not ported yet)."""
+    """The initial ``(num_agents, CTRL_WIDTH)`` fp32 controller slot (on
+    the CPU) for a normalized policy, or ``None`` when no agent's trigger
+    is adaptive — plain policies keep a state without it."""
     policies = policy if isinstance(policy, tuple) else (policy,)
-    if any(p.is_adaptive for p in policies):
-        raise todo("adaptive budget triggers (controller state)",
-                   "queue 1 item 4")
-    return None
+    if not any(p.is_adaptive for p in policies):
+        return None
+    if len(policies) == 1:
+        return policies[0].ctrl0()[None].expand(num_agents, -1).clone()
+    return torch.stack([p.ctrl0() for p in policies])
 
 
 def normalize_policy(policy: Union[CommPolicy, Tuple[CommPolicy, ...]],

@@ -27,9 +27,25 @@ With ``kernel=true``, ``gain_quadratic`` and ``grad_norm`` reduce
 ``(gᵀg, gᵀHg)`` for ALL agents in ONE call of the batched
 ``gain_reduce`` kernel on the stacked ``(A, n)`` gradient rows.
 
-Ported: ``always``, ``never``, ``grad_norm``, ``gain_lookahead``,
-``gain_quadratic``.  The other registry entries parse and render, and
-raise ``NotImplementedError`` when built.
+Every trigger of the JAX registry is ported: ``always``, ``never``,
+``periodic``, ``grad_norm``, ``gain_lookahead``, ``gain_quadratic``, the
+linear-regression closed forms ``gain_estimated`` (eq. 30) and
+``gain_exact`` (eq. 28, with the problem oracle), and the closed-loop
+budget controllers ``budget_dual`` and ``budget_window``.
+
+**Controller-state protocol.**  An adaptive trigger (registry entry with
+``adaptive=True``) takes the block's ``(A, CTRL_WIDTH)`` controller rows
+before the optional ``scale`` and also returns the updated rows::
+
+    trig(params, grads, batch, losses, step, ctrl[, scale])
+        -> (TriggerOutput, new_ctrl)
+
+A row is ``[λ, signal EWMA, |gain| EWMA]``; :func:`ctrl_init_row` is
+the initial row, which every built adaptive trigger also carries as
+``trig.ctrl0`` (the open-loop fallback when the state holds no
+controller slot).  For an adaptive trigger ``scale`` multiplies the
+TARGET (rate or bytes), not λ.  ``delivered`` (the channel's delivery
+draw) is accepted and must be ``None``: lossy channels are not ported.
 """
 from __future__ import annotations
 
@@ -39,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.registry import Registry, StageSpec
-from repro_torch.utils.todo import not_ported, todo
+from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_agents,
@@ -62,10 +78,10 @@ TRIGGERS = Registry("trigger")
 _GAIN_PARAMS = (("lam", 0.0), ("decay", "const"), ("decay_rate", 0.95))
 _KERNEL = (("kernel", False),)
 
-# per-agent controller row width of the adaptive triggers
+# per-agent controller row: [lam, signal_ewma, gain_mag_ewma] — ONE
+# width for every adaptive trigger, so heterogeneous banks keep one
+# uniform (m, CTRL_WIDTH) slot
 CTRL_WIDTH = 3
-
-_ADAPTIVE_ITEM = "queue 1 item 4"
 
 
 def _f32(x: float) -> float:
@@ -80,11 +96,31 @@ def spec_is_adaptive(spec: StageSpec) -> bool:
     return TRIGGERS.get(spec.name).adaptive
 
 
+def _ctrl_row(lam0: float) -> torch.Tensor:
+    """THE controller-row layout ``[λ, signal EWMA, |gain| EWMA]`` — the
+    one constructor behind ``ctrl_init_row`` and every adaptive
+    trigger's ``ctrl0``."""
+    return torch.tensor([float(lam0), 0.0, 0.0], dtype=torch.float32)
+
+
+def ctrl_init_row(spec: StageSpec) -> torch.Tensor:
+    """The initial ``(CTRL_WIDTH,)`` controller row (on the CPU) for one
+    trigger spec: adaptive triggers start at their ``lam0``, plain
+    triggers get a zero row (their stages pass it through untouched)."""
+    entry = TRIGGERS.get(spec.name)
+    lam0 = entry.full_args(spec).get("lam0", 0.0) if entry.adaptive else 0.0
+    return _ctrl_row(lam0)
+
+
 class TriggerContext(NamedTuple):
     """Build-time dependencies a trigger may need (all optional)."""
 
     loss_fn: Optional[Callable] = None   # local empirical loss(params, batch)
     probe_eps: float = 1e-2              # ε of the probe step w − ε g
+    oracle: Optional[tuple] = None       # (Σ, w*) for gain_exact
+    # the policy's wire-compression ratio as a function of the gradient
+    # dtype's dense bits (CompressorChain.ratio_for) — prices one
+    # transmission for budget_window; None = uncompressed (ratio 1)
     ratio_for: Optional[Callable] = None
 
 
@@ -124,6 +160,20 @@ def _gate(gain: torch.Tensor, threshold) -> torch.Tensor:
     return (gain <= -threshold).float()
 
 
+def _gated(gain_of, lam_at, key):
+    """A fixed-λ trigger over the gain precursor ``gain_of`` (its
+    ``prologue``, identified within a bank by ``key``)."""
+
+    def trig(params, grads, batch, losses, step, scale=None, *, pre=None):
+        gain = gain_of(params, grads, batch, losses) if pre is None else pre
+        return TriggerOutput(_gate(gain, _scaled(lam_at(step), scale)),
+                             gain.float())
+
+    trig.prologue = gain_of
+    trig.prologue_key = key
+    return trig
+
+
 @TRIGGERS.register("always", doc="dense baseline: every agent transmits")
 def _always(args, ctx):
     def trig(params, grads, batch, losses, step, scale=None):
@@ -145,7 +195,15 @@ def _never(args, ctx):
 @TRIGGERS.register("periodic", params=(("period", 1),),
                    doc="transmit every `period` steps")
 def _periodic(args, ctx):
-    raise todo("the 'periodic' trigger", _ADAPTIVE_ITEM)
+    period = max(int(args["period"]), 1)
+
+    def trig(params, grads, batch, losses, step, scale=None):
+        alpha = torch.full_like(losses, float(step % period == 0),
+                                dtype=torch.float32)
+        return TriggerOutput(alpha, torch.zeros_like(alpha))
+
+    trig.uses_batch = False
+    return trig
 
 
 def _norm_sq(grads, use_kernel: bool) -> torch.Tensor:
@@ -208,17 +266,8 @@ def _lookahead_gain_fn(ctx: TriggerContext, who: str):
 @TRIGGERS.register("gain_lookahead", params=_GAIN_PARAMS + _KERNEL,
                    doc="eq. (11) with gain = loss(w - eps g) - loss(w)")
 def _gain_lookahead(args, ctx):
-    gain_of = _lookahead_gain_fn(ctx, "gain_lookahead")
-    lam_at = _lam_at(args)
-
-    def trig(params, grads, batch, losses, step, scale=None, *, pre=None):
-        gain = gain_of(params, grads, batch, losses) if pre is None else pre
-        return TriggerOutput(_gate(gain, _scaled(lam_at(step), scale)),
-                             gain.float())
-
-    trig.prologue = gain_of
-    trig.prologue_key = _LOOKAHEAD_KEY
-    return trig
+    return _gated(_lookahead_gain_fn(ctx, "gain_lookahead"), _lam_at(args),
+                  _LOOKAHEAD_KEY)
 
 
 @TRIGGERS.register("gain_quadratic", params=_GAIN_PARAMS + _KERNEL,
@@ -227,10 +276,7 @@ def _gain_quadratic(args, ctx):
     if ctx.loss_fn is None:
         raise ValueError("gain_quadratic trigger needs loss_fn")
     loss_fn = ctx.loss_fn
-    lam_at = _lam_at(args)
-    eps32 = np.float32(ctx.probe_eps)
-    eps = float(eps32)
-    half_eps_sq = float(np.float32(0.5) * eps32 * eps32)
+    eps, half_eps_sq = _eps_terms(np.float32(ctx.probe_eps))
     use_kernel = bool(args["kernel"])
 
     def hvp(params, g, b):
@@ -249,26 +295,72 @@ def _gain_quadratic(args, ctx):
             ghg = tree_vdot(grads, hg, per_agent=True)
         return -eps * gsq + half_eps_sq * ghg
 
-    def trig(params, grads, batch, losses, step, scale=None, *, pre=None):
-        gain = prologue(params, grads, batch, losses) if pre is None else pre
-        return TriggerOutput(_gate(gain, _scaled(lam_at(step), scale)),
-                             gain)
+    return _gated(prologue, _lam_at(args), ("quadratic_gain", use_kernel))
 
-    trig.prologue = prologue
-    trig.prologue_key = ("quadratic_gain", use_kernel)
-    return trig
+
+def _batch_xs(batch) -> torch.Tensor:
+    return batch[0] if isinstance(batch, (tuple, list)) else batch["xs"]
 
 
 @TRIGGERS.register("gain_estimated", params=_GAIN_PARAMS,
                    doc="eq. (30): data-estimated quadratic gain (linreg)")
 def _gain_estimated(args, ctx):
-    raise todo("the 'gain_estimated' trigger", _ADAPTIVE_ITEM)
+    eps = np.float32(ctx.probe_eps)
+
+    def prologue(params, grads, batch, losses):
+        return linreg_gain_estimated(params, grads, eps, _batch_xs(batch))
+
+    return _gated(prologue, _lam_at(args), ("estimated_gain",))
 
 
 @TRIGGERS.register("gain_exact", params=_GAIN_PARAMS,
                    doc="eq. (28) with the true distribution (needs oracle)")
 def _gain_exact(args, ctx):
-    raise todo("the 'gain_exact' trigger", _ADAPTIVE_ITEM)
+    if ctx.oracle is None:
+        raise ValueError(
+            "gain_exact trigger needs the problem oracle: pass "
+            "oracle=(sigma, w_star) when building the policy/trigger"
+        )
+    sigma, w_star = (
+        x.float() if isinstance(x, torch.Tensor)
+        else torch.tensor(np.asarray(x, np.float32)) for x in ctx.oracle)
+    if sigma.ndim == 1:
+        sigma = torch.diag(sigma)
+    eps = np.float32(ctx.probe_eps)
+
+    def prologue(params, grads, batch, losses):
+        dev = grads.device
+        return linreg_gain_exact(params, grads, eps, sigma.to(dev),
+                                 w_star.to(dev))
+
+    return _gated(prologue, _lam_at(args), ("exact_gain",))
+
+
+# ----------------------------------------------------------------------
+# Budget-adaptive (closed-loop) triggers
+# ----------------------------------------------------------------------
+
+# λ step scale: η·(ĝ + RELAX·λ).  The |gain| EWMA ĝ makes η problem-
+# scale-free; the λ-proportional term bounds the unwind of a λ pumped up
+# by the early transient to a geometric decay once the gains collapse.
+_LAM_RELAX = 0.25
+
+
+def _lam_step_scale(eta, gmag, lam):
+    return eta * (gmag + _LAM_RELAX * lam)
+
+
+def _budget_decision(gain_of, params, grads, batch, losses, lam, pre):
+    """The shared gate: transmit iff the lookahead gain ≤ −λ (λ from the
+    controller rows); ``pre`` is the bank's precomputed probe gain."""
+    gain = gain_of(params, grads, batch, losses) if pre is None else pre
+    return (gain <= -lam).float(), gain
+
+
+def _no_channel(delivered, who: str):
+    if delivered is not None:
+        raise todo(f"{who} pricing DELIVERED transmissions (a lossy "
+                   f"channel's delivery draw)", "queue 1 item 7")
 
 
 @TRIGGERS.register(
@@ -278,7 +370,30 @@ def _gain_exact(args, ctx):
     adaptive=True,
 )
 def _budget_dual(args, ctx):
-    raise todo("the adaptive 'budget_dual' trigger", _ADAPTIVE_ITEM)
+    gain_of = _lookahead_gain_fn(ctx, "budget_dual")
+    rate, eta, beta = (_f32(args[k]) for k in ("rate", "eta", "beta"))
+
+    def trig(params, grads, batch, losses, step, ctrl, scale=None, *,
+             pre=None, delivered=None):
+        _no_channel(delivered, "budget_dual")
+        lam, sig, gmag = ctrl.unbind(-1)
+        alpha, gain = _budget_decision(gain_of, params, grads, batch, losses,
+                                       lam, pre)
+        obs = alpha
+        # |gain| EWMA first: the very first rounds move at the problem's
+        # scale; then dual ascent on λ (scale multiplies the TARGET)
+        gmag = (1.0 - beta) * gmag + beta * gain.abs()
+        lam = torch.clamp(
+            lam + _lam_step_scale(eta, gmag, lam)
+            * (obs - _scaled(rate, scale)), min=0.0)
+        sig = (1.0 - beta) * sig + beta * obs  # realized-rate estimate
+        return (TriggerOutput(alpha, gain.float()),
+                torch.stack([lam, sig, gmag], -1).float())
+
+    trig.ctrl0 = _ctrl_row(args["lam0"])
+    trig.prologue = gain_of
+    trig.prologue_key = _LOOKAHEAD_KEY
+    return trig
 
 
 @TRIGGERS.register(
@@ -289,11 +404,85 @@ def _budget_dual(args, ctx):
     adaptive=True,
 )
 def _budget_window(args, ctx):
-    raise todo("the adaptive 'budget_window' trigger", _ADAPTIVE_ITEM)
+    gain_of = _lookahead_gain_fn(ctx, "budget_window")
+    if float(args["bytes"]) <= 0.0:
+        raise ValueError(
+            "budget_window needs a positive bytes/round target, e.g. "
+            "budget_window(bytes=44.8) — a zero target can only ratchet "
+            "lambda up until the agent is permanently silent"
+        )
+    target = _f32(args["bytes"])
+    window = _f32(max(float(args["window"]), 1.0))
+    eta, beta = _f32(args["eta"]), _f32(args["beta"])
+    ratio_for = ctx.ratio_for
+
+    def trig(params, grads, batch, losses, step, ctrl, scale=None, *,
+             pre=None, delivered=None):
+        from repro_torch.comm.stats import (
+            dense_bits,
+            dense_entries,
+            structural_bytes,
+        )
+
+        _no_channel(delivered, "budget_window")
+        # one transmission's wire bytes: ONE agent's dense payload × the
+        # policy's compression ratio (shapes and dtypes only)
+        cost = _f32(structural_bytes(grads, per_agent=True) * (
+            ratio_for(dense_bits(grads),
+                      entries=dense_entries(grads, per_agent=True))
+            if ratio_for is not None else 1.0))
+        lam, meas, gmag = ctrl.unbind(-1)
+        alpha, gain = _budget_decision(gain_of, params, grads, batch, losses,
+                                       lam, pre)
+        obs = alpha
+        gmag = (1.0 - beta) * gmag + beta * gain.abs()
+        # windowed bytes/round, then budget_dual's step with the byte
+        # error priced back into rate units by the per-transmission cost
+        meas = meas + (obs * cost - meas) / window
+        lam = torch.clamp(
+            lam + _lam_step_scale(eta, gmag, lam)
+            * (meas - _scaled(target, scale)) / cost, min=0.0)
+        return (TriggerOutput(alpha, gain.float()),
+                torch.stack([lam, meas, gmag], -1).float())
+
+    trig.ctrl0 = _ctrl_row(args["lam0"])
+    trig.prologue = gain_of
+    trig.prologue_key = _LOOKAHEAD_KEY
+    return trig
 
 
-__getattr__ = not_ported(__name__, {
-    "ctrl_init_row": _ADAPTIVE_ITEM,
-    "linreg_gain_exact": "queue 1 item 3",
-    "linreg_gain_estimated": "queue 1 item 3",
-})
+# ----------------------------------------------------------------------
+# Linear-regression closed forms (the paper's exact expressions)
+# ----------------------------------------------------------------------
+
+def _eps_terms(eps):
+    """``(ε, ½ε²)`` as fp32-exact Python floats.  A ``np.float32`` ε
+    squares in fp32 (the triggers' strongly typed ε); a Python float
+    squares in double and rounds once (the simulator's weakly typed ε),
+    as the JAX package's expressions do."""
+    if isinstance(eps, np.float32):
+        return float(eps), float(np.float32(0.5) * eps * eps)
+    return _f32(eps), _f32(0.5 * eps ** 2)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def linreg_gain_exact(w, g, eps, sigma, w_star):
+    """Eq. (28) with the *true* distribution, Σ = 𝔼xxᵀ ``(n, n)`` and w*:
+    ∇J(w) = Σ(w − w*), ∇²J = Σ.  ``g`` is ``(..., n)`` (any leading
+    agent/trial axes); ``w`` broadcasts against it."""
+    e, half_e2 = _eps_terms(eps)
+    grad_true = (w - w_star) @ sigma.T
+    return _dot(-e * g, grad_true) + _dot(half_e2 * g, g @ sigma.T)
+
+
+def linreg_gain_estimated(w, g, eps, xs):
+    """Eq. (30): −ε gᵀ[I − (ε/2)(1/N)Σ x xᵀ]g, data only, computed as
+    −ε‖g‖² + (ε²/2)·mean((xᵀg)²) — O(Nn).  ``g`` ``(..., n)``, ``xs``
+    ``(..., N, n)``."""
+    e, half_e2 = _eps_terms(eps)
+    xg = (xs @ g[..., None])[..., 0]
+    ghg = (xg * xg).mean(-1)
+    return _dot(-e * g, g) + half_e2 * ghg

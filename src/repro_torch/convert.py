@@ -8,6 +8,8 @@ JAX; the objects are read through their attributes and ``np.asarray``.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
 
@@ -52,18 +54,22 @@ def to_numpy(tree):
     return np.asarray(tree)
 
 
+def _tree(x):
+    """A JAX mapping of arrays as a dict; an array (or None) as it is."""
+    return dict(x) if isinstance(x, Mapping) else x
+
+
 def state_from_jax(state, *, device: DeviceLike = "cuda") -> TrainState:
-    """A JAX ``TrainState`` (params, opt state, EF memory) as the port's."""
-    if state.ctrl_state is not None:
-        raise todo("controller state (adaptive triggers)", "queue 1 item 4")
+    """A JAX ``TrainState`` (params, opt state, EF memory, controller
+    rows) as the port's."""
     if state.net_state is not None:
         raise todo("channel state (lossy wires)", "queue 1 item 7")
     return TrainState(
         step=int(np.asarray(state.step)),
-        params=to_torch(dict(state.params), device),
+        params=to_torch(_tree(state.params), device),
         opt_state=to_torch(state.opt_state, device),
-        ef_memory=(None if state.ef_memory is None
-                   else to_torch(dict(state.ef_memory), device)),
+        ef_memory=to_torch(_tree(state.ef_memory), device),
+        ctrl_state=to_torch(state.ctrl_state, device),
     )
 
 

@@ -24,11 +24,16 @@ Two execution paths, as in the JAX package:
   phase 2 runs each distinct policy's epilogue on its own block of
   agents and merges the blocks back into agent order.
 
-The ``"switch"``/``"unroll"`` dispatch paths, lossy channels, churn,
-adaptive controllers and the fleet-sharded mesh path are not ported
-yet: asking for one raises ``NotImplementedError`` with its ROADMAP
-item.  Every tensor stays on the step's device; a state on another
-device is an error, not a silent copy.
+Adaptive (budget) triggers carry per-agent controller rows in
+``TrainState.ctrl_state``, ``(m, CTRL_WIDTH)``: each policy block reads
+and writes its own agents' rows; a policy with no adaptive trigger keeps
+``ctrl_state=None`` and runs no extra op.
+
+The ``"switch"``/``"unroll"`` dispatch paths, lossy channels, churn and
+the fleet-sharded mesh path are not ported yet: asking for one raises
+``NotImplementedError`` with its ROADMAP item.  Every tensor stays on
+the step's device; a state on another device is an error, not a silent
+copy.
 """
 from __future__ import annotations
 
@@ -70,8 +75,8 @@ NET_METRIC_KEYS = ("wire_bytes_attempted", "num_delivered",
 CHURN_METRIC_KEYS = ("num_active",)
 
 # per-agent metric vectors emitted under ``StepOptions.agent_metrics``
-# (this slice emits agent_tx and agent_bytes; the rest belong to the
-# adaptive, lossy and churn paths)
+# (agent_tx, agent_bytes and, with controllers, agent_lam; the rest
+# belong to the lossy and churn paths)
 AGENT_METRIC_KEYS = ("agent_tx", "agent_bytes", "agent_lam",
                      "agent_delivered", "agent_staleness", "agent_active")
 
@@ -112,7 +117,7 @@ class TrainState(NamedTuple):
     params: Any                       # a tree (dict) of tensors
     opt_state: Any
     ef_memory: Optional[Any] = None   # error-feedback residuals (A, *param)
-    ctrl_state: Optional[Any] = None  # adaptive controllers (not ported)
+    ctrl_state: Optional[Any] = None  # controller rows (A, CTRL_WIDTH)
     net_state: Optional[Any] = None   # lossy channels (not ported)
 
 
@@ -123,7 +128,8 @@ def _policies(resolved):
 def init_train_state(params, optimizer, cfg: TrainConfig, policy=None, *,
                      device: DeviceLike = "cuda") -> TrainState:
     """The initial state on ``device``; EF memory is allocated iff the
-    resolved policy (or any per-agent policy) carries error feedback."""
+    resolved policy (or any per-agent policy) carries error feedback,
+    the controller slot iff any trigger is adaptive."""
     dev = resolve_device(device)
     params = tree_map(lambda v: torch.as_tensor(v).to(dev), params)
     resolved = normalize_policy(resolve_policy(cfg, policy), cfg.num_agents)
@@ -131,12 +137,13 @@ def init_train_state(params, optimizer, cfg: TrainConfig, policy=None, *,
         raise todo("lossy '@ channel' wires", "queue 1 item 7")
     ef = (ef_init(params, cfg.num_agents)
           if any(p.needs_ef for p in _policies(resolved)) else None)
+    ctrl = ctrl_init(resolved, cfg.num_agents)
     return TrainState(
         step=0,
         params=params,
         opt_state=optimizer.init(params),
         ef_memory=ef,
-        ctrl_state=ctrl_init(resolved, cfg.num_agents),
+        ctrl_state=None if ctrl is None else ctrl.to(dev),
     )
 
 
@@ -145,6 +152,16 @@ def _warn_ef_memory_missing():
         "policy requests error feedback (+ef) but state.ef_memory is None "
         "— pass the same policy to init_train_state to allocate it; "
         "running WITHOUT error feedback",
+        UserWarning,
+        stacklevel=3,
+    )
+
+
+def _warn_ctrl_state_missing():
+    warnings.warn(
+        "policy has an adaptive budget trigger but state.ctrl_state is "
+        "None — pass the same policy to init_train_state to allocate "
+        "it; running OPEN-LOOP at the trigger's lam0 (no adaptation)",
         UserWarning,
         stacklevel=3,
     )
@@ -188,6 +205,7 @@ def make_triggered_train_step(
     *,
     policy=None,
     aux_loss_fn: Optional[Callable] = None,
+    oracle: Optional[tuple] = None,
     options: Optional[StepOptions] = None,
     device: DeviceLike = "cuda",
 ):
@@ -199,7 +217,8 @@ def make_triggered_train_step(
     ``policy`` is a :class:`CommPolicy`, a spec string or a per-agent
     sequence of either; omitted, it resolves from ``cfg.comm``.
     A trigger's ``kernel=true`` option routes its reductions through the
-    ``gain_reduce`` kernel.
+    ``gain_reduce`` kernel.  ``oracle`` is the ``(Σ, w*)`` pair the
+    ``gain_exact`` trigger requires.
 
     The step runs on ``device``: its state and batch must live there.
     Metrics are 0-dim (and, with ``agent_metrics``, ``(A,)``) tensors on
@@ -218,16 +237,20 @@ def make_triggered_train_step(
     if hetero is None:
         if resolved.needs_net:
             raise todo("lossy '@ channel' wires", "queue 1 item 7")
-        trigger = resolved.build_trigger(loss_fn=loss_fn, probe_eps=cfg.lr)
+        trigger = resolved.build_trigger(loss_fn=loss_fn, probe_eps=cfg.lr,
+                                         oracle=oracle)
         chain = resolved.chain()
         needs_ef = resolved.needs_ef
+        needs_ctrl = resolved.is_adaptive
         chains = (chain,)
     else:
         if opts.hetero_dispatch != "hybrid":
             raise todo(f"hetero_dispatch={opts.hetero_dispatch!r}",
                        _DISPATCH_ITEM)
-        bank = build_stage_bank(hetero, loss_fn=loss_fn, probe_eps=cfg.lr)
+        bank = build_stage_bank(hetero, loss_fn=loss_fn, probe_eps=cfg.lr,
+                                oracle=oracle)
         needs_ef = bank.needs_ef
+        needs_ctrl = bank.needs_ctrl
         chains = bank.agent_chains()
         prologue_fns, _ = bank.prologues()
         batch_free = bank.epilogue_batch_free
@@ -236,8 +259,9 @@ def make_triggered_train_step(
         in_order = inv_order == tuple(range(len(inv_order)))
         inv_ix = None if in_order else torch.tensor(
             inv_order, dtype=torch.long, device=dev)
-        branches = {has_mem: bank.epilogues(has_mem)
-                    for has_mem in (False, True)}
+        branches = {(has_mem, has_ctrl): bank.epilogues(has_mem, has_ctrl)
+                    for has_mem in (False, True)
+                    for has_ctrl in (False, True)}
 
     def merge(parts):
         """Concatenate per-block results and restore agent order."""
@@ -266,9 +290,22 @@ def make_triggered_train_step(
         use_ef = needs_ef and state.ef_memory is not None
         if needs_ef and not use_ef:
             _warn_ef_memory_missing()
+        use_ctrl = needs_ctrl and state.ctrl_state is not None
+        if needs_ctrl and not use_ctrl:
+            _warn_ctrl_state_missing()
         losses, grads = prologue(params, batch)
+        new_ctrl = state.ctrl_state
         if hetero is None:
-            alphas, gains = trigger(params, grads, batch, losses, step, scale)
+            if needs_ctrl:
+                ctrl_rows = (state.ctrl_state if use_ctrl else
+                             trigger.ctrl0.to(dev).expand(losses.shape[0], -1))
+                (alphas, gains), ctrl_rows = trigger(
+                    params, grads, batch, losses, step, ctrl_rows, scale)
+                if use_ctrl:
+                    new_ctrl = ctrl_rows
+            else:
+                alphas, gains = trigger(params, grads, batch, losses, step,
+                                        scale)
             if chain:
                 g_eff = ef_add(grads, state.ef_memory if use_ef else None)
                 sent = chain.compress_tree(g_eff)
@@ -282,17 +319,20 @@ def make_triggered_train_step(
                 [fn(params, grads, batch, losses).float()
                  for fn in prologue_fns], 1) if prologue_fns else None
             mem = state.ef_memory if use_ef else None
+            ctrl = state.ctrl_state if use_ctrl else None
             # phase 2: each distinct policy's epilogue on its own block
             outs = [
                 epi(params, _take(grads, rows),
                     None if batch_free else _take(batch, rows),
-                    losses[rows], step, _take(mem, rows), None, scale,
-                    None if pres is None else pres[rows])
-                for rows, epi in zip(blocks, branches[use_ef])
+                    losses[rows], step, _take(mem, rows), _take(ctrl, rows),
+                    scale, None if pres is None else pres[rows])
+                for rows, epi in zip(blocks, branches[use_ef, use_ctrl])
             ]
-            alphas, gains, sent, new_mem = (
-                merge([o[k] for o in outs]) for k in range(4))
+            alphas, gains, sent, new_mem, ctrl_rows = (
+                merge([o[k] for o in outs]) for k in range(5))
             new_ef = new_mem if use_ef else state.ef_memory
+            if use_ctrl:
+                new_ctrl = ctrl_rows
 
         agg = masked_mean(sent, alphas)
         updates, opt_state = optimizer.update(agg, state.opt_state, params,
@@ -321,9 +361,12 @@ def make_triggered_train_step(
             metrics["agent_tx"] = alphas
             metrics["agent_bytes"] = per_agent_wire_bytes(
                 alphas, structural=sb, ratios=ratios)
+            if needs_ctrl and new_ctrl is not None:
+                # the controllers' per-agent thresholds
+                metrics["agent_lam"] = new_ctrl[..., 0]
         return (
             TrainState(step + 1, new_params, opt_state, new_ef,
-                       state.ctrl_state, state.net_state),
+                       new_ctrl, state.net_state),
             metrics,
         )
 

@@ -121,6 +121,6 @@ def batch_iterator(cfg: ModelConfig, shape: InputShape, *,
 
 
 __getattr__ = not_ported(__name__, {
-    "drifting_problem": "queue 1 item 3",
-    "drifting_batch_fn": "queue 1 item 3",
+    "drifting_problem": "queue 1 item 8",
+    "drifting_batch_fn": "queue 1 item 8",
 })

@@ -27,6 +27,14 @@ composes with (``forward`` without ``ctx``, ``setup_context``, a
   P = exp(logits − lse), the one-hot of the labels subtracted, scaled by
   the incoming gradient, then dx = (P − Y)·table and
   dtable += (P − Y)ᵀ·x;
+* its ``jvp`` rule (forward mode) is plain PyTorch too, chunked like
+  the backward: the tangent of the NLL is
+  ``Σ_v p_v·(ẋ·t_v + x·ṫ_v) − (ẋ·t_gold + x·ṫ_gold)``, that of the
+  logsumexp the sum alone;
+* its backward is :func:`~repro_torch.kernels.autograd.first_order`:
+  not recorded for a second reverse pass, but its ops carry forward-mode
+  tangents, so ``torch.func.jvp`` of ``torch.func.grad`` (a
+  Hessian-vector product) runs through it;
 * its ``vmap`` rule maps the mapped dimension onto the kernel's group
   axis: each agent's tokens, with the shared table (group stride 0) or
   with its own, all in ONE launch.
@@ -38,9 +46,9 @@ import functools
 from pathlib import Path
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.autograd import first_order
 from repro_torch.kernels.fused_ce.ref import fused_ce_lse_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_ce.cu"
@@ -197,9 +205,38 @@ def fused_ce_backward(x, table, labels, lse, dnll, *, chunk: int):
     return torch.cat(dx, -2).to(x.dtype), dtable.to(table.dtype)
 
 
+def fused_ce_jvp(x, table, labels, lse, dx, dtable, *, chunk: int):
+    """The tangents ``(dnll, dlse)`` of :func:`_forward`'s outputs along
+    the input tangents ``(dx, dtable)`` (either may be ``None``), in
+    plain PyTorch: with P = exp(logits − lse) recomputed ``chunk``
+    tokens at a time and the logits' tangent L̇ = ẋ·tableᵀ + x·ṫableᵀ,
+    dlse = Σ_v P ⊙ L̇ and dnll = dlse − L̇_gold.  fp32 throughout."""
+    tf = table.float()
+    dtf = None if dtable is None else dtable.float()
+    dnll, dlse = [], []
+    for t0 in range(0, x.shape[-2], chunk):
+        xc = x[..., t0:t0 + chunk, :].float()
+        p = torch.exp(xc @ tf.transpose(-1, -2)
+                      - lse[..., t0:t0 + chunk, None])
+        terms = []
+        if dx is not None:
+            terms.append(dx[..., t0:t0 + chunk, :].float()
+                         @ tf.transpose(-1, -2))
+        if dtf is not None:
+            terms.append(xc @ dtf.transpose(-1, -2))
+        dl = sum(terms[1:], terms[0]) if terms else torch.zeros_like(p)
+        dlse_c = (p * dl).sum(-1)
+        gold = torch.gather(dl, -1,
+                            labels[..., t0:t0 + chunk, None].long())[..., 0]
+        dlse.append(dlse_c)
+        dnll.append(dlse_c - gold)
+    return torch.cat(dnll, -1), torch.cat(dlse, -1)
+
+
 class FusedCE(torch.autograd.Function):
     """The kernel (or, on the CPU, its plain version) over a group of
-    token matrices, with a plain backward and a ``vmap`` rule."""
+    token matrices, with a plain backward, a plain ``jvp`` rule and a
+    ``vmap`` rule."""
 
     @staticmethod
     def forward(x, table, labels):
@@ -209,15 +246,23 @@ class FusedCE(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, table, labels = inputs
         _, lse = output
-        ctx.mark_non_differentiable(lse)
+        # lse is not marked non-differentiable: the backward reads it,
+        # and under forward-over-reverse it must carry its tangent there
         ctx.save_for_backward(x, table, labels, lse)
+        ctx.save_for_forward(x, table, labels, lse)
 
     @staticmethod
-    @once_differentiable
+    @first_order
     def backward(ctx, dnll, _dlse):
         x, table, labels, lse = ctx.saved_tensors
         return (*fused_ce_backward(x, table, labels, lse, dnll,
                                    chunk=BACKWARD_CHUNK), None)
+
+    @staticmethod
+    def jvp(ctx, dx, dtable, _dlabels):
+        x, table, labels, lse = ctx.saved_tensors
+        return fused_ce_jvp(x, table, labels, lse, dx, dtable,
+                            chunk=BACKWARD_CHUNK)
 
     @staticmethod
     def vmap(info, in_dims, x, table, labels):
@@ -236,8 +281,9 @@ class FusedCE(torch.autograd.Function):
 
 def fused_ce_nll(x: torch.Tensor, table: torch.Tensor,
                  labels: torch.Tensor) -> torch.Tensor:
-    """Per-token NLL ``(T,)`` fp32; differentiable in x and table, and
-    mapped by ``torch.func.vmap`` in one launch."""
+    """Per-token NLL ``(T,)`` fp32; differentiable in x and table (in
+    reverse and in forward mode), and mapped by ``torch.func.vmap`` in
+    one launch."""
     _check(x, table, labels)
     nll, _ = FusedCE.apply(x[None], table[None], labels[None])
     return nll[0]

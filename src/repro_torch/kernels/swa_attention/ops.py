@@ -23,6 +23,13 @@ composes with (``forward`` without ``ctx``, ``setup_context``, a
   differentiates (``repro.models.attention.attend``): the masked scores
   are recomputed from the saved q, k, v, and the gradients formed from
   them and the saved output;
+* its ``jvp`` rule (forward mode) is plain PyTorch too: with the same
+  P, Ṡ = (q̇·kᵀ + q·k̇ᵀ)/√hd, Ṗ = P ⊙ (Ṡ − rowsum(P ⊙ Ṡ)) and
+  Ȯ = Ṗ·V + P·V̇;
+* its backward is :func:`~repro_torch.kernels.autograd.first_order`:
+  not recorded for a second reverse pass, but its ops carry forward-mode
+  tangents, so ``torch.func.jvp`` of ``torch.func.grad`` (a
+  Hessian-vector product) runs through it;
 * its ``vmap`` rule folds the mapped dimension into the batch, so the
   kernel launches once per call however many agents are mapped over.
 """
@@ -34,9 +41,9 @@ import math
 from pathlib import Path
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.autograd import first_order
 from repro_torch.kernels.swa_attention.ref import NEG, swa_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
@@ -136,6 +143,49 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _grouped(x: torch.Tensor, kv: int) -> torch.Tensor:
+    """``(B, S, H, hd)`` → ``(B, S, KV, rep, hd)`` in fp32: query head h
+    is row ``h % rep`` of kv group ``h // rep``."""
+    return x.float().unflatten(2, (kv, x.shape[2] // kv))
+
+
+def _probabilities(q, k, v, window: int):
+    """``(qg, kf, vf, keep, P)``: the grouped fp32 operands, the window
+    mask ``(S, S)`` and P = softmax of the masked scores
+    ``(B, KV, rep, S, S)``, recomputed as the kernel forms them."""
+    s, scale = q.shape[1], 1.0 / math.sqrt(q.shape[-1])
+    qg, kf, vf = _grouped(q, k.shape[2]), k.float(), v.float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    p = torch.softmax(scores.masked_fill(~keep, NEG), dim=-1)
+    return qg, kf, vf, keep, p
+
+
+def swa_attention_jvp(q, k, v, dq, dk, dv, *, window: int):
+    """The output's tangent along ``(dq, dk, dv)`` (any may be
+    ``None``), in plain PyTorch: Ṡ = (q̇·kᵀ + q·k̇ᵀ)/√hd inside the
+    window, Ṗ = P ⊙ (Ṡ − rowsum(P ⊙ Ṡ)), Ȯ = Ṗ·V + P·V̇, per kv group.
+    Arithmetic in fp32; the tangent comes back in ``q.dtype``."""
+    kv = k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qg, kf, vf, keep, p = _probabilities(q, k, v, window)
+    terms = []
+    if dq is not None:
+        terms.append(torch.einsum("bqgrd,bkgd->bgrqk", _grouped(dq, kv), kf))
+    if dk is not None:
+        terms.append(torch.einsum("bqgrd,bkgd->bgrqk", qg, dk.float()))
+    out = torch.zeros_like(qg)
+    if terms:
+        ds = sum(terms[1:], terms[0]).masked_fill(~keep, 0.0) * scale
+        dp = p * (ds - (p * ds).sum(-1, keepdim=True))
+        out = out + torch.einsum("bgrqk,bkgd->bqgrd", dp, vf)
+    if dv is not None:
+        out = out + torch.einsum("bgrqk,bkgd->bqgrd", p, dv.float())
+    return out.flatten(2, 3).to(q.dtype)
+
+
 def swa_attention_backward(q, k, v, o, do, *, window: int):
     """(dq, dk, dv) of sliding-window causal attention, in plain PyTorch.
 
@@ -147,19 +197,11 @@ def swa_attention_backward(q, k, v, o, do, *, window: int):
     the gradients come back in the inputs' dtypes.  Only tensor
     operations, so ``torch.func.vmap`` maps it like any function.
     """
-    b, s, h, hd = q.shape
     kv = k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
-    # (B, S, KV, rep, hd): query head h is row h % rep of kv group h // rep
-    qg = q.float().unflatten(2, (kv, h // kv))
-    og = o.float().unflatten(2, (kv, h // kv))
-    dog = do.float().unflatten(2, (kv, h // kv))
-    kf, vf = k.float(), v.float()
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
-    pos = torch.arange(s, device=q.device)
-    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :]
-                                             > pos[:, None] - window)
-    p = torch.softmax(scores.masked_fill(~keep, NEG), dim=-1)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qg, kf, vf, keep, p = _probabilities(q, k, v, window)
+    og = _grouped(o, kv)
+    dog = _grouped(do, kv)
     dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
     delta = (dog * og).sum(-1).permute(0, 2, 3, 1)  # (B, KV, rep, S)
@@ -171,7 +213,7 @@ def swa_attention_backward(q, k, v, o, do, *, window: int):
 
 class SwaAttention(torch.autograd.Function):
     """The kernel (or, on the CPU, its plain version) with a plain
-    backward and a ``vmap`` rule."""
+    backward, a plain ``jvp`` rule and a ``vmap`` rule."""
 
     @staticmethod
     def forward(q, k, v, window):
@@ -182,13 +224,19 @@ class SwaAttention(torch.autograd.Function):
         q, k, v, window = inputs
         ctx.window = window
         ctx.save_for_backward(q, k, v, output)
+        ctx.save_for_forward(q, k, v)
 
     @staticmethod
-    @once_differentiable
+    @first_order
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         return (*swa_attention_backward(q, k, v, o, do, window=ctx.window),
                 None)
+
+    @staticmethod
+    def jvp(ctx, dq, dk, dv, _dwindow):
+        q, k, v = ctx.saved_tensors
+        return swa_attention_jvp(q, k, v, dq, dk, dv, window=ctx.window)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, window):
@@ -209,7 +257,8 @@ class SwaAttention(torch.autograd.Function):
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int) -> torch.Tensor:
     """Sliding-window causal attention, ``(B, S, H, hd)`` in ``q.dtype``;
-    differentiable, and mapped by ``torch.func.vmap`` in one launch."""
+    differentiable (in reverse and in forward mode), and mapped by
+    ``torch.func.vmap`` in one launch."""
     _check(q, k, v, window)
     return SwaAttention.apply(q, k, v, window)
 

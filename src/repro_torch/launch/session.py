@@ -91,10 +91,11 @@ def build_linreg_fleet_session(
     """A :class:`FleetSession` serving the paper's linreg fleet on
     ``device``.
 
-    ``net`` defaults to the budget-adaptive m=64 mix, as in the JAX
-    package (its controllers are not ported yet, so it raises); pass a
-    fixed-λ :class:`TieredNetwork` such as ``TIERED_M64_QUADRATIC``.
-    ``cfg_lr`` defaults to ``TIERED_M64_CFG``.  The problem is drawn
+    ``net`` defaults to the budget-adaptive m=64 mix
+    ``TIERED_M64_ADAPTIVE``, as in the JAX package: its metered tiers
+    run ``budget_window``/``budget_dual`` controllers whose rows the
+    state carries; any other :class:`TieredNetwork` (such as the fixed-λ
+    ``TIERED_M64_QUADRATIC``) may be passed.  ``cfg_lr`` defaults to ``TIERED_M64_CFG``.  The problem is drawn
     from ``seed`` and round ``k``'s batch from ``(seed + 1, k)``;
     ``batch_fn(k)`` replaces that stream when given.
     """

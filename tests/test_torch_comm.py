@@ -99,8 +99,12 @@ def test_spec_errors():
 def test_unported_stages_raise_with_roadmap_pointer():
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         CommPolicy.parse("always|randk(0.1)").chain()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        CommPolicy.parse("budget_dual").build_trigger()
+    # the budget controllers run; pricing a channel's delivery draw
+    # waits for the lossy channels
+    trig = CommPolicy.parse("budget_dual").build_trigger(loss_fn=_tloss)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        trig(None, None, None, None, 0, torch.zeros(1, 3),
+             delivered=torch.ones(1))
     assert CommPolicy.parse("always @ bernoulli(p=0.2)").needs_net
     assert not CommPolicy.parse("always @ ideal").needs_net
 

@@ -85,12 +85,15 @@ def _jax_net(net):
         JTierSpec(**dataclasses.asdict(t)) for t in net.tiers))
 
 
-def _thresholds(specs):
-    """Per-agent transmit threshold −λ (None for ungated triggers)."""
+def _thresholds(specs, ctrl=None):
+    """Per-agent transmit threshold −λ (None for ungated triggers); an
+    adaptive trigger's λ is its row of the controller state ``ctrl``."""
     out = []
-    for spec in specs:
-        trig = CommPolicy.parse(spec).trigger
-        lam = trig.arg("lam")
+    for i, spec in enumerate(specs):
+        pol = CommPolicy.parse(spec)
+        trig = pol.trigger
+        lam = (float(np.asarray(ctrl)[i, 0]) if pol.is_adaptive
+               else trig.arg("lam"))
         out.append(None if trig.name in ("always", "never")
                    else -float(np.float32(0.0 if lam is None else lam)))
     assert all(CommPolicy.parse(s).trigger.arg("decay") is None
@@ -98,16 +101,19 @@ def _thresholds(specs):
     return out
 
 
-def _jax_gains(specs, cfg, params, batch):
+def _jax_gains(specs, cfg, params, batch, ctrl=None):
     """Per-agent gains from the JAX package's own triggers (used only
     to vet a decision that differs between the packages)."""
     gains = []
     for i, spec in enumerate(specs):
-        trig = JCommPolicy.parse(spec).build_trigger(
-            loss_fn=jloss, probe_eps=cfg.lr)
+        pol = JCommPolicy.parse(spec)
+        trig = pol.build_trigger(loss_fn=jloss, probe_eps=cfg.lr)
         b = tuple(x[i] for x in batch)
         loss, g = jax.value_and_grad(jloss)(params, b)
-        gains.append(float(trig(params, g, b, loss, 0)[1]))
+        if pol.is_adaptive:
+            gains.append(float(trig(params, g, b, loss, 0, ctrl[i])[0][1]))
+        else:
+            gains.append(float(trig(params, g, b, loss, 0)[1]))
     return np.asarray(gains)
 
 
@@ -131,12 +137,18 @@ def _mismatch(tnext, tm, jnext, jm, g_eff):
                       - np.asarray(jnext.ef_memory["w"]))
         if not np.all(diff <= ATOL + RTOL * scale):
             return f"ef_memory: max diff {diff.max()}"
+    if (tnext.ctrl_state is None) != (jnext.ctrl_state is None):
+        return "controller slot"
+    if jnext.ctrl_state is not None and not np.allclose(
+            convert.to_numpy(tnext.ctrl_state),
+            np.asarray(jnext.ctrl_state), rtol=RTOL, atol=ATOL):
+        return "controller rows"
     return None
 
 
 def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0):
     """Run the port's step and the JAX step (``dispatch`` path) from the
-    same state each round and compare.
+    same state each round and compare (controller rows included).
 
     Where the two JAX dispatch paths themselves disagree on a round (a
     value on a compressor's rounding boundary, as ROADMAP §3 records),
@@ -165,7 +177,6 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0):
     jstate = jinit({"w": jnp.zeros(cfg_lr.n)}, jopt, jcfg)
     tstate = init_train_state({"w": torch.zeros(cfg_lr.n)}, topt, tcfg,
                               device="cpu")
-    thresholds = _thresholds(agent_specs)
     ties = splits = 0
     launches0 = gr_ops.gain_reduce.launches
     for k in range(rounds):
@@ -190,7 +201,9 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0):
         if differ.size:
             # a decision may differ only where the gain sits on its
             # threshold to within the float tolerance
-            gains = _jax_gains(agent_specs, tcfg, jstate.params, batch)
+            thresholds = _thresholds(agent_specs, jstate.ctrl_state)
+            gains = _jax_gains(agent_specs, tcfg, jstate.params, batch,
+                               jstate.ctrl_state)
             for i in differ:
                 assert thresholds[i] is not None, (k, i)
                 assert abs(gains[i] - thresholds[i]) <= (
@@ -350,17 +363,15 @@ def test_unported_paths_raise_with_roadmap_pointer():
                         comm="always|int8 @ bernoulli(p=0.2)")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         make_triggered_train_step(tloss, opt, lossy, device="cpu")
-    adaptive = TrainConfig(optimizer="sgd", num_agents=2,
-                           comm="budget_dual(rate=0.5)")
+    from repro_torch.core import aggregation
+
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        make_triggered_train_step(tloss, opt, adaptive, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        build_linreg_fleet_session(device="cpu")
+        aggregation.masked_mean_quantized
     micro = TrainConfig(optimizer="sgd", num_agents=2, comm="always",
                         microbatches=2)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         make_triggered_train_step(tloss, opt, micro, device="cpu")
-    from repro_torch.core import regression
+    from repro_torch.data import synthetic
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        regression.sweep
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        synthetic.drifting_problem
