@@ -152,6 +152,8 @@ TIMED_RUNS = 100
 # traces of a timed call's device records taken before device_ms fails
 # on a trace that lost records
 DEVICE_TRACE_ATTEMPTS = 10
+# idle card before and after the traced calls inside the profiler's cycle
+TRACE_GAP_S = 0.02
 # the [fleet adaptive] phase: bytes/round per tier over the last rounds
 ADAPTIVE_TAIL = 50
 # the [sim] phase's sweep at the fleet's size (TIERED_M64_CFG: n = 32,
@@ -159,6 +161,8 @@ ADAPTIVE_TAIL = 50
 # over 512 trials; the CPU holds the first 8 trials on the same batches
 SIM_LAMS = (0.0, 0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0)
 SIM_TRIALS, SIM_CHECK_TRIALS = 512, 8
+# sweeps in the [profile] phase's trace of the [sim] sweep
+SIM_PROFILED_SWEEPS = 2
 # card vs CPU: 40 rounds of fp32 sums in other orders, free-running
 SIM_TOL = 1e-4
 ROUNDS = 200
@@ -807,37 +811,42 @@ def phase_sim(torch) -> tuple:
 
 def phase_sim_profile(torch, fleet, grid, steps: int,
                       sweep_ms: float) -> dict:
-    """One fleet-size sweep under torch.profiler: device time, device
-    ops and the idle share against the unprofiled sweep time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Fleet-size sweeps under torch.profiler: device time, device ops
+    and the idle share against the unprofiled sweep time.  The trace is
+    taken as ``device_ms`` takes it (after a dropped profiler cycle) and
+    must hold exactly SIM_PROFILED_SWEEPS times the records of one sweep,
+    the most that three one-sweep traces hold."""
     from repro_torch.core import regression as R
     from repro_torch.figures import seeded
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def sweep():
         R.sweep(fleet, seeded(1, fleet.device), steps, grid, SIM_TRIALS)
-        torch.cuda.synchronize()
-    ivals = _device_intervals(prof)
-    if not ivals:
+
+    per_call = max(len(_device_records(torch, sweep, 1)) for _ in range(3))
+    if per_call == 0:
         raise AssertionError("the profiler saw no device activity")
-    busy = sum(t for _, t in ivals) / 1e3
+    ivals, counts = _complete_records(torch, sweep, SIM_PROFILED_SWEEPS,
+                                      per_call)
+    busy = sum(t for _, t in ivals) / 1e3 / SIM_PROFILED_SWEEPS
     by_name: dict = {}
     for n, t in ivals:
         ms, c = by_name.get(n, (0.0, 0))
-        by_name[n] = (ms + t / 1e3, c + 1)
+        by_name[n] = (ms + t / 1e3 / SIM_PROFILED_SWEEPS,
+                      c + 1 / SIM_PROFILED_SWEEPS)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    record = {"device_ms": busy, "device_ops": len(ivals),
+    record = {"device_ms": busy, "device_ops": per_call,
+              "device_records": counts,
               "sweep_ms_unprofiled": sweep_ms,
               "idle_share": 1.0 - busy / sweep_ms,
               "top": [{"name": n, "ms": ms, "count": c}
                       for n, (ms, c) in top]}
     print(f"[profile] sim sweep: {busy:.2f} ms on the device in "
-          f"{len(ivals)} device ops against the unprofiled {sweep_ms:.2f} "
-          f"ms -> idle share {record['idle_share']:.3f}")
+          f"{per_call} device ops per sweep ({counts['records']} records "
+          f"in {SIM_PROFILED_SWEEPS} sweeps, as expected) against the "
+          f"unprofiled {sweep_ms:.2f} ms -> idle share "
+          f"{record['idle_share']:.3f}")
     for n, (ms, c) in top:
-        print(f"[profile]   sim {ms:8.3f} ms x{c:<5d} {n[:90]}")
+        print(f"[profile]   sim {ms:8.3f} ms x{c:<5.0f} {n[:90]}")
     return record
 
 
@@ -901,9 +910,16 @@ def _device_records(torch, fn, calls: int):
     torch.profiler trace.  The trace is the second cycle of a profiler
     schedule: a first cycle of one call, dropped, lets device tracing
     start before the recorded calls are made (a trace begun with them
-    kept none of a single long call's records).  A record of that first
-    call can still arrive in the second cycle: only records that start
-    inside the ``record_function`` range around the calls are kept."""
+    kept none of a single long call's records).  The second cycle also
+    opens with one call that is not counted: its first record can go
+    missing too (the 12.8 ms `fused_ce` partial of the first call of
+    (4096, 3072, 128256) bf16 in most traces on the H100).  The counted
+    calls run inside a ``record_function`` range with TRACE_GAP_S of
+    idle card before and after it, so that a skew between the host's
+    and the card's clocks up to half the gap neither cuts a call's
+    record at the cycle's end nor keeps one of the call before: only
+    records that start after the middle of the gap before the range
+    are kept."""
     from torch.autograd import DeviceType
     from torch.profiler import (
         ProfilerActivity,
@@ -920,48 +936,98 @@ def _device_records(torch, fn, calls: int):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_GAP_S)
         with record_function(mark):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        time.sleep(TRACE_GAP_S)
         prof.step()
     events = prof.events()
-    start = min(e.time_range.start for e in events
+    span = next(e.time_range for e in events
                 if e.name == mark and e.device_type == DeviceType.CPU)
-    return [(e.name, e.time_range.elapsed_us()) for e in events
-            if e.device_type == DeviceType.CUDA and e.name != mark
-            and e.time_range.start >= start]
+    start = span.start - TRACE_GAP_S * 1e6 / 2
+    device = [e for e in events
+              if e.device_type == DeviceType.CUDA and e.name != mark]
+    kept = [e for e in device if e.time_range.start >= start]
+    # for the error message of an incomplete trace: the records left out
+    # (their starts from the range's, µs), and the kept records' first
+    # start and last end from the range's start and end (the calls end
+    # before the range does, so a positive last end is a clock skew)
+    _device_records.before = [round(e.time_range.start - span.start, 1)
+                              for e in device if e.time_range.start < start]
+    _device_records.edges = (
+        round(min(e.time_range.start for e in kept) - span.start, 1),
+        round(max(e.time_range.end for e in kept) - span.end, 1),
+    ) if kept else None
+    return [(e.name, e.time_range.elapsed_us()) for e in kept]
 
 
-def device_ms(torch, fn, calls: int = 20) -> float:
-    """Device time of one ``fn()`` call: the summed durations of the
-    device records of a torch.profiler trace of ``calls`` calls (free of
-    the host's dispatch time that CUDA events include).
-
-    The trace must hold every record the calls make.  The profiler
-    drops a few records of some traces, so ``fn``'s
-    records per call are counted as the most that five one-call traces
-    hold, and a trace of ``calls`` calls with fewer than ``calls`` times
-    as many is incomplete: it is taken again, and after
-    ``DEVICE_TRACE_ATTEMPTS`` incomplete traces the measurement fails.
-    ``device_ms.last`` keeps the counts of the last measurement."""
-    per_call = max(len(_device_records(torch, fn, 1)) for _ in range(5))
-    if per_call == 0:
-        raise AssertionError("the profiler saw no device activity")
+def _complete_records(torch, fn, calls: int, per_call: int,
+                      kernel: str | None = None) -> tuple:
+    """The device records of a trace of ``calls`` calls of ``fn`` that
+    holds exactly ``per_call`` × ``calls`` of them and, where ``kernel``
+    names one of the port's kernels, none but its device functions'.
+    The profiler drops records of some traces: a trace that does not
+    hold that count is taken again, and after ``DEVICE_TRACE_ATTEMPTS``
+    such traces the measurement fails.  Returns the records and their
+    counts, with the traces that fell short."""
     want = per_call * calls
     seen = []
     for _ in range(DEVICE_TRACE_ATTEMPTS):
         recs = _device_records(torch, fn, calls)
-        seen.append(len(recs))
-        if len(recs) >= want:
-            device_ms.last = {"records_per_call": per_call,
-                              "records": len(recs), "expected": want,
-                              "attempts": len(seen)}
-            return sum(t for _, t in recs) / calls / 1e3
+        other = 0 if kernel is None else sum(kernel not in n for n, _ in recs)
+        names: dict = {}
+        for n, _ in recs:
+            names[n[:40]] = names.get(n[:40], 0) + 1
+        seen.append({"records": len(recs), "other": other,
+                     "left_out_starts_us": _device_records.before,
+                     "edges_us": _device_records.edges, "by_name": names})
+        if len(recs) == want and other == 0:
+            return recs, {"records_per_call": per_call,
+                          "records": len(recs), "expected": want,
+                          "attempts": len(seen),
+                          "edges_us": _device_records.edges,
+                          "short_traces": seen[:-1]}
     raise AssertionError(
-        f"device_ms: the profiler kept {seen} device records in "
-        f"{len(seen)} traces of {calls} calls, fewer than the {want} "
-        f"({per_call} per call) the calls make")
+        f"device records: {len(seen)} traces of {calls} calls held {seen} "
+        f"(edges: the kept records' first start and last end against the "
+        f"range's, µs), not the {want} records ({per_call} per call"
+        + ("" if kernel is None else f", all of {kernel}") + ") the calls make")
+
+
+def device_ms(torch, fn, calls: int = 20, kernel=None) -> float:
+    """Device time of one ``fn()`` call: the summed durations of the
+    device records of a torch.profiler trace of ``calls`` calls (free of
+    the host's dispatch time that CUDA events include).
+
+    The trace must hold exactly the records the calls make
+    (``_complete_records``).  For a row of one of the port's kernels,
+    ``kernel`` is ``(wrapper, name, functions)``: the wrapper's own
+    ``launches`` counter, read around one call outside the profiler,
+    gives its launches per call, each of which runs ``functions``
+    device functions whose names hold ``name``, and the calls make
+    those records and no other.  For a plain or library row, which has
+    no counter, the records per call are the most that five one-call
+    traces hold.  ``device_ms.last`` keeps the counts of the last
+    measurement."""
+    if kernel is None:
+        per_call = max(len(_device_records(torch, fn, 1)) for _ in range(5))
+        source, name = "profiler", None
+    else:
+        wrapper, name, functions = kernel
+        before = wrapper.launches
+        fn()
+        torch.cuda.synchronize()
+        per_call = (wrapper.launches - before) * functions
+        source = "launch counter"
+    if per_call == 0:
+        raise AssertionError("device_ms: the call made no device records")
+    recs, counts = _complete_records(torch, fn, calls, per_call, name)
+    device_ms.last = {**counts, "expected_from": source}
+    return sum(t for _, t in recs) / calls / 1e3
 
 
 def phase_times(torch, gr_ops, ref) -> list:
@@ -976,6 +1042,8 @@ def phase_times(torch, gr_ops, ref) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
             h = torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
+            # one launch runs a second function to sum the splits
+            functions = 1 + (gr_ops._splits(n, gr_ops._DTYPE_CODES[dtype]) > 1)
             fns = {
                 "": lambda g=g, h=h: gr_ops.gain_reduce(g, h),
                 "plain_": lambda g=g, h=h: ref.gain_reduce_ref(g, h),
@@ -985,17 +1053,20 @@ def phase_times(torch, gr_ops, ref) -> list:
             bound_ms, bound_by = bound(rows, n, g.element_size())
             cases.append(({"shape": [rows, n],
                            "dtype": str(dtype).split(".")[-1],
-                           "bound_ms": bound_ms, "bound_by": bound_by}, fns))
+                           "bound_ms": bound_ms, "bound_by": bound_by},
+                          fns, (gr_ops.gain_reduce, "gain_reduce",
+                                functions)))
     before = gr_ops.gain_reduce.launches
-    for row, fns in cases:
+    for row, fns, _ in cases:
         for key, fn in fns.items():
             row[f"{key}ms"] = time_ms(fn)
-    for row, fns in cases:
+    for row, fns, kernel in cases:
         for key, fn in fns.items():
-            row[f"{key}device_ms"] = device_ms(torch, fn)
+            row[f"{key}device_ms"] = device_ms(
+                torch, fn, kernel=None if key else kernel)
             row[f"{key}device_records"] = dict(device_ms.last)
     gr_ops.gain_reduce.launches = before  # timing launches do not count
-    for row, _ in cases:
+    for row, _, _ in cases:
         (rows, n), dt = row["shape"], row["dtype"]
         print(f"[times] {rows}x{n} {dt}: per call (events) kernel "
               f"{row['ms']:.4f} / plain {row['plain_ms']:.4f} / vecdot x2 "
@@ -1003,7 +1074,7 @@ def phase_times(torch, gr_ops, ref) -> list:
               f"{row['device_ms']:.5f} / plain {row['plain_device_ms']:.5f}"
               f" / vecdot x2 {row['library_device_ms']:.5f} ms; bound "
               f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
-    return [row for row, _ in cases]
+    return [row for row, _, _ in cases]
 
 
 # ----------------------------------------------------------------------
@@ -1367,7 +1438,9 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
             row[f"{key}ms"] = time_ms(fn)
     for row, fns in cases:
         for key, fn in fns.items():
-            row[f"{key}device_ms"] = device_ms(torch, fn)
+            row[f"{key}device_ms"] = device_ms(
+                torch, fn, kernel=None if key else (
+                    swa_ops.swa_attention, "swa_attention", 1))
             row[f"{key}device_records"] = dict(device_ms.last)
     swa_ops.swa_attention.launches = before  # timing launches do not count
     for row, _ in cases:
@@ -1870,7 +1943,10 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
             for key, fn in fns.items():
                 row[f"{key}ms"] = time_ms(fn)
             for key, fn in fns.items():
-                row[f"{key}device_ms"] = device_ms(torch, fn)
+                # one launch runs the vocab-split partials, then the combine
+                row[f"{key}device_ms"] = device_ms(
+                    torch, fn, kernel=None if key else (
+                        ce_ops.fused_ce, "fused_ce", 2))
                 row[f"{key}device_records"] = dict(device_ms.last)
             ce_ops.fused_ce.launches = before  # timing launches do not count
             _shares(row)

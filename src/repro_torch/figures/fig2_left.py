@@ -19,8 +19,7 @@ LAMBDAS = [0.0, 0.02, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4]
 TRIALS = 512
 
 
-def run(device: DeviceLike = "cuda", smoke: bool = False,
-        verbose: bool = False) -> dict:
+def run(device: DeviceLike = "cuda", smoke: bool = False) -> dict:
     trials = 32 if smoke else TRIALS
     problem = R.make_problem(FIG2_LEFT, seeded(0, device), device=device)
     # the whole λ frontier is ONE batched sweep
@@ -44,10 +43,6 @@ def run(device: DeviceLike = "cuda", smoke: bool = False,
             "J_degrades_as_comm_drops": Js[-1] > Js[0],
         },
     }
-    if verbose:
-        for r in rows:
-            print(f"  lam={r['lam']}: J={r['mean_final_J']:.4f} "
-                  f"comm={r['total_comm']:.2f} any={r['total_any_tx']:.2f}")
     if not smoke:
         assert all(payload["claims"].values()), payload["claims"]
     return payload

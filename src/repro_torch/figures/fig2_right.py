@@ -18,8 +18,7 @@ LAMBDAS = [0.0, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2]
 TRIALS = 2048
 
 
-def run(device: DeviceLike = "cuda", smoke: bool = False,
-        verbose: bool = False) -> dict:
+def run(device: DeviceLike = "cuda", smoke: bool = False) -> dict:
     trials = 64 if smoke else TRIALS
     problem = R.make_problem(FIG2_RIGHT, seeded(0, device), device=device)
     # one sweep over BOTH gain variants; every grid point shares the
@@ -48,8 +47,6 @@ def run(device: DeviceLike = "cuda", smoke: bool = False,
             "decision_agreement_min": min(agree),
         },
     }
-    if verbose:
-        print("  claims:", payload["claims"])
     if not smoke:
         assert payload["claims"]["no_significant_difference"], \
             payload["claims"]

@@ -16,8 +16,7 @@ from repro_torch.utils.device import DeviceLike
 STEPS, TRIALS, LAM0 = 120, 512, 2.0
 
 
-def run(device: DeviceLike = "cuda", smoke: bool = False,
-        verbose: bool = False) -> dict:
+def run(device: DeviceLike = "cuda", smoke: bool = False) -> dict:
     trials = 32 if smoke else TRIALS
     steps = 40 if smoke else STEPS
     problem = R.make_problem(FIG2_LEFT, seeded(0, device), device=device)
@@ -48,10 +47,6 @@ def run(device: DeviceLike = "cuda", smoke: bool = False,
                 rows[1]["steady_J"] > dense["steady_J"] * 1.3,
         },
     }
-    if verbose:
-        for r in rows:
-            print(f"  {r['schedule']}: steady J={r['steady_J']:.4f} "
-                  f"comm={r['total_comm']:.1f}")
     if not smoke:
         assert all(payload["claims"].values()), payload["claims"]
     return payload

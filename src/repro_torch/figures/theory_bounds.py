@@ -19,8 +19,7 @@ TRIALS = 512
 STEPS = 60
 
 
-def run(device: DeviceLike = "cuda", smoke: bool = False,
-        verbose: bool = False) -> dict:
+def run(device: DeviceLike = "cuda", smoke: bool = False) -> dict:
     trials = 64 if smoke else TRIALS
     problem = R.make_problem(FIG2_LEFT, seeded(0, device), device=device)
     w0 = torch.zeros(problem.n, device=problem.device)
@@ -51,11 +50,6 @@ def run(device: DeviceLike = "cuda", smoke: bool = False,
     payload = {"steps": STEPS, "trials": trials, "rows": rows,
                "all_bounds_hold": all(r["thm1_holds"] and r["thm2_holds_as"]
                                       for r in rows)}
-    if verbose:
-        for r in rows:
-            print(f"  lam={r['lam']}: J_N={r['mean_J_N']:.4f} "
-                  f"thm1={r['thm1_bound']:.4f} any_tx≤{r['max_any_tx']:.0f} "
-                  f"thm2={r['thm2_bound']:.1f}")
     if not smoke:
         assert payload["all_bounds_hold"], payload
     return payload

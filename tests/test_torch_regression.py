@@ -337,7 +337,7 @@ def test_figure_driver_smoke_on_cpu(name):
     mod = importlib.import_module(f"repro_torch.figures.{name}")
     payload = mod.run(device="cpu", smoke=True)
     keys = {"fig1_right": {"gain_curve", "grad_norm_curve", "per_budget",
-                           "claims"},
+                           "per_seed", "claims"},
             "fig2_left": {"rows", "claims"},
             "fig2_right": {"rows", "claims"},
             "lambda_decay": {"rows", "claims"},
@@ -348,3 +348,9 @@ def test_figure_driver_smoke_on_cpu(name):
     assert all(np.isfinite(flat))
     if name == "theory_bounds":
         assert all(r["thm2_holds_as"] for r in payload["rows"])
+    if name == "fig1_right":
+        # the claims are the medians over the JAX seed and the nine after
+        seeds = payload["per_seed"]
+        assert [r["problem_seed"] for r in seeds] == list(range(10, 20))
+        assert payload["claims"]["low_budget_J_ratio"] == np.median(
+            [r["low_budget_J_ratio"] for r in seeds])
