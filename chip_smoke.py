@@ -33,6 +33,35 @@ Phases (any failure exits nonzero; no result line is printed then):
               budget, a falling loss, and the first 10 rounds equal to
               the CPU session's (decisions exactly; metrics and
               controller rows within rtol 1e-4).
+   random   — the port's threefry (``repro_torch.random``): ``bits``,
+              ``uniform`` and ``split`` over 2^20 counters and the
+              channels' ``fold_in(fold_in(PRNGKey(seed), step), uid)``
+              then ``uniform`` over 240 × 64 (step, uid) pairs, each word
+              equal to the CPU's.
+   fleet lossy — ``TIERED_M64_ADAPTIVE_LOSSY`` (20 % Bernoulli loss with
+              staleness boost on the metered tiers) for 240 rounds: the
+              first 10 rounds against the same step on the CPU from the
+              same state (decisions, deliveries and staleness exactly,
+              floats and controller rows within rtol 1e-4), each metered
+              tier's delivered bytes per agent and round over the last
+              120 rounds within 15 % of its budget, and the final J under
+              half the initial J (benchmarks/lossy_channels.py's claims
+              for one run); the delivered byte fraction and rounds/s.
+   fleet lossy quadratic — ``TIERED_M64_QUADRATIC`` with that loss on
+              its metered tiers, 240 rounds: exactly 240 ``gain_reduce``
+              launches, the CPU check, and each tier's budget printed
+              (a fixed λ misses under loss).
+   fleet delayed — ``TIERED_M64_ADAPTIVE_DELAYED`` (geometric latency,
+              mean lag 2, depth 6, discount 0.5), 240 rounds: the CPU
+              check, no payload applied past ``max_lag``, each metered
+              tier's arrived bytes within 15 % of its budget (the
+              discounted ``agent_bytes`` printed beside them); then the
+              fixed-λ ``TIERED_M64_DELAYED`` and ``..._NAIVE``: tail loss
+              and wire bytes, printed.
+   fleet churn — ``TIERED_M64_DELAYED`` under ``churn_schedule(net,
+              240)``: ``num_active`` equal to the schedule's count in
+              every round, fewer wire bytes than without churn, and the
+              CPU check over rounds 0–10 and 55–65 (the joins at 60).
    sim      — the paper's closed-form simulator: the five figure
               drivers (``repro_torch.figures``) at full trials, each
               asserting its claims, the README Quickstart's λ loop, and
@@ -117,7 +146,10 @@ Phases (any failure exits nonzero; no result line is printed then):
               and both bounds (``bf16-mma``: flops at the bf16 rate).
 8. profile  — 20 more fleet rounds under torch.profiler (device ops,
               busy time and idle share per round, top kernels and host
-              operators); then one prefill and 16 decode steps of LM run
+              operators); then 20 rounds each of [slice], [fleet adaptive]
+              and [fleet lossy] in traces that must hold exactly 20 times
+              one round's records (taken again when short, as
+              ``device_ms`` does): device ops, busy time, idle share; then one prefill and 16 decode steps of LM run
               (a): the kernel's share of the prefill's device time and
               the device's idle share in decode; then one train step:
               device time by kernel, device ops and idle share; then one
@@ -167,6 +199,14 @@ SIM_PROFILED_SWEEPS = 2
 SIM_TOL = 1e-4
 ROUNDS = 200
 CHECK_ROUNDS = 10
+# the lossy and delayed fleets: as benchmarks/lossy_channels.py and
+# async_rounds.py define a run (240 rounds, judged on the last half)
+NET_ROUNDS = 240
+NET_TAIL = 120
+TOL_LOSSY = 0.15    # benchmarks/lossy_channels.py:57
+TOL_BUDGET = 0.15   # benchmarks/async_rounds.py:68
+CHURN_WINDOW = (55, 65)   # around round 60, where the late agents join
+RANDOM_COUNTERS = 1 << 20
 PROFILED_ROUNDS = 20
 
 # the dense tensor-core rates (data sheet): bf16, the peak for bf16
@@ -673,7 +713,436 @@ def phase_fleet_adaptive(torch, slice_rounds_per_s: float) -> dict:
         "loss_last": losses[-1], "rounds_per_s": steady,
         "slice_rounds_per_s": slice_rounds_per_s, "tiers": tiers,
         "tail_rounds": ADAPTIVE_TAIL, "cpu_rounds_checked": CHECK_ROUNDS,
-        "lam_final": session.state.ctrl_state[:, 0].tolist()}
+        "lam_final": session.state.ctrl_state[:, 0].tolist()}, session
+
+
+def phase_random(torch) -> dict:
+    """The port's threefry on the card against the CPU, bit for bit:
+    ``bits``, ``uniform`` and ``split`` over 2^20 counters, and the
+    channels' chained ``fold_in(fold_in(PRNGKey(seed), step), uid)`` then
+    ``uniform`` over 64 × 240 (step, uid) pairs."""
+    from repro_torch import random as prng
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    record = {}
+
+    def both(name, fn):
+        fn(dev)  # warm-up: the first call loads the int64 kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = fn(torch.device("cpu"))
+        card = card.cpu()
+        if card.dtype == torch.float32:
+            card, cpu = card.view(torch.int32), cpu.view(torch.int32)
+        if not torch.equal(card, cpu):
+            bad = int((card != cpu).sum())
+            raise AssertionError(f"random: {name}: {bad} of {card.numel()} "
+                                 f"words differ card vs CPU")
+        record[name] = {"words": card.numel(), "card_ms": ms}
+
+    n = RANDOM_COUNTERS
+    both("bits", lambda d: prng.bits(prng.PRNGKey(7, device=d), (n,)))
+    both("uniform", lambda d: prng.uniform(prng.PRNGKey(7, device=d), (n,)))
+    both("split", lambda d: prng.split(prng.PRNGKey(7, device=d), n))
+    steps, uids = NET_ROUNDS, 64
+
+    def chained(d):
+        keys = prng.fold_in(prng.fold_in(
+            prng.PRNGKey(3, device=d),
+            torch.arange(steps, device=d)[:, None]),
+            torch.arange(uids, device=d)[None, :])
+        return torch.cat([keys.reshape(-1), prng.uniform(keys).view(
+            torch.int32).to(torch.int64).reshape(-1)])
+
+    both("fold_in_uniform", chained)
+    # the host fold of (seed, step) then the device fold of the uids:
+    # the channels' own derivation, against the all-device chain
+    host = torch.stack([prng.fold_in(prng.host_fold_in(3, k),
+                                     torch.arange(uids, device=dev))
+                        for k in range(steps)]).cpu()
+    if not torch.equal(host, chained(torch.device("cpu"))[:steps * uids * 2]
+                       .reshape(steps, uids, 2)):
+        raise AssertionError("random: host (seed, step) folds differ from "
+                             "the device chain")
+    print(f"[random] bits, uniform, split over {n} counters and "
+          f"fold_in(fold_in(key, step), uid) + uniform over {steps} x "
+          f"{uids} (step, uid) pairs: card equal to the CPU bit for bit; "
+          + ", ".join(f"{k} {v['card_ms']:.2f} ms" for k, v in
+                      record.items()))
+    return record
+
+
+def _to_cpu(state):
+    """A TrainState with every tensor moved to the CPU (step stays)."""
+    from repro_torch.utils.tree import tree_map
+
+    def move(tree):
+        return None if tree is None else tree_map(lambda x: x.cpu(), tree)
+
+    return state._replace(params=move(state.params),
+                          opt_state=move(state.opt_state),
+                          ef_memory=move(state.ef_memory),
+                          ctrl_state=move(state.ctrl_state),
+                          net_state=move(state.net_state))
+
+
+# a round's integer-valued realization: held exactly card vs CPU
+EXACT_KEYS = ("agent_tx", "num_tx", "any_tx", "agent_delivered",
+              "agent_staleness", "agent_active", "num_active")
+
+
+def _serve_net(torch, net, *, churn=None, rounds: int = NET_ROUNDS,
+               keep=(), starts=(0,)):
+    """Serve ``net`` on TIERED_M64_CFG (seed 0, the [slice] problem and
+    batch stream) for ``rounds`` rounds on the card.  Keeps every
+    round's metrics, the controller rows after the rounds in ``keep``
+    and the state before each round in ``starts`` (on the CPU)."""
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.launch.session import build_linreg_fleet_session
+
+    cfg, seed = TIERED_M64_CFG, 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problem = R.make_problem(cfg, step_generator(seed, 0, dev), device=dev)
+
+    def batch_fn(k):
+        return R.agent_batches(problem, step_generator(seed + 1, k, dev))
+
+    run = {"hist": [], "stamps": [], "ctrl": {}, "states": {},
+           "problem": problem, "batch_fn": batch_fn}
+    session = None
+
+    def on_round(k, metrics):
+        run["stamps"].append(time.perf_counter())
+        run["hist"].append(metrics)
+        if k in keep and session.state.ctrl_state is not None:
+            run["ctrl"][k] = session.state.ctrl_state.cpu().numpy()
+        if k + 1 in starts:
+            run["states"][k + 1] = _to_cpu(session.state)
+
+    session = build_linreg_fleet_session(
+        net=net, cfg_lr=cfg, seed=seed, device=dev, batch_fn=batch_fn,
+        on_round=on_round, churn=churn)
+    run["states"][0] = _to_cpu(session.state)
+    session.run(rounds)
+    torch.cuda.synchronize()
+    run["session"] = session
+    losses = [float(m["loss"]) for m in run["hist"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{net.name}: non-finite loss on the card")
+    run["losses"] = losses
+    run["rounds_per_s"] = (len(run["stamps"]) - 1 - CHECK_ROUNDS) / (
+        run["stamps"][-1] - run["stamps"][CHECK_ROUNDS])
+    run["J"] = (float(problem.J(torch.zeros_like(problem.w_star))),
+                float(problem.J(session.state.params["w"])))
+    return run
+
+
+def _cpu_check(torch, label, net, run, start: int, rounds: int,
+               churn=None) -> None:
+    """Rounds ``start .. start + rounds`` of a card run against the same
+    step on the CPU from the card's state before round ``start``, on the
+    same batches: the realization (decisions, deliveries, staleness, the
+    churn mask) exactly, floats and controller rows within rtol 1e-4 /
+    atol 1e-5, as [fleet adaptive] holds them."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+    from repro_torch.launch.session import (
+        FleetSession,
+        build_linreg_fleet_session,
+    )
+
+    def cpu_batch(k):
+        return tuple(x.cpu() for x in run["batch_fn"](k))
+
+    template = build_linreg_fleet_session(
+        net=net, cfg_lr=TIERED_M64_CFG, device="cpu", batch_fn=cpu_batch,
+        churn=churn)
+    got = []
+    cpu = FleetSession(
+        template.step_fn, run["states"][start],
+        lambda k: cpu_batch(start + k), template.rollup,
+        on_round=lambda k, m: got.append(
+            (m, None if cpu.state.ctrl_state is None
+             else cpu.state.ctrl_state.numpy().copy())))
+    cpu.run(rounds)
+    for i, (b, cb) in enumerate(got):
+        k = start + i
+        a = run["hist"][k]
+        for key in EXACT_KEYS:
+            if key in b and not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"{label} round {k}: {key} differs "
+                                     f"card vs CPU")
+        for key in b:
+            if not np.allclose(a[key], b[key], rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"{label} round {k}: {key} differs "
+                                     f"card vs CPU: {a[key]} vs {b[key]}")
+        if cb is not None and not np.allclose(run["ctrl"][k], cb, rtol=1e-4,
+                                              atol=1e-5):
+            raise AssertionError(f"{label} round {k}: controller rows "
+                                 f"differ card vs CPU")
+
+
+def _tier_bytes(net, run, tol: float, *, arrived: bool = False):
+    """Each tier's delivered bytes per agent and round over the last
+    NET_TAIL rounds against its wire budget.  ``arrived`` prices every
+    payload that arrived at its full wire cost (``agent_bytes`` carries
+    a delay line's staleness-discounted application weight instead)."""
+    import numpy as np
+
+    tier_of = np.asarray(net.tier_index())
+    per_round = []
+    for m in run["hist"][-NET_TAIL:]:
+        b = np.asarray(m["agent_bytes"], np.float64)
+        if arrived:
+            w = np.asarray(m["agent_delivered"], np.float64)
+            b = np.where(w > 0, b / np.where(w > 0, w, 1.0), 0.0)
+        per_round.append(np.bincount(tier_of, weights=b,
+                                     minlength=len(net.tiers)))
+    tail = np.mean(per_round, axis=0)
+    rows = []
+    for t, spec in enumerate(net.tiers):
+        rate = float(tail[t] / spec.count)
+        budget = spec.wire_budget if math.isfinite(spec.wire_budget) else None
+        err = None if budget is None else rate / budget - 1.0
+        rows.append({"tier": spec.name, "agents": int(spec.count),
+                     "bytes_per_agent_round": rate, "wire_budget": budget,
+                     "rel_err": err,
+                     "within": None if err is None else abs(err) <= tol})
+    return rows
+
+
+def _budget_text(rows) -> str:
+    return ", ".join(
+        f"{r['tier']} {r['bytes_per_agent_round']:.2f}"
+        + ("" if r["wire_budget"] is None else
+           f"/{r['wire_budget']:.2f} ({r['rel_err']:+.3f})") for r in rows)
+
+
+def _net_record(net, run) -> dict:
+    import numpy as np
+
+    att = sum(float(m["wire_bytes_attempted"]) for m in run["hist"])
+    got = sum(float(m["wire_bytes"]) for m in run["hist"])
+    return {"net": net.name, "rounds": len(run["hist"]),
+            "rounds_per_s": run["rounds_per_s"],
+            "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+            "tail_loss": float(np.mean(run["losses"][-NET_TAIL:])),
+            "J_initial": run["J"][0], "J_final": run["J"][1],
+            "wire_bytes": got, "wire_bytes_attempted": att,
+            "delivered_byte_frac": got / att if att else None}
+
+
+def phase_fleet_lossy(torch, adaptive_rounds_per_s: float) -> tuple:
+    """``TIERED_M64_ADAPTIVE_LOSSY`` (20 % Bernoulli loss with staleness
+    boost on the metered tiers, controllers pricing delivered bytes) for
+    NET_ROUNDS rounds: the first CHECK_ROUNDS against the CPU, each
+    metered tier's delivered bytes over the last NET_TAIL rounds within
+    TOL_LOSSY of its budget, and the final J under half the initial J
+    (benchmarks/lossy_channels.py's claims for one served run)."""
+    from repro_torch.configs.paper_linreg import TIERED_M64_ADAPTIVE_LOSSY
+
+    net = TIERED_M64_ADAPTIVE_LOSSY
+    run = _serve_net(torch, net, keep=range(CHECK_ROUNDS))
+    _cpu_check(torch, "fleet lossy", net, run, 0, CHECK_ROUNDS)
+    rows = _tier_bytes(net, run, TOL_LOSSY)
+    record = {**_net_record(net, run), "tiers": rows,
+              "adaptive_rounds_per_s": adaptive_rounds_per_s}
+    print(f"[fleet lossy] {net.name}, {NET_ROUNDS} rounds: loss "
+          f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}, J "
+          f"{run['J'][0]:.3f} -> {run['J'][1]:.4f}; delivered byte "
+          f"fraction {record['delivered_byte_frac']:.4f}; "
+          f"{run['rounds_per_s']:.1f} rounds/s after round {CHECK_ROUNDS} "
+          f"([fleet adaptive]: {adaptive_rounds_per_s:.1f}); delivered "
+          f"bytes per agent and round over the last {NET_TAIL} vs budget: "
+          f"{_budget_text(rows)}; first {CHECK_ROUNDS} rounds match the CPU")
+    if not all(r["within"] in (None, True) for r in rows):
+        raise AssertionError(f"fleet lossy: a metered tier's delivered "
+                             f"bytes miss its budget by more than "
+                             f"{TOL_LOSSY}: {_budget_text(rows)}")
+    if not run["J"][1] < 0.5 * run["J"][0]:
+        raise AssertionError(f"fleet lossy: final J {run['J'][1]} not under "
+                             f"half the initial {run['J'][0]}")
+    return record, run["session"], 1e3 / run["rounds_per_s"]
+
+
+def phase_fleet_lossy_quadratic(torch, gr_ops) -> dict:
+    """``TIERED_M64_QUADRATIC`` with 20 % Bernoulli loss on its metered
+    tiers: one ``gain_reduce`` launch per round by the wrapper's counter,
+    the CPU check, and whether each tier met its budget (printed: the
+    JAX claim is that a fixed λ misses under loss)."""
+    from repro_torch.configs.paper_linreg import (
+        LOSSY_CHANNEL,
+        TIERED_M64_QUADRATIC,
+        _lossy,
+    )
+
+    net = _lossy(TIERED_M64_QUADRATIC, "tiered_m64_quadratic_lossy",
+                 LOSSY_CHANNEL)
+    gr_ops.gain_reduce.launches = 0
+    run = _serve_net(torch, net)
+    launches = gr_ops.gain_reduce.launches
+    if launches != NET_ROUNDS:
+        raise AssertionError(f"fleet lossy quadratic: gain_reduce launched "
+                             f"{launches} times in {NET_ROUNDS} rounds")
+    _cpu_check(torch, "fleet lossy quadratic", net, run, 0, CHECK_ROUNDS)
+    rows = _tier_bytes(net, run, TOL_LOSSY)
+    print(f"[fleet lossy quadratic] {net.name}, {NET_ROUNDS} rounds: "
+          f"gain_reduce launches {launches}; loss {run['losses'][0]:.4f} -> "
+          f"{run['losses'][-1]:.4f}; {run['rounds_per_s']:.1f} rounds/s; "
+          f"delivered bytes per agent and round vs budget: "
+          f"{_budget_text(rows)}; budgets met: "
+          f"{[r['tier'] for r in rows if r['within']]}, missed: "
+          f"{[r['tier'] for r in rows if r['within'] is False]}; first "
+          f"{CHECK_ROUNDS} rounds match the CPU")
+    return {**_net_record(net, run), "launches": launches, "tiers": rows}
+
+
+def phase_fleet_delayed(torch) -> tuple:
+    """``TIERED_M64_ADAPTIVE_DELAYED`` (geometric latency, mean lag 2,
+    depth 6, staleness discount 0.5) for NET_ROUNDS rounds: the CPU
+    check, no payload applied older than ``max_lag``, and each metered
+    tier's arrived bytes within TOL_BUDGET of its budget; then the
+    fixed-λ ``TIERED_M64_DELAYED`` and ``TIERED_M64_DELAYED_NAIVE`` with
+    their tail losses and wire bytes (printed)."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_ADAPTIVE_DELAYED,
+        TIERED_M64_DELAYED,
+        TIERED_M64_DELAYED_NAIVE,
+    )
+
+    from repro_torch.comm import CommPolicy
+
+    net = TIERED_M64_ADAPTIVE_DELAYED
+    max_lag = CommPolicy.parse(net.tiers[1].policy).channel_model().depth
+    run = _serve_net(torch, net, keep=range(CHECK_ROUNDS))
+    _cpu_check(torch, "fleet delayed", net, run, 0, CHECK_ROUNDS)
+    # staleness counts silent rounds too (a gated agent's counter passes
+    # max_lag: ROADMAP §3); the line bounds the age of every payload it
+    # applies, read back from the weight w = 1 / (1 + discount·(age − 1))
+    discount = CommPolicy.parse(net.tiers[1].policy).channel_model().discount
+    stale = max(float(np.max(m["agent_staleness"])) for m in run["hist"])
+    ages = [1.0 + (1.0 / w - 1.0) / discount for m in run["hist"]
+            for w in np.asarray(m["agent_delivered"], np.float64) if w > 0]
+    oldest = max(ages)
+    if oldest > max_lag + 1e-3:
+        raise AssertionError(f"fleet delayed: a payload applied at age "
+                             f"{oldest:.3f}, past max_lag {max_lag}")
+    arrived = _tier_bytes(net, run, TOL_BUDGET, arrived=True)
+    weighted = _tier_bytes(net, run, TOL_BUDGET)
+    record = {**_net_record(net, run), "max_staleness": stale,
+              "max_applied_age": oldest, "tiers_arrived": arrived,
+              "tiers_weighted": weighted}
+    fixed = {}
+    for other in (TIERED_M64_DELAYED, TIERED_M64_DELAYED_NAIVE):
+        orun = _serve_net(torch, other)
+        fixed[other.name] = _net_record(other, orun)
+    record["fixed"] = fixed
+    print(f"[fleet delayed] {net.name}, {NET_ROUNDS} rounds: loss "
+          f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; oldest "
+          f"applied payload {oldest:.3f} rounds (max_lag {max_lag}), max "
+          f"staleness {stale:.0f}; "
+          f"{run['rounds_per_s']:.1f} rounds/s; arrived bytes per agent and "
+          f"round over the last {NET_TAIL} vs budget: {_budget_text(arrived)}"
+          f"; at the discounted application weights: "
+          f"{_budget_text(weighted)}; first {CHECK_ROUNDS} rounds match the "
+          f"CPU")
+    print("[fleet delayed] fixed lambda: " + "; ".join(
+        f"{name}: tail loss {r['tail_loss']:.5f}, wire bytes "
+        f"{r['wire_bytes']:.0f} of {r['wire_bytes_attempted']:.0f} attempted"
+        f", {r['rounds_per_s']:.1f} rounds/s" for name, r in fixed.items()))
+    if not all(r["within"] in (None, True) for r in arrived):
+        raise AssertionError(f"fleet delayed: a metered tier's arrived bytes "
+                             f"miss its budget by more than {TOL_BUDGET}: "
+                             f"{_budget_text(arrived)}")
+    return record, fixed[TIERED_M64_DELAYED.name]["wire_bytes"]
+
+
+def phase_fleet_churn(torch, unchurned_wire_bytes: float) -> dict:
+    """``TIERED_M64_DELAYED`` under ``churn_schedule(net, NET_ROUNDS)``:
+    ``num_active`` equal to the schedule's count in every round, fewer
+    wire bytes than the same fleet without churn, and the CPU check over
+    the first CHECK_ROUNDS rounds and over CHURN_WINDOW, where the late
+    agents join."""
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_DELAYED,
+        churn_schedule,
+    )
+
+    net = TIERED_M64_DELAYED
+    churn = churn_schedule(net, NET_ROUNDS)
+    lo, hi = CHURN_WINDOW
+    run = _serve_net(torch, net, churn=churn,
+                     keep=set(range(CHECK_ROUNDS)) | set(range(lo, hi)),
+                     starts=(0, lo))
+    want = [sum(j <= k < e for j, e in churn) for k in range(NET_ROUNDS)]
+    got = [float(m["num_active"]) for m in run["hist"]]
+    if got != [float(w) for w in want]:
+        raise AssertionError(f"fleet churn: num_active {got} differs from "
+                             f"the schedule's {want}")
+    joins = sorted({j for j, _ in churn if j > 0})
+    if not all(lo <= j < hi for j in joins):
+        raise AssertionError(f"fleet churn: joins {joins} outside the "
+                             f"checked window {CHURN_WINDOW}")
+    _cpu_check(torch, "fleet churn", net, run, 0, CHECK_ROUNDS, churn)
+    _cpu_check(torch, "fleet churn", net, run, lo, hi - lo, churn)
+    record = {**_net_record(net, run), "num_active_min": min(got),
+              "num_active_max": max(got),
+              "unchurned_wire_bytes": unchurned_wire_bytes,
+              "cpu_windows": [[0, CHECK_ROUNDS], [lo, hi]]}
+    print(f"[fleet churn] {net.name} under churn_schedule: num_active "
+          f"{min(got):.0f}..{max(got):.0f}, equal to the schedule in all "
+          f"{NET_ROUNDS} rounds; wire bytes {record['wire_bytes']:.0f} vs "
+          f"{unchurned_wire_bytes:.0f} without churn; "
+          f"{run['rounds_per_s']:.1f} rounds/s; rounds 0-{CHECK_ROUNDS} and "
+          f"{lo}-{hi} (joins at {joins}) match the CPU")
+    if not record["wire_bytes"] < unchurned_wire_bytes:
+        raise AssertionError("fleet churn: churn did not free wire bytes")
+    return record
+
+
+def phase_fleet_profile(torch, session, round_ms: float, label: str) -> dict:
+    """Device ops, busy time and idle share of a fleet's rounds from a
+    trace that holds exactly PROFILED_ROUNDS times one round's records
+    (the most that three one-round traces hold), as ``device_ms``
+    checks its traces; the idle share is against the round time
+    measured without the profiler."""
+
+    def one_round():
+        session.run(1)
+
+    per_round = max(len(_device_records(torch, one_round, 1))
+                    for _ in range(3))
+    if per_round == 0:
+        raise AssertionError(f"{label}: the profiler saw no device activity")
+    recs, counts = _complete_records(torch, one_round, PROFILED_ROUNDS,
+                                     per_round)
+    busy = sum(t for _, t in recs) / 1e3 / PROFILED_ROUNDS
+    by_name: dict = {}
+    for n, t in recs:
+        ms, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + t / 1e3 / PROFILED_ROUNDS, c + 1 / PROFILED_ROUNDS)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    record = {"device_ops_per_round": per_round,
+              "device_busy_ms_per_round": busy,
+              "round_ms_unprofiled": round_ms,
+              "idle_share": 1.0 - busy / round_ms, "device_records": counts,
+              "top": [{"name": n, "ms_per_round": ms, "per_round": c}
+                      for n, (ms, c) in top]}
+    print(f"[profile] {label}: {per_round} device ops per round, busy "
+          f"{busy:.4f} ms of {round_ms:.4f} ms (unprofiled) -> idle share "
+          f"{record['idle_share']:.3f} ({counts['records']} records in "
+          f"{PROFILED_ROUNDS} rounds, as expected)")
+    for n, (ms, c) in top:
+        print(f"[profile]   {label} {ms:.4f} ms/round x{c:.0f}  {n[:80]}")
+    return record
 
 
 def _sim_check(card, cpu, grid, problem, trials: int) -> int:
@@ -2100,8 +2569,15 @@ def main() -> int:
               "build": phase_build(gr_ops, swa_ops, ce_ops)}
     record["kernel_checks"] = phase_kernel(torch, gr_ops, ref)
     session, record["slice"] = phase_slice(torch, gr_ops)
-    record["fleet_adaptive"] = phase_fleet_adaptive(
+    record["fleet_adaptive"], adaptive = phase_fleet_adaptive(
         torch, record["slice"]["rounds_per_s"])
+    record["random"] = phase_random(torch)
+    record["fleet_lossy"], lossy, lossy_ms = phase_fleet_lossy(
+        torch, record["fleet_adaptive"]["rounds_per_s"])
+    record["fleet_lossy_quadratic"] = phase_fleet_lossy_quadratic(torch,
+                                                                  gr_ops)
+    record["fleet_delayed"], unchurned = phase_fleet_delayed(torch)
+    record["fleet_churn"] = phase_fleet_churn(torch, unchurned)
     record["sim"], sim_run = phase_sim(torch)
     record["swa_checks"] = phase_swa_kernel(torch, swa_ops, swa_ref)
     record["ce_checks"] = phase_ce_kernel(torch, ce_ops, ce_ref)
@@ -2119,6 +2595,15 @@ def main() -> int:
     record["ce_times"] = phase_ce_times(torch, ce_ops, ce_ref)
     record["profile"] = phase_profile(
         torch, session, 1e3 / record["slice"]["rounds_per_s"])
+    record["profile_checked"] = {
+        "slice": phase_fleet_profile(
+            torch, session, 1e3 / record["slice"]["rounds_per_s"], "slice"),
+        "fleet_adaptive": phase_fleet_profile(
+            torch, adaptive, 1e3 / record["fleet_adaptive"]["rounds_per_s"],
+            "fleet adaptive"),
+        "fleet_lossy": phase_fleet_profile(torch, lossy, lossy_ms,
+                                           "fleet lossy"),
+    }
     record["lm_profile"] = phase_lm_profile(
         torch, lm_model, lm_params, lm_prompts, record["lm"]["a"])
     record["train_profile"] = phase_train_profile(torch, step, state,

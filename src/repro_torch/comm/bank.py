@@ -15,9 +15,10 @@ policies — trigger gate, error-feedback fold-in, compressor chain,
 residual update — is built per DISTINCT policy by
 :meth:`StageBank.epilogues` with one signature::
 
-    epilogue(params, grads, batch, losses, step, ef_mem,
-             ctrl=None, scale=None, pre=None)
+    epilogue(params, grads, batch, losses, step, ef_mem, ctrl=None,
+             scale=None, pre=None, net=None, chan_scale=None, keys=None)
         -> (alpha, gain, sent, new_ef_mem, new_ctrl)
+         | (alpha, gain, sent, new_ef_mem, new_ctrl, delivered, new_net)
 
 where every per-agent operand carries the leading axis of the block of
 agents that hold the policy (:meth:`StageBank.policy_blocks`), and
@@ -27,8 +28,17 @@ carries no controller slot: an adaptive branch then gates open-loop at
 its ``lam0`` and returns ``None``; a plain branch passes its rows
 through untouched.
 
-This slice serves ideal wires only: a bank policy naming any other
-``@ channel`` raises when the bank is built.
+When the state carries a channel slot, ``net`` is the block's rows (or
+``(rows, line)`` pair), ``keys`` the block's rows of the round's keys
+per channel seed (``{seed: (B, 2)}``, derived once for all agents; a
+branch derives its own when absent), and every branch returns the
+7-tuple: the
+channel draw comes first (independent of this round's decision), then
+the staleness escalation of the trigger knob, the gate, the compressor
+and EF (a dropped payload folds back whole), and ``delivered`` is
+``alpha × d`` — or, on a delay line, the matured payload's application
+weight, with ``sent`` the matured payload.  A branch with no channel
+(or ``@ ideal``) delivers what it decides and passes its slot through.
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ from repro_torch.comm.compressors import CompressorChain
 from repro_torch.comm.error_feedback import ef_add, ef_residual
 from repro_torch.comm.policy import CommPolicy
 from repro_torch.comm.triggers import TriggerFn
-from repro_torch.utils.todo import todo
+from repro_torch.net import channels as net_lib
 from repro_torch.utils.tree import tree_map
 
 AgentEpilogue = Callable[..., tuple]
@@ -80,6 +90,9 @@ class StageBank:
     chains: Tuple[CompressorChain, ...]
     ef_flags: Tuple[bool, ...]
     adaptive_flags: Tuple[bool, ...] = ()
+    # per-branch built ChannelModel; None for channel-free branches and
+    # trivial (@ ideal) channels, which run identically
+    channels: Tuple[Optional[net_lib.ChannelModel], ...] = ()
 
     @property
     def needs_ef(self) -> bool:
@@ -89,6 +102,25 @@ class StageBank:
     def needs_ctrl(self) -> bool:
         """Any bank policy carrying closed-loop controller state?"""
         return any(self.adaptive_flags)
+
+    @property
+    def needs_net(self) -> bool:
+        """Any bank policy carrying a non-trivial lossy channel?"""
+        return any(c is not None for c in self.channels)
+
+    @property
+    def key_seeds(self) -> Tuple[int, ...]:
+        """The distinct seeds of the bank's channels that draw from
+        keys: one key derivation per seed serves every branch."""
+        return tuple(sorted({c.seed for c in self.channels
+                             if c is not None and c.keyed}))
+
+    @property
+    def net_depth(self) -> int:
+        """The deepest payload buffer across the bank's channels (0: no
+        delay or retransmit channel, the slot is the bare rows)."""
+        return max((c.depth for c in self.channels if c is not None),
+                   default=0)
 
     def agent_chains(self) -> Tuple[CompressorChain, ...]:
         """Per-AGENT compressor chains (for wire-byte accounting)."""
@@ -143,36 +175,68 @@ class StageBank:
             index.append(keys.index(key))
         return tuple(fns), tuple(index)
 
-    def epilogues(self, has_ef_memory: bool,
-                  has_ctrl_state: bool = False) -> Tuple[AgentEpilogue, ...]:
+    def epilogues(self, has_ef_memory: bool, has_ctrl_state: bool = False,
+                  has_net_state: bool = False) -> Tuple[AgentEpilogue, ...]:
         """The comm-epilogue branch per bank policy.  With
         ``has_ef_memory=False`` EF is off for every branch and all of
         them return ``None`` memory; with ``has_ctrl_state=False`` the
         controllers run open-loop and every branch returns ``None``
-        rows."""
+        rows; with ``has_net_state=True`` every branch returns the
+        7-tuple, otherwise the classic 5-tuple."""
         adaptive = self.adaptive_flags or (False,) * len(self.triggers)
+        channels = self.channels or (None,) * len(self.triggers)
         _, pre_index = self.prologues()
         return tuple(
             _make_epilogue(trig, chain, use_ef=ef and has_ef_memory,
                            adaptive=ad, use_ctrl=has_ctrl_state,
-                           pre_index=pidx)
-            for trig, chain, ef, ad, pidx in zip(
+                           pre_index=pidx, channel=chan,
+                           use_net=has_net_state)
+            for trig, chain, ef, ad, pidx, chan in zip(
                 self.triggers, self.chains, self.ef_flags, adaptive,
-                pre_index
+                pre_index, channels
             )
         )
 
 
+def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return v.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def _make_epilogue(trig: TriggerFn, chain: CompressorChain, *,
                    use_ef: bool, adaptive: bool = False,
-                   use_ctrl: bool = False,
-                   pre_index: int = -1) -> AgentEpilogue:
+                   use_ctrl: bool = False, pre_index: int = -1,
+                   channel=None, use_net: bool = False) -> AgentEpilogue:
     def epilogue(params, grads, batch, losses, step, ef_mem, ctrl=None,
-                 scale=None, pre=None):
+                 scale=None, pre=None, net=None, chan_scale=None, keys=None):
         # the branch selects its own column of the (B, P) precursors
         kw = {"pre": pre[:, pre_index]} if (
             pre is not None and pre_index >= 0
         ) else {}
+        # the channel draw comes FIRST (independent of this round's
+        # alpha), so the controllers can price delivered transmissions;
+        # retx shares the payload slot with delay, retx_k tells them apart
+        use_chan = use_net and channel is not None and net is not None
+        use_retx = use_chan and channel.retx_k > 0
+        use_delay = use_chan and channel.depth > 0 and not use_retx
+        # the block's rows of the round's keys, when derived for all
+        # agents at once ({seed: (B, 2)})
+        key = None if keys is None or not use_chan else keys.get(channel.seed)
+        if use_retx:
+            d, stale, pending, commit = net_lib.retx_round(
+                channel, net, step, chan_scale,
+                net_lib.tx_cost(grads, chain), key)
+        elif use_delay:
+            d, stale, commit = net_lib.delay_round(channel, net, step,
+                                                   chan_scale, key)
+        elif use_chan:
+            d, stale, finalize = net_lib.channel_round(
+                channel, net_lib.net_rows(net), step, chan_scale,
+                net_lib.tx_cost(grads, chain), key)
+        if use_chan:
+            scale = net_lib.stale_scale(scale, channel.boost, stale,
+                                        adaptive)
+            if adaptive:
+                kw["delivered"] = d
         if adaptive:
             # the controller reads its rows (or, with no slot, its static
             # initial row: open-loop lam0 gating) and emits new rows only
@@ -188,13 +252,52 @@ def _make_epilogue(trig: TriggerFn, chain: CompressorChain, *,
             new_ctrl = ctrl  # pass the (unused) rows through unchanged
         g_eff = ef_add(grads, ef_mem if use_ef else None)
         sent = chain.compress_tree(g_eff) if chain else g_eff
+        if use_retx:
+            # alpha becomes the realized wire ATTEMPT, ``sent`` what the
+            # server receives, and the expired buffered payload folds
+            # back to EF only on final failure
+            attempt, out_sent, delivered, fold, new_net = commit(alpha,
+                                                                 sent)
+            if ef_mem is None:
+                new_mem = None
+            elif use_ef:
+                # a compression residual only when THIS round's gradient
+                # went to the wire; a lost first offer waits in the buffer
+                a_cur = alpha * (1.0 - pending)
+                new_mem = tree_map(
+                    lambda ge, se, f: (ge - se) * _bcast(a_cur, ge) + f,
+                    g_eff, sent, fold)
+            else:
+                new_mem = tree_map(torch.zeros_like, ef_mem)
+            return (attempt, gain, out_sent, new_mem, new_ctrl, delivered,
+                    new_net)
+        if use_delay:
+            # enqueue the payload iff alpha × d; ``sent`` becomes the
+            # matured head, ``delivered`` its application weight
+            out_sent, delivered, new_net = commit(alpha * d, sent)
+        elif use_chan:
+            delivered = alpha * d
+            new_rows = finalize(delivered)
+            # in a delay-carrying bank the slot is the (rows, line) pair:
+            # pass the (unused) line through
+            new_net = ((new_rows, net[1]) if isinstance(net, tuple)
+                       else new_rows)
+        else:
+            delivered, new_net = alpha, net  # lossless: delivery = decision
         if ef_mem is None:
             new_mem = None
         elif use_ef:
-            new_mem = ef_residual(g_eff, sent, alpha)
+            # a dropped or rejected transmission folds its WHOLE payload
+            # back (on a delay line d is the accept indicator)
+            new_mem = ef_residual(g_eff, sent, alpha,
+                                  delivered=d if use_chan else None)
         else:
             # silent bank members never leak stale memory
             new_mem = tree_map(torch.zeros_like, ef_mem)
+        if use_delay:
+            sent = out_sent
+        if use_net:
+            return alpha, gain, sent, new_mem, new_ctrl, delivered, new_net
         return alpha, gain, sent, new_mem, new_ctrl
 
     return epilogue
@@ -218,8 +321,6 @@ def build_stage_bank(
             seen[p] = len(bank)
             bank.append(p)
         index.append(seen[p])
-    if any(p.needs_net for p in bank):
-        raise todo("lossy '@ channel' wires", "queue 1 item 7")
     return StageBank(
         policies=tuple(bank),
         agent_index=tuple(index),
@@ -231,4 +332,6 @@ def build_stage_bank(
         chains=tuple(p.chain() for p in bank),
         ef_flags=tuple(p.needs_ef for p in bank),
         adaptive_flags=tuple(p.is_adaptive for p in bank),
+        channels=tuple(p.channel_model() if p.needs_net else None
+                       for p in bank),
     )

@@ -13,8 +13,16 @@ Wire-byte model (DESIGN.md §2): ``ratio = frac × (value_bits +
 index_bits) / dense_bits``, against the gradients' native dtype width.
 ``int8`` sets value_bits to 8, ``topk(f)`` multiplies the kept fraction
 by f and adds a 32-bit index per survivor, ``fp16`` narrows values to
-16 bits.  ``bf16``, ``randk`` and ``sketch`` are registered (so their
-specs parse and render) but not ported yet.
+16 bits, ``bf16`` likewise, ``randk(f)`` keeps a shared-random
+fraction f with no index bits, and ``sketch(rows,cols,seed)`` sends a
+fixed ``rows × cols`` grid of f32 counters.
+
+``randk`` draws its coordinates with the port's threefry
+(:mod:`repro_torch.random`), bit for bit as ``jax.random`` draws them:
+each agent's key is ``fold_in(key(seed), salt)`` with the salt the bit
+pattern of the fp32 sum of that agent's tensor.  ``sketch`` draws its
+hash and sign tables on the host with numpy, from the same
+``SeedSequence`` as the JAX package, so both packages share the tables.
 
 Rounding: ``torch.round`` and ``jnp.round`` both round half to even,
 and ``topk`` keeps every entry whose ``|x|`` reaches the k-th largest
@@ -22,13 +30,15 @@ magnitude, so the kept set does not depend on how ``topk`` orders ties.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import random as prng
 from repro_torch.comm.registry import Registry, StageSpec
-from repro_torch.utils.todo import not_ported, todo
 from repro_torch.utils.tree import tree_map
 
 COMPRESSORS = Registry("compressor")
@@ -192,19 +202,130 @@ def _bf16(args, spec):
     return _cast_compressor(spec, torch.bfloat16, 16.0)
 
 
+def randk_sparsify(x: torch.Tensor, frac: float,
+                   key: torch.Tensor) -> torch.Tensor:
+    """Keep a uniformly random ``frac`` of the entries of each agent's
+    slice of ``x`` (Stich et al. 2018's rand-k family): the first ``k``
+    of ``permutation(key_i, n)``.  ``key`` is one ``(2,)`` key for every
+    agent or ``(A, 2)``, one per agent."""
+    flat = x.reshape(x.shape[0], -1)
+    n = flat.shape[1]
+    k = max(1, int(frac * n))
+    idx = prng.permutation(key, n)[..., :k].expand(flat.shape[0], k)
+    mask = torch.zeros(flat.shape, dtype=torch.bool, device=x.device)
+    mask.scatter_(1, idx, True)
+    return (flat * mask).reshape(x.shape).to(x.dtype)
+
+
+def randk_salt(x: torch.Tensor) -> torch.Tensor:
+    """Each agent's salt: the int32 bit pattern of the fp32 sum of its
+    slice (ATen's summation order, which may round one ULP away from
+    XLA's and then salts a different subset)."""
+    s = x.reshape(x.shape[0], -1).float().sum(1)
+    return s.view(torch.int32)
+
+
 @COMPRESSORS.register("randk", params=(("frac", 0.01), ("seed", 0)),
                       doc="random-k sparsification (shared seed: no index bits)")
 def _randk(args, spec):
-    raise todo("the 'randk' compressor (needs the threefry port)",
-               "queue 1 item 2")
+    frac = float(args["frac"])
+    if not 0.0 < frac <= 1.0:
+        raise ValueError(f"randk frac must be in (0, 1], got {frac}")
+    seed = int(args["seed"])
+
+    def compress(x):
+        # sender and receiver draw the subset from shared randomness, so
+        # survivors carry no index bits; the salt (the tensor's own
+        # bits) stands in for a shared per-round counter
+        key = prng.fold_in(prng.host_fold_in(seed), randk_salt(x))
+        return randk_sparsify(x, frac, key)
+
+    return Compressor(
+        spec,
+        compress=compress,
+        wire=lambda w: replace(w, frac=w.frac * frac),
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def _sketch_tables(rows: int, cols: int, seed: int, size: int):
+    """Shared hash/sign tables for one tensor size, drawn on the host as
+    the JAX package draws them (numpy, ``SeedSequence((seed, rows, cols,
+    size))``)."""
+    rng = np.random.default_rng(
+        np.random.SeedSequence((seed, rows, cols, size)))
+    idx = rng.integers(0, cols, size=(rows, size), dtype=np.int32)
+    sign = (rng.integers(0, 2, size=(rows, size)) * 2.0 - 1.0).astype(
+        np.float32)
+    return idx, sign
+
+
+@functools.lru_cache(maxsize=32)
+def _device_tables(rows: int, cols: int, seed: int, size: int,
+                   device: torch.device):
+    """The tables on ``device``, copied there once per size."""
+    idx, sign = _sketch_tables(rows, cols, seed, size)
+    return (torch.from_numpy(idx.astype(np.int64)).to(device),
+            torch.from_numpy(sign).to(device))
+
+
+def sketch_encode(x: torch.Tensor, rows: int, cols: int,
+                  seed: int) -> torch.Tensor:
+    """Count-sketch's linear half: each agent's slice of ``x`` scattered
+    into a ``(rows, cols)`` f32 counter grid, ``s_r(i)·x_i`` into bucket
+    ``h_r(i)``.  Returns ``(A, rows, cols)``."""
+    flat = x.reshape(x.shape[0], -1).float()
+    a, size = flat.shape
+    idx, sign = _device_tables(rows, cols, seed, size, x.device)
+    contrib = sign[None] * flat[:, None, :]
+    grid = torch.zeros((a, rows, cols), dtype=torch.float32, device=x.device)
+    return grid.scatter_add_(2, idx.expand(a, rows, size), contrib)
+
+
+def sketch_decode(sketch: torch.Tensor, shape, dtype, rows: int, cols: int,
+                  seed: int) -> torch.Tensor:
+    """The median-of-rows estimator of each agent's grid ``(A, rows,
+    cols)``: ``median_r(s_r(i)·S[r, h_r(i)])``, the midpoint of the two
+    middle rows when ``rows`` is even (``jnp.median``).  Returns
+    ``(A, *shape)`` in ``dtype``."""
+    size = 1
+    for d in shape:
+        size *= int(d)
+    a = sketch.shape[0]
+    idx, sign = _device_tables(rows, cols, seed, size, sketch.device)
+    est = sign[None] * torch.gather(sketch, 2, idx.expand(a, rows, size))
+    srt = torch.sort(est, dim=1).values
+    mid = 0.5 * (rows - 1)
+    lo, hi = srt[:, int(np.floor(mid))], srt[:, int(np.ceil(mid))]
+    return ((lo + hi) * 0.5).reshape((a,) + tuple(shape)).to(dtype)
+
+
+def count_sketch(x: torch.Tensor, rows: int, cols: int,
+                 seed: int) -> torch.Tensor:
+    """Count-sketch round trip (encode, then decode) per agent: the
+    tensor the receiver reconstructs, in ``x``'s shape and dtype."""
+    return sketch_decode(sketch_encode(x, rows, cols, seed), x.shape[1:],
+                         x.dtype, rows, cols, seed)
 
 
 @COMPRESSORS.register("sketch", params=(("rows", 5), ("cols", 64), ("seed", 0)),
                       doc="count-sketch: fixed rows*cols f32 counters per "
                           "tensor (shared hashes: no index bits)")
 def _sketch(args, spec):
-    raise todo("the 'sketch' compressor (needs the threefry port)",
-               "queue 1 item 2")
+    rows, cols, seed = int(args["rows"]), int(args["cols"]), int(args["seed"])
+    if rows < 1 or cols < 1:
+        raise ValueError(
+            f"sketch needs rows >= 1 and cols >= 1, got rows={rows}, "
+            f"cols={cols}"
+        )
+    return Compressor(
+        spec,
+        compress=lambda x: count_sketch(x, rows, cols, seed),
+        # the payload is the counter grid itself: a FIXED rows × cols
+        # f32 entries, no index bits, and the frac axis resets
+        wire=lambda w: replace(w, abs_entries=float(rows * cols),
+                               value_bits=32.0, index_bits=0.0, frac=1.0),
+    )
 
 
 class CompressorChain:
@@ -264,10 +385,13 @@ def chain_from_specs(specs: Sequence[StageSpec]) -> CompressorChain:
     return CompressorChain([build_compressor(s) for s in specs])
 
 
-__getattr__ = not_ported(__name__, {
-    "randk_sparsify": "queue 1 item 2",
-    "sketch_encode": "queue 1 item 2",
-    "sketch_decode": "queue 1 item 2",
-    "count_sketch": "queue 1 item 2",
-    "sketch_params": "queue 1 item 2",
-})
+def sketch_params(chain: CompressorChain | None):
+    """``(rows, cols, seed)`` of a chain's TERMINAL sketch stage, else
+    None (a chain ending in ``sketch`` sends the linear counter grid)."""
+    if not chain or not chain.stages:
+        return None
+    last = chain.stages[-1]
+    if last.spec.name != "sketch":
+        return None
+    args = COMPRESSORS.get("sketch").full_args(last.spec)
+    return int(args["rows"]), int(args["cols"]), int(args["seed"])

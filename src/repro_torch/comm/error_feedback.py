@@ -27,11 +27,19 @@ def ef_add(grads, ef_memory):
     return tree_map(lambda g, m: g + m, grads, ef_memory)
 
 
-def ef_residual(grads, sent, alphas):
+def ef_residual(grads, sent, alphas, delivered=None):
     """New memory: ``(g − C(g)) · α`` per agent (``alphas`` is ``(A,)``,
-    matching the leaves' leading agent axis)."""
+    matching the leaves' leading agent axis).
 
-    def bcast(g):
-        return alphas.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
+    ``delivered`` (a channel's ``(A,)`` {0, 1} delivery draw) folds a
+    LOST transmission back whole: the residual becomes ``(g − C(g)·d)·α``,
+    so on a drop the entire intended payload returns to memory."""
 
-    return tree_map(lambda g, s: (g - s) * bcast(g), grads, sent)
+    def bcast(v, g):
+        return v.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
+
+    if delivered is None:
+        return tree_map(lambda g, s: (g - s) * bcast(alphas, g), grads, sent)
+    return tree_map(
+        lambda g, s: (g - s * bcast(delivered, g)) * bcast(alphas, g),
+        grads, sent)

@@ -44,8 +44,10 @@ A row is ``[λ, signal EWMA, |gain| EWMA]``; :func:`ctrl_init_row` is
 the initial row, which every built adaptive trigger also carries as
 ``trig.ctrl0`` (the open-loop fallback when the state holds no
 controller slot).  For an adaptive trigger ``scale`` multiplies the
-TARGET (rate or bytes), not λ.  ``delivered`` (the channel's delivery
-draw) is accepted and must be ``None``: lossy channels are not ported.
+TARGET (rate or bytes), not λ.  ``delivered`` (a lossy channel's
+``(A,)`` {0, 1} delivery draw, taken before the trigger) makes the
+controller observe ``alpha × delivered``: it prices DELIVERED
+transmissions, so under loss it re-gates toward the delivered target.
 """
 from __future__ import annotations
 
@@ -55,7 +57,6 @@ import numpy as np
 import torch
 
 from repro_torch.comm.registry import Registry, StageSpec
-from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_agents,
@@ -357,12 +358,6 @@ def _budget_decision(gain_of, params, grads, batch, losses, lam, pre):
     return (gain <= -lam).float(), gain
 
 
-def _no_channel(delivered, who: str):
-    if delivered is not None:
-        raise todo(f"{who} pricing DELIVERED transmissions (a lossy "
-                   f"channel's delivery draw)", "queue 1 item 7")
-
-
 @TRIGGERS.register(
     "budget_dual",
     params=(("rate", 0.5), ("eta", 0.5), ("lam0", 0.0), ("beta", 0.1)),
@@ -375,11 +370,11 @@ def _budget_dual(args, ctx):
 
     def trig(params, grads, batch, losses, step, ctrl, scale=None, *,
              pre=None, delivered=None):
-        _no_channel(delivered, "budget_dual")
         lam, sig, gmag = ctrl.unbind(-1)
         alpha, gain = _budget_decision(gain_of, params, grads, batch, losses,
                                        lam, pre)
-        obs = alpha
+        # under a channel the controller observes DELIVERED transmissions
+        obs = alpha if delivered is None else alpha * delivered
         # |gain| EWMA first: the very first rounds move at the problem's
         # scale; then dual ascent on λ (scale multiplies the TARGET)
         gmag = (1.0 - beta) * gmag + beta * gain.abs()
@@ -424,7 +419,6 @@ def _budget_window(args, ctx):
             structural_bytes,
         )
 
-        _no_channel(delivered, "budget_window")
         # one transmission's wire bytes: ONE agent's dense payload × the
         # policy's compression ratio (shapes and dtypes only)
         cost = _f32(structural_bytes(grads, per_agent=True) * (
@@ -434,7 +428,8 @@ def _budget_window(args, ctx):
         lam, meas, gmag = ctrl.unbind(-1)
         alpha, gain = _budget_decision(gain_of, params, grads, batch, losses,
                                        lam, pre)
-        obs = alpha
+        # dropped transmissions cost the byte budget nothing
+        obs = alpha if delivered is None else alpha * delivered
         gmag = (1.0 - beta) * gmag + beta * gain.abs()
         # windowed bytes/round, then budget_dual's step with the byte
         # error priced back into rate units by the per-transmission cost

@@ -17,7 +17,6 @@ from repro_torch.core.api import TrainState
 from repro_torch.core.regression import Problem
 from repro_torch.models.attention import KVCache
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import todo
 
 
 def to_torch(tree, device: DeviceLike):
@@ -61,16 +60,25 @@ def _tree(x):
 
 def state_from_jax(state, *, device: DeviceLike = "cuda") -> TrainState:
     """A JAX ``TrainState`` (params, opt state, EF memory, controller
-    rows) as the port's."""
-    if state.net_state is not None:
-        raise todo("channel state (lossy wires)", "queue 1 item 7")
+    rows, channel state) as the port's.  The channel state is the bare
+    ``(A, NET_WIDTH)`` rows or the ``(rows, {"meta", "buf"})`` pair of a
+    payload-buffering channel, carried in the same form."""
     return TrainState(
         step=int(np.asarray(state.step)),
         params=to_torch(_tree(state.params), device),
         opt_state=to_torch(state.opt_state, device),
         ef_memory=to_torch(_tree(state.ef_memory), device),
         ctrl_state=to_torch(state.ctrl_state, device),
+        net_state=to_torch(_net(state.net_state), device),
     )
+
+
+def _net(net):
+    """The channel slot with its line's mappings as dicts."""
+    if isinstance(net, tuple):
+        rows, line = net
+        return rows, {k: _tree(v) for k, v in dict(line).items()}
+    return net
 
 
 def problem_from_jax(problem, *, device: DeviceLike = "cuda") -> Problem:

@@ -29,11 +29,23 @@ Adaptive (budget) triggers carry per-agent controller rows in
 and writes its own agents' rows; a policy with no adaptive trigger keeps
 ``ctrl_state=None`` and runs no extra op.
 
-The ``"switch"``/``"unroll"`` dispatch paths, lossy channels, churn and
-the fleet-sharded mesh path are not ported yet: asking for one raises
-``NotImplementedError`` with its ROADMAP item.  Every tensor stays on
-the step's device; a state on another device is an error, not a silent
-copy.
+Lossy wires (``@ channel``, :mod:`repro_torch.net.channels`) carry
+per-agent channel rows in ``TrainState.net_state``: each round draws
+delivery before the trigger, escalates starved agents' knobs, folds
+dropped payloads back into EF whole, aggregates eq. (10) over the
+DELIVERED payloads (on a delay line, the matured ones at their
+staleness-discounted weights) and splits the wire metrics into
+attempted and delivered bytes.  A homogeneous delay or retransmit
+policy runs through the stage bank as a one-policy bank.  ``@ ideal``
+and channel-free policies allocate no slot and run the channel-free
+program.  ``StepOptions.churn`` masks agents outside their ``[join,
+leave)`` windows: zero weight, zero bytes, frozen per-agent state, and
+every rate over the active agents.
+
+The ``"switch"``/``"unroll"`` dispatch paths and the fleet-sharded mesh
+path are not ported yet: asking for one raises ``NotImplementedError``
+with its ROADMAP item.  Every tensor stays on the step's device; a
+state on another device is an error, not a silent copy.
 """
 from __future__ import annotations
 
@@ -52,15 +64,15 @@ from repro_torch.comm.policy import (
     resolve_policy,
 )
 from repro_torch.comm.stats import (
-    comm_stats,
     dense_bits,
     dense_entries,
-    fold_sum,
     per_agent_wire_bytes,
+    round_metrics,
     structural_bytes,
 )
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregation import masked_mean
+from repro_torch.net import channels as net_lib
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import not_ported, todo
 from repro_torch.utils.tree import tree_add_scaled, tree_leaves, tree_map
@@ -68,15 +80,16 @@ from repro_torch.utils.tree import tree_add_scaled, tree_leaves, tree_map
 METRIC_KEYS = ("loss", "comm_rate", "any_tx", "num_tx", "mean_gain",
                "grad_norm", "wire_bytes")
 
-# emitted only by lossy-channel / churn-carrying steps in the JAX
-# package; kept so the key sets stay comparable
+# emitted only by steps whose state carries a channel slot: the
+# attempted/delivered split of the wire metrics
 NET_METRIC_KEYS = ("wire_bytes_attempted", "num_delivered",
                    "delivered_rate", "mean_staleness")
+# emitted only by churn-carrying steps
 CHURN_METRIC_KEYS = ("num_active",)
 
 # per-agent metric vectors emitted under ``StepOptions.agent_metrics``
-# (agent_tx, agent_bytes and, with controllers, agent_lam; the rest
-# belong to the lossy and churn paths)
+# (agent_lam with controllers, agent_delivered and agent_staleness with
+# a channel slot, agent_active under churn)
 AGENT_METRIC_KEYS = ("agent_tx", "agent_bytes", "agent_lam",
                      "agent_delivered", "agent_staleness", "agent_active")
 
@@ -89,9 +102,13 @@ _DISPATCH_ITEM = "queue 1 item 6"
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
     """Execution options for :func:`make_triggered_train_step` (the
-    fields of the JAX struct; this slice runs ``hetero_dispatch=
-    "hybrid"``, ``agent_metrics`` and a fixed ``scale``, and raises on
-    the others)."""
+    fields of the JAX struct).
+
+    ``scale``/``chan_scale`` pin the step's operating point (a
+    call-time value wins); ``churn`` is a per-agent tuple of ``(join,
+    leave)`` rounds (agent ``i`` is active while ``join <= step <
+    leave``).  ``hetero_dispatch`` other than ``"hybrid"`` and ``mesh``
+    are not ported and raise when the step is built."""
 
     hetero_dispatch: str = "hybrid"
     barriers: bool = True
@@ -110,6 +127,20 @@ class StepOptions:
                 f"expected one of "
                 f"{', '.join(repr(m) for m in DISPATCH_MODES)}"
             )
+        if self.churn is not None:
+            pairs = tuple(tuple(int(v) for v in p) for p in self.churn)
+            for p in pairs:
+                if len(p) != 2:
+                    raise ValueError(
+                        f"churn entries must be (join, leave) pairs, "
+                        f"got {p!r}"
+                    )
+                if p[0] >= p[1]:
+                    raise ValueError(
+                        f"churn (join, leave) must satisfy join < "
+                        f"leave, got {p!r}"
+                    )
+            object.__setattr__(self, "churn", pairs)
 
 
 class TrainState(NamedTuple):
@@ -118,7 +149,9 @@ class TrainState(NamedTuple):
     opt_state: Any
     ef_memory: Optional[Any] = None   # error-feedback residuals (A, *param)
     ctrl_state: Optional[Any] = None  # controller rows (A, CTRL_WIDTH)
-    net_state: Optional[Any] = None   # lossy channels (not ported)
+    # channel rows (A, NET_WIDTH), or the (rows, line) pair of a
+    # payload-buffering channel; None for channel-free and @ ideal
+    net_state: Optional[Any] = None
 
 
 def _policies(resolved):
@@ -129,12 +162,12 @@ def init_train_state(params, optimizer, cfg: TrainConfig, policy=None, *,
                      device: DeviceLike = "cuda") -> TrainState:
     """The initial state on ``device``; EF memory is allocated iff the
     resolved policy (or any per-agent policy) carries error feedback,
-    the controller slot iff any trigger is adaptive."""
+    the controller slot iff any trigger is adaptive, and the channel
+    slot iff any policy attaches a non-trivial channel (``@ ideal``
+    allocates none)."""
     dev = resolve_device(device)
     params = tree_map(lambda v: torch.as_tensor(v).to(dev), params)
     resolved = normalize_policy(resolve_policy(cfg, policy), cfg.num_agents)
-    if any(p.needs_net for p in _policies(resolved)):
-        raise todo("lossy '@ channel' wires", "queue 1 item 7")
     ef = (ef_init(params, cfg.num_agents)
           if any(p.needs_ef for p in _policies(resolved)) else None)
     ctrl = ctrl_init(resolved, cfg.num_agents)
@@ -144,6 +177,8 @@ def init_train_state(params, optimizer, cfg: TrainConfig, policy=None, *,
         opt_state=optimizer.init(params),
         ef_memory=ef,
         ctrl_state=None if ctrl is None else ctrl.to(dev),
+        net_state=net_lib.net_init(resolved, cfg.num_agents, params,
+                                   device=dev),
     )
 
 
@@ -162,6 +197,16 @@ def _warn_ctrl_state_missing():
         "policy has an adaptive budget trigger but state.ctrl_state is "
         "None — pass the same policy to init_train_state to allocate "
         "it; running OPEN-LOOP at the trigger's lam0 (no adaptation)",
+        UserWarning,
+        stacklevel=3,
+    )
+
+
+def _warn_net_state_missing():
+    warnings.warn(
+        "policy attaches a lossy channel (@ ...) but state.net_state is "
+        "None — pass the same policy to init_train_state to allocate "
+        "it; running over an IDEAL wire (no losses simulated)",
         UserWarning,
         stacklevel=3,
     )
@@ -186,11 +231,11 @@ def _check_options(opts: StepOptions, cfg: TrainConfig, aux_loss_fn):
     if opts.mesh is not None:
         raise todo("the fleet-sharded step (StepOptions.mesh)",
                    "queue 1 item 11")
-    if opts.churn is not None:
-        raise todo("scenario churn (StepOptions.churn)", "queue 1 item 7")
-    if opts.chan_scale is not None:
-        raise todo("channel-severity scaling (StepOptions.chan_scale)",
-                   "queue 1 item 7")
+    if opts.churn is not None and len(opts.churn) != cfg.num_agents:
+        raise ValueError(
+            f"churn schedule has {len(opts.churn)} entries but "
+            f"num_agents={cfg.num_agents}"
+        )
     if aux_loss_fn is not None:
         raise todo("auxiliary losses (aux_loss_fn)", "queue 1 item 10")
     if cfg.microbatches > 1:
@@ -209,7 +254,8 @@ def make_triggered_train_step(
     options: Optional[StepOptions] = None,
     device: DeviceLike = "cuda",
 ):
-    """Build ``train_step(state, batch, scale=None) -> (state, metrics)``.
+    """Build ``train_step(state, batch, scale=None, chan_scale=None)
+    -> (state, metrics)``.
 
     ``loss_fn(params, batch) -> scalar`` is one agent's local empirical
     loss, written for ONE agent's batch; the step vmaps it over the
@@ -219,6 +265,11 @@ def make_triggered_train_step(
     A trigger's ``kernel=true`` option routes its reductions through the
     ``gain_reduce`` kernel.  ``oracle`` is the ``(Σ, w*)`` pair the
     ``gain_exact`` trigger requires.
+
+    ``scale`` multiplies every fixed trigger's threshold (an adaptive
+    trigger's target); ``chan_scale`` a channel's severity.  Either may
+    be a float or a 0-dim tensor on the step's device; ``None`` falls
+    back to ``StepOptions``' value.
 
     The step runs on ``device``: its state and batch must live there.
     Metrics are 0-dim (and, with ``agent_metrics``, ``(A,)``) tensors on
@@ -232,16 +283,21 @@ def make_triggered_train_step(
     hetero: Optional[Tuple[CommPolicy, ...]] = (
         resolved if isinstance(resolved, tuple) else None
     )
+    if (hetero is None and resolved.needs_net
+            and resolved.channel_model().depth > 0):
+        # a homogeneous delay / retransmit policy runs as a one-policy
+        # bank: the payload line's epilogue lives in one place
+        hetero = (resolved,) * cfg.num_agents
     prologue = batch_prologue(loss_fn)
 
     if hetero is None:
-        if resolved.needs_net:
-            raise todo("lossy '@ channel' wires", "queue 1 item 7")
         trigger = resolved.build_trigger(loss_fn=loss_fn, probe_eps=cfg.lr,
                                          oracle=oracle)
         chain = resolved.chain()
         needs_ef = resolved.needs_ef
         needs_ctrl = resolved.is_adaptive
+        channel = resolved.channel_model() if resolved.needs_net else None
+        needs_net = channel is not None
         chains = (chain,)
     else:
         if opts.hetero_dispatch != "hybrid":
@@ -251,6 +307,7 @@ def make_triggered_train_step(
                                 oracle=oracle)
         needs_ef = bank.needs_ef
         needs_ctrl = bank.needs_ctrl
+        needs_net = bank.needs_net
         chains = bank.agent_chains()
         prologue_fns, _ = bank.prologues()
         batch_free = bank.epilogue_batch_free
@@ -259,18 +316,21 @@ def make_triggered_train_step(
         in_order = inv_order == tuple(range(len(inv_order)))
         inv_ix = None if in_order else torch.tensor(
             inv_order, dtype=torch.long, device=dev)
-        branches = {(has_mem, has_ctrl): bank.epilogues(has_mem, has_ctrl)
+        branches = {(has_mem, has_ctrl, has_net):
+                    bank.epilogues(has_mem, has_ctrl, has_net)
                     for has_mem in (False, True)
-                    for has_ctrl in (False, True)}
+                    for has_ctrl in (False, True)
+                    for has_net in (False, True)}
+    if opts.churn is not None:
+        joins = torch.tensor([j for j, _ in opts.churn], device=dev)
+        leaves = torch.tensor([e for _, e in opts.churn], device=dev)
 
     def merge(parts):
         """Concatenate per-block results and restore agent order."""
         if parts[0] is None:
             return None
-        if isinstance(parts[0], dict):
-            return {k: merge([p[k] for p in parts]) for k in parts[0]}
-        out = torch.cat(parts)
-        return out if inv_ix is None else out[inv_ix]
+        return tree_map(lambda *xs: torch.cat(xs) if inv_ix is None
+                        else torch.cat(xs)[inv_ix], *parts)
 
     def check_device(state: TrainState):
         for leaf in tree_leaves(state.params):
@@ -282,10 +342,17 @@ def make_triggered_train_step(
                     f"repro_torch.convert"
                 )
 
-    def train_step(state: TrainState, batch, scale=None):
+    def freeze(new, old, act):
+        """``new`` where the agent is active, ``old`` where not."""
+        return tree_map(lambda n, o: torch.where(
+            act.reshape((-1,) + (1,) * (n.ndim - 1)) > 0.5, n, o), new, old)
+
+    def train_step(state: TrainState, batch, scale=None, chan_scale=None):
         check_device(state)
         if scale is None:
             scale = opts.scale
+        if chan_scale is None:
+            chan_scale = opts.chan_scale
         params, step = state.params, state.step
         use_ef = needs_ef and state.ef_memory is not None
         if needs_ef and not use_ef:
@@ -293,26 +360,47 @@ def make_triggered_train_step(
         use_ctrl = needs_ctrl and state.ctrl_state is not None
         if needs_ctrl and not use_ctrl:
             _warn_ctrl_state_missing()
+        # the channel engages only when the state carries its rows
+        use_net = needs_net and state.net_state is not None
+        if needs_net and not use_net:
+            _warn_net_state_missing()
         losses, grads = prologue(params, batch)
-        new_ctrl = state.ctrl_state
+        new_ctrl, new_net = state.ctrl_state, state.net_state
+        ds = None
         if hetero is None:
+            eff_scale = scale
+            if use_net:
+                # the delivery draw comes BEFORE the trigger; staleness
+                # escalates a starved agent's threshold or target
+                ds, stale, finalize = net_lib.channel_round(
+                    channel, state.net_state, step, chan_scale,
+                    net_lib.tx_cost(grads, chain))
+                eff_scale = net_lib.stale_scale(scale, channel.boost, stale,
+                                                needs_ctrl)
+            kw = {"delivered": ds} if (use_net and needs_ctrl) else {}
             if needs_ctrl:
                 ctrl_rows = (state.ctrl_state if use_ctrl else
                              trigger.ctrl0.to(dev).expand(losses.shape[0], -1))
                 (alphas, gains), ctrl_rows = trigger(
-                    params, grads, batch, losses, step, ctrl_rows, scale)
+                    params, grads, batch, losses, step, ctrl_rows, eff_scale,
+                    **kw)
                 if use_ctrl:
                     new_ctrl = ctrl_rows
             else:
                 alphas, gains = trigger(params, grads, batch, losses, step,
-                                        scale)
+                                        eff_scale)
             if chain:
                 g_eff = ef_add(grads, state.ef_memory if use_ef else None)
                 sent = chain.compress_tree(g_eff)
-                new_ef = (ef_residual(g_eff, sent, alphas) if use_ef
-                          else state.ef_memory)
+                new_ef = (ef_residual(g_eff, sent, alphas, delivered=ds)
+                          if use_ef else state.ef_memory)
             else:
                 sent, new_ef = grads, state.ef_memory
+            if use_net:
+                delivereds = alphas * ds
+                new_net = finalize(delivereds)
+            else:
+                delivereds = alphas
         else:
             # phase 1: every distinct gain precursor, once for all agents
             pres = torch.stack(
@@ -320,21 +408,46 @@ def make_triggered_train_step(
                  for fn in prologue_fns], 1) if prologue_fns else None
             mem = state.ef_memory if use_ef else None
             ctrl = state.ctrl_state if use_ctrl else None
+            net = state.net_state if use_net else None
+            # every agent's channel keys, one derivation per seed
+            keys = {seed: net_lib.round_keys(
+                seed, step, net_lib.net_rows(net)[:, 2])
+                for seed in bank.key_seeds} if use_net else None
             # phase 2: each distinct policy's epilogue on its own block
             outs = [
                 epi(params, _take(grads, rows),
                     None if batch_free else _take(batch, rows),
                     losses[rows], step, _take(mem, rows), _take(ctrl, rows),
-                    scale, None if pres is None else pres[rows])
-                for rows, epi in zip(blocks, branches[use_ef, use_ctrl])
+                    scale, None if pres is None else pres[rows],
+                    _take(net, rows), chan_scale, _take(keys, rows))
+                for rows, epi in zip(blocks,
+                                     branches[use_ef, use_ctrl, use_net])
             ]
-            alphas, gains, sent, new_mem, ctrl_rows = (
-                merge([o[k] for o in outs]) for k in range(5))
+            merged = [merge([o[k] for o in outs]) for k in range(len(outs[0]))]
+            alphas, gains, sent, new_mem, ctrl_rows = merged[:5]
+            delivereds = merged[5] if use_net else alphas
+            if use_net:
+                new_net = merged[6]
             new_ef = new_mem if use_ef else state.ef_memory
             if use_ctrl:
                 new_ctrl = ctrl_rows
 
-        agg = masked_mean(sent, alphas)
+        act = None
+        if opts.churn is not None:
+            # agents outside [join, leave) are masked out of the round:
+            # zero weight and bytes, frozen per-agent state
+            act = ((step >= joins) & (step < leaves)).float()
+            alphas, gains = alphas * act, gains * act
+            delivereds = delivereds * act
+            if new_ef is not None and new_ef is not state.ef_memory:
+                new_ef = freeze(new_ef, state.ef_memory, act)
+            if new_ctrl is not None and new_ctrl is not state.ctrl_state:
+                new_ctrl = freeze(new_ctrl, state.ctrl_state, act)
+            if use_net:
+                new_net = freeze(new_net, state.net_state, act)
+
+        # eq. (10) over what was DELIVERED (the decisions, when lossless)
+        agg = masked_mean(sent, delivereds)
         updates, opt_state = optimizer.update(agg, state.opt_state, params,
                                               step)
         new_params = tree_add_scaled(params, updates, 1.0)
@@ -345,28 +458,30 @@ def make_triggered_train_step(
         ratios = tuple(
             c.ratio_for(db, entries=de) if c else 1.0 for c in chains
         )
-        stats = comm_stats(alphas, gains, structural=sb, ratios=ratios)
-        metrics = {
-            "loss": fold_sum(losses) / losses.shape[0],
-            "comm_rate": stats.comm_rate,
-            "any_tx": stats.any_tx,
-            "num_tx": stats.num_tx,
-            "mean_gain": stats.mean_gain,
-            "grad_norm": torch.sqrt(sum(
-                (x.float() * x.float()).sum() for x in tree_leaves(agg)
-            )),
-            "wire_bytes": stats.wire_bytes,
-        }
+        stale_col = net_lib.net_rows(new_net)[:, 0] if use_net else None
+        metrics = round_metrics(
+            losses, alphas, gains, structural=sb, ratios=ratios,
+            delivered=delivereds if use_net else None, staleness=stale_col,
+            active=act)
+        metrics["grad_norm"] = torch.sqrt(sum(
+            (x.float() * x.float()).sum() for x in tree_leaves(agg)
+        ))
         if agent_metrics:
             metrics["agent_tx"] = alphas
+            # delivered bytes under a channel
             metrics["agent_bytes"] = per_agent_wire_bytes(
-                alphas, structural=sb, ratios=ratios)
+                delivereds, structural=sb, ratios=ratios)
+            if act is not None:
+                metrics["agent_active"] = act
+            if use_net:
+                metrics["agent_delivered"] = delivereds
+                metrics["agent_staleness"] = stale_col
             if needs_ctrl and new_ctrl is not None:
                 # the controllers' per-agent thresholds
                 metrics["agent_lam"] = new_ctrl[..., 0]
         return (
             TrainState(step + 1, new_params, opt_state, new_ef,
-                       new_ctrl, state.net_state),
+                       new_ctrl, new_net),
             metrics,
         )
 

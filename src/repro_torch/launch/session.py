@@ -18,7 +18,7 @@ Checkpointing, the watchdog, the telemetry HTTP server and the
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -55,6 +55,11 @@ class FleetSession:
         return self._state
 
     @property
+    def step_fn(self) -> Callable:
+        """The train step the session drives."""
+        return self._step
+
+    @property
     def round_index(self) -> int:
         """The next round to run (== rounds completed)."""
         return self._round
@@ -87,6 +92,7 @@ def build_linreg_fleet_session(
     clock: Callable[[], float] = time.monotonic,
     on_round: Optional[Callable] = None,
     batch_fn: Optional[Callable] = None,
+    churn: Optional[Tuple[Tuple[int, int], ...]] = None,
 ) -> FleetSession:
     """A :class:`FleetSession` serving the paper's linreg fleet on
     ``device``.
@@ -94,10 +100,17 @@ def build_linreg_fleet_session(
     ``net`` defaults to the budget-adaptive m=64 mix
     ``TIERED_M64_ADAPTIVE``, as in the JAX package: its metered tiers
     run ``budget_window``/``budget_dual`` controllers whose rows the
-    state carries; any other :class:`TieredNetwork` (such as the fixed-λ
-    ``TIERED_M64_QUADRATIC``) may be passed.  ``cfg_lr`` defaults to ``TIERED_M64_CFG``.  The problem is drawn
-    from ``seed`` and round ``k``'s batch from ``(seed + 1, k)``;
-    ``batch_fn(k)`` replaces that stream when given.
+    state carries; any other :class:`TieredNetwork` may be passed: the
+    fixed-λ ``TIERED_M64_QUADRATIC``, or a fleet over lossy or delayed
+    wires (``TIERED_M64_LOSSY``, ``TIERED_M64_ADAPTIVE_LOSSY``,
+    ``TIERED_M64_DELAYED``, ``TIERED_M64_ADAPTIVE_DELAYED``, ...), whose
+    channel rows and delay lines the state then carries and whose
+    delivered bytes the rollup counts.  ``churn`` is a per-agent
+    ``(join, leave)`` schedule (``StepOptions.churn``, e.g.
+    ``churn_schedule(net, rounds)``).  ``cfg_lr`` defaults to
+    ``TIERED_M64_CFG``.  The problem is drawn from ``seed`` and round
+    ``k``'s batch from ``(seed + 1, k)``; ``batch_fn(k)`` replaces that
+    stream when given.
     """
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.paper_linreg import (
@@ -130,8 +143,8 @@ def build_linreg_fleet_session(
                       comm=net.policies(lam_base=lam_base))
     opt = opt_lib.from_config(cfg)
     step_fn = make_triggered_train_step(
-        loss_fn, opt, cfg, options=StepOptions(agent_metrics=True),
-        device=dev)
+        loss_fn, opt, cfg,
+        options=StepOptions(agent_metrics=True, churn=churn), device=dev)
     state = init_train_state(
         {"w": torch.zeros(cfg_lr.n, dtype=torch.float32)}, opt, cfg,
         device=dev)

@@ -97,16 +97,26 @@ def test_spec_errors():
 
 
 def test_unported_stages_raise_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        CommPolicy.parse("always|randk(0.1)").chain()
-    # the budget controllers run; pricing a channel's delivery draw
-    # waits for the lossy channels
+    """Every compressor and channel stage is ported now: ``randk`` builds
+    and compresses, and ``budget_dual`` given a channel's delivery draw
+    prices DELIVERED transmissions (its signal EWMA sees α × d).  What
+    is still unported raises with its ROADMAP item."""
+    chain = CommPolicy.parse("always|randk(0.1)").chain()
+    out = chain.compress(torch.arange(40.0).reshape(2, 20))
+    assert ((out != 0).sum(1) == 2).all()
     trig = CommPolicy.parse("budget_dual").build_trigger(loss_fn=_tloss)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        trig(None, None, None, None, 0, torch.zeros(1, 3),
-             delivered=torch.ones(1))
+    gains = torch.tensor([-1.0, -1.0])
+    d = torch.tensor([1.0, 0.0])
+    (alpha, _), rows = trig(None, None, None, None, 0, torch.zeros(2, 3),
+                            pre=gains, delivered=d)
+    np.testing.assert_array_equal(alpha.numpy(), [1.0, 1.0])
+    np.testing.assert_allclose(rows[:, 1].numpy(), [0.1, 0.0])
     assert CommPolicy.parse("always @ bernoulli(p=0.2)").needs_net
     assert not CommPolicy.parse("always @ ideal").needs_net
+    from repro_torch.data import synthetic
+
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        synthetic.drifting_problem
 
 
 def test_policy_resolution_and_kernel_flag():

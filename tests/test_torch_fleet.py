@@ -85,15 +85,23 @@ def _jax_net(net):
         JTierSpec(**dataclasses.asdict(t)) for t in net.tiers))
 
 
-def _thresholds(specs, ctrl=None):
+def _thresholds(specs, ctrl=None, net=None):
     """Per-agent transmit threshold −λ (None for ungated triggers); an
-    adaptive trigger's λ is its row of the controller state ``ctrl``."""
+    adaptive trigger's λ is its row of the controller state ``ctrl``,
+    and a fixed λ under a channel with ``boost`` is divided by the
+    staleness factor ``1 + boost·s`` of the channel rows ``net``."""
     out = []
+    rows = None if net is None else np.asarray(
+        net[0] if isinstance(net, tuple) else net)
     for i, spec in enumerate(specs):
         pol = CommPolicy.parse(spec)
         trig = pol.trigger
         lam = (float(np.asarray(ctrl)[i, 0]) if pol.is_adaptive
                else trig.arg("lam"))
+        if (rows is not None and not pol.is_adaptive and pol.needs_net
+                and lam is not None):
+            f = 1.0 + np.float32(pol.channel_model().boost) * rows[i, 0]
+            lam = float(np.float32(lam) * (np.float32(1.0) / f))
         out.append(None if trig.name in ("always", "never")
                    else -float(np.float32(0.0 if lam is None else lam)))
     assert all(CommPolicy.parse(s).trigger.arg("decay") is None
@@ -117,10 +125,16 @@ def _jax_gains(specs, cfg, params, batch, ctrl=None):
     return np.asarray(gains)
 
 
+# the integer-valued realization of a round: decisions, deliveries,
+# staleness counters and the churn mask are held exactly
+EXACT_KEYS = ("agent_tx", "num_tx", "any_tx", "agent_delivered",
+              "agent_staleness", "agent_active", "num_active")
+
+
 def _mismatch(tnext, tm, jnext, jm, g_eff):
     """Why the port's round disagrees with a reference round, or None."""
-    for key in ("agent_tx", "num_tx", "any_tx"):
-        if not np.array_equal(tm[key], jm[key]):
+    for key in EXACT_KEYS:
+        if key in jm and not np.array_equal(tm[key], jm[key]):
             return key
     for key in jm:
         if not np.allclose(tm[key], jm[key], rtol=RTOL, atol=ATOL):
@@ -143,10 +157,23 @@ def _mismatch(tnext, tm, jnext, jm, g_eff):
             convert.to_numpy(tnext.ctrl_state),
             np.asarray(jnext.ctrl_state), rtol=RTOL, atol=ATOL):
         return "controller rows"
+    if (tnext.net_state is None) != (jnext.net_state is None):
+        return "channel slot"
+    if jnext.net_state is not None:
+        tn = jax.tree_util.tree_leaves(convert.to_numpy(tnext.net_state))
+        jn = jax.tree_util.tree_leaves(jax.device_get(jnext.net_state))
+        if len(tn) != len(jn):
+            return "channel slot layout"
+        if not np.array_equal(tn[0], jn[0]):
+            return "channel rows"
+        for a, b in zip(tn[1:], jn[1:]):
+            if not np.allclose(a, b, rtol=RTOL, atol=ATOL):
+                return "delay line"
     return None
 
 
-def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0):
+def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
+                churn=None, chan_scale=None):
     """Run the port's step and the JAX step (``dispatch`` path) from the
     same state each round and compare (controller rows included).
 
@@ -166,12 +193,14 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0):
 
     def jax_step(mode):
         return jax.jit(jmake(jloss, jopt, jcfg, options=JStepOptions(
-            hetero_dispatch=mode, agent_metrics=True)))
+            hetero_dispatch=mode, agent_metrics=True, churn=churn,
+            chan_scale=chan_scale)))
 
     jstep = jax_step(dispatch)
     alt_step = jax_step(alt) if alt else None
     tstep = make_triggered_train_step(
-        tloss, topt, tcfg, options=StepOptions(agent_metrics=True),
+        tloss, topt, tcfg, options=StepOptions(
+            agent_metrics=True, churn=churn, chan_scale=chan_scale),
         device="cpu")
     problem = JR.make_problem(cfg_lr, jax.random.key(seed))
     jstate = jinit({"w": jnp.zeros(cfg_lr.n)}, jopt, jcfg)
@@ -201,7 +230,8 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0):
         if differ.size:
             # a decision may differ only where the gain sits on its
             # threshold to within the float tolerance
-            thresholds = _thresholds(agent_specs, jstate.ctrl_state)
+            thresholds = _thresholds(agent_specs, jstate.ctrl_state,
+                                     jax.device_get(jstate.net_state))
             gains = _jax_gains(agent_specs, tcfg, jstate.params, batch,
                                jstate.ctrl_state)
             for i in differ:
@@ -352,6 +382,9 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unported_paths_raise_with_roadmap_pointer():
+    """The switch/unroll dispatch, microbatching, the drifting problem
+    and the fleet-sharded mesh still raise with their ROADMAP items; a
+    lossy homogeneous step and ``masked_mean_quantized`` now run."""
     cfg = TrainConfig(optimizer="sgd", num_agents=2,
                       comm=("always", "never"))
     opt = opt_lib.from_config(cfg)
@@ -359,14 +392,23 @@ def test_unported_paths_raise_with_roadmap_pointer():
         make_triggered_train_step(
             tloss, opt, cfg, device="cpu",
             options=StepOptions(hetero_dispatch="unroll"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        make_triggered_train_step(tloss, opt, cfg, device="cpu",
+                                  options=StepOptions(mesh=object()))
     lossy = TrainConfig(optimizer="sgd", num_agents=2,
-                        comm="always|int8 @ bernoulli(p=0.2)")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        make_triggered_train_step(tloss, opt, lossy, device="cpu")
+                        comm="always|int8 @ bernoulli(p=1.0)")
+    step = make_triggered_train_step(tloss, opt, lossy, device="cpu")
+    state = init_train_state({"w": torch.ones(3)}, opt, lossy, device="cpu")
+    batch = (torch.ones(2, 4, 3), torch.zeros(2, 4))
+    state, m = step(state, batch)
+    assert float(m["num_delivered"]) == 0.0 and float(m["num_tx"]) == 2.0
+    np.testing.assert_array_equal(state.params["w"].numpy(), 1.0)
     from repro_torch.core import aggregation
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        aggregation.masked_mean_quantized
+    agg, mem = aggregation.masked_mean_quantized(
+        {"w": torch.ones(2, 3)}, torch.ones(2))
+    np.testing.assert_array_equal(agg["w"].numpy(), 1.0)
+    assert mem is None
     micro = TrainConfig(optimizer="sgd", num_agents=2, comm="always",
                         microbatches=2)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):

@@ -1,0 +1,227 @@
+"""The port's threefry (``repro_torch.random``) against ``jax.random``,
+bit for bit, on the CPU; then the compressors drawn through it
+(``randk``) or through the shared numpy tables (``sketch``).
+
+Keys and words are compared as integers: the JAX key data (uint32) cast
+to int64 against the port's int64 words, and floats bitwise.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import CommPolicy as JCommPolicy
+from repro.comm import compressors as jcomp
+from repro_torch import random as tr
+from repro_torch.comm import CommPolicy
+from repro_torch.comm import compressors as tcomp
+
+torch.set_num_threads(1)
+
+SEEDS = (0, 1, 9, 42, 2**31 - 1, -5, 2**32 + 7)
+
+
+def _jk(key) -> np.ndarray:
+    """JAX key data (raw or typed) as int64 words."""
+    if jnp.issubdtype(key.dtype, jax.dtypes.prng_key):
+        key = jax.random.key_data(key)
+    return np.asarray(key).astype(np.int64)
+
+
+def _tk(key) -> torch.Tensor:
+    return torch.from_numpy(_jk(key))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key(seed):
+    np.testing.assert_array_equal(tr.PRNGKey(seed).numpy(),
+                                  _jk(jax.random.PRNGKey(seed)))
+    np.testing.assert_array_equal(tr.key(seed).numpy(),
+                                  _jk(jax.random.key(seed)))
+    assert tr.host_fold_in(seed) == tuple(_jk(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("data", [0, 1, 7, 2**31 - 1, -1, -3, -2**31])
+@pytest.mark.parametrize("seed", (0, 9, 123456))
+def test_fold_in_int32_data(seed, data):
+    """Positive and negative int32 data: the bit pattern is folded."""
+    want = _jk(jax.random.fold_in(jax.random.PRNGKey(seed), jnp.int32(data)))
+    got = tr.fold_in(tr.PRNGKey(seed), torch.tensor(data, dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fold_in_batched_steps_and_uids():
+    """``fold_in(fold_in(PRNGKey(seed), step), uid)`` over a grid of
+    (seed, step, uid): the host fold of (seed, step), then one batched
+    device fold over every uid, against JAX one key at a time."""
+    uids = torch.arange(64, dtype=torch.float32)  # the rows' float column
+    for seed in (0, 3, 9):
+        for step in (0, 1, 17, 239):
+            got = tr.fold_in(tr.host_fold_in(seed, step), uids)
+            want = jax.vmap(lambda u: jax.random.fold_in(
+                jax.random.fold_in(jax.random.PRNGKey(seed), step), u))(
+                jnp.arange(64, dtype=jnp.int32))
+            np.testing.assert_array_equal(got.numpy(), _jk(want))
+            # the same chain with a tensor key at every level
+            chained = tr.fold_in(tr.fold_in(tr.PRNGKey(seed), step),
+                                 uids.to(torch.int64))
+            np.testing.assert_array_equal(chained.numpy(), _jk(want))
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 64])
+@pytest.mark.parametrize("seed", (0, 9))
+def test_split(seed, num):
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(tr.split(tr.PRNGKey(seed), num).numpy(),
+                                  _jk(jax.random.split(key, num)))
+    # a batch of keys splits key by key
+    keys = jax.random.split(key, 5)
+    got = tr.split(_tk(keys), num)
+    want = jax.vmap(lambda k: jax.random.split(k, num))(keys)
+    np.testing.assert_array_equal(got.numpy(), _jk(want))
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (3, 5), (2, 3, 4),
+                                   (1 << 12,)])
+def test_bits(shape):
+    for seed in (0, 42):
+        key = jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            tr.bits(tr.PRNGKey(seed), shape).numpy(),
+            np.asarray(jax.random.bits(key, shape)).astype(np.int64))
+    keys = jax.random.split(jax.random.PRNGKey(5), 4)
+    want = jax.vmap(lambda k: jax.random.bits(k, shape))(keys)
+    np.testing.assert_array_equal(tr.bits(_tk(keys), shape).numpy(),
+                                  np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (-2.0, 3.0), (0.5, 0.75),
+                                    (-1e3, 1e-3)])
+@pytest.mark.parametrize("shape", [(), (9,), (4, 6), (1 << 10,)])
+def test_uniform_bitwise(shape, bounds):
+    lo, hi = bounds
+    for seed in (0, 7):
+        want = np.asarray(jax.random.uniform(
+            jax.random.PRNGKey(seed), shape, minval=lo, maxval=hi))
+        got = tr.uniform(tr.PRNGKey(seed), shape, minval=lo,
+                         maxval=hi).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_uniform_per_key_batch():
+    """One draw per key over 64 × 240 (step, uid) keys — the channels'
+    delivery draws for a served run — against JAX."""
+    steps = np.arange(240, dtype=np.int32)
+    uids = jnp.arange(64, dtype=jnp.int32)
+    base = jax.random.PRNGKey(3)
+    want = jax.vmap(lambda s: jax.vmap(lambda u: jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(base, s), u)))(uids))(steps)
+    keys = tr.fold_in(tr.fold_in(tr.PRNGKey(3),
+                                 torch.from_numpy(steps)[:, None]),
+                      torch.arange(64)[None, :])
+    got = tr.uniform(keys).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 10, 1000, 1700, 5000])
+def test_permutation(n):
+    """Sizes on both sides of the shuffle's round-count steps (one sort
+    round up to 1625 elements, two above)."""
+    for seed in (0, 11):
+        want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+        got = tr.permutation(tr.PRNGKey(seed), n).numpy()
+        np.testing.assert_array_equal(got, want)
+    keys = jax.random.split(jax.random.PRNGKey(2), 3)
+    want = jax.vmap(lambda k: jax.random.permutation(k, n))(keys)
+    np.testing.assert_array_equal(tr.permutation(_tk(keys), n).numpy(),
+                                  np.asarray(want))
+
+
+def test_key_shape_is_checked():
+    with pytest.raises(ValueError, match="2 words"):
+        tr.bits(torch.zeros(3, dtype=torch.int64))
+
+
+# ----------------------------------------------------------------------
+# randk and sketch
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def grads():
+    rng = np.random.default_rng(21)
+    return rng.standard_normal((6, 40)).astype(np.float32)
+
+
+@pytest.mark.parametrize("frac", [0.01, 0.1, 0.5, 1.0])
+def test_randk_sparsify_with_given_keys(grads, frac):
+    keys = jax.random.split(jax.random.PRNGKey(4), grads.shape[0])
+    want = jax.vmap(lambda g, k: jcomp.randk_sparsify(g, frac, k))(
+        jnp.asarray(grads), keys)
+    got = tcomp.randk_sparsify(torch.from_numpy(grads), frac, _tk(keys))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # one key shared by every agent
+    one = jax.random.PRNGKey(8)
+    want1 = jax.vmap(lambda g: jcomp.randk_sparsify(g, frac, one))(
+        jnp.asarray(grads))
+    got1 = tcomp.randk_sparsify(torch.from_numpy(grads), frac, _tk(one))
+    np.testing.assert_array_equal(got1.numpy(), np.asarray(want1))
+
+
+@pytest.mark.parametrize("inputs", ["normal", "integer"])
+def test_randk_compressor_salt(grads, inputs):
+    """The salted compressor.  Its salt is the bit pattern of each
+    agent's fp32 sum, which XLA and ATen may round apart (ROADMAP §3):
+    on normal draws every agent's sum here differs by a few ULPs, on
+    integer-valued tensors (exact sums) none does.  Where the two sums
+    agree the outputs are equal; everywhere, the port's output is JAX's
+    ``randk_sparsify`` under the key salted with the port's own sum."""
+    x_np = grads if inputs == "normal" else np.round(4 * grads)
+    spec = "always|randk(0.2,seed=3)"
+    jchain = JCommPolicy.parse(spec).chain()
+    x = torch.from_numpy(x_np)
+    got = CommPolicy.parse(spec).chain().compress(x).numpy()
+    tsum = tcomp.randk_salt(x).numpy()
+    jsum = np.asarray(jax.vmap(lambda g: jax.lax.bitcast_convert_type(
+        jnp.sum(g.astype(jnp.float32)), jnp.int32))(jnp.asarray(x_np)))
+    same = tsum == jsum
+    if inputs == "integer":
+        assert same.all()
+    want = np.asarray(jax.vmap(jchain.compress)(jnp.asarray(x_np)))
+    np.testing.assert_array_equal(got[same], want[same])
+    own = jax.vmap(lambda g, s: jcomp.randk_sparsify(
+        g, 0.2, jax.random.fold_in(jax.random.key(3), s)))(
+        jnp.asarray(x_np), jnp.asarray(tsum))
+    np.testing.assert_array_equal(got, np.asarray(own))
+    assert ((got != 0).sum(1) <= int(0.2 * x_np.shape[1])).all()
+
+
+@pytest.mark.parametrize("rows,cols", [(5, 64), (3, 8), (4, 16)])
+def test_sketch_matches_jax(grads, rows, cols):
+    """Count-sketch encode, decode and the chain's round trip against
+    JAX on the same numpy tables (even ``rows`` decode at the midpoint
+    of the two middle rows)."""
+    x = torch.from_numpy(grads)
+    enc = tcomp.sketch_encode(x, rows, cols, seed=2)
+    jenc = jax.vmap(lambda g: jcomp.sketch_encode(g, rows, cols, 2))(
+        jnp.asarray(grads))
+    np.testing.assert_allclose(enc.numpy(), np.asarray(jenc), rtol=1e-6,
+                               atol=1e-6)
+    dec = tcomp.sketch_decode(torch.tensor(np.asarray(jenc)),
+                              (grads.shape[1],), torch.float32, rows, cols, 2)
+    jdec = jax.vmap(lambda s: jcomp.sketch_decode(
+        s, (grads.shape[1],), jnp.float32, rows, cols, 2))(jenc)
+    np.testing.assert_array_equal(dec.numpy(), np.asarray(jdec))
+    spec = f"always|sketch(rows={rows},cols={cols},seed=2)"
+    got = CommPolicy.parse(spec).chain().compress(x)
+    want = jax.vmap(JCommPolicy.parse(spec).chain().compress)(
+        jnp.asarray(grads))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    assert tcomp.sketch_params(CommPolicy.parse(spec).chain()) == (
+        rows, cols, 2)
+    assert tcomp.sketch_params(CommPolicy.parse("always|int8").chain()) \
+        is None
