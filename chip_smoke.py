@@ -17,8 +17,11 @@ Phases (any failure exits nonzero; no result line is printed then):
               and the ragged (64, 33), (4096, 31) and (3, 1_000_003), in
               fp32 and bf16, each aligned and one element off alignment;
               integer-valued inputs must come out exact, and a repeated
-              launch bitwise equal; an input that requires grad, or one
-              under ``torch.func.vmap``, raises.
+              launch bitwise equal; an input that requires grad raises.
+              Under ``torch.func.vmap`` over 16 lanes of (64, 32) (and
+              4 × 4 nested) the wrapper launches once over the folded
+              1024 rows, bitwise equal to the kernel lane by lane and
+              within the tolerance of the plain version.
 3. slice    — serves the n=32, m=64, N=32 tiered fleet with its metered
               tiers gated by ``gain_quadratic(kernel=true)`` through the
               hybrid dispatch for 200 rounds, with the launch counter set
@@ -62,6 +65,34 @@ Phases (any failure exits nonzero; no result line is printed then):
               240)``: ``num_active`` equal to the schedule's count in
               every round, fewer wire bytes than without churn, and the
               CPU check over rounds 0–10 and 55–65 (the joins at 60).
+   dispatch — ``TIERED_M64_QUADRATIC`` and ``TIERED_M64_ADAPTIVE_LOSSY``
+              under the ``switch`` and ``unroll`` paths: 4 rounds, each
+              from the ``hybrid`` path's state before it, held to
+              hybrid's round under ROADMAP's parity contract (decisions,
+              deliveries and staleness exactly but at a gain on its
+              threshold; floats within 1e-5; EF memory, the delay line
+              and the parameters also within one rounding step of the
+              wire format, where a payload element sat on a rounding
+              boundary); ``gain_reduce`` launched once per kernel-gated
+              agent per round (56 for the quadratic fleet, counted from
+              its config); each path's rounds/s.
+   frontier — benchmarks/tiered_m64.py's frontiers: each TIER_MIXES fleet
+              over its 16 λ scales, 40 rounds of one ``torch.func.vmap``ped
+              step on the [slice] problem and batches: lanes 0 and 11
+              against the plain step pinned at their scale, every round
+              from the lane's state; every lane's first 10 rounds against
+              the same batched step on the CPU; every lane learns;
+              lane-rounds/s.  [frontier quadratic]: TIERED_M64_QUADRATIC
+              on the same grid, exactly one ``gain_reduce`` launch per
+              round (16 × 64 rows), the same checks.  [frontier lossy]:
+              benchmarks/lossy_channels.py's budget × severity grid on
+              TIERED_M64_ADAPTIVE_LOSSY, 240 rounds: the severity-0 lanes
+              deliver every payload, the lanes' channel draws are equal
+              in every round, each lane's metered tiers' delivered bytes
+              over the last 120 rounds within 15 % of their scaled
+              budgets.  [frontier drifting]: benchmarks/async_rounds.py's
+              drifting target (amplitude 2, period 16) on
+              TIERED_M64_DELAYED over a λ × lag grid, 240 rounds.
    sim      — the paper's closed-form simulator: the five figure
               drivers (``repro_torch.figures``) at full trials, each
               asserting its claims, the README Quickstart's λ loop, and
@@ -149,7 +180,9 @@ Phases (any failure exits nonzero; no result line is printed then):
               operators); then 20 rounds each of [slice], [fleet adaptive]
               and [fleet lossy] in traces that must hold exactly 20 times
               one round's records (taken again when short, as
-              ``device_ms`` does): device ops, busy time, idle share; then one prefill and 16 decode steps of LM run
+              ``device_ms`` does): device ops, busy time, idle share;
+              then 20 rounds of [frontier quadratic] the same way; then
+              one prefill and 16 decode steps of LM run
               (a): the kernel's share of the prefill's device time and
               the device's idle share in decode; then one train step:
               device time by kernel, device ops and idle share; then one
@@ -157,9 +190,11 @@ Phases (any failure exits nonzero; no result line is printed then):
 
 Before the last line come the ``{"kernels": [...]}`` record (each kernel
 with its arithmetic path, ``tf32x3``, ``bf16-mma`` or ``fp32-fma``, and
-the path's bound) and the card's ``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  The full record is also
-written to ``chiprun_out/chip_smoke.json``.
+the path's bound; ``gain_reduce`` also with its launches in the
+quadratic frontier and its times at that frontier's (1024, 32)) and
+the card's ``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  The full record is also written to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -179,7 +214,9 @@ SRC = REPO / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-SHAPES = ((64, 32), (4096, 32), (1, 1 << 26))
+# the fleet's rows, the quadratic frontier's 16 lanes × 64 agents, the
+# m = 4096 fleet's, and one long row
+SHAPES = ((64, 32), (1024, 32), (4096, 32), (1, 1 << 26))
 TIMED_RUNS = 100
 # traces of a timed call's device records taken before device_ms fails
 # on a trace that lost records
@@ -208,6 +245,24 @@ TOL_BUDGET = 0.15   # benchmarks/async_rounds.py:68
 CHURN_WINDOW = (55, 65)   # around round 60, where the late agents join
 RANDOM_COUNTERS = 1 << 20
 PROFILED_ROUNDS = 20
+# the switch and unroll dispatch paths at m = 64: rounds held to hybrid's
+DISPATCH_ROUNDS = 4
+# one step of two paths from the same state (ROADMAP's parity contract)
+STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
+# the frontiers: benchmarks/tiered_m64.py:34-35's 16 λ scales,
+# benchmarks/lossy_channels.py:55-56's budget × severity grid and
+# benchmarks/async_rounds.py:65-71's budget × lag grid and drift
+FRONTIER_SCALES = (0.0, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.8,
+                   1.2, 1.8, 2.7, 4.0, 6.0, 9.0, 13.0, 20.0)
+LOSSY_BUDGET_SCALES = (0.6, 1.0)
+LOSSY_SEVERITIES = (0.0, 1.0)
+DRIFT_SCALES = (0.6, 1.0)
+DRIFT_LAG_SCALES = (0.5, 1.0)
+DRIFT_AMP, DRIFT_PERIOD = 2.0, 16
+# the lanes each frontier holds to the plain step pinned at its scale
+FRONTIER_PLAIN_LANES = (0, 11)      # scales 0.0 and 4.0
+LOSSY_PLAIN_LANES = (1, 2)          # (0.6, 20 % loss), (1.0, lossless)
+DRIFT_PLAIN_LANES = (0, 3)          # (0.6, lag 1), (1.0, lag 2)
 
 # the dense tensor-core rates (data sheet): bf16, the peak for bf16
 # inputs, and TF32, which fp32 inputs reach through 3×TF32 (three TF32
@@ -515,22 +570,65 @@ def phase_kernel(torch, gr_ops, ref) -> list:
     covered = {(r["loads"], r["splits"] > 1) for r in results}
     if len(covered) != 4:
         raise AssertionError(f"load/split paths not all covered: {covered}")
-    # no gradient and no vmap rule: both must raise, never detach
+    # no gradient: an input that requires grad raises, never detaches
     g = torch.ones((2, 64), device="cuda")
-    for name, call in (
-            ("requires_grad", lambda: gr_ops.gain_reduce(
-                g.clone().requires_grad_(True), g)),
-            ("vmap", lambda: torch.func.vmap(
-                lambda r: gr_ops.gain_reduce(r, r))(g))):
-        try:
-            call()
-        except RuntimeError as err:
-            if "no gradient" not in str(err):
-                raise
-        else:
-            raise AssertionError(f"gain_reduce under {name} did not raise")
-    print("[kernel] an input that requires grad, or one under vmap, raises")
+    try:
+        gr_ops.gain_reduce(g.clone().requires_grad_(True), g)
+    except RuntimeError as err:
+        if "no gradient" not in str(err):
+            raise
+    else:
+        raise AssertionError("gain_reduce on an input that requires grad "
+                             "did not raise")
+    results.append(_vmap_check(torch, gr_ops, ref, gen))
     return results
+
+
+def _vmap_check(torch, gr_ops, ref, gen) -> dict:
+    """The vmap rule at the quadratic frontier's shape: 16 lanes of
+    (64, 32) fp32 rows under ``torch.func.vmap`` (and 4 × 4 lanes under
+    two nested maps) are ONE launch each, bitwise equal to the kernel on
+    the folded (1024, 32) rows and to it lane by lane, and within the
+    kernel's tolerance of the plain version per lane."""
+    lanes, (rows, n) = len(FRONTIER_SCALES), SHAPES[0]
+    g = torch.randn((lanes, rows, n), generator=gen, device="cuda")
+    h = torch.randn((lanes, rows, n), generator=gen, device="cuda")
+    launches = []
+    gr_ops.gain_reduce.launches = 0
+    got = torch.func.vmap(gr_ops.gain_reduce)(g, h)
+    launches.append(gr_ops.gain_reduce.launches)
+    gr_ops.gain_reduce.launches = 0
+    nested = torch.func.vmap(torch.func.vmap(gr_ops.gain_reduce))(
+        g.reshape(4, 4, rows, n), h.reshape(4, 4, rows, n))
+    launches.append(gr_ops.gain_reduce.launches)
+    folded = gr_ops.gain_reduce(g.reshape(-1, n), h.reshape(-1, n))
+    per_lane = torch.stack([gr_ops.gain_reduce(g[i], h[i])
+                            for i in range(lanes)])
+    want = torch.stack([ref.gain_reduce_ref(g[i], h[i])
+                        for i in range(lanes)])
+    torch.cuda.synchronize()
+    if launches != [1, 1]:
+        raise AssertionError(f"gain_reduce under vmap launched {launches} "
+                             f"times (want one per map)")
+    if not (torch.equal(got, folded.reshape(lanes, rows, 2))
+            and torch.equal(got, per_lane)
+            and torch.equal(nested.reshape(lanes, rows, 2), got)):
+        raise AssertionError("gain_reduce under vmap differs from the "
+                             "kernel on the folded rows or lane by lane")
+    gd, hd = g.double(), h.double()
+    mass = torch.stack([(gd * gd).sum(-1), (gd * hd).abs().sum(-1)], -1)
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= RTOL * want.double().abs()
+                 + ATOL_PER_MASS * mass).all()):
+        raise AssertionError(f"gain_reduce under vmap disagrees with the "
+                             f"plain version (max err {err.max().item():.3e})")
+    print(f"[kernel] vmap over {lanes} lanes of {rows}x{n} (and 4 x 4 "
+          f"nested): one launch each over {lanes * rows} rows, bitwise "
+          f"equal to the kernel lane by lane; vs plain "
+          f"{err.max().item():.3e}; an input that requires grad raises")
+    return {"vmap": True, "lanes": lanes, "shape": [rows, n],
+            "launches": launches, "max_abs_err": err.max().item(),
+            "bitwise_vs_per_lane": True}
 
 
 def phase_slice(torch, gr_ops):
@@ -1108,16 +1206,671 @@ def phase_fleet_churn(torch, unchurned_wire_bytes: float) -> dict:
     return record
 
 
+# ----------------------------------------------------------------------
+# the dispatch paths and the frontier
+# ----------------------------------------------------------------------
+
+def _linreg_loss(torch):
+    def loss_fn(params, batch):
+        xs, ys = batch
+        r = xs @ params["w"] - ys
+        return 0.5 * torch.mean(r * r)
+
+    return loss_fn
+
+
+def _fleet_step(torch, net, dev, dispatch: str = "hybrid", **options):
+    """The fleet session's train step for ``net`` on TIERED_M64_CFG (the
+    loss, optimizer and policies of ``build_linreg_fleet_session``) on
+    the ``dispatch`` path, with its initial state, config and optimizer;
+    ``options`` go to ``StepOptions``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+    from repro_torch.core.api import (
+        StepOptions,
+        init_train_state,
+        make_triggered_train_step,
+    )
+    from repro_torch.optim import optimizers as opt_lib
+
+    cfg_lr = TIERED_M64_CFG
+    cfg = TrainConfig(lr=cfg_lr.stepsize, optimizer="sgd",
+                      num_agents=cfg_lr.num_agents,
+                      comm=net.policies(lam_base=1.0))
+    opt = opt_lib.from_config(cfg)
+    step = make_triggered_train_step(
+        _linreg_loss(torch), opt, cfg, device=dev,
+        options=StepOptions(hetero_dispatch=dispatch, agent_metrics=True,
+                            **options))
+    state = init_train_state({"w": torch.zeros(cfg_lr.n)}, opt, cfg,
+                             device=dev)
+    return step, state, cfg, opt
+
+
+def _tie_text(row: dict) -> str:
+    return (f"{len(row['ties'])} threshold ties, {len(row['splits'])} "
+            f"rounding splits")
+
+
+def _numpy_metrics(metrics) -> dict:
+    return {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+def _lane(state, g: int):
+    """Lane ``g`` of a stacked TrainState (``step`` is shared)."""
+    from repro_torch.utils.tree import tree_map
+
+    return type(state)(state.step, *(
+        None if f is None else tree_map(lambda x: x[g], f)
+        for f in state[1:]))
+
+
+def _gate_margin(torch, net, state, batch, agent: int, scale: float):
+    """Agent ``agent``'s gain and transmit threshold in the round that
+    starts from ``state``, from its own trigger on one agent's gradient
+    (None for a trigger without a threshold)."""
+    from repro_torch.comm.policy import CommPolicy
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+    from repro_torch.net import channels as net_lib
+
+    pol = CommPolicy.parse(net.policies(lam_base=1.0)[agent])
+    lam = pol.trigger.arg("lam")
+    if not pol.is_adaptive and lam is None:
+        return None  # always / never
+    loss_fn = _linreg_loss(torch)
+    trig = pol.build_trigger(loss_fn=loss_fn,
+                             probe_eps=TIERED_M64_CFG.stepsize)
+    ab = tuple(x[agent:agent + 1] for x in batch)
+    g, loss = torch.func.grad_and_value(loss_fn)(state.params,
+                                                 tuple(x[0] for x in ab))
+    gain = float(trig.prologue(state.params,
+                               {k: v.unsqueeze(0) for k, v in g.items()},
+                               ab, loss.unsqueeze(0))[0])
+    if pol.is_adaptive:
+        # the controller's λ; staleness scales its target, not λ
+        return gain, -float(state.ctrl_state[agent, 0])
+    lam = float(lam) * float(scale)
+    if pol.needs_net and state.net_state is not None:
+        stale = float(net_lib.net_rows(state.net_state)[agent, 0])
+        lam /= 1.0 + pol.channel_model().boost * stale
+    return gain, -lam
+
+
+def _wire_resolution(net):
+    """Each agent's rounding step of its wire format, relative to the
+    payload's largest element: one int8 level (1/127), one fp16 or bf16
+    ULP (2^-10, 2^-7), or 0 for an uncompressed payload."""
+    import numpy as np
+
+    from repro_torch.comm.policy import CommPolicy
+
+    step = {"int8": 1.0 / 127.0, "fp16": 2.0 ** -10, "bf16": 2.0 ** -7}
+    return np.asarray([
+        max((step.get(c.name, 0.0)
+             for c in CommPolicy.parse(p).compressors), default=0.0)
+        for p in net.policies(lam_base=1.0)])
+
+
+def _step_mismatch(a, b, g_eff, res, lr: float):
+    """Why the round ``a = (metrics, next state)`` disagrees with ``b``
+    under ROADMAP's parity contract, or None, and whether a difference
+    needed the payloads' rounding step.  The realization (``EXACT_KEYS``)
+    exactly; metrics, controller rows and channel rows within STEP_RTOL
+    / STEP_ATOL; EF memory within STEP_RTOL of each agent's
+    ``max|g + ef|`` (``g_eff``: it carries the gradient's rounding).
+    Two paths' gradients differ in the last place, so a payload element
+    on a rounding boundary of its wire format may round one step
+    (``res`` × the payload's largest element) apart: EF memory and the
+    delay line's payloads may also differ by one step of their agent,
+    and the parameters and ``grad_norm`` by the aggregate of one step
+    per delivered agent (× ``lr``)."""
+    import numpy as np
+
+    from repro_torch.convert import to_numpy
+    from repro_torch.utils.tree import tree_leaves
+
+    (am, anext), (bm, bnext) = a, b
+    if set(am) != set(bm):
+        return f"metric keys {sorted(set(am) ^ set(bm))}", False
+    for key in EXACT_KEYS:
+        if key in bm and not np.array_equal(am[key], bm[key]):
+            return key, False
+    amax = np.abs(g_eff).max(axis=1)
+    got = np.asarray(bm.get("agent_delivered", bm["agent_tx"])) > 0
+    # one rounding step per delivered payload, through eq. (10)
+    agg_step = float((res * amax)[got].sum() / max(int(got.sum()), 1))
+    split = False
+
+    def close(x, y, extra=0.0):
+        nonlocal split
+        tol = STEP_ATOL + STEP_RTOL * np.abs(y)
+        if np.all(np.abs(x - y) <= tol):
+            return True
+        split = True
+        return bool(np.all(np.abs(x - y) <= tol + extra))
+
+    for key in bm:
+        extra = np.sqrt(g_eff.shape[1]) * agg_step if key == "grad_norm" \
+            else 0.0
+        if not close(am[key], bm[key], extra):
+            return f"{key}: {am[key]} vs {bm[key]}", split
+    if not close(to_numpy(anext.params)["w"], to_numpy(bnext.params)["w"],
+                 lr * agg_step):
+        return "params", split
+    for name in ("ctrl_state", "net_state"):
+        x, y = getattr(anext, name), getattr(bnext, name)
+        if (x is None) != (y is None):
+            return f"{name} slot", False
+        if x is None:
+            continue
+        x, y = to_numpy(x), to_numpy(y)
+        pairs = [(x, y, 0.0)]
+        if isinstance(y, tuple):
+            # a delay line: its payload buffer (A, L, n) may differ by one
+            # step of the agent's format, of each slot's largest element
+            buf = y[1]["buf"]["w"]
+            pairs = [((x[0], x[1]["meta"]), (y[0], y[1]["meta"]), 0.0),
+                     (x[1]["buf"]["w"], buf, res[:, None, None]
+                      * np.abs(buf).max(-1, keepdims=True))]
+        for u, v, extra in pairs:
+            for a_leaf, b_leaf in zip(tree_leaves(u), tree_leaves(v)):
+                if not close(a_leaf, b_leaf, extra):
+                    return (f"{name}: max diff "
+                            f"{np.abs(a_leaf - b_leaf).max():.3e}", split)
+    if (anext.ef_memory is None) != (bnext.ef_memory is None):
+        return "EF memory slot", False
+    if bnext.ef_memory is not None:
+        diff = np.abs(to_numpy(anext.ef_memory)["w"]
+                      - to_numpy(bnext.ef_memory)["w"])
+        tol = STEP_ATOL + STEP_RTOL * amax[:, None]
+        if not np.all(diff <= tol):
+            split = True
+            if not np.all(diff <= tol + (res * amax)[:, None]):
+                return f"ef_memory: max diff {diff.max():.3e}", split
+    return None, split
+
+
+def _g_eff(torch, state, batch):
+    """Every agent's ``g + ef`` in the round from ``state`` (numpy)."""
+    g = torch.func.vmap(torch.func.grad(_linreg_loss(torch)),
+                        in_dims=(None, 0))(state.params, batch)["w"]
+    if state.ef_memory is not None:
+        g = g + state.ef_memory["w"]
+    return g.cpu().numpy()
+
+
+def _hold_round(torch, label, net, k, state, batch, got, want, scale,
+                ties: list, splits: list) -> None:
+    """Round ``k`` of two paths from the same ``state`` on ``batch``:
+    ``got`` held to ``want`` (each ``(numpy metrics, next state)``) by
+    ``_step_mismatch``.  A decision may differ only where the gain sits
+    on its threshold within STEP_RTOL / STEP_ATOL (``ties`` records the
+    agent, and the round's floats are not compared); ``splits`` records
+    a round whose payload-carrying state needed one rounding step of its
+    wire format.  Every round starts both paths from one state, so
+    neither carries over."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+
+    differ = np.flatnonzero(np.asarray(got[0]["agent_tx"])
+                            != np.asarray(want[0]["agent_tx"]))
+    for i in differ:
+        margin = _gate_margin(torch, net, state, batch, int(i), scale)
+        if margin is None or abs(margin[0] - margin[1]) > (
+                STEP_ATOL + STEP_RTOL * abs(margin[1])):
+            raise AssertionError(f"{label} round {k}: agent {i}'s decision "
+                                 f"differs off its threshold (gain, "
+                                 f"threshold: {margin})")
+        ties.append({"round": k, "agent": int(i), "gain": margin[0],
+                     "threshold": margin[1]})
+    if differ.size:
+        return
+    why, split = _step_mismatch(got, want, _g_eff(torch, state, batch),
+                                _wire_resolution(net),
+                                TIERED_M64_CFG.stepsize)
+    if why is not None:
+        raise AssertionError(f"{label} round {k}: {why}")
+    if split:
+        splits.append(k)
+
+
+def phase_dispatch(torch, gr_ops) -> dict:
+    """``TIERED_M64_QUADRATIC`` and ``TIERED_M64_ADAPTIVE_LOSSY`` under
+    the ``switch`` and ``unroll`` paths on the [slice] problem and batch
+    stream: DISPATCH_ROUNDS rounds of ``hybrid``, then each path's step
+    from hybrid's state before every round, held to hybrid's round
+    (``_hold_round``); ``gain_reduce`` launched once per kernel-gated
+    agent (counted from the config) per round; each path's rounds/s over
+    DISPATCH_ROUNDS rounds after a warm-up round, pulling each round's
+    metrics as the session does."""
+    from repro_torch.comm.policy import CommPolicy
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_ADAPTIVE_LOSSY,
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problem = R.make_problem(TIERED_M64_CFG, step_generator(0, 0, dev),
+                             device=dev)
+    batches = [R.agent_batches(problem, step_generator(1, k, dev))
+               for k in range(DISPATCH_ROUNDS + 1)]
+    record = {}
+    for net in (TIERED_M64_QUADRATIC, TIERED_M64_ADAPTIVE_LOSSY):
+        gated = sum(CommPolicy.parse(p).trigger.arg("kernel") is True
+                    for p in net.policies(lam_base=1.0))
+        steps = {d: _fleet_step(torch, net, dev, d)[:2]
+                 for d in ("hybrid", "switch", "unroll")}
+        state, starts, want = steps["hybrid"][1], [], []
+        for k in range(DISPATCH_ROUNDS):
+            starts.append(state)
+            state, m = steps["hybrid"][0](state, batches[k])
+            want.append((_numpy_metrics(m), state))
+        row = {"kernel_gated_agents": gated, "rounds": DISPATCH_ROUNDS}
+        for d in ("switch", "unroll"):
+            ties, splits = [], []
+            gr_ops.gain_reduce.launches = 0
+            got = [steps[d][0](starts[k], batches[k])
+                   for k in range(DISPATCH_ROUNDS)]
+            torch.cuda.synchronize()
+            launches = gr_ops.gain_reduce.launches
+            if launches != gated * DISPATCH_ROUNDS:
+                raise AssertionError(
+                    f"dispatch {net.name} {d}: gain_reduce launched "
+                    f"{launches} times in {DISPATCH_ROUNDS} rounds, not "
+                    f"{gated} per round")
+            for k, (nxt, m) in enumerate(got):
+                _hold_round(torch, f"dispatch {net.name} {d}", net, k,
+                            starts[k], batches[k], (_numpy_metrics(m), nxt),
+                            want[k], 1.0, ties, splits)
+            row[d] = {"launches": launches, "ties": ties, "splits": splits}
+        for d, (step, state) in steps.items():
+            stamps = []
+            for batch in batches:
+                state, m = step(state, batch)
+                _numpy_metrics(m)  # the session's pull of the round
+                stamps.append(time.perf_counter())
+            row.setdefault(d, {})["rounds_per_s"] = DISPATCH_ROUNDS / (
+                stamps[-1] - stamps[0])
+        record[net.name] = row
+        print(f"[dispatch] {net.name}: switch and unroll match hybrid in "
+              f"all {DISPATCH_ROUNDS} rounds (each from hybrid's state; "
+              f"{_tie_text(row['switch'])} and {_tie_text(row['unroll'])})"
+              f"; gain_reduce launches per "
+              f"round: switch {row['switch']['launches'] // DISPATCH_ROUNDS}"
+              f", unroll {row['unroll']['launches'] // DISPATCH_ROUNDS} "
+              f"({gated} kernel-gated agents); rounds/s: hybrid "
+              f"{row['hybrid']['rounds_per_s']:.1f}, switch "
+              f"{row['switch']['rounds_per_s']:.2f}, unroll "
+              f"{row['unroll']['rounds_per_s']:.2f}")
+    return record
+
+
+def _frontier_problem(torch, dev):
+    """The [slice] problem and its batch stream (seed 0)."""
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+
+    problem = R.make_problem(TIERED_M64_CFG, step_generator(0, 0, dev),
+                             device=dev)
+    return problem, lambda k: R.agent_batches(problem,
+                                              step_generator(1, k, dev))
+
+
+def _frontier_run(torch, net, scales, chans, batch_fn, rounds: int) -> dict:
+    """``rounds`` rounds of the batched frontier step over ``net`` on
+    TIERED_M64_CFG: the stacked state before each round (and the last),
+    each round's metrics (numpy, pulled every round) and the rounds/s
+    after CHECK_ROUNDS rounds."""
+    import numpy as np
+
+    from repro_torch.core.frontier import make_frontier_step, stack_states
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, state0, cfg, opt = _fleet_step(torch, net, dev)
+    bstep = make_frontier_step(_linreg_loss(torch), opt, cfg, device=dev,
+                               channel_axis=chans is not None)
+    s = torch.tensor(scales, dtype=torch.float32, device=dev)
+    c = None if chans is None else torch.tensor(chans, dtype=torch.float32,
+                                                device=dev)
+    states = stack_states(state0, len(scales))
+    run = {"states": [], "hist": [], "stamps": [], "bstep": bstep,
+           "scales": s, "chans": c, "cfg": cfg, "opt": opt}
+    for k in range(rounds):
+        run["states"].append(states)
+        states, m = bstep(states, batch_fn(k), s, c)
+        run["hist"].append(_numpy_metrics(m))
+        run["stamps"].append(time.perf_counter())
+    run["states"].append(states)
+    run["rounds_per_s"] = (rounds - 1 - CHECK_ROUNDS) / (
+        run["stamps"][-1] - run["stamps"][CHECK_ROUNDS])
+    if not all(np.isfinite(m["loss"]).all() for m in run["hist"]):
+        raise AssertionError(f"frontier {net.name}: non-finite loss")
+    return run
+
+
+def _frontier_checks(torch, label, net, run, batch_fn, lanes) -> dict:
+    """What every frontier phase checks:
+
+    - lanes ``lanes`` against the plain step pinned at their scale
+      (``StepOptions(scale=s)``, and the lane's ``chan_scale``), every
+      round from the lane's state before it (``_hold_round``);
+    - the first CHECK_ROUNDS rounds of every lane against the same
+      batched step on the CPU, from the card's state before each round;
+    - on a wire with a channel: every round's channel draws equal in
+      all lanes (``_common_draws``), and on a loss channel, where two
+      lanes of one severity both attempted, the same deliveries."""
+    import numpy as np
+
+    from repro_torch.core.frontier import make_frontier_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scales = run["scales"].tolist()
+    chans = None if run["chans"] is None else run["chans"].tolist()
+    ties, splits = [], []
+    for g in lanes:
+        plain = _fleet_step(
+            torch, net, dev, scale=scales[g],
+            chan_scale=None if chans is None else chans[g])[0]
+        for k, m in enumerate(run["hist"]):
+            start = _lane(run["states"][k], g)
+            nxt, pm = plain(start, batch_fn(k))
+            _hold_round(torch, f"{label} lane {g}", net, k, start,
+                        batch_fn(k),
+                        ({key: v[g] for key, v in m.items()},
+                         _lane(run["states"][k + 1], g)),
+                        (_numpy_metrics(pm), nxt), scales[g], ties, splits)
+    cpu_step = make_frontier_step(_linreg_loss(torch), run["opt"],
+                                  run["cfg"], device="cpu",
+                                  channel_axis=chans is not None)
+    cpu_ties, cpu_splits = [], []
+    for k in range(CHECK_ROUNDS):
+        start = _to_cpu(run["states"][k])
+        batch = tuple(x.cpu() for x in batch_fn(k))
+        nxt, cm = cpu_step(start, batch, run["scales"].cpu(),
+                           None if chans is None else run["chans"].cpu())
+        cm = _numpy_metrics(cm)
+        card_next = _to_cpu(run["states"][k + 1])
+        for g in range(len(scales)):
+            _hold_round(torch, f"{label} CPU lane {g}", net, k,
+                        _lane(start, g), batch,
+                        ({key: v[g] for key, v in run["hist"][k].items()},
+                         _lane(card_next, g)),
+                        ({key: v[g] for key, v in cm.items()},
+                         _lane(nxt, g)), scales[g], cpu_ties, cpu_splits)
+    out = {"plain_lanes": list(lanes),
+           "plain": {"ties": ties, "splits": splits},
+           "cpu_rounds": CHECK_ROUNDS,
+           "cpu": {"ties": cpu_ties, "splits": cpu_splits}}
+    if run["states"][0].net_state is None:
+        return out
+    out["common_draw_rounds"] = _common_draws(torch, label, net, run)
+    if not isinstance(run["states"][0].net_state, tuple):
+        # a loss channel (no payload line): the delivery of an attempt
+        # is the round's draw itself
+        pairs = [(a, b) for a in range(len(scales))
+                 for b in range(a + 1, len(scales))
+                 if chans is None or chans[a] == chans[b]]
+        for m in run["hist"]:
+            tx, dl = m["agent_tx"], m["agent_delivered"]
+            for a, b in pairs:
+                both = (tx[a] > 0) & (tx[b] > 0)
+                if not np.array_equal(dl[a][both] > 0, dl[b][both] > 0):
+                    raise AssertionError(
+                        f"{label}: lanes {a} and {b} of one severity both "
+                        f"attempted and delivered differently")
+        out["same_severity_pairs"] = len(pairs)
+    return out
+
+
+def _common_draws(torch, label, net, run) -> int:
+    """Every round's uniforms of each keyed channel seed, drawn from each
+    lane's own channel rows as the step derives them (``round_keys`` of
+    the rows' uid column, under the grid's vmap), equal in every lane."""
+    from repro_torch import random as prng
+    from repro_torch.comm.policy import CommPolicy
+    from repro_torch.net import channels as net_lib
+
+    models = [CommPolicy.parse(p).channel_model()
+              for p in net.policies(lam_base=1.0)
+              if CommPolicy.parse(p).needs_net]
+    seeds = sorted({m.seed for m in models if m.keyed})
+    for k, states in enumerate(run["states"][:-1]):
+        rows = net_lib.net_rows(states.net_state)
+        for seed in seeds:
+            u = torch.func.vmap(lambda r: prng.uniform(
+                net_lib.round_keys(seed, k, r[:, 2])))(rows)
+            if not bool((u == u[:1]).all()):
+                raise AssertionError(f"{label} round {k}: the lanes' draws "
+                                     f"of channel seed {seed} differ")
+    return len(run["hist"])
+
+
+def _tier_rates(net, run, tail: int):
+    """(G, tiers) bytes per agent and round over the last ``tail`` rounds."""
+    import numpy as np
+
+    tier_of = np.asarray(net.tier_index())
+    ab = np.mean([m["agent_bytes"] for m in run["hist"][-tail:]], axis=0)
+    return np.stack([ab[:, tier_of == t].mean(1)
+                     for t in range(len(net.tiers))], 1)
+
+
+def phase_frontier(torch) -> dict:
+    """benchmarks/tiered_m64.py's frontiers on the card: each TIER_MIXES
+    fleet over FRONTIER_SCALES (16 λ scales), TIERED_M64_CFG.steps
+    rounds of one batched step on the [slice] problem and batches; the
+    frontier checks (lanes FRONTIER_PLAIN_LANES against the plain step,
+    10 rounds against the CPU), every lane learning (final J under the
+    initial J); lanes × rounds per second, the wire bytes per lane and
+    whether they fall with the scale (printed)."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import TIER_MIXES, TIERED_M64_CFG
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problem, batch_fn = _frontier_problem(torch, dev)
+    J0 = float(problem.J(torch.zeros_like(problem.w_star)))
+    record = {}
+    for net in TIER_MIXES:
+        run = _frontier_run(torch, net, FRONTIER_SCALES, None, batch_fn,
+                            TIERED_M64_CFG.steps)
+        checks = _frontier_checks(torch, f"frontier {net.name}", net, run,
+                                  batch_fn, FRONTIER_PLAIN_LANES)
+        J = problem.J(run["states"][-1].params["w"]).tolist()
+        if not all(j < J0 for j in J):
+            raise AssertionError(f"frontier {net.name}: a lane did not "
+                                 f"learn: J {J} vs initial {J0}")
+        wire = np.sum([m["wire_bytes"] for m in run["hist"]], 0).tolist()
+        record[net.name] = {
+            "lanes": len(FRONTIER_SCALES), "rounds": TIERED_M64_CFG.steps,
+            "rounds_per_s": run["rounds_per_s"],
+            "lane_rounds_per_s": run["rounds_per_s"] * len(FRONTIER_SCALES),
+            "J_initial": J0, "J_final": J, "wire_bytes": wire,
+            "wire_falls_with_scale": bool(np.all(np.diff(wire) <= 1e-3)),
+            **checks}
+        print(f"[frontier] {net.name}: {len(FRONTIER_SCALES)} lanes x "
+              f"{TIERED_M64_CFG.steps} rounds, {run['rounds_per_s']:.1f} "
+              f"rounds/s = {record[net.name]['lane_rounds_per_s']:.0f} "
+              f"lane-rounds/s; J {J0:.2f} -> {min(J):.4f}..{max(J):.4f}; "
+              f"wire bytes {wire[0]:.0f} (scale 0) .. {wire[-1]:.0f} "
+              f"(scale 20), falling with the scale: "
+              f"{record[net.name]['wire_falls_with_scale']}; lanes "
+              f"{list(FRONTIER_PLAIN_LANES)} match the plain step pinned at "
+              f"their scale in every round ({_tie_text(checks['plain'])}), "
+              f"every lane's first {CHECK_ROUNDS} rounds the CPU "
+              f"({_tie_text(checks['cpu'])})")
+    return record
+
+
+def phase_frontier_quadratic(torch, gr_ops) -> tuple:
+    """``TIERED_M64_QUADRATIC`` over FRONTIER_SCALES: the metered agents
+    of all 16 lanes gated through ONE ``gain_reduce`` launch per round
+    (the kernel's vmap rule folds the lanes into its rows: 16 × 64 rows
+    of 32), counted from 0 over the run; the frontier checks."""
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+
+    net = TIERED_M64_QUADRATIC
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, batch_fn = _frontier_problem(torch, dev)
+    rounds = TIERED_M64_CFG.steps
+    gr_ops.gain_reduce.launches = 0
+    run = _frontier_run(torch, net, FRONTIER_SCALES, None, batch_fn, rounds)
+    torch.cuda.synchronize()
+    launches = gr_ops.gain_reduce.launches
+    if launches != rounds:
+        raise AssertionError(f"frontier quadratic: gain_reduce launched "
+                             f"{launches} times in {rounds} rounds (want "
+                             f"one per round for all lanes)")
+    checks = _frontier_checks(torch, "frontier quadratic", net, run,
+                              batch_fn, FRONTIER_PLAIN_LANES)
+    G = len(FRONTIER_SCALES)
+    record = {"lanes": G, "rounds": rounds, "launches": launches,
+              "kernel_rows": G * TIERED_M64_CFG.num_agents,
+              "rounds_per_s": run["rounds_per_s"],
+              "lane_rounds_per_s": run["rounds_per_s"] * G, **checks}
+    print(f"[frontier quadratic] {net.name}: {G} lanes x {rounds} rounds: "
+          f"gain_reduce launches {launches} (one per round over "
+          f"{G} x {TIERED_M64_CFG.num_agents} rows); "
+          f"{run['rounds_per_s']:.1f} rounds/s = "
+          f"{record['lane_rounds_per_s']:.0f} lane-rounds/s; lanes "
+          f"{list(FRONTIER_PLAIN_LANES)} match the plain step, the first "
+          f"{CHECK_ROUNDS} rounds the CPU ({_tie_text(checks['plain'])}; "
+          f"{_tie_text(checks['cpu'])})")
+    return record, run
+
+
+def phase_frontier_lossy(torch) -> dict:
+    """benchmarks/lossy_channels.py's surface: TIERED_M64_ADAPTIVE_LOSSY
+    over LOSSY_BUDGET_SCALES × LOSSY_SEVERITIES (lane i: its controllers
+    at scale × budget, scale × 20 % loss), NET_ROUNDS rounds; the
+    frontier checks, every payload delivered in the lossless lanes, and
+    each lane's metered tiers' delivered bytes over the last NET_TAIL
+    rounds within TOL_LOSSY of their scaled budgets."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import TIERED_M64_ADAPTIVE_LOSSY
+
+    net = TIERED_M64_ADAPTIVE_LOSSY
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, batch_fn = _frontier_problem(torch, dev)
+    scales = [b for b in LOSSY_BUDGET_SCALES for _ in LOSSY_SEVERITIES]
+    chans = [c for _ in LOSSY_BUDGET_SCALES for c in LOSSY_SEVERITIES]
+    run = _frontier_run(torch, net, scales, chans, batch_fn, NET_ROUNDS)
+    checks = _frontier_checks(torch, "frontier lossy", net, run, batch_fn,
+                              LOSSY_PLAIN_LANES)
+    for g, c in enumerate(chans):
+        if c == 0.0 and not all(
+                np.array_equal(m["agent_delivered"][g], m["agent_tx"][g])
+                for m in run["hist"]):
+            raise AssertionError(f"frontier lossy: lane {g} (severity 0) "
+                                 f"lost a payload")
+    rates = _tier_rates(net, run, NET_TAIL)
+    budgets = np.asarray([t.wire_budget for t in net.tiers])
+    metered = np.isfinite(budgets)
+    rel = rates[:, metered] / (np.asarray(scales)[:, None]
+                               * budgets[None, metered]) - 1.0
+    record = {"lanes": [{"scale": s, "chan_scale": c,
+                         "tier_bytes": dict(zip(
+                             (t.name for t in net.tiers), r.tolist())),
+                         "rel_err": e.tolist()}
+                        for s, c, r, e in zip(scales, chans, rates, rel)],
+              "rounds": NET_ROUNDS, "tail": NET_TAIL,
+              "rounds_per_s": run["rounds_per_s"],
+              "lane_rounds_per_s": run["rounds_per_s"] * len(scales),
+              **checks}
+    print(f"[frontier lossy] {net.name}: {len(scales)} lanes (budget scale"
+          f" x severity) x {NET_ROUNDS} rounds, {run['rounds_per_s']:.1f} "
+          f"rounds/s; delivered bytes of the metered tiers over the last "
+          f"{NET_TAIL} rounds vs the scaled budgets: " + "; ".join(
+              f"({s}, {c}) " + ", ".join(f"{e:+.3f}" for e in row)
+              for s, c, row in zip(scales, chans, rel))
+          + f"; severity-0 lanes deliver every payload; the lanes' draws "
+          f"equal in all {checks['common_draw_rounds']} rounds; lanes "
+          f"{list(LOSSY_PLAIN_LANES)} match the plain step, the first "
+          f"{CHECK_ROUNDS} rounds the CPU ({_tie_text(checks['plain'])}; "
+          f"{_tie_text(checks['cpu'])})")
+    if not np.all(np.abs(rel) <= TOL_LOSSY):
+        raise AssertionError(f"frontier lossy: a tier misses its scaled "
+                             f"budget by more than {TOL_LOSSY}: {rel}")
+    return record
+
+
+def phase_frontier_drifting(torch) -> dict:
+    """benchmarks/async_rounds.py's drifting target (amplitude DRIFT_AMP,
+    period DRIFT_PERIOD: ``drifting_batch_fn``) under TIERED_M64_DELAYED,
+    over DRIFT_SCALES × DRIFT_LAG_SCALES (λ scale × mean-lag scale),
+    NET_ROUNDS rounds: the frontier checks and every lane's tail loss."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import TIERED_M64_DELAYED
+    from repro_torch.data.synthetic import drifting_batch_fn
+
+    net = TIERED_M64_DELAYED
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problem, _ = _frontier_problem(torch, dev)
+    batch_fn = drifting_batch_fn(problem, amp=DRIFT_AMP,
+                                 period=DRIFT_PERIOD, seed=0)
+    scales = [s for s in DRIFT_SCALES for _ in DRIFT_LAG_SCALES]
+    chans = [c for _ in DRIFT_SCALES for c in DRIFT_LAG_SCALES]
+    run = _frontier_run(torch, net, scales, chans, batch_fn, NET_ROUNDS)
+    checks = _frontier_checks(torch, "frontier drifting", net, run,
+                              batch_fn, DRIFT_PLAIN_LANES)
+    tail = np.mean([m["loss"] for m in run["hist"][-NET_TAIL:]], 0).tolist()
+    record = {"lanes": [{"scale": s, "lag_scale": c, "tail_loss": t}
+                        for s, c, t in zip(scales, chans, tail)],
+              "rounds": NET_ROUNDS, "rounds_per_s": run["rounds_per_s"],
+              "lane_rounds_per_s": run["rounds_per_s"] * len(scales),
+              **checks}
+    print(f"[frontier drifting] {net.name} on a drifting target (amp "
+          f"{DRIFT_AMP}, period {DRIFT_PERIOD}): {len(scales)} lanes (λ "
+          f"scale x lag scale) x {NET_ROUNDS} rounds, "
+          f"{run['rounds_per_s']:.1f} rounds/s; tail loss " + ", ".join(
+              f"({s}, {c}) {t:.4f}" for s, c, t in zip(scales, chans, tail))
+          + f"; the lanes' draws equal in all {checks['common_draw_rounds']}"
+          f" rounds; lanes {list(DRIFT_PLAIN_LANES)} match the plain step, "
+          f"the first {CHECK_ROUNDS} rounds the CPU "
+          f"({_tie_text(checks['plain'])}; {_tie_text(checks['cpu'])})")
+    return record
+
+
 def phase_fleet_profile(torch, session, round_ms: float, label: str) -> dict:
-    """Device ops, busy time and idle share of a fleet's rounds from a
-    trace that holds exactly PROFILED_ROUNDS times one round's records
+    """Device ops, busy time and idle share of a fleet's rounds
+    (``_profile_rounds``)."""
+    return _profile_rounds(torch, lambda: session.run(1), round_ms, label)
+
+
+def phase_frontier_profile(torch, run, batch_fn) -> dict:
+    """Device ops, busy time and idle share of the quadratic frontier's
+    rounds (``_profile_rounds``), continuing its run; a round draws its
+    batch, steps every lane and pulls the metrics, as the run's rounds
+    did."""
+    state = {"states": run["states"][-1], "k": len(run["hist"])}
+
+    def one_round():
+        state["states"], m = run["bstep"](state["states"],
+                                          batch_fn(state["k"]),
+                                          run["scales"], run["chans"])
+        _numpy_metrics(m)
+        state["k"] += 1
+
+    return _profile_rounds(torch, one_round, 1e3 / run["rounds_per_s"],
+                           "frontier")
+
+
+def _profile_rounds(torch, one_round, round_ms: float, label: str) -> dict:
+    """Device ops, busy time and idle share of ``one_round()`` calls from
+    a trace that holds exactly PROFILED_ROUNDS times one round's records
     (the most that three one-round traces hold), as ``device_ms``
     checks its traces; the idle share is against the round time
     measured without the profiler."""
-
-    def one_round():
-        session.run(1)
-
     per_round = max(len(_device_records(torch, one_round, 1))
                     for _ in range(3))
     if per_round == 0:
@@ -2578,6 +3331,12 @@ def main() -> int:
                                                                   gr_ops)
     record["fleet_delayed"], unchurned = phase_fleet_delayed(torch)
     record["fleet_churn"] = phase_fleet_churn(torch, unchurned)
+    record["dispatch"] = phase_dispatch(torch, gr_ops)
+    record["frontier"] = phase_frontier(torch)
+    record["frontier_quadratic"], quad_run = phase_frontier_quadratic(
+        torch, gr_ops)
+    record["frontier_lossy"] = phase_frontier_lossy(torch)
+    record["frontier_drifting"] = phase_frontier_drifting(torch)
     record["sim"], sim_run = phase_sim(torch)
     record["swa_checks"] = phase_swa_kernel(torch, swa_ops, swa_ref)
     record["ce_checks"] = phase_ce_kernel(torch, ce_ops, ce_ref)
@@ -2603,6 +3362,8 @@ def main() -> int:
             "fleet adaptive"),
         "fleet_lossy": phase_fleet_profile(torch, lossy, lossy_ms,
                                            "fleet lossy"),
+        "frontier": phase_frontier_profile(
+            torch, quad_run, _frontier_problem(torch, dev)[1]),
     }
     record["lm_profile"] = phase_lm_profile(
         torch, lm_model, lm_params, lm_prompts, record["lm"]["a"])
@@ -2614,6 +3375,10 @@ def main() -> int:
     main_shape = record["times"][0]
     assert main_shape["shape"] == [64, 32] and main_shape["dtype"] == "float32"
     main_check = record["kernel_checks"][0]
+    # the quadratic frontier's one launch per round: 16 lanes × 64 rows
+    frontier_shape = next(r for r in record["times"]
+                          if r["shape"] == [1024, 32]
+                          and r["dtype"] == "float32")
     kernels = {"kernels": [{
         "name": "gain_reduce",
         "route": "cuda",
@@ -2632,6 +3397,11 @@ def main() -> int:
         "library_device_ms": main_shape["library_device_ms"],
         "shape": main_shape["shape"],
         "dtype": main_shape["dtype"],
+        "launches_frontier": record["frontier_quadratic"]["launches"],
+        "frontier": {k: frontier_shape[k] for k in (
+            "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "plain_device_ms",
+            "library_device_ms")},
     }]}
     # swa_attention at LM run (a)'s shape and dtype: what its prefill runs
     swa_time = record["swa_times"][0]

@@ -39,6 +39,12 @@ and EF (a dropped payload folds back whole), and ``delivered`` is
 ``alpha × d`` — or, on a delay line, the matured payload's application
 weight, with ``sent`` the matured payload.  A branch with no channel
 (or ``@ ideal``) delivers what it decides and passes its slot through.
+
+The ``switch`` dispatch runs the same branches agent by agent instead:
+each agent's gradient from its own unbatched prologue
+(:func:`agent_prologue`), then its bank branch on a block of one agent,
+with no precursor (the trigger recomputes it) and no keys (the branch
+derives its agent's own).
 """
 from __future__ import annotations
 
@@ -72,6 +78,24 @@ def batch_prologue(loss_fn: Callable) -> Callable:
     def prologue(params, batch):
         grads, losses = batched(params, batch)
         return losses, grads
+
+    return prologue
+
+
+def agent_prologue(loss_fn: Callable) -> Callable:
+    """The per-agent gradient of the ``switch``/``unroll`` dispatch
+    loops: ``loss_fn``'s ``torch.func.grad_and_value`` on ONE agent's
+    batch, unbatched (the JAX package's per-agent ``value_and_grad``).
+
+    Returns ``prologue(params, agent_batch) -> (loss (1,), grads)``:
+    ``agent_batch`` leaves carry a leading axis of one agent, and so do
+    the loss and every gradient leaf, so the result is a one-agent block
+    for the agent-batched stages."""
+    grad_fn = torch.func.grad_and_value(loss_fn)
+
+    def prologue(params, agent_batch):
+        grads, loss = grad_fn(params, tree_map(lambda v: v[0], agent_batch))
+        return loss.unsqueeze(0), tree_map(lambda v: v.unsqueeze(0), grads)
 
     return prologue
 

@@ -212,17 +212,32 @@ def randk_sparsify(x: torch.Tensor, frac: float,
     n = flat.shape[1]
     k = max(1, int(frac * n))
     idx = prng.permutation(key, n)[..., :k].expand(flat.shape[0], k)
-    mask = torch.zeros(flat.shape, dtype=torch.bool, device=x.device)
-    mask.scatter_(1, idx, True)
+    mask = torch.zeros(flat.shape, dtype=torch.bool,
+                       device=x.device).scatter(1, idx, True)
     return (flat * mask).reshape(x.shape).to(x.dtype)
+
+
+def _f32_bits(s: torch.Tensor) -> torch.Tensor:
+    """The int32 bit pattern of finite float32 values, formed from
+    ``frexp`` (a dtype view has no batching rule under ``torch.func.vmap``
+    in every torch release): sign, biased exponent and mantissa, the
+    subnormals (and zeros) as their integer multiple of 2^-149."""
+    mant, exp = torch.frexp(s)
+    biased = exp.to(torch.int64) + 126
+    normal = (biased << 23) | ((mant.abs().double() * 2.0 ** 24).to(
+        torch.int64) - (1 << 23))
+    tiny = (s.abs().double() * 2.0 ** 149).to(torch.int64)
+    bits = torch.where((biased > 0) & (s != 0), normal, tiny)
+    bits = torch.where(torch.signbit(s), bits | (1 << 31), bits)
+    # the low 32 bits as a signed int32
+    return (bits - ((bits >> 31) & 1) * (1 << 32)).to(torch.int32)
 
 
 def randk_salt(x: torch.Tensor) -> torch.Tensor:
     """Each agent's salt: the int32 bit pattern of the fp32 sum of its
     slice (ATen's summation order, which may round one ULP away from
     XLA's and then salts a different subset)."""
-    s = x.reshape(x.shape[0], -1).float().sum(1)
-    return s.view(torch.int32)
+    return _f32_bits(x.reshape(x.shape[0], -1).float().sum(1))
 
 
 @COMPRESSORS.register("randk", params=(("frac", 0.01), ("seed", 0)),
@@ -279,7 +294,7 @@ def sketch_encode(x: torch.Tensor, rows: int, cols: int,
     idx, sign = _device_tables(rows, cols, seed, size, x.device)
     contrib = sign[None] * flat[:, None, :]
     grid = torch.zeros((a, rows, cols), dtype=torch.float32, device=x.device)
-    return grid.scatter_add_(2, idx.expand(a, rows, size), contrib)
+    return grid.scatter_add(2, idx.expand(a, rows, size), contrib)
 
 
 def sketch_decode(sketch: torch.Tensor, shape, dtype, rows: int, cols: int,

@@ -12,17 +12,30 @@ per-batch loss into one round over an m-agent fleet:
   4. server aggregation, eq. (10)     → masked mean over the agent axis
   5. parameter update                 → the functional optimizer
 
-Two execution paths, as in the JAX package:
+The execution paths of the JAX package:
 
 * **homogeneous** — one policy for every agent: the whole round runs
   batched over the agent axis;
-* **heterogeneous ``"hybrid"``** — per-agent policies dedupe into a
-  :class:`~repro_torch.comm.bank.StageBank`.  Phase 1 computes every
-  agent's gradient and the bank's distinct gain precursors once for all
-  agents (a ``gain_quadratic(kernel=true)`` precursor is ONE batched
-  ``gain_reduce`` launch per round, however many tiers share it);
-  phase 2 runs each distinct policy's epilogue on its own block of
-  agents and merges the blocks back into agent order.
+* **heterogeneous ``"hybrid"``** (the default) — per-agent policies
+  dedupe into a :class:`~repro_torch.comm.bank.StageBank`.  Phase 1
+  computes every agent's gradient and the bank's distinct gain
+  precursors once for all agents (a ``gain_quadratic(kernel=true)``
+  precursor is ONE batched ``gain_reduce`` launch per round, however
+  many tiers share it); phase 2 runs each distinct policy's epilogue on
+  its own block of agents and merges the blocks back into agent order;
+* **heterogeneous ``"switch"``** — a host loop over the agents (where
+  JAX scans them): each agent's own unbatched gradient, then the bank
+  branch its policy picks, on a block of one agent; the trigger
+  computes its own precursor, so a kernel-gated agent launches
+  ``gain_reduce`` once for itself;
+* **heterogeneous ``"unroll"``** — the reference loop over agents with
+  every stage inlined (channel draw, trigger, EF, compressors, the
+  delay line or retransmit buffer), line for line as the JAX package's
+  documented oracle.
+
+The three heterogeneous paths agree to float tolerance, and exactly in
+their decisions, deliveries and staleness counters; ``switch`` and
+``unroll`` dispatch ~m times the host ops of ``hybrid``.
 
 Adaptive (budget) triggers carry per-agent controller rows in
 ``TrainState.ctrl_state``, ``(m, CTRL_WIDTH)``: each policy block reads
@@ -42,10 +55,15 @@ program.  ``StepOptions.churn`` masks agents outside their ``[join,
 leave)`` windows: zero weight, zero bytes, frozen per-agent state, and
 every rate over the active agents.
 
-The ``"switch"``/``"unroll"`` dispatch paths and the fleet-sharded mesh
-path are not ported yet: asking for one raises ``NotImplementedError``
-with its ROADMAP item.  Every tensor stays on the step's device; a
-state on another device is an error, not a silent copy.
+The step composes with ``torch.func.vmap`` over a leading grid axis of
+its state, ``scale`` and ``chan_scale`` (:mod:`repro_torch.core.frontier`):
+nothing in it writes in place into an input, branches on a tensor's
+value or reads one back to the host.
+
+The fleet-sharded mesh path is not ported yet: asking for it raises
+``NotImplementedError`` with its ROADMAP item.  Every tensor stays on
+the step's device; a state on another device is an error, not a silent
+copy.
 """
 from __future__ import annotations
 
@@ -55,7 +73,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.comm.bank import batch_prologue, build_stage_bank
+from repro_torch.comm.bank import (
+    agent_prologue,
+    batch_prologue,
+    build_stage_bank,
+)
 from repro_torch.comm.error_feedback import ef_add, ef_init, ef_residual
 from repro_torch.comm.policy import (
     CommPolicy,
@@ -63,6 +85,7 @@ from repro_torch.comm.policy import (
     normalize_policy,
     resolve_policy,
 )
+from repro_torch.comm.registry import StageSpec
 from repro_torch.comm.stats import (
     dense_bits,
     dense_entries,
@@ -96,19 +119,20 @@ AGENT_METRIC_KEYS = ("agent_tx", "agent_bytes", "agent_lam",
 # the heterogeneous-network execution paths (the default is [0])
 DISPATCH_MODES = ("hybrid", "switch", "unroll")
 
-_DISPATCH_ITEM = "queue 1 item 6"
-
 
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
     """Execution options for :func:`make_triggered_train_step` (the
     fields of the JAX struct).
 
-    ``scale``/``chan_scale`` pin the step's operating point (a
-    call-time value wins); ``churn`` is a per-agent tuple of ``(join,
-    leave)`` rounds (agent ``i`` is active while ``join <= step <
-    leave``).  ``hetero_dispatch`` other than ``"hybrid"`` and ``mesh``
-    are not ported and raise when the step is built."""
+    ``hetero_dispatch`` picks the heterogeneous path (``"hybrid"``,
+    ``"switch"`` or ``"unroll"``).  ``scale``/``chan_scale`` pin the
+    step's operating point (a call-time value wins); ``churn`` is a
+    per-agent tuple of ``(join, leave)`` rounds (agent ``i`` is active
+    while ``join <= step < leave``).  ``barriers`` is accepted and has
+    no effect: JAX pins XLA's fusions with it, and PyTorch runs each op
+    as it is dispatched, with no fusion to pin.  ``mesh`` is not ported
+    and raises when the step is built."""
 
     hetero_dispatch: str = "hybrid"
     barriers: bool = True
@@ -219,6 +243,13 @@ def _take(tree, rows):
     return tree_map(lambda v: v[rows], tree)
 
 
+def _cat(parts):
+    """Per-agent blocks concatenated in order (None stays None)."""
+    if parts[0] is None:
+        return None
+    return tree_map(lambda *xs: torch.cat(xs), *parts)
+
+
 def _block_index(rows: Tuple[int, ...], device: torch.device):
     """A contiguous block as a slice (a view, no gather); otherwise an
     index tensor on the step's device."""
@@ -288,7 +319,9 @@ def make_triggered_train_step(
         # a homogeneous delay / retransmit policy runs as a one-policy
         # bank: the payload line's epilogue lives in one place
         hetero = (resolved,) * cfg.num_agents
+    dispatch = opts.hetero_dispatch
     prologue = batch_prologue(loss_fn)
+    per_agent_grad = agent_prologue(loss_fn)
 
     if hetero is None:
         trigger = resolved.build_trigger(loss_fn=loss_fn, probe_eps=cfg.lr,
@@ -300,9 +333,6 @@ def make_triggered_train_step(
         needs_net = channel is not None
         chains = (chain,)
     else:
-        if opts.hetero_dispatch != "hybrid":
-            raise todo(f"hetero_dispatch={opts.hetero_dispatch!r}",
-                       _DISPATCH_ITEM)
         bank = build_stage_bank(hetero, loss_fn=loss_fn, probe_eps=cfg.lr,
                                 oracle=oracle)
         needs_ef = bank.needs_ef
@@ -321,16 +351,19 @@ def make_triggered_train_step(
                     for has_mem in (False, True)
                     for has_ctrl in (False, True)
                     for has_net in (False, True)}
+        # the unrolled loop's stages, agent by agent (built once per
+        # distinct policy: the bank's own)
+        stages = [(bank.triggers[b], bank.chains[b], bank.ef_flags[b],
+                   bank.adaptive_flags[b], bank.channels[b])
+                  for b in bank.agent_index]
     if opts.churn is not None:
         joins = torch.tensor([j for j, _ in opts.churn], device=dev)
         leaves = torch.tensor([e for _, e in opts.churn], device=dev)
 
     def merge(parts):
         """Concatenate per-block results and restore agent order."""
-        if parts[0] is None:
-            return None
-        return tree_map(lambda *xs: torch.cat(xs) if inv_ix is None
-                        else torch.cat(xs)[inv_ix], *parts)
+        merged = _cat(parts)
+        return merged if inv_ix is None else _take(merged, inv_ix)
 
     def check_device(state: TrainState):
         for leaf in tree_leaves(state.params):
@@ -346,6 +379,158 @@ def make_triggered_train_step(
         """``new`` where the agent is active, ``old`` where not."""
         return tree_map(lambda n, o: torch.where(
             act.reshape((-1,) + (1,) * (n.ndim - 1)) > 0.5, n, o), new, old)
+
+    # The heterogeneous paths.  Each returns the round's losses and the
+    # epilogue's outputs in agent order: (alphas, gains, sent, new EF
+    # memory, controller rows), then (delivered, net state) with a
+    # channel slot.
+
+    def hybrid_round(state, batch, scale, chan_scale, use_ef, use_ctrl,
+                     use_net):
+        params, step = state.params, state.step
+        losses, grads = prologue(params, batch)
+        # phase 1: every distinct gain precursor, once for all agents
+        pres = torch.stack(
+            [fn(params, grads, batch, losses).float()
+             for fn in prologue_fns], 1) if prologue_fns else None
+        mem = state.ef_memory if use_ef else None
+        ctrl = state.ctrl_state if use_ctrl else None
+        net = state.net_state if use_net else None
+        # every agent's channel keys, one derivation per seed
+        keys = {seed: net_lib.round_keys(
+            seed, step, net_lib.net_rows(net)[:, 2])
+            for seed in bank.key_seeds} if use_net else None
+        # phase 2: each distinct policy's epilogue on its own block
+        outs = [
+            epi(params, _take(grads, rows),
+                None if batch_free else _take(batch, rows),
+                losses[rows], step, _take(mem, rows), _take(ctrl, rows),
+                scale, None if pres is None else pres[rows],
+                _take(net, rows), chan_scale, _take(keys, rows))
+            for rows, epi in zip(blocks, branches[use_ef, use_ctrl, use_net])
+        ]
+        return losses, [merge([o[k] for o in outs])
+                        for k in range(len(outs[0]))]
+
+    def switch_round(state, batch, scale, chan_scale, use_ef, use_ctrl,
+                     use_net):
+        params, step = state.params, state.step
+        mem = state.ef_memory if use_ef else None
+        ctrl = state.ctrl_state if use_ctrl else None
+        net = state.net_state if use_net else None
+        epilogues = branches[use_ef, use_ctrl, use_net]
+        losses, outs = [], []
+        for i, b in enumerate(bank.agent_index):
+            # agent i alone: its own gradient, then its policy's branch
+            # on a block of one (no precursor: the trigger computes it,
+            # and its channel keys)
+            rows = slice(i, i + 1)
+            agent_batch = _take(batch, rows)
+            loss, g = per_agent_grad(params, agent_batch)
+            losses.append(loss)
+            outs.append(epilogues[b](
+                params, g, agent_batch, loss, step, _take(mem, rows),
+                _take(ctrl, rows), scale, None, _take(net, rows),
+                chan_scale))
+        return torch.cat(losses), [_cat([o[k] for o in outs])
+                                   for k in range(len(outs[0]))]
+
+    def trigger_call(trig, adaptive, use_ctrl, params, g, agent_batch, main,
+                     step, ctrl_row, scale, delivered=None):
+        """One trigger evaluation under either protocol: ``(alpha, gain,
+        new controller row)``, the row None without a controller slot."""
+        if adaptive:
+            row = ctrl_row if use_ctrl else trig.ctrl0.to(dev).expand(
+                main.shape[0], -1)
+            kw = {} if delivered is None else {"delivered": delivered}
+            (alpha, gain), new_row = trig(params, g, agent_batch, main, step,
+                                          row, scale, **kw)
+            return alpha, gain, (new_row if use_ctrl else None)
+        alpha, gain = trig(params, g, agent_batch, main, step, scale)
+        return alpha, gain, (ctrl_row if use_ctrl else None)
+
+    def unroll_round(state, batch, scale, chan_scale, use_ef, use_ctrl,
+                     use_net):
+        # the reference loop over agents, every stage inlined, each on a
+        # block of one agent
+        params, step = state.params, state.step
+        per, ctrl_rows, net_rows_out = [], [], []
+        for i, (trig_i, chain_i, ef_i, ad_i, chan_i) in enumerate(stages):
+            rows = slice(i, i + 1)
+            agent_batch = _take(batch, rows)
+            main, g = per_agent_grad(params, agent_batch)
+            use_chan = use_net and chan_i is not None
+            use_retx = use_chan and chan_i.retx_k > 0
+            use_delay = use_chan and chan_i.depth > 0 and not use_retx
+            net_i = _take(state.net_state, rows) if use_net else None
+            if use_retx:
+                d, stale, pending, commit = net_lib.retx_round(
+                    chan_i, net_i, step, chan_scale,
+                    net_lib.tx_cost(g, chain_i))
+                eff_scale = net_lib.stale_scale(scale, chan_i.boost, stale,
+                                                ad_i)
+            elif use_delay:
+                d, stale, commit = net_lib.delay_round(chan_i, net_i, step,
+                                                       chan_scale)
+                eff_scale = net_lib.stale_scale(scale, chan_i.boost, stale,
+                                                ad_i)
+            elif use_chan:
+                d, stale, finalize = net_lib.channel_round(
+                    chan_i, net_lib.net_rows(net_i), step, chan_scale,
+                    net_lib.tx_cost(g, chain_i))
+                eff_scale = net_lib.stale_scale(scale, chan_i.boost, stale,
+                                                ad_i)
+            else:
+                d, eff_scale = None, scale
+            alpha, gain, new_row = trigger_call(
+                trig_i, ad_i, use_ctrl, params, g, agent_batch, main, step,
+                _take(state.ctrl_state, rows) if use_ctrl else None,
+                eff_scale, delivered=d if (use_chan and ad_i) else None)
+            ctrl_rows.append(new_row)
+            agent_ef = ef_i and use_ef
+            mem_i = _take(state.ef_memory, rows) if agent_ef else None
+            g_eff = ef_add(g, mem_i)
+            s = chain_i.compress_tree(g_eff) if chain_i else g_eff
+            if use_retx:
+                # alpha becomes the realized attempt, the server sees the
+                # buffered payload on re-offer rounds, and the EF fold
+                # waits for the final failure
+                attempt, out_s, delivered, fold, new_net_i = commit(alpha, s)
+                resid = tree_map(
+                    torch.add, ef_residual(g_eff, s, alpha * (1.0 - pending)),
+                    fold) if agent_ef else None
+                net_rows_out.append(new_net_i)
+                per.append((main, attempt, gain, out_s, resid, delivered))
+                continue
+            resid = ef_residual(g_eff, s, alpha,
+                                delivered=d if use_chan else None
+                                ) if agent_ef else None
+            if use_delay:
+                # the payload enqueues; the server sees the matured head
+                # at its staleness weight
+                s, delivered, new_net_i = commit(alpha * d, s)
+                net_rows_out.append(new_net_i)
+            elif use_chan:
+                delivered = alpha * d
+                new_rows = finalize(delivered)
+                net_rows_out.append((new_rows, net_i[1])
+                                    if isinstance(net_i, tuple) else new_rows)
+            else:
+                # a channel-free agent: delivery IS the decision
+                delivered = alpha
+                if use_net:
+                    net_rows_out.append(net_i)
+            per.append((main, alpha, gain, s, resid, delivered))
+        new_ef = None
+        if use_ef:
+            zeros = tree_map(lambda v: torch.zeros_like(v[:1]),
+                             state.ef_memory)
+            new_ef = _cat([p[4] if p[4] is not None else zeros for p in per])
+        merged = [_cat([p[k] for p in per]) for k in (1, 2, 3)] + [
+            new_ef, _cat(ctrl_rows) if use_ctrl else None]
+        if use_net:
+            merged += [_cat([p[5] for p in per]), _cat(net_rows_out)]
+        return _cat([p[0] for p in per]), merged
 
     def train_step(state: TrainState, batch, scale=None, chan_scale=None):
         check_device(state)
@@ -364,10 +549,10 @@ def make_triggered_train_step(
         use_net = needs_net and state.net_state is not None
         if needs_net and not use_net:
             _warn_net_state_missing()
-        losses, grads = prologue(params, batch)
         new_ctrl, new_net = state.ctrl_state, state.net_state
         ds = None
         if hetero is None:
+            losses, grads = prologue(params, batch)
             eff_scale = scale
             if use_net:
                 # the delivery draw comes BEFORE the trigger; staleness
@@ -402,28 +587,10 @@ def make_triggered_train_step(
             else:
                 delivereds = alphas
         else:
-            # phase 1: every distinct gain precursor, once for all agents
-            pres = torch.stack(
-                [fn(params, grads, batch, losses).float()
-                 for fn in prologue_fns], 1) if prologue_fns else None
-            mem = state.ef_memory if use_ef else None
-            ctrl = state.ctrl_state if use_ctrl else None
-            net = state.net_state if use_net else None
-            # every agent's channel keys, one derivation per seed
-            keys = {seed: net_lib.round_keys(
-                seed, step, net_lib.net_rows(net)[:, 2])
-                for seed in bank.key_seeds} if use_net else None
-            # phase 2: each distinct policy's epilogue on its own block
-            outs = [
-                epi(params, _take(grads, rows),
-                    None if batch_free else _take(batch, rows),
-                    losses[rows], step, _take(mem, rows), _take(ctrl, rows),
-                    scale, None if pres is None else pres[rows],
-                    _take(net, rows), chan_scale, _take(keys, rows))
-                for rows, epi in zip(blocks,
-                                     branches[use_ef, use_ctrl, use_net])
-            ]
-            merged = [merge([o[k] for o in outs]) for k in range(len(outs[0]))]
+            run = {"hybrid": hybrid_round, "switch": switch_round,
+                   "unroll": unroll_round}[dispatch]
+            losses, merged = run(state, batch, scale, chan_scale, use_ef,
+                                 use_ctrl, use_net)
             alphas, gains, sent, new_mem, ctrl_rows = merged[:5]
             delivereds = merged[5] if use_net else alphas
             if use_net:
@@ -488,8 +655,26 @@ def make_triggered_train_step(
     return train_step
 
 
+def make_plain_train_step(loss_fn: Callable, optimizer, cfg: TrainConfig,
+                          **kw):
+    """Dense baseline: every agent always transmits (synchronous SGD).
+
+    The resolved policy (or each per-agent policy) with its trigger
+    replaced by ``always``; compressors, EF and channels stay.  ``kw``
+    are :func:`make_triggered_train_step`'s keywords."""
+    resolved = normalize_policy(resolve_policy(cfg, kw.pop("policy", None)),
+                                cfg.num_agents)
+    dense = StageSpec("always")
+    if isinstance(resolved, tuple):
+        policy = tuple(dataclasses.replace(p, trigger=dense)
+                       for p in resolved)
+    else:
+        policy = dataclasses.replace(resolved, trigger=dense)
+    return make_triggered_train_step(loss_fn, optimizer, cfg, policy=policy,
+                                     **kw)
+
+
 __getattr__ = not_ported(__name__, {
     "HybridMachinery": "queue 1 item 11",
     "build_hybrid_machinery": "queue 1 item 11",
-    "make_plain_train_step": _DISPATCH_ITEM,
 })

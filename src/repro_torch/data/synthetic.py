@@ -9,17 +9,24 @@ queue 1 item 2): tests that need the JAX package's tokens pass them in.
 At a 49152-token vocabulary the bigram table is a 9.7 GB fp32 tensor,
 so a stream draws it once (:func:`batch_iterator`) and hands it to every
 batch through ``logits=``, where the JAX package draws it anew per call.
+
+The drifting-target regression (:func:`drifting_problem`,
+:func:`drifting_batch_fn`) draws its direction as JAX does
+(``repro_torch.random.normal``) and its round-indexed batches from
+:func:`step_generator`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import random as prng
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import not_ported, todo
+from repro_torch.utils.todo import todo
 
 
 def _gumbel(shape, gen: torch.Generator) -> torch.Tensor:
@@ -120,7 +127,59 @@ def batch_iterator(cfg: ModelConfig, shape: InputShape, *,
         step += 1
 
 
-__getattr__ = not_ported(__name__, {
-    "drifting_problem": "queue 1 item 8",
-    "drifting_batch_fn": "queue 1 item 8",
-})
+# ----------------------------------------------------------------------
+# Drifting-target regression (non-stationary rounds)
+# ----------------------------------------------------------------------
+
+def _drift_direction(problem, seed: int) -> torch.Tensor:
+    """The unit direction ``u`` of the drift: ``normal(PRNGKey(seed))``
+    over ``w*``'s shape, as JAX draws it, normalized."""
+    u = prng.normal(prng.PRNGKey(seed, device=problem.device),
+                    tuple(problem.w_star.shape))
+    return u / torch.sqrt(torch.sum(u * u))
+
+
+def _drifted(problem, u: torch.Tensor, step: int, amp: float, period: int):
+    # 2π·k/period in float32, as the JAX package forms the phase
+    phase = np.float32(np.float32(2.0 * np.pi) * np.float32(step)) \
+        / np.float32(period)
+    s = torch.sin(torch.tensor(float(phase), dtype=torch.float32,
+                               device=u.device))
+    return dataclasses.replace(
+        problem, w_star=problem.w_star + float(amp) * s * u)
+
+
+def drifting_problem(problem, step: int, *, amp: float = 1.0,
+                     period: int = 32, seed: int = 0):
+    """The paper's regression Problem with a smoothly drifting target.
+
+    ``w*(k) = w* + amp · sin(2πk / period) · u`` for a fixed random unit
+    direction ``u`` drawn from ``seed`` (``repro_torch.random.normal``
+    under ``PRNGKey(seed)``, as the JAX package draws it): the optimum
+    circles its nominal value, so triggers that went quiet at
+    convergence must re-open and delayed payloads land on a target that
+    has moved.  ``step`` is the round index, a host int."""
+    return _drifted(problem, _drift_direction(problem, seed), step, amp,
+                    period)
+
+
+def drifting_batch_fn(problem, *, amp: float = 1.0, period: int = 32,
+                      seed: int = 0, batch_seed: Optional[int] = None):
+    """A round-indexed ``batch_fn(k)`` over a drifting target, the
+    contract of ``FleetSession`` and ``repro_torch.core.frontier``.
+
+    Round ``k`` draws fresh per-agent batches from
+    :func:`step_generator` ``(batch_seed, k)`` (by default ``seed + 1``,
+    as the fleet session draws its rounds) at round ``k``'s drifted
+    ``w*``; the drift direction is drawn once."""
+    from repro_torch.core import regression as R
+
+    u = _drift_direction(problem, seed)
+    stream = seed + 1 if batch_seed is None else batch_seed
+
+    def batch_fn(k: int):
+        return R.agent_batches(
+            _drifted(problem, u, k, amp, period),
+            step_generator(stream, k, problem.device))
+
+    return batch_fn

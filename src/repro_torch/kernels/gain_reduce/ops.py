@@ -12,10 +12,14 @@ loaded with ``ctypes``.
 ``gain_reduce.launches`` counts the kernel launches made through this
 wrapper.
 
-The kernel has no gradient and no ``vmap`` rule, and no path of the
-port needs either (the trigger calls it on plain, stacked rows): a CUDA
-input that requires grad, or one wrapped by a ``torch.func`` transform,
-raises instead of giving a result detached from the graph.
+Under ``torch.func.vmap`` (the frontier maps the whole train step over
+its grid of lanes) the ``vmap`` rule of :class:`GainReduce` moves each
+mapped dim to the front and folds it into the kernel's rows: one launch
+serves every lane, counted once, and the ``(rows, 2)`` result is
+unfolded to the lanes.  Nested maps fold level by level into the same
+one launch.  On the CPU the rule folds the same way and computes the
+plain version.  The kernel has no gradient: a CUDA input that requires
+grad raises instead of giving a result detached from the graph.
 """
 from __future__ import annotations
 
@@ -84,16 +88,51 @@ def _check(g: torch.Tensor, h: torch.Tensor) -> None:
 def gain_reduce(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``[gᵀg, gᵀh]`` per row, fp32, shape ``g.shape[:-1] + (2,)``."""
     _check(g, h)
-    if g.device.type == "cpu":
-        return gain_reduce_ref(g, h)
-    if g.device.type != "cuda":
+    if g.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gain_reduce: unsupported device {g.device}")
-    for x in (g, h):
-        if x.requires_grad or is_functorch_wrapped_tensor(x):
-            raise RuntimeError(
-                "gain_reduce: the kernel has no gradient and no vmap rule; "
-                "call it on plain tensors, outside autograd and torch.func "
-                "transforms")
+    if g.device.type == "cuda" and (g.requires_grad or h.requires_grad):
+        raise RuntimeError(
+            "gain_reduce: the kernel has no gradient; call it on tensors "
+            "that do not require grad")
+    if any(is_functorch_wrapped_tensor(x) for x in (g, h)):
+        return GainReduce.apply(g, h)
+    return GainReduce.forward(g, h)
+
+
+class GainReduce(torch.autograd.Function):
+    """The kernel (on the CPU, its plain version) with a ``vmap`` rule
+    that folds the mapped dims into the rows, and no backward."""
+
+    @staticmethod
+    def forward(g, h):
+        if g.device.type == "cpu":
+            return gain_reduce_ref(g, h)
+        return _launch(g, h)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, h):
+        n = info.batch_size
+
+        def fold(t, dim):
+            # the mapped dim first (an unmapped input is expanded to it),
+            # then lanes × rows as one row axis of a contiguous tensor
+            t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+            return t.reshape(-1, t.shape[-1]).contiguous()
+
+        out = GainReduce.apply(fold(g, in_dims[0]), fold(h, in_dims[1]))
+        # one lane's rows: its input's shape without the mapped dim
+        dim = in_dims[0]
+        lane = g.shape if dim is None else g.shape[:dim] + g.shape[dim + 1:]
+        return out.reshape(n, *lane[:-1], 2), 0
+
+
+def _launch(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel over plain, contiguous CUDA rows."""
+    _check(g, h)
     code = _DTYPE_CODES.get(g.dtype)
     if code is None:
         raise TypeError(f"gain_reduce: the kernel takes float32 or "

@@ -25,8 +25,10 @@ host values (a seed and a step counter) is derived on the host, with no
 device op and no copy.
 
 Seeds follow JAX with 64-bit types disabled: ``PRNGKey(seed)`` is
-``[0, seed mod 2**32]``.  ``normal`` is not here: it goes through
-``erfinv``, which may differ from XLA's by a unit in the last place.
+``[0, seed mod 2**32]``.  ``normal`` draws its uniforms bit for bit as
+JAX does and maps them through XLA's ``erf_inv`` polynomial; the
+logarithm inside is ATen's, so a draw may differ from JAX's in the last
+places (ROADMAP §3 records the measured gap).
 """
 from __future__ import annotations
 
@@ -159,13 +161,52 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), *,
     rounded to float64 and then to float32, which is the fused result
     but for a tie in the second rounding (about one draw in 2**29)."""
     b = bits(key, shape)
-    # (b >> 9) | 0x3F800000 is below 2**31: it fits int32 as it is
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # the float of bits (b >> 9) | 0x3F800000 is 1 + m·2^-23 for the top
+    # 23 bits m; minus 1 it is m·2^-23, exact in float32 (formed without
+    # a dtype view, which has no batching rule under torch.func.vmap in
+    # every torch release)
+    f = (b >> 9).to(torch.float32) * 2.0 ** -23
     if minval == 0.0 and maxval == 1.0:
         return f  # u · 1 + 0 and the clamp at 0 leave u as it is
     lo, hi = np.float32(minval), np.float32(maxval)
     fused = (f.double() * float(hi - lo) + float(lo)).float()
     return torch.clamp(fused, min=float(lo))
+
+
+# XLA's float32 erf_inv (Giles' polynomials in w = −log1p(−x²), split
+# at w = 5), highest-degree coefficient first
+_ERF_INV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: Giles' single-precision polynomial,
+    its Horner steps as fused multiply-adds (a float64 product-sum
+    rounded once to float32), ``±inf`` at ``±1``."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+
+    def coef(i):
+        return torch.where(lt, float(np.float32(_ERF_INV_W_LT_5[i])),
+                           float(np.float32(_ERF_INV_W_GE_5[i])))
+
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = coef(0)
+    for i in range(1, len(_ERF_INV_W_LT_5)):
+        p = (coef(i).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``uniform`` over
+    ``[nextafter(−1, 0), 1)``, then ``sqrt(2) · erf_inv(u)``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, minval=float(lo), maxval=1.0)
+    return float(np.float32(np.sqrt(2.0))) * erf_inv(u)
 
 
 def _shuffle_rounds(n: int) -> int:

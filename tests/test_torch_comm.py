@@ -113,10 +113,10 @@ def test_unported_stages_raise_with_roadmap_pointer():
     np.testing.assert_allclose(rows[:, 1].numpy(), [0.1, 0.0])
     assert CommPolicy.parse("always @ bernoulli(p=0.2)").needs_net
     assert not CommPolicy.parse("always @ ideal").needs_net
-    from repro_torch.data import synthetic
+    from repro_torch.launch import session
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        synthetic.drifting_problem
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        session.SessionOptions
 
 
 def test_policy_resolution_and_kernel_flag():

@@ -173,9 +173,13 @@ def _mismatch(tnext, tm, jnext, jm, g_eff):
 
 
 def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
-                churn=None, chan_scale=None):
+                churn=None, chan_scale=None, port_dispatch="hybrid",
+                optimizer="sgd", lr=None):
     """Run the port's step and the JAX step (``dispatch`` path) from the
     same state each round and compare (controller rows included).
+    ``port_dispatch`` is the port's path, or a tuple of paths: each is
+    held to JAX, and in a round where none of them meets a threshold
+    tie, to the first path too.
 
     Where the two JAX dispatch paths themselves disagree on a round (a
     value on a compressor's rounding boundary, as ROADMAP §3 records),
@@ -185,10 +189,11 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
     comm = specs if isinstance(specs, str) else tuple(specs)
     m = cfg_lr.num_agents
     agent_specs = (comm,) * m if isinstance(comm, str) else comm
-    jcfg = JTrainConfig(lr=cfg_lr.stepsize, optimizer="sgd", num_agents=m,
-                        comm=comm)
-    tcfg = TrainConfig(lr=cfg_lr.stepsize, optimizer="sgd", num_agents=m,
-                       comm=comm)
+    lr = cfg_lr.stepsize if lr is None else lr
+    paths = ((port_dispatch,) if isinstance(port_dispatch, str)
+             else tuple(port_dispatch))
+    jcfg = JTrainConfig(lr=lr, optimizer=optimizer, num_agents=m, comm=comm)
+    tcfg = TrainConfig(lr=lr, optimizer=optimizer, num_agents=m, comm=comm)
     jopt, topt = jopt_lib.from_config(jcfg), opt_lib.from_config(tcfg)
 
     def jax_step(mode):
@@ -198,15 +203,17 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
 
     jstep = jax_step(dispatch)
     alt_step = jax_step(alt) if alt else None
-    tstep = make_triggered_train_step(
+    tsteps = {d: make_triggered_train_step(
         tloss, topt, tcfg, options=StepOptions(
-            agent_metrics=True, churn=churn, chan_scale=chan_scale),
-        device="cpu")
+            hetero_dispatch=d, agent_metrics=True, churn=churn,
+            chan_scale=chan_scale),
+        device="cpu") for d in paths}
     problem = JR.make_problem(cfg_lr, jax.random.key(seed))
     jstate = jinit({"w": jnp.zeros(cfg_lr.n)}, jopt, jcfg)
     tstate = init_train_state({"w": torch.zeros(cfg_lr.n)}, topt, tcfg,
                               device="cpu")
-    ties = splits = 0
+    ties = dict.fromkeys(paths, 0)
+    splits = dict.fromkeys(paths, 0)
     launches0 = gr_ops.gain_reduce.launches
     for k in range(rounds):
         batch = JR.agent_batches(
@@ -220,39 +227,53 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
             g_eff = g_eff + np.asarray(jstate.ef_memory["w"])
         jnext, jm = jstep(jstate, batch)
         jm = jax.device_get(jm)
-        tnext, tm = tstep(tstate, convert.to_torch(
-            jax.device_get(batch), "cpu"))
-        tm = convert.to_numpy(tm)
-        assert tnext.step == int(jnext.step) == k + 1
-        assert set(tm) == set(jm)
+        outs, settled = {}, True
+        for d, tstep in tsteps.items():
+            tnext, tm = tstep(tstate, convert.to_torch(
+                jax.device_get(batch), "cpu"))
+            tm = convert.to_numpy(tm)
+            assert tnext.step == int(jnext.step) == k + 1
+            assert set(tm) == set(jm)
+            outs[d] = (tnext, tm)
 
-        differ = np.flatnonzero(tm["agent_tx"] != jm["agent_tx"])
-        if differ.size:
-            # a decision may differ only where the gain sits on its
-            # threshold to within the float tolerance
-            thresholds = _thresholds(agent_specs, jstate.ctrl_state,
-                                     jax.device_get(jstate.net_state))
-            gains = _jax_gains(agent_specs, tcfg, jstate.params, batch,
-                               jstate.ctrl_state)
-            for i in differ:
-                assert thresholds[i] is not None, (k, i)
-                assert abs(gains[i] - thresholds[i]) <= (
-                    ATOL + RTOL * abs(thresholds[i])), (k, i, gains[i])
-            ties += 1
-        else:
-            why = _mismatch(tnext, tm, jnext, jm, g_eff)
-            if why is not None:
-                assert alt_step is not None, f"round {k}: {why}"
-                anext, am = alt_step(jstate, batch)
-                why_alt = _mismatch(tnext, tm, anext, jax.device_get(am),
-                                    g_eff)
-                assert why_alt is None, (
-                    f"round {k}: port vs JAX {dispatch}: {why}; "
-                    f"vs JAX {alt}: {why_alt}")
-                splits += 1
+            differ = np.flatnonzero(tm["agent_tx"] != jm["agent_tx"])
+            if differ.size:
+                # a decision may differ only where the gain sits on its
+                # threshold to within the float tolerance
+                thresholds = _thresholds(agent_specs, jstate.ctrl_state,
+                                         jax.device_get(jstate.net_state))
+                gains = _jax_gains(agent_specs, tcfg, jstate.params, batch,
+                                   jstate.ctrl_state)
+                for i in differ:
+                    assert thresholds[i] is not None, (d, k, i)
+                    assert abs(gains[i] - thresholds[i]) <= (
+                        ATOL + RTOL * abs(thresholds[i])), (d, k, i,
+                                                            gains[i])
+                ties[d] += 1
+                settled = False
+            else:
+                why = _mismatch(tnext, tm, jnext, jm, g_eff)
+                if why is not None:
+                    assert alt_step is not None, f"{d} round {k}: {why}"
+                    anext, am = alt_step(jstate, batch)
+                    why_alt = _mismatch(tnext, tm, anext,
+                                        jax.device_get(am), g_eff)
+                    assert why_alt is None, (
+                        f"{d} round {k}: port vs JAX {dispatch}: {why}; "
+                        f"vs JAX {alt}: {why_alt}")
+                    splits[d] += 1
+                    settled = False
+        first, *rest = paths
+        if settled:
+            # the port's paths against each other, from the same state
+            for d in rest:
+                why = _mismatch(*outs[d], *outs[first], g_eff)
+                assert why is None, f"round {k}: {d} vs {first}: {why}"
         jstate = jnext
-    assert ties <= 1, f"{ties} rounds with threshold ties"
-    assert splits <= 1, f"{splits} rounds where the JAX paths split"
+    for d in paths:
+        assert ties[d] <= 1, f"{d}: {ties[d]} rounds with threshold ties"
+        assert splits[d] <= 1, (f"{d}: {splits[d]} rounds where the JAX "
+                                f"paths split")
     return gr_ops.gain_reduce.launches - launches0
 
 
@@ -382,16 +403,20 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unported_paths_raise_with_roadmap_pointer():
-    """The switch/unroll dispatch, microbatching, the drifting problem
-    and the fleet-sharded mesh still raise with their ROADMAP items; a
-    lossy homogeneous step and ``masked_mean_quantized`` now run."""
+    """Microbatching and the fleet-sharded mesh still raise with their
+    ROADMAP items; the switch/unroll dispatch, a lossy homogeneous step,
+    ``masked_mean_quantized`` and the drifting problem now run."""
     cfg = TrainConfig(optimizer="sgd", num_agents=2,
                       comm=("always", "never"))
     opt = opt_lib.from_config(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        make_triggered_train_step(
+    for dispatch in ("switch", "unroll"):
+        step = make_triggered_train_step(
             tloss, opt, cfg, device="cpu",
-            options=StepOptions(hetero_dispatch="unroll"))
+            options=StepOptions(hetero_dispatch=dispatch))
+        _, m = step(init_train_state({"w": torch.ones(3)}, opt, cfg,
+                                     device="cpu"),
+                    (torch.ones(2, 4, 3), torch.zeros(2, 4)))
+        assert float(m["num_tx"]) == 1.0
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         make_triggered_train_step(tloss, opt, cfg, device="cpu",
                                   options=StepOptions(mesh=object()))
@@ -415,5 +440,6 @@ def test_unported_paths_raise_with_roadmap_pointer():
         make_triggered_train_step(tloss, opt, micro, device="cpu")
     from repro_torch.data import synthetic
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        synthetic.drifting_problem
+    assert callable(synthetic.drifting_problem)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        from repro_torch.core.api import build_hybrid_machinery  # noqa

@@ -99,3 +99,40 @@ def test_kernel_build_is_named_by_source_hash():
     assert lib.parent == ops.BUILD_DIR
     assert ops.SOURCE.name == "gain_reduce.cu" and ops.SOURCE.exists()
     assert "arch=compute_90a,code=sm_90a" in ops.NVCC_FLAGS
+
+
+def test_vmap_folds_lanes_into_rows_on_the_cpu():
+    """The ``vmap`` rule: the mapped dims fold into the rows, so a map
+    over 16 lanes of (64, 32) (and 4 × 4 nested, and a map over dim 1)
+    equals the plain version lane by lane; the CPU path counts no
+    launch."""
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal((16, 64, 32)).astype(np.float32))
+    h = torch.from_numpy(rng.standard_normal((16, 64, 32)).astype(np.float32))
+    before = ops.gain_reduce.launches
+    want = torch.stack([ref.gain_reduce_ref(g[i], h[i]) for i in range(16)])
+    got = torch.func.vmap(ops.gain_reduce)(g, h)
+    assert got.shape == (16, 64, 2) and torch.equal(got, want)
+    nested = torch.func.vmap(torch.func.vmap(ops.gain_reduce))(
+        g.reshape(4, 4, 64, 32), h.reshape(4, 4, 64, 32))
+    assert torch.equal(nested.reshape(16, 64, 2), want)
+    # mapped over dim 1 of g, h shared by every lane (unmapped)
+    moved = torch.func.vmap(ops.gain_reduce, in_dims=(1, None))(
+        g.transpose(0, 1), h[0])
+    assert torch.equal(moved, torch.stack(
+        [ref.gain_reduce_ref(g[i], h[0]) for i in range(16)]))
+    # 1-D rows under the map: one (2,) result per lane
+    rows = torch.func.vmap(ops.gain_reduce)(g[:, 0], h[:, 0])
+    assert torch.equal(rows, want[:, 0])
+    assert ops.gain_reduce.launches == before
+
+
+def test_vmap_rule_matches_jax_per_lane():
+    """Each lane of the mapped call against the JAX op on that lane."""
+    (gj, gt), (hj, ht) = _pair((4, 8, 128), "float32", seed=11)
+    got = torch.func.vmap(ops.gain_reduce)(gt, ht)
+    for i in range(4):
+        for r in range(8):
+            want = np.asarray(jax_ops.gain_reduce(gj[i, r], hj[i, r]))
+            np.testing.assert_allclose(got[i, r].numpy(), want,
+                                       atol=_tol(128, "float32"), rtol=1e-4)
