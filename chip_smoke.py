@@ -71,11 +71,12 @@ Phases (any failure exits nonzero; no result line is printed then):
               hybrid's round under ROADMAP's parity contract (decisions,
               deliveries and staleness exactly but at a gain on its
               threshold; floats within 1e-5; EF memory, the delay line
-              and the parameters also within one rounding step of the
-              wire format, where a payload element sat on a rounding
-              boundary); ``gain_reduce`` launched once per kernel-gated
-              agent per round (56 for the quadratic fleet, counted from
-              its config); each path's rounds/s.
+              and the parameters also one rounding step of the wire
+              format apart, but only at an entry of g + ef on a
+              rounding midpoint, counted); ``gain_reduce`` launched
+              once per kernel-gated agent per round (56 for the
+              quadratic fleet, counted from its config); each path's
+              rounds/s.
    frontier — benchmarks/tiered_m64.py's frontiers: each TIER_MIXES fleet
               over its 16 λ scales, 40 rounds of one ``torch.func.vmap``ped
               step on the [slice] problem and batches: lanes 0 and 11
@@ -1248,8 +1249,9 @@ def _fleet_step(torch, net, dev, dispatch: str = "hybrid", **options):
 
 
 def _tie_text(row: dict) -> str:
-    return (f"{len(row['ties'])} threshold ties, {len(row['splits'])} "
-            f"rounding splits")
+    entries = sum(s["entries"] for s in row["splits"])
+    return (f"{len(row['ties'])} threshold ties, {entries} entries a "
+            f"rounding step apart in {len(row['splits'])} rounds")
 
 
 def _numpy_metrics(metrics) -> dict:
@@ -1296,34 +1298,41 @@ def _gate_margin(torch, net, state, batch, agent: int, scale: float):
     return gain, -lam
 
 
-def _wire_resolution(net):
-    """Each agent's rounding step of its wire format, relative to the
-    payload's largest element: one int8 level (1/127), one fp16 or bf16
-    ULP (2^-10, 2^-7), or 0 for an uncompressed payload."""
+def _rounding_ties(torch, net, g_eff):
+    """Per agent and entry of ``g + ef`` (``g_eff``, numpy ``(A, n)``):
+    the spacing of the agent's wire format where the entry lies within
+    STEP_ATOL + 2·STEP_RTOL·``max|g + ef|`` of a rounding midpoint
+    (``CompressorChain.rounding_ties``), else 0.  Two paths' ``g + ef``
+    agree to STEP_RTOL of that maximum, and so do their int8 scales."""
     import numpy as np
 
     from repro_torch.comm.policy import CommPolicy
 
-    step = {"int8": 1.0 / 127.0, "fp16": 2.0 ** -10, "bf16": 2.0 ** -7}
-    return np.asarray([
-        max((step.get(c.name, 0.0)
-             for c in CommPolicy.parse(p).compressors), default=0.0)
-        for p in net.policies(lam_base=1.0)])
+    x = torch.from_numpy(np.ascontiguousarray(g_eff, dtype=np.float32))
+    tol = STEP_ATOL + 2.0 * STEP_RTOL * x.abs().amax(1, keepdim=True)
+    out = torch.zeros_like(x)
+    specs = net.policies(lam_base=1.0)
+    for spec in set(specs):
+        rows = [i for i, p in enumerate(specs) if p == spec]
+        out[rows] = CommPolicy.parse(spec).chain().rounding_ties(
+            x[rows], tol[rows])
+    return out.numpy()
 
 
-def _step_mismatch(a, b, g_eff, res, lr: float):
+def _step_mismatch(a, b, g_eff, ties, lr: float):
     """Why the round ``a = (metrics, next state)`` disagrees with ``b``
-    under ROADMAP's parity contract, or None, and whether a difference
-    needed the payloads' rounding step.  The realization (``EXACT_KEYS``)
-    exactly; metrics, controller rows and channel rows within STEP_RTOL
-    / STEP_ATOL; EF memory within STEP_RTOL of each agent's
-    ``max|g + ef|`` (``g_eff``: it carries the gradient's rounding).
-    Two paths' gradients differ in the last place, so a payload element
-    on a rounding boundary of its wire format may round one step
-    (``res`` × the payload's largest element) apart: EF memory and the
-    delay line's payloads may also differ by one step of their agent,
-    and the parameters and ``grad_norm`` by the aggregate of one step
-    per delivered agent (× ``lr``)."""
+    under ROADMAP's parity contract, or None, and how many entries
+    needed a rounding step.  The realization (``EXACT_KEYS``) exactly;
+    metrics, controller rows and channel rows within STEP_RTOL /
+    STEP_ATOL; EF memory within STEP_RTOL of each agent's ``max|g + ef|``
+    (``g_eff``: it carries the gradient's rounding), and so the delay
+    line's payloads.  Two paths' gradients differ in the last place, so
+    an entry of ``g + ef`` on a
+    rounding boundary of its wire format may be sent one step apart
+    (``ties``: that step at such an entry, 0 elsewhere, from
+    ``_rounding_ties``): there, and only there, EF memory and the delay
+    line's payloads may also differ by that step, and the parameters and
+    ``grad_norm`` by the mean of the delivered agents' steps (× ``lr``)."""
     import numpy as np
 
     from repro_torch.convert import to_numpy
@@ -1331,63 +1340,62 @@ def _step_mismatch(a, b, g_eff, res, lr: float):
 
     (am, anext), (bm, bnext) = a, b
     if set(am) != set(bm):
-        return f"metric keys {sorted(set(am) ^ set(bm))}", False
+        return f"metric keys {sorted(set(am) ^ set(bm))}", 0
     for key in EXACT_KEYS:
         if key in bm and not np.array_equal(am[key], bm[key]):
-            return key, False
+            return key, 0
     amax = np.abs(g_eff).max(axis=1)
     got = np.asarray(bm.get("agent_delivered", bm["agent_tx"])) > 0
-    # one rounding step per delivered payload, through eq. (10)
-    agg_step = float((res * amax)[got].sum() / max(int(got.sum()), 1))
-    split = False
+    # the delivered payloads' steps, through eq. (10), per coordinate
+    agg = ties[got].sum(0) / max(int(got.sum()), 1)
+    stepped = 0
 
-    def close(x, y, extra=0.0):
-        nonlocal split
-        tol = STEP_ATOL + STEP_RTOL * np.abs(y)
-        if np.all(np.abs(x - y) <= tol):
-            return True
-        split = True
-        return bool(np.all(np.abs(x - y) <= tol + extra))
+    def close(x, y, extra=0.0, scale=None):
+        nonlocal stepped
+        diff = np.abs(np.asarray(x) - np.asarray(y))
+        tol = STEP_ATOL + STEP_RTOL * np.abs(y if scale is None else scale)
+        stepped += int(np.sum(diff > tol))
+        return bool(np.all(diff <= tol + extra))
 
     for key in bm:
-        extra = np.sqrt(g_eff.shape[1]) * agg_step if key == "grad_norm" \
+        extra = float(np.sqrt(np.sum(agg * agg))) if key == "grad_norm" \
             else 0.0
         if not close(am[key], bm[key], extra):
-            return f"{key}: {am[key]} vs {bm[key]}", split
+            return f"{key}: {am[key]} vs {bm[key]}", stepped
     if not close(to_numpy(anext.params)["w"], to_numpy(bnext.params)["w"],
-                 lr * agg_step):
-        return "params", split
+                 lr * agg):
+        return "params", stepped
     for name in ("ctrl_state", "net_state"):
         x, y = getattr(anext, name), getattr(bnext, name)
         if (x is None) != (y is None):
-            return f"{name} slot", False
+            return f"{name} slot", stepped
         if x is None:
             continue
         x, y = to_numpy(x), to_numpy(y)
-        pairs = [(x, y, 0.0)]
+        pairs = [(x, y, 0.0, None)]
         if isinstance(y, tuple):
-            # a delay line: its payload buffer (A, L, n) may differ by one
-            # step of the agent's format, of each slot's largest element
-            buf = y[1]["buf"]["w"]
-            pairs = [((x[0], x[1]["meta"]), (y[0], y[1]["meta"]), 0.0),
-                     (x[1]["buf"]["w"], buf, res[:, None, None]
-                      * np.abs(buf).max(-1, keepdims=True))]
-        for u, v, extra in pairs:
+            # a delay line: the slot written this round, (A, L, n), holds
+            # the payload of g + ef, held like EF memory (to STEP_RTOL of
+            # the agent's max|g + ef|), and a tied entry may sit one step
+            # of its agent's format apart
+            pairs = [((x[0], x[1]["meta"]), (y[0], y[1]["meta"]), 0.0, None),
+                     (x[1]["buf"]["w"], y[1]["buf"]["w"], ties[:, None],
+                      amax[:, None, None])]
+        for u, v, extra, scale in pairs:
             for a_leaf, b_leaf in zip(tree_leaves(u), tree_leaves(v)):
-                if not close(a_leaf, b_leaf, extra):
+                if not close(a_leaf, b_leaf, extra, scale):
                     return (f"{name}: max diff "
-                            f"{np.abs(a_leaf - b_leaf).max():.3e}", split)
+                            f"{np.abs(a_leaf - b_leaf).max():.3e}", stepped)
     if (anext.ef_memory is None) != (bnext.ef_memory is None):
-        return "EF memory slot", False
+        return "EF memory slot", stepped
     if bnext.ef_memory is not None:
         diff = np.abs(to_numpy(anext.ef_memory)["w"]
                       - to_numpy(bnext.ef_memory)["w"])
         tol = STEP_ATOL + STEP_RTOL * amax[:, None]
-        if not np.all(diff <= tol):
-            split = True
-            if not np.all(diff <= tol + (res * amax)[:, None]):
-                return f"ef_memory: max diff {diff.max():.3e}", split
-    return None, split
+        stepped += int(np.sum(diff > tol))
+        if not np.all(diff <= tol + ties):
+            return f"ef_memory: max diff {diff.max():.3e}", stepped
+    return None, stepped
 
 
 def _g_eff(torch, state, batch):
@@ -1406,9 +1414,9 @@ def _hold_round(torch, label, net, k, state, batch, got, want, scale,
     ``_step_mismatch``.  A decision may differ only where the gain sits
     on its threshold within STEP_RTOL / STEP_ATOL (``ties`` records the
     agent, and the round's floats are not compared); ``splits`` records
-    a round whose payload-carrying state needed one rounding step of its
-    wire format.  Every round starts both paths from one state, so
-    neither carries over."""
+    a round, and how many entries, whose payload-carrying state needed
+    one rounding step of its wire format.  Every round starts both paths
+    from one state, so neither carries over."""
     import numpy as np
 
     from repro_torch.configs.paper_linreg import TIERED_M64_CFG
@@ -1426,13 +1434,14 @@ def _hold_round(torch, label, net, k, state, batch, got, want, scale,
                      "threshold": margin[1]})
     if differ.size:
         return
-    why, split = _step_mismatch(got, want, _g_eff(torch, state, batch),
-                                _wire_resolution(net),
-                                TIERED_M64_CFG.stepsize)
+    g_eff = _g_eff(torch, state, batch)
+    why, stepped = _step_mismatch(got, want, g_eff,
+                                  _rounding_ties(torch, net, g_eff),
+                                  TIERED_M64_CFG.stepsize)
     if why is not None:
         raise AssertionError(f"{label} round {k}: {why}")
-    if split:
-        splits.append(k)
+    if stepped:
+        splits.append({"round": k, "entries": stepped})
 
 
 def phase_dispatch(torch, gr_ops) -> dict:
@@ -1532,8 +1541,7 @@ def _frontier_run(torch, net, scales, chans, batch_fn, rounds: int) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     _, state0, cfg, opt = _fleet_step(torch, net, dev)
-    bstep = make_frontier_step(_linreg_loss(torch), opt, cfg, device=dev,
-                               channel_axis=chans is not None)
+    bstep = make_frontier_step(_linreg_loss(torch), opt, cfg, device=dev)
     s = torch.tensor(scales, dtype=torch.float32, device=dev)
     c = None if chans is None else torch.tensor(chans, dtype=torch.float32,
                                                 device=dev)
@@ -1585,8 +1593,7 @@ def _frontier_checks(torch, label, net, run, batch_fn, lanes) -> dict:
                          _lane(run["states"][k + 1], g)),
                         (_numpy_metrics(pm), nxt), scales[g], ties, splits)
     cpu_step = make_frontier_step(_linreg_loss(torch), run["opt"],
-                                  run["cfg"], device="cpu",
-                                  channel_axis=chans is not None)
+                                  run["cfg"], device="cpu")
     cpu_ties, cpu_splits = [], []
     for k in range(CHECK_ROUNDS):
         start = _to_cpu(run["states"][k])

@@ -27,6 +27,11 @@ hash and sign tables on the host with numpy, from the same
 Rounding: ``torch.round`` and ``jnp.round`` both round half to even,
 and ``topk`` keeps every entry whose ``|x|`` reaches the k-th largest
 magnitude, so the kept set does not depend on how ``topk`` orders ties.
+A stage that rounds values (``int8``, ``fp16``, ``bf16``) also states
+its ``spacing``, the distance between the two wire values around each
+entry; :meth:`CompressorChain.rounding_ties` uses it to find the entries
+that two computations of one gradient, a last place apart, may round
+one step apart.
 """
 from __future__ import annotations
 
@@ -65,6 +70,22 @@ def quantize_int8(x: torch.Tensor):
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
                     dtype=torch.float32):
     return (q.float() * scale).to(dtype)
+
+
+def _int8_spacing(x: torch.Tensor) -> torch.Tensor:
+    """One int8 level of each agent's slice (its scale), per entry."""
+    return quantize_int8(x)[1].expand(x.shape)
+
+
+def _float_spacing(x: torch.Tensor, mantissa_bits: int,
+                  min_exponent: int) -> torch.Tensor:
+    """The ULP at each entry of a float format with ``mantissa_bits``
+    stored bits and normal exponents from ``min_exponent`` (fp16: 10,
+    -14; bf16: 7, -126), subnormals included."""
+    _, exp = torch.frexp(x.float())
+    # |x| in [2^(exp-1), 2^exp): the binade's ULP is 2^(exp-1-bits)
+    e = torch.clamp(exp - 1, min=min_exponent) - mantissa_bits
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e)
 
 
 def fake_quantize(x: torch.Tensor) -> torch.Tensor:
@@ -139,6 +160,9 @@ class Compressor:
     compress: Callable[[torch.Tensor], torch.Tensor]  # (A, *shape) tensor
     wire: Callable[[WireFormat], WireFormat]
     cast_bits: float | None = None
+    # per entry of an (A, *shape) tensor: the distance between the two
+    # wire values around it (None: the stage rounds no value)
+    spacing: Callable[[torch.Tensor], torch.Tensor] | None = None
 
 
 def build_compressor(spec: StageSpec) -> Compressor:
@@ -157,6 +181,7 @@ def _int8(args, spec):
         spec,
         compress=fake_quantize,
         wire=lambda w: replace(w, value_bits=min(w.value_bits, 8.0)),
+        spacing=_int8_spacing,
     )
 
 
@@ -176,6 +201,9 @@ def _topk(args, spec):
 def _cast_compressor(spec, dtype: torch.dtype, bits: float) -> Compressor:
     """Value cast through a narrower float dtype; the ratio is
     dtype-aware: ``value_bits = min(current, bits)``."""
+    info = torch.finfo(dtype)
+    mantissa = int(round(-np.log2(info.eps)))
+    min_exponent = int(round(np.log2(info.tiny)))
 
     def compress(x):
         # a gradient already ≤ 16 bits wide passes through untouched,
@@ -189,6 +217,7 @@ def _cast_compressor(spec, dtype: torch.dtype, bits: float) -> Compressor:
         compress=compress,
         wire=lambda w: replace(w, value_bits=min(w.value_bits, bits)),
         cast_bits=bits,
+        spacing=lambda x: _float_spacing(x, mantissa, min_exponent),
     )
 
 
@@ -219,9 +248,10 @@ def randk_sparsify(x: torch.Tensor, frac: float,
 
 def _f32_bits(s: torch.Tensor) -> torch.Tensor:
     """The int32 bit pattern of finite float32 values, formed from
-    ``frexp`` (a dtype view has no batching rule under ``torch.func.vmap``
-    in every torch release): sign, biased exponent and mantissa, the
-    subnormals (and zeros) as their integer multiple of 2^-149."""
+    ``frexp`` (``torch.func.vmap`` cannot batch a dtype view in some
+    torch releases, 2.11 among them): sign, biased exponent and
+    mantissa, the subnormals (and zeros) as their integer multiple of
+    2^-149."""
     mant, exp = torch.frexp(s)
     biased = exp.to(torch.int64) + 126
     normal = (biased << 23) | ((mant.abs().double() * 2.0 ** 24).to(
@@ -352,18 +382,51 @@ class CompressorChain:
     def __bool__(self) -> bool:
         return bool(self.stages)
 
-    def compress(self, x: torch.Tensor) -> torch.Tensor:
-        """Fake-compress each agent's slice of ``x`` (leading agent axis).
-
-        Tracks the running wire format so cast stages the byte model
-        counts as no-ops are also value no-ops."""
+    def _run(self, x: torch.Tensor):
+        """``([(stage, its input), ...], output)`` of the stages
+        ``compress`` applies: it tracks the running wire format, so cast
+        stages the byte model counts as no-ops are also value no-ops."""
         bits = 8.0 * x.element_size()
         fmt = WireFormat(value_bits=bits, dense_bits=bits)
+        applied = []
         for c in self.stages:
             if c.cast_bits is None or fmt.value_bits > c.cast_bits:
+                applied.append((c, x))
                 x = c.compress(x)
             fmt = c.wire(fmt)
-        return x
+        return applied, x
+
+    def compress(self, x: torch.Tensor) -> torch.Tensor:
+        """Fake-compress each agent's slice of ``x`` (leading agent axis)."""
+        return self._run(x)[1]
+
+    def spacing(self, x: torch.Tensor) -> torch.Tensor:
+        """Per entry of ``x`` (leading agent axis): the largest spacing
+        of the wire values around it over the chain's rounding stages,
+        each at its own input; 0 where no stage rounds."""
+        out = torch.zeros_like(x, dtype=torch.float32)
+        for c, y in self._run(x)[0]:
+            if c.spacing is not None:
+                out = torch.maximum(out, c.spacing(y))
+        return out
+
+    def rounding_ties(self, x: torch.Tensor, tol) -> torch.Tensor:
+        """Per entry of ``x`` (leading agent axis): the spacing of a
+        rounding stage whose input entry lies within ``tol`` (broadcast
+        against ``x``) of the midpoint between two wire values, else 0.
+        A computation of ``x`` that differs from this one by at most
+        ``tol`` may send those entries, and only those, one spacing
+        apart."""
+        out = torch.zeros_like(x, dtype=torch.float32)
+        for c, y in self._run(x)[0]:
+            if c.spacing is None:
+                continue
+            step = c.spacing(y)
+            levels = y.float().abs() / step
+            off = (levels - torch.floor(levels) - 0.5).abs() * step
+            tie = (off <= tol) & (y != 0)
+            out = torch.where(tie, torch.maximum(out, step), out)
+        return out
 
     def compress_tree(self, tree):
         """Fake-compress a gradient tree with a leading agent axis."""

@@ -111,11 +111,13 @@ def make_frontier_step(
     (states, metrics)``.
 
     Lane ``i`` advances its own TrainState at threshold scale
-    ``scales[i]`` (and, with ``channel_axis=True``, channel severity
+    ``scales[i]`` (and, where ``chan_scales`` is given, channel severity
     ``chan_scales[i]``) on the shared ``batch``; metrics carry a leading
-    ``(G,)`` axis.  ``hetero_dispatch`` passes through to the step (the
-    ``switch`` and ``unroll`` loops map over the grid like ``hybrid``).
-    Use :func:`run_frontier` for the whole-run loop."""
+    ``(G,)`` axis.  ``channel_axis`` is accepted for the JAX package's
+    signature and changes nothing: the axis is there exactly when
+    ``chan_scales`` is passed.  ``hetero_dispatch`` passes through to
+    the step (the ``switch`` and ``unroll`` loops map over the grid like
+    ``hybrid``).  Use :func:`run_frontier` for the whole-run loop."""
     if mesh is not None or rules is not None:
         raise todo("the fleet-sharded frontier (mesh, rules)",
                    "queue 1 item 11")
@@ -126,35 +128,27 @@ def make_frontier_step(
                             agent_metrics=True, churn=churn))
 
     def batched_step(states: TrainState, batch, scales, chan_scales=None):
-        if (chan_scales is not None) != channel_axis:
-            raise ValueError(
-                "chan_scales must be given exactly when the step was built "
-                "with channel_axis=True")
         # the lanes' tensors are mapped; empty slots (None) and the
-        # shared host step are not
+        # shared host step are not, and the step keeps that layout
         leaves, spec = pytree.tree_flatten(tuple(states[1:]))
-        out = {}
 
-        def lane(tensors, scale, chan_scale):
+        def fill(tensors):
             it = iter(tensors)
-            fields = pytree.tree_unflatten(
+            return pytree.tree_unflatten(
                 [next(it) if isinstance(x, torch.Tensor) else x
                  for x in leaves], spec)
-            new, metrics = step(TrainState(states.step, *fields), batch,
-                                scale, chan_scale)
-            out["leaves"], out["spec"] = pytree.tree_flatten(tuple(new[1:]))
-            return [x for x in out["leaves"]
+
+        def lane(tensors, scale, chan_scale):
+            new, metrics = step(TrainState(states.step, *fill(tensors)),
+                                batch, scale, chan_scale)
+            return [x for x in pytree.tree_leaves(tuple(new[1:]))
                     if isinstance(x, torch.Tensor)], metrics
 
         new_tensors, metrics = torch.func.vmap(
             lane, in_dims=(0, 0, None if chan_scales is None else 0))(
             [x for x in leaves if isinstance(x, torch.Tensor)], scales,
             chan_scales)
-        it = iter(new_tensors)
-        fields = pytree.tree_unflatten(
-            [next(it) if isinstance(x, torch.Tensor) else x
-             for x in out["leaves"]], out["spec"])
-        return TrainState(states.step + 1, *fields), metrics
+        return TrainState(states.step + 1, *fill(new_tensors)), metrics
 
     return batched_step
 
@@ -204,9 +198,8 @@ def run_frontier(
                 f"{tuple(chan_scales.shape)} vs {tuple(scales.shape)}")
     batched_step = make_frontier_step(
         loss_fn, optimizer, cfg, policy=policy, aux_loss_fn=aux_loss_fn,
-        oracle=oracle, hetero_dispatch=hetero_dispatch,
-        channel_axis=chan_scales is not None, mesh=mesh, rules=rules,
-        churn=churn, device=dev)
+        oracle=oracle, hetero_dispatch=hetero_dispatch, mesh=mesh,
+        rules=rules, churn=churn, device=dev)
     states = stack_states(
         init_train_state(params, optimizer, cfg, policy=policy, device=dev),
         grid)

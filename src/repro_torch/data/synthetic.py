@@ -164,22 +164,21 @@ def drifting_problem(problem, step: int, *, amp: float = 1.0,
 
 
 def drifting_batch_fn(problem, *, amp: float = 1.0, period: int = 32,
-                      seed: int = 0, batch_seed: Optional[int] = None):
+                      seed: int = 0):
     """A round-indexed ``batch_fn(k)`` over a drifting target, the
     contract of ``FleetSession`` and ``repro_torch.core.frontier``.
 
     Round ``k`` draws fresh per-agent batches from
-    :func:`step_generator` ``(batch_seed, k)`` (by default ``seed + 1``,
-    as the fleet session draws its rounds) at round ``k``'s drifted
-    ``w*``; the drift direction is drawn once."""
+    :func:`step_generator` ``(seed + 1, k)``, as the fleet session draws
+    its rounds, at round ``k``'s drifted ``w*``; the drift direction is
+    drawn once."""
     from repro_torch.core import regression as R
 
     u = _drift_direction(problem, seed)
-    stream = seed + 1 if batch_seed is None else batch_seed
 
     def batch_fn(k: int):
         return R.agent_batches(
             _drifted(problem, u, k, amp, period),
-            step_generator(stream, k, problem.device))
+            step_generator(seed + 1, k, problem.device))
 
     return batch_fn

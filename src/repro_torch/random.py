@@ -163,8 +163,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), *,
     b = bits(key, shape)
     # the float of bits (b >> 9) | 0x3F800000 is 1 + m·2^-23 for the top
     # 23 bits m; minus 1 it is m·2^-23, exact in float32 (formed without
-    # a dtype view, which has no batching rule under torch.func.vmap in
-    # every torch release)
+    # a dtype view, which torch.func.vmap cannot batch in some torch
+    # releases, 2.11 among them)
     f = (b >> 9).to(torch.float32) * 2.0 ** -23
     if minval == 0.0 and maxval == 1.0:
         return f  # u · 1 + 0 and the clamp at 0 leave u as it is

@@ -289,3 +289,44 @@ def test_quadratic_gain_kernel_and_plain_agree(agents):
     alpha = CommPolicy.parse(f"gain_quadratic(lam={lam},kernel=true)") \
         .build_trigger(loss_fn=_tloss, probe_eps=0.1)(tp, tg, tb, tl, 0).alpha
     assert 0 < float(alpha.sum()) < alpha.numel()
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp16", "bf16"])
+def test_wire_spacing_and_rounding_ties(fmt):
+    """``spacing`` is the distance between the two wire values around
+    each entry (the wire value lies within half of it), and
+    ``rounding_ties`` gives that spacing exactly at the entries that
+    round apart when moved by ±``tol``, 0 elsewhere: half the entries
+    are planted on a midpoint, a quarter of ``tol`` off it."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((3, 64)) * 10.0 ** rng.integers(
+        -6, 3, (3, 64))).astype(np.float32)
+    x[:, 0] = 1000.0  # each row's largest entry: the int8 scale
+    chain = CommPolicy.parse(f"always|{fmt}").chain()
+    step = chain.spacing(torch.from_numpy(x)).numpy()
+    wire = chain.compress(torch.from_numpy(x)).numpy()
+    if fmt == "int8":
+        np.testing.assert_array_equal(step, np.float32(1000.0 / 127.0))
+    else:
+        dtype = torch.float16 if fmt == "fp16" else torch.bfloat16
+        up = torch.from_numpy(np.abs(x)).to(dtype).float().numpy()
+        # the next wire value above |x|'s rounding, one spacing on
+        nxt = torch.from_numpy(up + step).to(dtype).float().numpy()
+        np.testing.assert_array_equal(nxt - up, step)
+    assert np.all(np.abs(wire - x) <= step / 2)
+    levels = np.floor(np.abs(x) / step)
+    x[:, 1::2] = (np.sign(x) * (levels + 0.5) * step
+                  + 0.25e-3 * step)[:, 1::2]
+    step = chain.spacing(torch.from_numpy(x)).numpy()
+    tol = 1e-3 * step
+    ties = chain.rounding_ties(torch.from_numpy(x),
+                               torch.from_numpy(tol)).numpy()
+
+    def sent(v):
+        return chain.compress(torch.from_numpy(v.astype(np.float32))
+                              ).numpy() if fmt != "int8" else np.round(
+            v / step)
+
+    moved = sent(x - tol) != sent(x + tol)
+    assert moved[:, 1::2].all() and not moved[:, 0].any()
+    np.testing.assert_array_equal(ties, np.where(moved, step, 0.0))

@@ -157,15 +157,17 @@ def _assert_metrics(got, want, tag=""):
                                        err_msg=f"{tag}:{k}")
 
 
-def _wire_steps(comm):
-    """Each agent's rounding step of its wire format, relative to the
-    payload's largest element: an int8 level (1/127) or an fp16 ULP
-    (2^-10); 0 uncompressed."""
-    step = {"int8": 1.0 / 127.0, "fp16": 2.0 ** -10}
-    specs = (comm,) * TOY.num_agents if isinstance(comm, str) else comm
-    return np.asarray([max((step.get(c.name, 0.0) for c in
-                            CommPolicy.parse(p).compressors), default=0.0)
-                       for p in specs])
+def _wire_steps(comm, buf):
+    """Each agent's rounding step of its wire format at each slot of a
+    delay line ``buf`` ``(..., A, L, n)``: the port's ``spacing`` of the
+    agent's chain at the slot's largest entry (one int8 level, an fp16
+    ULP; 0 uncompressed), shaped ``(..., A, L, 1)``."""
+    A, n = buf.shape[-3], buf.shape[-1]
+    specs = (comm,) * A if isinstance(comm, str) else comm
+    return np.stack([CommPolicy.parse(p).chain().spacing(
+        torch.from_numpy(np.ascontiguousarray(buf[..., i, :, :]).reshape(
+            -1, n))).amax(-1).numpy().reshape(buf.shape[:-3] + (-1,))
+        for i, p in enumerate(specs)], -2)[..., None]
 
 
 def _assert_states(got, want, tag="", comm=None):
@@ -174,9 +176,9 @@ def _assert_states(got, want, tag="", comm=None):
     ``max|g + ef|`` (ROADMAP §3), of which ``254·max|ef|`` is a lower
     bound (an int8 residual is at most half a level, 1/254 of it).  A
     delay line's buffered payloads may sit one rounding step of their
-    agent's wire format apart (``comm``'s, of the slot's largest
-    element), where an element fell on a rounding boundary (ROADMAP §3:
-    the JAX paths split there too)."""
+    agent's wire format apart (``comm``'s, at the slot's largest
+    element: ``_wire_steps``), where an element fell on a rounding
+    boundary (ROADMAP §3: the JAX paths split there too)."""
     for field in ("step", "params", "opt_state", "ctrl_state"):
         la = _leaves(getattr(got, field))
         lb = _leaves(getattr(want, field))
@@ -193,8 +195,7 @@ def _assert_states(got, want, tag="", comm=None):
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL,
                                        err_msg=f"{tag}:net_state")
         a, b = a_line["buf"]["w"], np.asarray(b_line["buf"]["w"])
-        step = _wire_steps(comm)[:, None, None] * np.abs(b).max(
-            -1, keepdims=True)
+        step = _wire_steps(comm, b)
         assert np.all(np.abs(a - b) <= ATOL + RTOL * np.abs(b) + step), (
             tag, "delay line", np.abs(a - b).max())
     elif b_net is not None:
@@ -580,27 +581,46 @@ def test_drifting_batch_fn_draws_round_k_at_its_drifted_target(jproblem):
     assert np.all(np.isfinite(res.metrics["loss"].numpy()))
 
 
+def _integer_batches(steps, seed=11):
+    """Integer-valued ``(xs, ys)`` rounds for TOY: with ``lr`` 1/8, 8
+    samples and 4 agents every value of the first three rounds is dyadic
+    and short, so every fp32 sum is exact in any order."""
+    rng = np.random.default_rng(seed)
+    m, N, n = TOY.num_agents, TOY.samples_per_agent, TOY.n
+    return [(torch.from_numpy(rng.integers(-2, 3, (m, N, n)).astype(
+                np.float32)),
+             torch.from_numpy(rng.integers(-3, 4, (m, N)).astype(
+                 np.float32)))
+            for _ in range(steps)]
+
+
 def test_every_compressor_runs_under_the_grid(problem):
-    """``sketch`` and ``bf16`` under the grid vmap: each lane equals the
-    plain step pinned at its scale.  ``randk`` runs there too; its salt
-    is the bit pattern of an fp32 sum, which the vmapped and the plain
-    step may round an ULP apart (ROADMAP §3), so its lanes are held to
-    finite losses only, and the salt's bit cast (formed without a dtype
-    view) to the view's, under vmap as well."""
+    """``sketch``, ``bf16`` and ``randk`` under the grid vmap: each lane
+    equals the plain step pinned at its scale.  ``randk``'s salt is the
+    bit pattern of an fp32 sum, which the vmapped and the plain step may
+    round an ULP apart (ROADMAP §3) and then salt different subsets, so
+    its lanes are held on integer-valued rounds, where every sum is
+    exact; the salt's bit cast (formed without a dtype view) is held to
+    the view's, under vmap as well."""
     comm = ("always", "gain_lookahead(lam=0.5)",
             "gain_lookahead(lam=0.1)|sketch(rows=2,cols=4,seed=1)",
             "always|bf16")
-    cfg = _cfg(comm)
-    batches = _batches(problem, 4)
-    res = _frontier(cfg, batches, [0.5, 2.0])
-    for g, scale in enumerate((0.5, 2.0)):
-        _, hist = _plain_loop(cfg, batches, scale=scale)
-        _assert_metrics({k: v[g] for k, v in convert.to_numpy(
-            res.metrics).items()},
-            {k: np.stack([h[k] for h in hist]) for k in hist[0]}, str(g))
-    randk = _frontier(_cfg(("always|randk(0.5)+ef",) * 4), batches,
-                      [0.5, 2.0])
-    assert np.all(np.isfinite(randk.metrics["loss"].numpy()))
+    randk = ("always|randk(0.5)+ef", "gain_lookahead(lam=0.5)|randk(0.5)+ef",
+             "always|randk(frac=0.25,seed=3)+ef",
+             "gain_lookahead(lam=2.0)|randk(frac=0.5,seed=1)+ef")
+    for spec, cfg, batches in (
+            (comm, _cfg(comm), _batches(problem, 4)),
+            (randk, _cfg(randk, lr=0.125), _integer_batches(3))):
+        res = _frontier(cfg, batches, [0.5, 2.0])
+        for g, scale in enumerate((0.5, 2.0)):
+            ref_state, hist = _plain_loop(cfg, batches, scale=scale)
+            _assert_metrics({k: v[g] for k, v in convert.to_numpy(
+                res.metrics).items()},
+                {k: np.stack([h[k] for h in hist]) for k in hist[0]},
+                f"{spec[-1]} {g}")
+            _assert_states(_lane(res.state, g), ref_state, str(g), spec)
+    # the salted subsets moved EF memory: the randk lanes did real work
+    assert np.abs(convert.to_numpy(res.state.ef_memory)["w"]).max() > 0
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(4000) * 10.0 ** rng.integers(-45, 38, 4000)
          ).astype(np.float32)
