@@ -102,6 +102,31 @@ Phases (any failure exits nonzero; no result line is printed then):
               sweep, and its first 8 trials against the CPU on the same
               batches (decisions exactly but at a gain within 1e-4 of its
               threshold, J_traj within rtol 1e-4).
+   durable  — ``TIERED_M64_QUADRATIC`` served for 100 rounds with a
+              checkpoint every 50 (``SessionOptions``, under
+              ``chiprun_out/durable``), then a fresh session that resumes
+              from the latest checkpoint and serves 100 more: every state
+              leaf bitwise an unbroken 200-round run's on the same (seed +
+              1, k) batches, the rollup's counters monotone and equal to
+              the unbroken run's, one restart, exactly 200 ``gain_reduce``
+              launches across the lineage; the checkpoint's bytes, save
+              and restore ms (median of 5), the sessions' build ms, and
+              rounds/s with and without checkpoints.
+   kill     — ``faults.kill_and_resume`` on the card with CI's numbers
+              (the adaptive mix, 600 rounds, SIGKILL at round 200, a
+              checkpoint every 50, a log every 20) through ``python -m
+              repro_torch.launch.serve --fleet``: the lineage's checks
+              (restart recorded, round target reached, counters monotone,
+              the resumed process past its checkpoint) and the record
+              (``recovery_s``, rounds at the kill, resume round, wire
+              bytes).
+   telemetry — ``TIERED_M64_QUADRATIC`` in thread mode (``start()`` …
+              ``stop()``) behind a TelemetryServer on 127.0.0.1:
+              ``/stats.json`` and ``/metrics`` scraped while rounds run,
+              ``rounds`` growing between scrapes; round 40 stalled for
+              1 s under a 0.5 s watchdog: exactly one ``"stall"`` event;
+              the first metro agent crashed by a ``FaultInjector`` for
+              rounds 60–139: ``agent_tx`` 0 in each.
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes, one
               hd = 128 shape, the JAX tests' S × W grid and the tensor-core
@@ -155,6 +180,15 @@ Phases (any failure exits nonzero; no result line is printed then):
               ``swa_attention`` launches per step, finite gains, ms per
               step and peak memory; one 2-layer step against the CPU as
               above, the mean gain within 1e-4 too.
+   train resume — the training CLI (``repro_torch.launch.train.main``)
+              on smollm-135m at full width cut to 4 layers, m = 4,
+              ``gain_lookahead(lam=0.01)|int8+ef``: 4 steps with
+              ``--ckpt-every 2``, then ``--resume`` over a directory
+              holding only the step-2 checkpoint: the final checkpoint's
+              leaves bitwise the unbroken run's, ``fused_ce`` and
+              ``swa_attention`` launched as often per step as in the
+              unbroken run (the checkpoints live under ``build/`` and are
+              removed).
 6. times    — ``gain_reduce``'s, its plain version's and
               ``torch.linalg.vecdot``'s times at each shape beside the
               bytes-over-bandwidth bound: per call by CUDA events (median
@@ -331,6 +365,18 @@ TRAIN_QUAD = dict(TRAIN, warmup=1, timed=3,
                   comm="gain_quadratic(lam=0.01)|int8+ef")
 # card vs CPU: one step of the same model cut to 2 layers, full width
 TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=128)
+# durable serving: each half of the [durable] lineage, its checkpoint
+# period; [kill] drives the faults CLI with CI's kill-and-resume numbers
+# (.github/workflows/ci.yml:185-200); [telemetry] serves in thread mode
+# with a stalled round and a crashed metro agent
+DURABLE_ROUNDS, DURABLE_EVERY, DURABLE_TIMED = 100, 50, 5
+KILL = dict(mix="tiered_m64_adaptive", rounds=600, kill_round=200,
+            ckpt_every=50, log_every=20)
+TELEMETRY = dict(watchdog=0.5, stall_round=40, rounds=200,
+                 crash_start=60, crash_rounds=80)
+# the train CLI's resume at full width, cut to 4 layers (an int8+ef
+# checkpoint of m = 4 agents stays under 1 GB)
+TRAIN_RESUME = dict(TRAIN, layers=4, steps=4, every=2)
 # fp32 forward and backward of 2 layers and a 49152-way softmax, sums in
 # other orders on the card and the CPU
 TRAIN_TOL = 1e-4
@@ -1848,6 +1894,267 @@ def phase_frontier_drifting(torch) -> dict:
     return record
 
 
+def _fresh_dir(path: Path) -> str:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    return str(path)
+
+
+def _state_leaves_equal(a, b) -> bool:
+    """Two TrainStates bit for bit: the same leaves, dtypes and values."""
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    la, lb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and x.shape == y.shape and bool((x == y).all())
+        if hasattr(x, "dtype") else x == y for (_, x), (_, y) in zip(la, lb))
+
+
+def phase_durable(torch, gr_ops) -> dict:
+    """The kernel-gated m=64 fleet served durably: TIERED_M64_QUADRATIC,
+    DURABLE_ROUNDS rounds with a checkpoint every DURABLE_EVERY, then a
+    fresh session that resumes from the latest checkpoint and serves
+    DURABLE_ROUNDS more; every state leaf bitwise an unbroken run's on
+    the same (seed + 1, k) batches, the rollup's counters monotone, one
+    restart, one ``gain_reduce`` launch per round across the lineage."""
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs.paper_linreg import TIERED_M64_QUADRATIC
+    from repro_torch.launch.session import (
+        SessionOptions,
+        build_linreg_fleet_session,
+    )
+
+    net, seed = TIERED_M64_QUADRATIC, 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ckpt_dir = _fresh_dir(REPO / "chiprun_out" / "durable")
+    opts = SessionOptions(ckpt_dir=ckpt_dir, ckpt_every=DURABLE_EVERY)
+
+    def build(options):
+        t0 = time.perf_counter()
+        session = build_linreg_fleet_session(net=net, seed=seed, device=dev,
+                                             options=options)
+        return session, (time.perf_counter() - t0) * 1e3
+
+    def serve(session, rounds):
+        t0 = time.perf_counter()
+        session.run(rounds)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the unbroken run, then the lineage, both on the default (seed + 1,
+    # k) batch stream
+    unbroken, fresh_session_ms = build(None)
+    serve(unbroken, 2 * DURABLE_ROUNDS)
+    gr_ops.gain_reduce.launches = 0
+    first, _ = build(opts)
+    serve(first, DURABLE_ROUNDS)
+    before = first.rollup.snapshot()
+    resumed, resume_session_ms = build(opts)
+    if (resumed.round_index, resumed.rollup.rounds) != (DURABLE_ROUNDS,) * 2:
+        raise AssertionError(
+            f"durable: resumed at round {resumed.round_index} with "
+            f"{resumed.rollup.rounds} rolled-up rounds, want "
+            f"{DURABLE_ROUNDS}")
+    serve(resumed, DURABLE_ROUNDS)
+    launches = gr_ops.gain_reduce.launches
+    after = resumed.rollup.snapshot()
+
+    if launches != 2 * DURABLE_ROUNDS:
+        raise AssertionError(f"durable: gain_reduce launched {launches} "
+                             f"times in the {2 * DURABLE_ROUNDS}-round "
+                             f"lineage (want 1 per round)")
+    if after.get("restarts") != 1 or after["rounds"] != 2 * DURABLE_ROUNDS:
+        raise AssertionError(f"durable: the rollup shows "
+                             f"{after.get('restarts')} restarts and "
+                             f"{after['rounds']} rounds")
+    if not all(after["counters"][k] >= before["counters"][k]
+               for k in before["counters"]):
+        raise AssertionError("durable: rollup counters fell across the "
+                             "restart")
+    if after["counters"] != unbroken.rollup.snapshot()["counters"]:
+        raise AssertionError("durable: the lineage's counters differ from "
+                             "the unbroken run's")
+    if not _state_leaves_equal(resumed.state, unbroken.state):
+        raise AssertionError("durable: the resumed lineage's state is not "
+                             "bitwise the unbroken run's")
+
+    step = ckpt.latest_step(ckpt_dir)
+    step_dir = Path(ckpt_dir) / f"step_{step:08d}"
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    save_ms, restore_ms = [], []
+    template = {"key": np.zeros(2, np.uint32), "state": resumed.state}
+    for _ in range(DURABLE_TIMED):
+        t0 = time.perf_counter()
+        resumed.checkpoint()
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ckpt.restore(ckpt_dir, template)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    # rounds/s with and without checkpoints: fresh sessions of
+    # DURABLE_ROUNDS rounds in turns (plain, checkpointed, checkpointed,
+    # plain), after the runs above have warmed the path
+    timed_opts = SessionOptions(
+        ckpt_dir=_fresh_dir(REPO / "chiprun_out" / "durable_timed"),
+        ckpt_every=DURABLE_EVERY, resume=False)
+    rates = {"plain": [], "ckpt": []}
+    for kind in ("plain", "ckpt", "ckpt", "plain"):
+        session, _ = build(timed_opts if kind == "ckpt" else None)
+        rates[kind].append(DURABLE_ROUNDS / serve(session, DURABLE_ROUNDS))
+    record = {
+        "net": net.name, "rounds": 2 * DURABLE_ROUNDS,
+        "ckpt_every": DURABLE_EVERY, "launches": launches,
+        "checkpoint_bytes": nbytes,
+        "checkpoint_leaves": ckpt.read_manifest(ckpt_dir)["num_leaves"],
+        "save_ms": statistics.median(save_ms),
+        "restore_ms": statistics.median(restore_ms),
+        "resume_session_ms": resume_session_ms,
+        "fresh_session_ms": fresh_session_ms,
+        "rounds_per_s_ckpt": rates["ckpt"],
+        "rounds_per_s_plain": rates["plain"],
+        "restarts": after["restarts"],
+        "wire_bytes": after["counters"]["wire_bytes"],
+    }
+    print(f"[durable] {net.name}: {DURABLE_ROUNDS} rounds, a fresh session "
+          f"resumed at round {DURABLE_ROUNDS}, {DURABLE_ROUNDS} more: every "
+          f"state leaf bitwise the unbroken {2 * DURABLE_ROUNDS}-round run's; "
+          f"gain_reduce launches {launches}; restarts 1, counters monotone; "
+          f"checkpoint {nbytes} bytes ({record['checkpoint_leaves']} leaves),"
+          f" save {record['save_ms']:.2f} ms, restore "
+          f"{record['restore_ms']:.2f} ms, resumed session built in "
+          f"{resume_session_ms:.1f} ms (fresh {fresh_session_ms:.1f} ms); "
+          f"rounds/s over {DURABLE_ROUNDS} rounds in turns: without "
+          f"checkpoints {rates['plain'][0]:.1f}, with one every "
+          f"{DURABLE_EVERY} {rates['ckpt'][0]:.1f}, {rates['ckpt'][1]:.1f}, "
+          f"without {rates['plain'][1]:.1f}")
+    return record
+
+
+def phase_kill(torch) -> dict:
+    """SIGKILL-and-resume through ``python -m repro_torch.launch.serve
+    --fleet`` on the card (``faults.kill_and_resume`` with CI's numbers,
+    KILL): the lineage record, its checks passed."""
+    from repro_torch.launch import faults
+
+    ckpt_dir = _fresh_dir(REPO / "chiprun_out" / "kill")
+    record = faults.kill_and_resume(ckpt_dir, device="cuda", timeout=300.0,
+                                    verbose=False, **KILL)
+    if not record["rounds_at_kill"] < KILL["rounds"]:
+        raise AssertionError(f"kill: the serve process reached round "
+                             f"{record['rounds_at_kill']} before the kill")
+    print(f"[kill] {KILL['mix']}, {KILL['rounds']} rounds, SIGKILL at "
+          f"observed round {record['rounds_at_kill']} (target "
+          f"{KILL['kill_round']}), resumed from round "
+          f"{record['resume_round']} (a checkpoint every "
+          f"{KILL['ckpt_every']}), recovery {record['recovery_s']:.2f} s; "
+          f"final rounds {record['rounds_final']}, restarts "
+          f"{record['restarts']}, wire bytes "
+          f"{record['wire_bytes_at_kill']:.0f} at the kill -> "
+          f"{record['wire_bytes_final']:.0f}")
+    return record
+
+
+def phase_telemetry(torch) -> dict:
+    """Thread mode on the card: TIERED_M64_QUADRATIC served with
+    ``start()`` behind a TelemetryServer on 127.0.0.1, both endpoints
+    scraped while rounds run (``rounds`` grows between scrapes), one
+    round stalled for twice the watchdog's timeout (exactly one
+    ``"stall"`` event), one metro agent crashed by a FaultInjector (no
+    transmission in any round it is down), then ``stop()``."""
+    import json as _json
+    import urllib.request
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.launch.faults import AgentFault, FaultInjector, make_stall
+    from repro_torch.launch.session import (
+        SessionOptions,
+        build_linreg_fleet_session,
+    )
+
+    net, seed, t = TIERED_M64_QUADRATIC, 0, TELEMETRY
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problem = R.make_problem(TIERED_M64_CFG, step_generator(seed, 0, dev),
+                             device=dev)
+    agent = net.tier_index().index(1)  # the first metro agent
+    fault = AgentFault(agent=agent, start=t["crash_start"],
+                       duration=t["crash_rounds"])
+    batches = FaultInjector(
+        lambda k: R.agent_batches(problem, step_generator(seed + 1, k, dev)),
+        [fault], net.num_agents)
+    sent = {}
+    session = build_linreg_fleet_session(
+        net=net, seed=seed, device=dev, batch_fn=batches,
+        options=SessionOptions(watchdog_timeout=t["watchdog"]),
+        on_round=make_stall(t["stall_round"], 2 * t["watchdog"],
+                            on_round=lambda k, m: sent.__setitem__(
+                                k, float(m["agent_tx"][agent]))))
+    server = session.serve_telemetry(port=0)
+
+    def scrape(path):
+        with urllib.request.urlopen(server.url + path, timeout=10) as r:
+            return r.read().decode()
+
+    def wait_for(rounds):
+        deadline = time.monotonic() + 120
+        while session.rollup.rounds < rounds:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"telemetry: round {rounds} not "
+                                     f"reached in 120 s")
+            time.sleep(0.01)
+
+    try:
+        session.start(rounds=0)
+        wait_for(10)
+        first = _json.loads(scrape("/stats.json"))
+        metrics = scrape("/metrics")
+        wait_for(t["rounds"])
+        second = _json.loads(scrape("/stats.json"))
+    finally:
+        session.stop()
+        server.stop()
+    stalls = session.rollup.snapshot().get("degradation_events", {})
+    down = [k for k in sent if fault.down(k)]
+    if not first["rounds"] < second["rounds"]:
+        raise AssertionError(f"telemetry: scraped rounds did not grow: "
+                             f"{first['rounds']} -> {second['rounds']}")
+    if not metrics.startswith("# HELP fleet_rounds_total ") or \
+            'fleet_tier_tx_rate{tier="metro"}' not in metrics:
+        raise AssertionError("telemetry: /metrics is not the rollup's "
+                             "Prometheus text")
+    if stalls != {"stall": 1}:
+        raise AssertionError(f"telemetry: degradation events {stalls}, "
+                             f"want one stall")
+    if len(down) != t["crash_rounds"] or any(sent[k] for k in down):
+        raise AssertionError(f"telemetry: crashed agent {agent} sent in a "
+                             f"down round or missed rounds: "
+                             f"{[(k, sent[k]) for k in down]}")
+    record = {"net": net.name, "rounds_scraped": [first["rounds"],
+                                                  second["rounds"]],
+              "rounds_served": session.round_index,
+              "degradation_events": stalls, "crashed_agent": agent,
+              "down_rounds": len(down),
+              "sent_while_up_after_crash": sum(
+                  sent[k] for k in sent if k >= t["crash_start"]
+                  + t["crash_rounds"]),
+              "rounds_per_s": second["rounds_per_sec"]}
+    print(f"[telemetry] {net.name} in thread mode: /stats.json rounds "
+          f"{first['rounds']} -> {second['rounds']}, /metrics scraped; a "
+          f"{2 * t['watchdog']:.1f} s stall at round {t['stall_round']} under "
+          f"a {t['watchdog']} s watchdog: events {stalls}; metro agent "
+          f"{agent} crashed for rounds {t['crash_start']}-"
+          f"{t['crash_start'] + t['crash_rounds'] - 1}: agent_tx 0 in all "
+          f"{len(down)}; stopped after {session.round_index} rounds")
+    return record
+
+
 def phase_fleet_profile(torch, session, round_ms: float, label: str) -> dict:
     """Device ops, busy time and idle share of a fleet's rounds
     (``_profile_rounds``)."""
@@ -3049,6 +3356,106 @@ def phase_train_quadratic(torch, ce_ops, swa_ops, cfg, dev, batches) -> dict:
     return record
 
 
+def phase_train_resume(torch, ce_ops, swa_ops) -> dict:
+    """The train CLI's resume on the card: smollm-135m at full width cut
+    to TRAIN_RESUME["layers"] layers, m = 4, ``--ckpt-every 2``.  An
+    unbroken 4-step run writes its step-2 and step-4 checkpoints; a
+    relaunch with ``--resume`` over a directory holding only the step-2
+    checkpoint (what a run killed after it leaves) must end bit for bit
+    where the unbroken run ends, launching each kernel as often per step
+    as the unbroken run."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.launch import train as train_cli
+
+    t = TRAIN_RESUME
+    root = REPO / "build" / "train_resume"
+    _fresh_dir(root)
+    unbroken, resumed = root / "unbroken", root / "resumed"
+    args = ["--arch", LM_ARCH, "--layers", str(t["layers"]), "--agents",
+            str(t["agents"]), "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--lr", str(t["lr"]), "--comm", t["comm"],
+            "--steps", str(t["steps"]), "--ckpt-every", str(t["every"]),
+            "--log-every", str(t["steps"]), "--device", "cuda"]
+
+    def run(extra):
+        ce_ops.fused_ce.launches = swa_ops.swa_attention.launches = 0
+        t0 = time.perf_counter()
+        train_cli.main(args + extra)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the stream's 9.7 GB bigram table
+        return (time.perf_counter() - t0,
+                {"fused_ce": ce_ops.fused_ce.launches,
+                 "swa_attention": swa_ops.swa_attention.launches})
+
+    # the host ms of each checkpoint write and of the restore, timed
+    # around the CLI's own calls
+    ckpt_ms = {"save": [], "restore": []}
+    calls = {name: getattr(checkpointer, name) for name in ckpt_ms}
+
+    def timed(name):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = calls[name](*a, **k)
+            torch.cuda.synchronize()
+            ckpt_ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    for name in ckpt_ms:
+        setattr(checkpointer, name, timed(name))
+    try:
+        unbroken_s, unbroken_n = run(["--ckpt-dir", str(unbroken)])
+        kept = f"step_{t['every']:08d}"
+        resumed.mkdir()
+        shutil.copytree(unbroken / kept, resumed / kept)
+        resumed_s, resumed_n = run(["--ckpt-dir", str(resumed),
+                                    "--resume"])
+        final = f"step_{t['steps']:08d}"
+        a = np.load(unbroken / final / "arrays.npz")
+        b = np.load(resumed / final / "arrays.npz")
+        with a, b:
+            leaves = len(a.files)
+            unequal = [f for f in a.files if not (
+                a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f]))]
+            unequal += sorted(set(b.files) - set(a.files))
+        nbytes = sum(f.stat().st_size for f in (unbroken / final).iterdir())
+    finally:
+        for name, fn in calls.items():
+            setattr(checkpointer, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    if unequal:
+        raise AssertionError(f"train resume: {len(unequal)} of {leaves} "
+                             f"leaves differ from the unbroken run's: "
+                             f"{unequal[:5]}")
+    ratio = t["steps"] // (t["steps"] - t["every"])
+    want = {"fused_ce": 2 * t["steps"],
+            "swa_attention": 2 * t["layers"] * t["steps"]}
+    if unbroken_n != want or {k: ratio * v for k, v in
+                              resumed_n.items()} != want:
+        raise AssertionError(f"train resume: launches {unbroken_n} in the "
+                             f"unbroken run and {resumed_n} resumed, want "
+                             f"{want} and 1/{ratio} of it")
+    print(f"[train resume] {LM_ARCH} at {t['layers']} layers, m = "
+          f"{t['agents']}, {t['comm']!r}: {t['steps']} steps with a "
+          f"checkpoint every {t['every']} ({nbytes} bytes each, save "
+          + ", ".join(f"{x:.0f}" for x in ckpt_ms["save"])
+          + f" ms), {unbroken_s:.1f} s; resumed from step {t['every']} "
+          f"(restore {ckpt_ms['restore'][0]:.0f} ms) in "
+          f"{resumed_s:.1f} s: all {leaves} leaves of the final state "
+          f"bitwise equal; launches {unbroken_n} unbroken, {resumed_n} "
+          f"resumed")
+    return {"layers": t["layers"], "agents": t["agents"],
+            "steps": t["steps"], "ckpt_every": t["every"],
+            "checkpoint_bytes": nbytes, "leaves": leaves,
+            "save_ms": ckpt_ms["save"], "restore_ms": ckpt_ms["restore"],
+            "unbroken_s": unbroken_s, "resumed_s": resumed_s,
+            "launches_unbroken": unbroken_n, "launches_resumed": resumed_n}
+
+
 def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
                        gains: bool = False) -> dict:
     """One step of the model cut to TRAIN_CHECK["layers"] layers at full
@@ -3344,6 +3751,9 @@ def main() -> int:
         torch, gr_ops)
     record["frontier_lossy"] = phase_frontier_lossy(torch)
     record["frontier_drifting"] = phase_frontier_drifting(torch)
+    record["durable"] = phase_durable(torch, gr_ops)
+    record["kill"] = phase_kill(torch)
+    record["telemetry"] = phase_telemetry(torch)
     record["sim"], sim_run = phase_sim(torch)
     record["swa_checks"] = phase_swa_kernel(torch, swa_ops, swa_ref)
     record["ce_checks"] = phase_ce_kernel(torch, ce_ops, ce_ref)
@@ -3355,6 +3765,7 @@ def main() -> int:
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev)
     record["train_quadratic"] = phase_train_quadratic(
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches)
+    record["train_resume"] = phase_train_resume(torch, ce_ops, swa_ops)
     # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
     record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
@@ -3405,6 +3816,7 @@ def main() -> int:
         "shape": main_shape["shape"],
         "dtype": main_shape["dtype"],
         "launches_frontier": record["frontier_quadratic"]["launches"],
+        "launches_durable": record["durable"]["launches"],
         "frontier": {k: frontier_shape[k] for k in (
             "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "plain_device_ms",
@@ -3437,6 +3849,8 @@ def main() -> int:
         "dtype": swa_time["dtype"],
         "launches_long_context": record["lm"]["b"]["launches"],
         "launches_train": record["train"]["launches"]["swa_attention"],
+        "launches_train_resume": record["train_resume"]["launches_resumed"][
+            "swa_attention"],
     })
     # fused_ce at the train step's token count, width and vocabulary
     ce_time = record["ce_times"][0]
@@ -3451,6 +3865,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/fused_ce/csrc/fused_ce.cu",
         "replaces": "src/repro/kernels/fused_ce/kernel.py:76",
         "launches": record["train"]["launches"]["fused_ce"],
+        "launches_train_resume": record["train_resume"]["launches_resumed"][
+            "fused_ce"],
         "max_abs_err": ce_check["max_abs_err"],
         "ms": ce_time["ms"],
         "plain_ms": ce_time["plain_ms"],

@@ -113,13 +113,15 @@ def batch_iterator(cfg: ModelConfig, shape: InputShape, *,
                    num_agents: int = 1, seed: int = 0,
                    global_batch: Optional[int] = None,
                    seq_len: Optional[int] = None,
-                   device: DeviceLike = "cuda"
+                   device: DeviceLike = "cuda", start: int = 0
                    ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite deterministic batch stream on ``device``: batch ``k``
-    from :func:`step_generator` ``(seed, k)``, every batch from one
-    bigram table drawn when the stream starts."""
+    from :func:`step_generator` ``(seed, k)`` for ``k = start, start +
+    1, ...`` (a resumed run sees the batches the unbroken one would
+    have), every batch from one bigram table drawn when the stream
+    starts."""
     logits = markov_logits(cfg.vocab_size, table_generator(device))
-    step = 0
+    step = start
     while True:
         yield lm_batch(cfg, shape, step_generator(seed, step, device),
                        num_agents=num_agents, global_batch=global_batch,

@@ -1,53 +1,185 @@
-"""FleetSession — the fleet serving loop on the card.
+"""FleetSession — the long-running fleet serving loop on the card (port
+of ``repro.launch.session``).
 
-The port of ``repro.launch.session``'s ``FleetSession.run`` and
-``build_linreg_fleet_session``: continuous per-round observation batches
-fed into the triggered train step, with every round's metrics folded
-into a :class:`~repro_torch.comm.rollup.CommRollup`.
+A fleet of agents streams observations into a learner indefinitely,
+with budgets monitored over time.  A ``FleetSession`` is that loop:
+continuous per-round observation batches fed into the triggered train
+step, with every round's metrics folded into a live
+:class:`~repro_torch.comm.rollup.CommRollup` that HTTP scrapes and file
+sinks read while training runs.
 
 Overlap discipline (the double buffer): round k is dispatched to the
 card (PyTorch returns before the device finishes), round k+1's batch is
 drawn while the device works, and only then are round k's metrics
-pulled to the host.  The batch for round k comes from a
-``torch.Generator`` seeded from ``(seed, k)``, so a run is reproducible
-round by round; tests inject ``batch_fn`` to feed JAX-drawn batches.
+pulled to the host.  Round k's batch is ``batch_fn(k)``, keyed by the
+absolute round index: the builder draws it from a ``torch.Generator``
+seeded from ``(seed + 1, k)``, and tests inject ``batch_fn`` to feed
+JAX-drawn batches.
 
-Checkpointing, the watchdog, the telemetry HTTP server and the
-``serve.py`` CLI are not ported yet.
+Run modes:
+
+* ``run(rounds)`` — blocking loop, ``rounds=0`` means until ``stop()``.
+* ``start()`` / ``stop()`` — the same loop on a daemon thread, for
+  embedding under a CLI that also serves HTTP.  Every caller that
+  starts the thread calls ``stop()``, so no CUDA work is left running
+  when the interpreter exits.
+
+``serve_telemetry()`` attaches a :class:`TelemetryServer` exposing
+``/stats.json`` (rollup snapshot) and ``/metrics`` (Prometheus text);
+``python -m repro_torch.launch.serve --fleet`` is the CLI around all of
+this.
+
+Durability: a :class:`SessionOptions` with ``ckpt_dir`` set arms
+crash-safe checkpointing through ``repro_torch.checkpoint``, in the JAX
+package's format — every ``ckpt_every`` rounds the TrainState, the PRNG
+key, the round index and the rollup's state are written atomically, and
+a relaunched session auto-resumes from the latest complete checkpoint
+(either package's) with the same observation stream (the batches are
+keyed by the restored round index) and monotone rollup counters.
+``watchdog_timeout`` arms a :class:`Watchdog` that flags stalled rounds
+as a ``"stall"`` degradation event without killing the loop.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
+from repro_torch import random as prng
 from repro_torch.comm.rollup import CommRollup
 from repro_torch.data.synthetic import step_generator
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import not_ported, todo
 
-_SERVING_ITEM = "queue 1 item 9"
+
+@dataclasses.dataclass(frozen=True)
+class SessionOptions:
+    """Durability knobs for a :class:`FleetSession`.
+
+    ckpt_dir:
+        Checkpoint directory; ``None`` (default) disables checkpointing
+        and resume entirely.
+    ckpt_every:
+        Write a checkpoint every N completed rounds (0 = only explicit
+        :meth:`FleetSession.checkpoint` calls).
+    resume:
+        Auto-restore from the latest complete checkpoint under
+        ``ckpt_dir`` at construction time (no-op when none exists).
+    watchdog_timeout:
+        Seconds without a completed round before the watchdog records a
+        ``"stall"`` degradation event (0 disables the watchdog).
+    """
+
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    resume: bool = True
+    watchdog_timeout: float = 0.0
+
+
+class Watchdog:
+    """Flags stalled rounds as rollup degradation events.
+
+    The serving loop calls :meth:`beat` after every completed round;
+    :meth:`check` compares the time since the last beat against
+    ``timeout`` and records one ``"stall"`` event per stall episode
+    (re-armed by the next beat) — the session keeps running, the event
+    stream is the signal.  ``check`` takes an explicit ``now`` so tests
+    drive it synchronously; :meth:`start` runs it on a daemon thread.
+    """
+
+    def __init__(self, rollup: CommRollup, timeout: float, *,
+                 clock=time.monotonic):
+        self.rollup = rollup
+        self.timeout = float(timeout)
+        self._clock = clock
+        self._last = clock()
+        self._flagged = False
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def beat(self) -> None:
+        self._last = self._clock()
+        self._flagged = False
+
+    def check(self, now: Optional[float] = None) -> bool:
+        """Returns True iff this call newly flagged a stall."""
+        now = self._clock() if now is None else now
+        if not self._flagged and now - self._last > self.timeout:
+            self._flagged = True
+            self.rollup.record_degradation("stall")
+            return True
+        return False
+
+    def start(self) -> None:
+        def _loop():
+            while not self._stop.wait(max(self.timeout / 4.0, 0.01)):
+                self.check()
+
+        self._thread = threading.Thread(
+            target=_loop, name="fleet-watchdog", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(5.0)
+            self._thread = None
 
 
 class FleetSession:
     """Continuous train-on-arrival loop over a triggered train step.
 
-    ``step_fn(state, batch) -> (state, metrics)`` is the train step;
-    ``batch_fn(k) -> batch`` draws round ``k``'s per-agent observations;
-    every round's metrics (pulled to numpy) stream into ``rollup`` and
-    then, if given, ``on_round(k, metrics)``.
+    Parameters
+    ----------
+    step_fn:
+        The ``(state, batch) -> (state, metrics)`` train step
+        (``make_triggered_train_step`` output).
+    state:
+        Initial TrainState (``init_train_state``).
+    batch_fn:
+        ``batch_fn(k) -> batch`` — round ``k``'s per-agent observation
+        batch, keyed by the absolute round index.
+    rollup:
+        The :class:`CommRollup` every round's metrics stream into.
+    key:
+        A ``repro_torch.random`` key (default ``PRNGKey(0)``), the JAX
+        session's observation key.  The port's batches do not read it;
+        it travels in the checkpoint so that both packages' checkpoints
+        hold the same leaves.
+    on_round:
+        Optional ``on_round(round_index, metrics_dict)`` host callback
+        (logging, file sinks); runs outside the rollup lock.
+    options:
+        :class:`SessionOptions` durability knobs.  When ``ckpt_dir`` is
+        set and ``resume`` is on, construction restores the latest
+        complete checkpoint (state, key, round index, rollup) before the
+        first round runs.
     """
 
     def __init__(self, step_fn: Callable, state, batch_fn: Callable,
-                 rollup: CommRollup, *,
-                 on_round: Optional[Callable] = None):
+                 rollup: CommRollup, *, key: Optional[torch.Tensor] = None,
+                 on_round: Optional[Callable] = None,
+                 options: Optional[SessionOptions] = None):
         self._step = step_fn
         self._state = state
         self._batch_fn = batch_fn
         self.rollup = rollup
+        self._key = key if key is not None else prng.PRNGKey(0)
         self._on_round = on_round
+        self.options = options or SessionOptions()
         self._round = 0
+        self._watchdog: Optional[Watchdog] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        if self.options.ckpt_dir and self.options.resume:
+            self._try_resume()
 
     @property
     def state(self):
@@ -61,29 +193,212 @@ class FleetSession:
 
     @property
     def round_index(self) -> int:
-        """The next round to run (== rounds completed)."""
+        """The next round to run (== rounds completed this lineage,
+        across restarts)."""
         return self._round
 
-    def run(self, rounds: int) -> int:
-        """Run ``rounds`` more rounds; returns the number run."""
-        if rounds <= 0:
-            raise todo("serving until stop() (rounds=0)", _SERVING_ITEM)
-        k, target = self._round, self._round + rounds
-        batch = self._batch_fn(k)
-        while k < target:
-            # 1. dispatch round k (returns before the card finishes)
-            self._state, metrics = self._step(self._state, batch)
-            # 2. draw round k+1's observations in the card's shadow
-            if k + 1 < target:
-                batch = self._batch_fn(k + 1)
-            # 3. pull round k's metrics (waits for the card), roll up
-            metrics = {name: v.cpu().numpy() for name, v in metrics.items()}
-            self.rollup.update(metrics)
-            if self._on_round is not None:
-                self._on_round(k, metrics)
-            k += 1
-            self._round = k
-        return rounds
+    # -- durability ----------------------------------------------------
+
+    def _ckpt_tree(self):
+        """The tree a session checkpoint round-trips: the full TrainState
+        and the key's two words as uint32, as the JAX session writes
+        ``key_data`` of its key."""
+        return {"state": self._state,
+                "key": self._key.cpu().numpy().astype(np.uint32)}
+
+    def checkpoint(self) -> Optional[int]:
+        """Atomically persist the session at its current round (the state
+        is pulled to the host: one sync); returns the checkpoint step
+        (the round index) or None when disabled."""
+        if not self.options.ckpt_dir:
+            return None
+        extra = {"round": self._round, "rollup": self.rollup.state_dict()}
+        ckpt.save(self.options.ckpt_dir, self._round, self._ckpt_tree(),
+                  extra=extra)
+        return self._round
+
+    def _try_resume(self) -> None:
+        step = ckpt.latest_step(self.options.ckpt_dir)
+        if step is None:
+            return
+        tree = ckpt.restore(self.options.ckpt_dir, self._ckpt_tree(),
+                            step=step)
+        extra = ckpt.read_manifest(
+            self.options.ckpt_dir, step=step).get("extra") or {}
+        self._state = tree["state"]
+        self._key = torch.from_numpy(tree["key"].astype(np.int64)).to(
+            self._key.device)
+        self._round = int(extra.get("round", step))
+        if extra.get("rollup"):
+            self.rollup.load_state(extra["rollup"])
+        self.rollup.record_restart()
+
+    def run(self, rounds: int = 0) -> int:
+        """Blocking serve loop; returns the number of rounds executed.
+
+        ``rounds=N`` runs N MORE rounds from the current (possibly
+        resumed) position; ``rounds=0`` runs until :meth:`stop` is
+        called (or KeyboardInterrupt).  The observation stream is keyed
+        by absolute round index, so a resumed session consumes exactly
+        the batches the killed one would have.  ``ckpt_every`` counts
+        rounds from this call's start.
+        """
+        opts = self.options
+        start = self._round
+        target = 0 if rounds == 0 else start + rounds
+        k = start
+        if opts.watchdog_timeout > 0:
+            self._watchdog = Watchdog(self.rollup, opts.watchdog_timeout)
+            self._watchdog.start()
+        try:
+            batch = self._batch_fn(k)
+            while not self._stop.is_set() and (target == 0 or k < target):
+                # 1. dispatch round k (returns before the card finishes)
+                self._state, metrics = self._step(self._state, batch)
+                # 2. draw round k+1's observations in the card's shadow
+                if target == 0 or k + 1 < target:
+                    batch = self._batch_fn(k + 1)
+                # 3. pull round k's metrics (waits for the card), roll up
+                metrics = {name: v.cpu().numpy()
+                           for name, v in metrics.items()}
+                self.rollup.update(metrics)
+                if self._watchdog is not None:
+                    self._watchdog.beat()
+                if self._on_round is not None:
+                    self._on_round(k, metrics)
+                k += 1
+                self._round = k
+                if (opts.ckpt_dir and opts.ckpt_every > 0
+                        and (k - start) % opts.ckpt_every == 0):
+                    self.checkpoint()
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+        return k - start
+
+    # -- thread mode ---------------------------------------------------
+
+    def start(self, rounds: int = 0) -> None:
+        """Run the serve loop on a daemon thread."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError("session already running")
+        self._stop.clear()
+
+        def _target():
+            try:
+                self.run(rounds)
+            except BaseException as e:  # surfaced by stop()
+                self._error = e
+
+        self._thread = threading.Thread(
+            target=_target, name="fleet-session", daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: float = 30.0) -> None:
+        """Signal the loop to finish its round and join the thread;
+        re-raises the thread's error."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def serve_telemetry(self, port: int = 0) -> "TelemetryServer":
+        """Start an HTTP telemetry endpoint over this session's rollup."""
+        server = TelemetryServer(self.rollup, port=port)
+        server.start()
+        return server
+
+
+# ----------------------------------------------------------------------
+# telemetry sinks
+# ----------------------------------------------------------------------
+
+
+class TelemetryServer:
+    """Threaded HTTP exporter: ``/stats.json`` + Prometheus ``/metrics``.
+
+    ``port=0`` binds an ephemeral port (read it back from ``.port``).
+    """
+
+    def __init__(self, rollup: CommRollup, *, port: int = 0,
+                 host: str = "127.0.0.1"):
+        self.rollup = rollup
+        roll = rollup
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib casing)
+                if self.path in ("/", "/stats.json", "/stats"):
+                    body = roll.to_json().encode()
+                    ctype = "application/json"
+                elif self.path == "/metrics":
+                    body = roll.to_prometheus().encode()
+                    ctype = "text/plain; version=0.0.4"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # quiet scrape spam
+                pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self.host = host
+        self.port = int(self._httpd.server_address[1])
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="fleet-telemetry",
+            daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(5.0)
+            self._thread = None
+
+
+def file_sink(path: str, rollup: CommRollup, every: int = 50):
+    """An ``on_round`` callback writing rollup snapshots to ``path``.
+
+    A whole snapshot is written each ``every`` rounds via replace, so a
+    concurrent reader never sees a torn file.
+    """
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+
+    def _write():
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            f.write(rollup.to_json())
+        os.replace(tmp, path)
+
+    def _cb(k, metrics):
+        if (k + 1) % every == 0:
+            _write()
+
+    _cb.flush = _write
+    return _cb
+
+
+# ----------------------------------------------------------------------
+# scenario builder: the m=64 tiered linreg fleet
+# ----------------------------------------------------------------------
 
 
 def build_linreg_fleet_session(
@@ -91,6 +406,7 @@ def build_linreg_fleet_session(
     device: DeviceLike = "cuda", window: int = 64,
     clock: Callable[[], float] = time.monotonic,
     on_round: Optional[Callable] = None,
+    options: Optional[SessionOptions] = None,
     batch_fn: Optional[Callable] = None,
     churn: Optional[Tuple[Tuple[int, int], ...]] = None,
 ) -> FleetSession:
@@ -110,7 +426,9 @@ def build_linreg_fleet_session(
     ``churn_schedule(net, rounds)``).  ``cfg_lr`` defaults to
     ``TIERED_M64_CFG``.  The problem is drawn from ``seed`` and round
     ``k``'s batch from ``(seed + 1, k)``; ``batch_fn(k)`` replaces that
-    stream when given.
+    stream when given.  ``options`` arms checkpointing, resume and the
+    watchdog; the session's key is ``PRNGKey(seed + 1)``, as the JAX
+    builder's.
     """
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.paper_linreg import (
@@ -161,11 +479,6 @@ def build_linreg_fleet_session(
         tier_index=net.tier_index(),
         budgets=net.budgets(),
         window=window, clock=clock)
-    return FleetSession(step_fn, state, batch_fn, rollup, on_round=on_round)
-
-
-__getattr__ = not_ported(__name__, {
-    name: _SERVING_ITEM
-    for name in ("SessionOptions", "Watchdog", "TelemetryServer",
-                 "file_sink")
-})
+    return FleetSession(step_fn, state, batch_fn, rollup,
+                        key=prng.PRNGKey(seed + 1), on_round=on_round,
+                        options=options)

@@ -21,7 +21,12 @@ lookahead probe through the ``swa_attention`` and ``fused_ce`` kernels.
 Weights come from ``--seed``; batches from one bigram stream on the
 device.  Metrics reach the host only on log steps; the transmission and
 wire-byte totals are summed on the device and read once at the end.
-Checkpoints (``--ckpt-dir``/``--resume``) are not ported yet.
+
+``--ckpt-dir`` writes the bare ``TrainState`` every ``--ckpt-every``
+steps and after the last one, in the JAX package's checkpoint format
+(either package restores it); ``--resume`` continues from the latest
+checkpoint there at its step, on the batches the unbroken run would
+have drawn.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.configs.base import InputShape, TriggerConfig
 from repro_torch.core.api import init_train_state
@@ -40,7 +46,6 @@ from repro_torch.models import build
 from repro_torch.models.transformer import dtype_of
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.todo import todo
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -102,9 +107,6 @@ def _legacy_comm_spec(args) -> str:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    if args.ckpt_dir or args.resume:
-        raise todo("training checkpoints (--ckpt-dir/--resume)",
-                   "queue 1 item 9")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -135,13 +137,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                            dtype=dtype_of(args.dtype))
     opt = opt_lib.from_config(plan.train_cfg)
     state = init_train_state(params, opt, plan.train_cfg, device=dev)
+
+    start = 0
+    if args.resume and args.ckpt_dir and checkpointer.latest_step(args.ckpt_dir):
+        state = checkpointer.restore(args.ckpt_dir, state)
+        start = int(state.step)
+        print(f"resumed from step {start}")
     batches = D.batch_iterator(cfg, shape, num_agents=plan.num_agents,
-                               seed=args.seed, device=dev)
+                               seed=args.seed, device=dev, start=start)
 
     # summed on the device in float64, as the JAX CLI sums host floats
     tx_total = bytes_total = torch.zeros((), dtype=torch.float64, device=dev)
     t0 = time.time()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         state, m = step_fn(state, next(batches))
         tx_total = tx_total + m["num_tx"]
         bytes_total = bytes_total + m["wire_bytes"]
@@ -150,13 +158,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"comm_rate {float(m['comm_rate']):.2f}  "
                   f"gain {float(m['mean_gain']):+.2e}  "
                   f"|g| {float(m['grad_norm']):.3f}  "
-                  f"({(time.time()-t0)/(step+1):.2f}s/step)", flush=True)
+                  f"({(time.time()-t0)/(step-start+1):.2f}s/step)",
+                  flush=True)
+        if args.ckpt_every and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            checkpointer.save(args.ckpt_dir, step + 1, state)
 
-    total_rounds = args.steps * plan.num_agents
+    total_rounds = (args.steps - start) * plan.num_agents
     tx, wire = float(tx_total), float(bytes_total)
-    print(f"\ndone: {args.steps} steps, transmissions {tx:.0f}/"
+    print(f"\ndone: {args.steps - start} steps, transmissions {tx:.0f}/"
           f"{total_rounds} ({100 * tx / max(total_rounds, 1):.1f}% of dense), "
           f"effective wire {wire / 1e6:.2f} MB")
+    if args.ckpt_dir:
+        checkpointer.save(args.ckpt_dir, args.steps, state)
+        print(f"checkpoint -> {args.ckpt_dir}")
 
 
 if __name__ == "__main__":

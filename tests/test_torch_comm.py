@@ -99,8 +99,9 @@ def test_spec_errors():
 def test_unported_stages_raise_with_roadmap_pointer():
     """Every compressor and channel stage is ported now: ``randk`` builds
     and compresses, and ``budget_dual`` given a channel's delivery draw
-    prices DELIVERED transmissions (its signal EWMA sees α × d).  What
-    is still unported raises with its ROADMAP item."""
+    prices DELIVERED transmissions (its signal EWMA sees α × d).  The
+    session's durability knobs are ported too; what is still unported
+    (the HLO lowering) raises with its ROADMAP item."""
     chain = CommPolicy.parse("always|randk(0.1)").chain()
     out = chain.compress(torch.arange(40.0).reshape(2, 20))
     assert ((out != 0).sum(1) == 2).all()
@@ -113,10 +114,13 @@ def test_unported_stages_raise_with_roadmap_pointer():
     np.testing.assert_allclose(rows[:, 1].numpy(), [0.1, 0.0])
     assert CommPolicy.parse("always @ bernoulli(p=0.2)").needs_net
     assert not CommPolicy.parse("always @ ideal").needs_net
-    from repro_torch.launch import session
+    from repro_torch.launch import session, steps
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        session.SessionOptions
+    opts = session.SessionOptions(ckpt_dir="ckpt", ckpt_every=5)
+    assert (opts.ckpt_every, opts.resume, opts.watchdog_timeout) == (
+        5, True, 0.0)
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        steps.lower_for
 
 
 def test_policy_resolution_and_kernel_flag():

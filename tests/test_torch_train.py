@@ -52,6 +52,7 @@ from repro.models import layers as JL
 from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
 from repro_torch import convert
+from repro_torch.checkpoint import checkpointer
 from repro_torch.comm import CommPolicy, from_train_config
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import InputShape, TrainConfig, TriggerConfig
@@ -460,9 +461,16 @@ def test_train_cli_on_the_cpu(capsys):
                      r"dense\), effective wire \d+\.\d\d MB$", out, re.M), out
 
 
-def test_train_cli_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train_cli.main(["--device", "cpu", "--reduced", "--ckpt-dir", "x"])
+def test_train_cli_raises_for_what_is_not_ported(tmp_path, capsys):
+    """``--ckpt-dir`` is ported (it writes the bare TrainState at the
+    last step; resume is held in tests/test_torch_session.py);
+    microbatching still raises with its ROADMAP item."""
+    train_cli.main(["--device", "cpu", "--reduced", "--steps", "1",
+                    "--seq", "8", "--batch", "2", "--ckpt-dir",
+                    str(tmp_path)])
+    assert f"checkpoint -> {tmp_path}" in capsys.readouterr().out
+    manifest = checkpointer.read_manifest(str(tmp_path))
+    assert manifest["step"] == 1 and manifest["paths"][0] == ".step"
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         train_cli.main(["--device", "cpu", "--reduced", "--steps", "1",
                         "--seq", "8", "--batch", "2", "--microbatches", "2"])
