@@ -128,7 +128,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               the first metro agent crashed by a ``FaultInjector`` for
               rounds 60–139: ``agent_tx`` 0 in each.
 4. swa      — holds ``swa_attention`` against its plain version on the
-              card in fp32 (2e-5) and bf16 (3e-2): the served shapes, one
+              card in fp32 (2e-5) and bf16 (3e-2): the served shapes
+              (with the moe and hybrid families'), one
               hd = 128 shape, the JAX tests' S × W grid and the tensor-core
               tiles' edges (S = 1000 at hd = 128, S = 77 with W = 5); a
               repeated launch is bitwise equal, a head-major tensor viewed
@@ -139,7 +140,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               through the plain version, and ``torch.func.vmap`` over 3
               slices is ONE launch, bitwise equal to a loop of three.
    ce       — holds ``fused_ce`` against its plain version on the card at
-              the tensor-core tiles' edges (T, D, V) ∈ {(129, 100, 129),
+              the moe and hybrid train losses' shapes, the tensor-core
+              tiles' edges (T, D, V) ∈ {(129, 100, 129),
               (1000, 100, 50257), (257, 200, 49153)} and over
               T ∈ {64, 1000, 8192}, D ∈ {64, 576, 3072}, V ∈ {7, 1000,
               49152, 50257, 128256}, fp32 and bf16 (1e-5 + 1e-5·|plain|:
@@ -189,6 +191,38 @@ Phases (any failure exits nonzero; no result line is printed then):
               ``swa_attention`` launched as often per step as in the
               unbroken run (the checkpoints live under ``build/`` and are
               removed).
+   moe      — mixtral-8x7b at full width cut to 4 of its 32 layers
+              (6.07 B parameters, fp32, weights from seed 0) served
+              through the serving CLI's prefill and greedy decode: batch
+              4, prompt 1024, 32 tokens; 4 ``swa_attention`` launches in
+              the prefill (GQA 32/8, hd 128, W 4096 ≥ S) and none in
+              decode, finite logits, prefill ms, decode ms per step,
+              tokens/s, peak memory, and the (token, k) pairs each
+              layer's prefill drops past capacity; decode against a fresh
+              prefill at capacity factor E/K (no pair dropped: at the
+              served factor a longer prefill drops other pairs); then 1
+              layer at 64 tokens on the card and the CPU: logits within
+              1e-4, the routed expert ids equal except at near-ties, the
+              greedy tokens equal.
+   moe train — mixtral-8x7b at full width, 1 layer, through the training
+              CLI's step: m = 2, global batch 2 × 1024, the [train]
+              policy; 1 warm-up and 3 timed steps, 2 ``fused_ce`` and 2
+              ``swa_attention`` launches per step, finite losses and
+              router aux, ms per step, tokens/s, peak memory; the last
+              step run twice from one state bitwise equal (per-leaf
+              checksums); one step with d_ff_expert narrowed to 1024 on
+              the card and the CPU under [train]'s rules.
+   hybrid   — zamba2-1.2b at full width and depth (38 Mamba2 layers, 7
+              sites of the shared attention block, fp32, seed 0):
+              batch 4, a 256-token prompt replayed through decode, 32
+              tokens; no kernel launch in prefill or decode; prefill ms,
+              decode ms per step, tokens/s, peak memory; decode against
+              a fresh replay; 64 tokens on the card and the CPU.
+   hybrid train — zamba2-1.2b at full width cut to 12 layers (2 sites),
+              m = 2, global batch 2 × 512: 4 ``swa_attention`` (2 sites,
+              loss and probe) and 2 ``fused_ce`` launches per step, ms
+              per step, peak memory; a 2-layer step on the card and the
+              CPU.
 6. times    — ``gain_reduce``'s, its plain version's and
               ``torch.linalg.vecdot``'s times at each shape beside the
               bytes-over-bandwidth bound: per call by CUDA events (median
@@ -196,7 +230,9 @@ Phases (any failure exits nonzero; no result line is printed then):
               profiler, whose trace must hold as many device records as
               the calls make (counted in one-call traces; a short trace is
               taken again, and the tenth fails the run).
-7. swa times — the same for ``swa_attention`` at the two served shapes,
+7. swa times — the same for ``swa_attention`` at the served shapes
+              (smollm's two, mixtral's (4, 1024, 32, 8, 128) W 4096,
+              zamba2's training (2, 512, 32, 32, 64) W = S),
               fp32 and bf16, beside its plain version,
               ``scaled_dot_product_attention`` with the same boolean mask
               and the GQA heads expanded (timed only, never on the path),
@@ -206,8 +242,9 @@ Phases (any failure exits nonzero; no result line is printed then):
               parts, at the bf16 rate) and the fp32 CUDA cores' (67
               TFLOP/s), each with the kernel's share of it.  Only the
               path's bound goes into the ``kernels`` record.
-   ce times — the same for ``fused_ce`` at (8192, 576, 49152) and (4096,
-              3072, 128256), fp32 and bf16, beside its plain version,
+   ce times — the same for ``fused_ce`` at (8192, 576, 49152), (4096,
+              3072, 128256) and the moe and hybrid train losses' (2048,
+              4096, 32000) and (1024, 2048, 32000), fp32 and bf16, beside its plain version,
               ``F.cross_entropy(x @ table.T, labels, reduction="none")``
               and both bounds (``bf16-mma``: flops at the bf16 rate).
 8. profile  — 20 more fleet rounds under torch.profiler (device ops,
@@ -221,7 +258,14 @@ Phases (any failure exits nonzero; no result line is printed then):
               (a): the kernel's share of the prefill's device time and
               the device's idle share in decode; then one train step:
               device time by kernel, device ops and idle share; then one
-              simulator sweep: device time, device ops and idle share.
+              simulator sweep: device time, device ops and idle share;
+              then one [hybrid train] step with each SSD call a
+              synchronized range (the SSD forward's device time, one SSD
+              call's forward and forward + backward timed alone, the
+              SSD's share of the step estimated from them, the peak
+              against the decay tiles); then one [moe] prefill with each
+              MoE layer a range: the expert GEMMs' and the dispatch's
+              device time against the prefill's.
 
 Before the last line come the ``{"kernels": [...]}`` record (each kernel
 with its arithmetic path, ``tf32x3``, ``bf16-mma`` or ``fp32-fma``, and
@@ -306,9 +350,13 @@ BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 494.7e12
 
 # swa_attention shapes (B, S, H, KV, hd, W): the two the LM runs serve
-# (smollm-135m's 9 query and 3 kv heads of 64), one hd = 128 shape, and
+# (smollm-135m's 9 query and 3 kv heads of 64) and the moe and hybrid
+# families' (timed too), one hd = 128 shape, and
 # the JAX tests' grid (W = 2^30 is plain causal attention)
-SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096))
+SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096),
+              # mixtral's served prefill (GQA 32/8, hd 128, W 4096 ≥ S)
+              # and zamba2's shared block in training (W = S)
+              (4, 1024, 32, 8, 128, 4096), (2, 512, 32, 32, 64, 512))
 SWA_CHECK = SWA_SERVED + ((1, 2048, 24, 8, 128, 512),) + tuple(
     (2, s, 4, 2, 64, w) for s in (64, 200, 384) for w in (32, 128, 1 << 30))
 # the tensor-core tiles' edges: S not a multiple of the 64-row tiles with
@@ -339,7 +387,9 @@ LM_PROFILED_STEPS = 16
 CE_T = (64, 1000, 8192)
 CE_D = (64, 576, 3072)
 CE_V = (7, 1000, 49152, 50257, 128256)
-CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256))
+CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256),
+            # mixtral's and zamba2's train losses (m = 2 agents' tokens)
+            (2048, 4096, 32000), (1024, 2048, 32000))
 # the tensor-core tiles' edges: T and V not multiples of the 128-row and
 # 128-entry tiles, and D not a multiple of the 32 (fp32) or 64 (bf16)
 # columns of a k-chunk (D = 100 in bf16 is also off the 16-byte copies)
@@ -380,6 +430,43 @@ TRAIN_RESUME = dict(TRAIN, layers=4, steps=4, every=2)
 # fp32 forward and backward of 2 layers and a 49152-way softmax, sums in
 # other orders on the card and the CPU
 TRAIN_TOL = 1e-4
+
+# the moe family: mixtral-8x7b at full width (46.7 B parameters, 187 GB
+# in fp32, so the depth is cut): [moe] serves 4 of its 32 layers (6.07 B
+# parameters, 24.3 GB) through the serving CLI's functions, and holds 1
+# layer (1.71 B, 6.85 GB) on the card against the CPU
+MOE_ARCH = "mixtral-8x7b"
+MOE_SERVE = dict(layers=4, batch=4, prompt=1024, gen=32)
+MOE_CHECK = dict(layers=1, batch=2, prompt=64, gen=8)
+# [moe train]: 1 layer at full width through the training CLI's step, m =
+# 2 (the gradients, EF memories and lookahead probes are 6 trees of the
+# 6.85 GB parameters), global batch 2 × 1024; its card-vs-CPU step narrows
+# the experts (d_ff_expert only) so that the CPU step stays short
+MOE_TRAIN = dict(layers=1, agents=2, batch=2, seq=1024, warmup=1, timed=3)
+MOE_TRAIN_CHECK_FF = 1024
+# router probabilities within this (relative) of each other are a
+# near-tie that a last-bit gap between card and CPU may flip
+ROUTE_TIE = 1e-5
+# the hybrid family: zamba2-1.2b at full width and depth (38 Mamba2
+# layers, 7 sites of the shared attention block; 1.17 B parameters in
+# the init) served by replay; trained at full width cut to 12 layers (2
+# sites), global batch 2 × 512 (the SSD keeps (m, L, L, h) decay tiles of
+# 33.6 MB per chunk and layer for the backward); its card-vs-CPU step at
+# 2 layers (1 site)
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_SERVE = dict(batch=4, prompt=256, gen=32)
+HYBRID_CHECK = dict(batch=2, prompt=64, gen=8)
+HYBRID_TRAIN = dict(layers=12, agents=2, batch=2, seq=512, warmup=1,
+                    timed=3)
+HYBRID_TRAIN_CHECK_LAYERS = 2
+# card vs CPU through 38 recurrent layers: the two devices' roundings
+# part as a last-bit change of the weights does, and this model amplifies
+# one far more than smollm-135m's 30 layers (on the CPU at reduced width
+# 2.5e-5 against 1.4e-6; on the H100 at full width 2.1e-4, beside a
+# card-vs-CPU gap of 2.8e-4), so its logits are held to LM_LOGIT_TOL plus
+# this many times the card's own last-bit sensitivity, measured in the
+# same run
+HYBRID_SENS_FACTOR = 4
 
 
 def nvidia_smi() -> str:
@@ -2784,14 +2871,21 @@ def _swa_grad_and_vmap(torch, swa_ops, swa_ref, gen) -> dict:
 
 
 def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
-            label: str) -> dict:
+            label: str, tag: str = "lm", check_decode: bool = True) -> dict:
     """One served batch through the serving CLI's prefill and greedy
-    decode: warm-up, then the counted and timed run, then decode against
-    a fresh prefill of the same tokens."""
+    decode: warm-up, then the counted and timed run, then (with
+    ``check_decode``) decode against a fresh prefill of the same tokens.
+    An attention model's prefill launches ``swa_attention`` once per
+    layer; the hybrid's replays the prompt through decode (no launch)
+    and returns the last position's logits."""
     b, s = prompts.shape
+    hybrid = model.cfg.arch_type == "hybrid"
     cache_len = s + gen + 8
-    toks, _, cache = serve.prefill_prompt(model, params, prompts, cache_len)
-    serve.decode_tokens(model, params, cache, toks, s, 2)
+    # warm-up (the hybrid's replay is a loop of decode steps: a few warm
+    # every op it runs)
+    warm = prompts[:, :16] if hybrid else prompts
+    toks, _, cache = serve.prefill_prompt(model, params, warm, cache_len)
+    serve.decode_tokens(model, params, cache, toks, warm.shape[1], 2)
     del toks, cache
     torch.cuda.synchronize()
 
@@ -2807,13 +2901,13 @@ def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = swa_ops.swa_attention.launches
-    layers = model.cfg.num_layers
+    layers = 0 if hybrid else model.cfg.num_layers
     if in_prefill != layers or launches != layers:
         raise AssertionError(
             f"LM run ({label}): swa_attention launched {in_prefill} times "
             f"in the prefill and {launches - in_prefill} in decode (want "
             f"{layers} and 0)")
-    if logits.shape != (b, s, model.cfg.vocab_size):
+    if logits.shape != (b, 1 if hybrid else s, model.cfg.vocab_size):
         raise AssertionError(f"LM run ({label}): logits {logits.shape}")
     if not (bool(torch.isfinite(logits).all())
             and bool(torch.isfinite(last).all())):
@@ -2824,13 +2918,18 @@ def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
     # decode through the cache against a prefill of prompt + the tokens
     # fed to decode: the last decode step's logits are that prefill's
     # last row, where the cache holds every position (no window)
-    full = torch.cat([prompts, tokens[:, :-1].to(prompts.dtype)], 1)
-    ref_logits, _ = model.prefill(params, {"tokens": full},
-                                  cache_len=full.shape[1])
-    gap = (last - ref_logits[:, -1]).abs().max().item()
-    del ref_logits
     window = model.cfg.swa_window
-    exact = window is None or s % window == 0
+    gap = None
+    if check_decode:
+        full = torch.cat([prompts, tokens[:, :-1].to(prompts.dtype)], 1)
+        ref_logits, _ = model.prefill(params, {"tokens": full},
+                                      cache_len=full.shape[1])
+        gap = (last - ref_logits[:, -1]).abs().max().item()
+        del ref_logits
+    # exact where the ring buffer never overwrites a live key: no window,
+    # S a multiple of it, or a cache that never wraps
+    exact = check_decode and (window is None or s % window == 0
+                              or cache_len <= window)
     if exact and not gap <= LM_LOGIT_TOL * (1 + last.abs().max().item()):
         raise AssertionError(f"LM run ({label}): decode differs from a "
                              f"fresh prefill by {gap:.3e}")
@@ -2845,25 +2944,31 @@ def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
            "decode_vs_prefill_max_abs": gap,
            "decode_vs_prefill_checked": exact,
            "first_tokens": tokens[0, :8].tolist()}
-    note = ("" if exact else " (not checked: the reference's ring buffer "
-            "overwrites a live key when S % W ≠ 0, ROADMAP §3)")
-    print(f"[lm] ({label}) B={b} S={s} W={window}: swa_attention launches "
-          f"{in_prefill} in prefill, {launches - in_prefill} in decode; "
-          f"prefill {row['prefill_ms']:.2f} ms "
+    if not check_decode:
+        tail = " (decode checked separately)"
+    else:
+        note = ("" if exact else " (not checked: the reference's ring "
+                "buffer overwrites a live key when S % W ≠ 0, ROADMAP §3)")
+        tail = f"; decode vs fresh prefill max |gap| {gap:.3e}{note}"
+    print(f"[{tag}] ({label}) B={b} S={s} W={window}: swa_attention "
+          f"launches {in_prefill} in prefill, {launches - in_prefill} in "
+          f"decode; prefill {row['prefill_ms']:.2f} ms "
           f"({row['prefill_tokens_per_s']:.0f} tok/s); decode "
           f"{row['decode_ms_per_step']:.3f} ms/step "
-          f"({row['decode_tokens_per_s']:.1f} tok/s); decode vs fresh "
-          f"prefill max |gap| {gap:.3e}{note}")
+          f"({row['decode_tokens_per_s']:.1f} tok/s){tail}")
     return row
 
 
-def _card_vs_cpu(torch, serve, model, params, prompts) -> dict:
+def _card_vs_cpu(torch, serve, model, params, prompts,
+                 gen: int = LM_CHECK["gen"], tag: str = "lm",
+                 extra_tol: float = 0.0) -> dict:
     """The same weights and prompts through the port on the card (the
-    kernels) and on the CPU (their plain versions)."""
+    kernels) and on the CPU (their plain versions): prefill logits within
+    ``LM_LOGIT_TOL`` + ``LM_LOGIT_TOL``·|cpu| (+ ``extra_tol``), greedy
+    tokens equal."""
     from repro_torch.utils.tree import tree_map
 
     b, s = prompts.shape
-    gen = LM_CHECK["gen"]
     runs = {}
     for where, p, x in (("card", params, prompts),
                         ("cpu", tree_map(lambda t: t.cpu(), params),
@@ -2875,7 +2980,8 @@ def _card_vs_cpu(torch, serve, model, params, prompts) -> dict:
                        time.perf_counter() - t0)
     (lc, tc, _), (lh, th, cpu_s) = runs["card"], runs["cpu"]
     gap = (lc - lh).abs()
-    if not bool((gap <= LM_LOGIT_TOL + LM_LOGIT_TOL * lh.abs()).all()):
+    tol = LM_LOGIT_TOL + extra_tol
+    if not bool((gap <= tol + LM_LOGIT_TOL * lh.abs()).all()):
         raise AssertionError(f"card vs CPU: prefill logits differ by "
                              f"{gap.max().item():.3e}")
     if not torch.equal(tc, th):
@@ -2883,11 +2989,11 @@ def _card_vs_cpu(torch, serve, model, params, prompts) -> dict:
                              f"{th}")
     top2 = lh[:, -1].topk(2, -1).values
     margin = (top2[:, 0] - top2[:, 1]).min().item()
-    print(f"[lm] card vs CPU, B={b} S={s}: prefill logits max |gap| "
-          f"{gap.max().item():.3e} (tol {LM_LOGIT_TOL} + {LM_LOGIT_TOL}"
+    print(f"[{tag}] card vs CPU, B={b} S={s}: prefill logits max |gap| "
+          f"{gap.max().item():.3e} (tol {tol:.3g} + {LM_LOGIT_TOL}"
           f"·|cpu|), {gen} greedy tokens equal; CPU run {cpu_s:.1f} s")
     return {"batch": b, "prompt": s, "gen": gen,
-            "logits_max_abs_gap": gap.max().item(), "tol": LM_LOGIT_TOL,
+            "logits_max_abs_gap": gap.max().item(), "tol": tol,
             "tokens_equal": True, "last_row_top2_margin": margin}
 
 
@@ -3062,6 +3168,20 @@ def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
     print(f"[ce] tile edges {CE_EDGE}, fp32 and bf16: vs plain max "
           f"{max(r['max_abs_err'] for r in results):.3e} within {CE_TOL} + "
           f"{CE_TOL}·|plain|; repeats bitwise equal")
+    for t, d, v in CE_TIMED[2:]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
+            dt = _dtype_name(dtype)
+            err = _ce_check(torch, ce_ops, ce_ref, x, table, labels,
+                            f"fused_ce ({t}, {d}, {v}) {dt}")
+            results.append({"shape": [t, d, v], "dtype": dt,
+                            "max_abs_err": err, "tol": CE_TOL,
+                            "bitwise_repeat": True})
+            del x, table, labels
+        print(f"[ce] the {'moe' if d == 4096 else 'hybrid'} train loss's "
+              f"({t}, {d}, {v}), fp32 and bf16: vs plain max "
+              f"{max(r['max_abs_err'] for r in results[-2:]):.3e} within "
+              f"{CE_TOL} + {CE_TOL}·|plain|; repeats bitwise equal")
     for t in CE_T:
         for d in CE_D:
             for v in CE_V:
@@ -3457,7 +3577,8 @@ def phase_train_resume(torch, ce_ops, swa_ops) -> dict:
 
 
 def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
-                       gains: bool = False) -> dict:
+                       gains: bool = False, small=None,
+                       tag: str = "") -> dict:
     """One step of the model cut to TRAIN_CHECK["layers"] layers at full
     width, from the same weights and batch, on the card and the CPU.
 
@@ -3469,12 +3590,13 @@ def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
     level per agent (lr · level / agents); every other element is held
     to ``TRAIN_TOL`` of its leaf's largest value.  With ``gains`` the
     mean gain is held to ``TRAIN_TOL`` too, beside loss and grad_norm;
-    the gates (num_tx) are equal."""
+    the gates (num_tx) are equal.  ``small`` replaces the cut of
+    ``cfg`` that runs (its layers and, for the experts, their width)."""
     from repro_torch.comm.bank import batch_prologue
     from repro_torch.core.api import init_train_state
     from repro_torch.utils.tree import tree_flatten_with_path, tree_map
 
-    small = cfg.replace(num_layers=TRAIN_CHECK["layers"])
+    small = small or cfg.replace(num_layers=TRAIN_CHECK["layers"])
     agents = TRAIN_CHECK["agents"]
     n = agents * TRAIN_CHECK["per_agent"]
     params = None
@@ -3521,7 +3643,7 @@ def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
                                  f"their largest value")
         tied += int((diff > TRAIN_TOL * scale).sum())
         worst = max(worst, (diff * ~tie.any(0)).max().item() / scale)
-    tag = "[train quadratic]" if gains else "[train]"
+    tag = tag or ("[train quadratic]" if gains else "[train]")
     gain_text = (f", mean gain {float(mh['mean_gain']):.6e} (rel gap "
                  f"{gaps['mean_gain']:.2e})" if gains else "")
     print(f"{tag} card vs CPU, {small.num_layers} layers at full width, "
@@ -3538,6 +3660,641 @@ def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
             "params_max_gap_over_leaf_max": worst, "tol": TRAIN_TOL,
             "int8_boundary_elements_one_level_apart": tied,
             "num_tx": float(mh["num_tx"])}
+
+
+# ----------------------------------------------------------------------
+# the moe and hybrid families
+# ----------------------------------------------------------------------
+
+class _MoERecorder:
+    """Wraps ``repro_torch.models.moe.moe_layer`` (which the model calls
+    through its module) to record each call's routing: the expert ids,
+    the router probabilities and the (token, k) pairs dropped by
+    capacity.  Its own route and dispatch work runs only in the recorded
+    passes, never in a timed or counted run."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls, self._layer = moe, [], moe.moe_layer
+
+    def __enter__(self):
+        moe, layer, calls = self.moe, self._layer, self.calls
+
+        def recorded(p, cfg, x):
+            xt = x.reshape(-1, x.shape[-1])
+            probs, _, experts = moe.route(p, cfg, xt)
+            m = cfg.moe
+            cap = moe.capacity(xt.shape[0], m.experts_per_token,
+                               m.num_experts, m.capacity_factor)
+            slot = moe.dispatch_slots(experts, m.num_experts, cap)
+            kept = slot < m.num_experts * cap
+            calls.append({"experts": experts.cpu(), "probs": probs.cpu(),
+                          "kept": kept.reshape(experts.shape).cpu(),
+                          "cap": cap, "pairs": slot.numel(),
+                          "dropped": int((~kept).sum())})
+            return layer(p, cfg, x)
+
+        moe.moe_layer = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_layer = self._layer
+
+
+def _route_ties(card, cpu) -> int:
+    """Expert ids of one layer on the card against the CPU's: equal,
+    except where the two experts' CPU probabilities lie within ROUTE_TIE
+    (relative) of each other.  Returns the count of such entries."""
+    probs = cpu["probs"]
+    rows, ks = (card["experts"] != cpu["experts"]).nonzero(as_tuple=True)
+    for t, k in zip(rows.tolist(), ks.tolist()):
+        a = probs[t, card["experts"][t, k]].item()
+        b = probs[t, cpu["experts"][t, k]].item()
+        if not abs(a - b) <= ROUTE_TIE * max(a, b):
+            raise AssertionError(f"moe card vs CPU: token {t}, k {k} routed "
+                                 f"to expert {card['experts'][t, k]} vs "
+                                 f"{cpu['experts'][t, k]} (probs {a:.8g}, "
+                                 f"{b:.8g})")
+    return len(rows)
+
+
+def _first_layers(torch, params, n: int):
+    """The parameters of a stacked model's first ``n`` layers (views)."""
+    from repro_torch.utils.tree import tree_map
+
+    return {**params, "blocks": tree_map(lambda t: t[:n], params["blocks"])}
+
+
+def _init_served(torch, cfg, batch: int, prompt: int):
+    """A model of ``cfg`` with weights from seed 0 on the card, and
+    ``batch`` prompts of ``prompt`` tokens from the bigram chain (seed 7)."""
+    from repro_torch.data.synthetic import sample_lm_tokens
+    from repro_torch.models import build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = sample_lm_tokens(torch.Generator(device=dev).manual_seed(7),
+                               batch, prompt, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the stream's bigram table
+    return model, params, prompts
+
+
+def phase_moe(torch, swa_ops) -> dict:
+    """mixtral-8x7b at full width, cut to MOE_SERVE["layers"] layers,
+    served through the serving CLI's prefill and greedy decode; the
+    pairs each layer's prefill drops; decode against a fresh prefill at
+    a capacity that drops nothing; 1 layer on the card against the
+    CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.utils.tree import tree_size
+
+    run = MOE_SERVE
+    cfg = get_config(MOE_ARCH).replace(num_layers=run["layers"])
+    t0 = time.perf_counter()
+    model, params, prompts = _init_served(torch, cfg, run["batch"],
+                                          run["prompt"])
+    n_params = tree_size(params)
+    print(f"[moe] {cfg.name}: {cfg.num_layers} of 32 layers at full width "
+          f"(d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim_}, {cfg.moe.num_experts} experts of "
+          f"{cfg.moe.d_ff_expert}, top {cfg.moe.experts_per_token}, W "
+          f"{cfg.swa_window}, vocab {cfg.vocab_size}), {n_params / 1e9:.3f} "
+          f"B parameters (fp32, seed 0); weights and prompts in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    record = {"arch": cfg.name, "layers": cfg.num_layers,
+              "params": n_params}
+    row = _lm_run(torch, swa_ops, serve, model, params, prompts, run["gen"],
+                  "served", tag="moe", check_decode=False)
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["serve"] = row
+    # the pairs each layer's prefill drops (a recorded pass, not counted)
+    before = swa_ops.swa_attention.launches
+    with _MoERecorder() as rec:
+        model.prefill(params, {"tokens": prompts}, cache_len=run["prompt"])
+    swa_ops.swa_attention.launches = before
+    row["dropped_per_layer"] = [c["dropped"] for c in rec.calls]
+    row["pairs_per_layer"], row["capacity"] = (rec.calls[0]["pairs"],
+                                               rec.calls[0]["cap"])
+    print(f"[moe] prefill: {row['pairs_per_layer']} (token, k) pairs per "
+          f"layer, capacity {row['capacity']} per expert; dropped per "
+          f"layer {row['dropped_per_layer']}; peak memory "
+          f"{row['peak_memory_gb']:.2f} GB")
+    # decode through the cache against a fresh prefill, where no pair is
+    # dropped (capacity factor E / K: an expert can hold every token); at
+    # the served factor a longer prefill drops other pairs, which the
+    # reference's semantics allow
+    moe = cfg.moe
+    full_cap = cfg.replace(moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.experts_per_token))
+    record["no_drop"] = _lm_run(torch, swa_ops, serve, build(full_cap),
+                                params, prompts, run["gen"],
+                                "capacity factor E/K", tag="moe")
+    # the same weights at 1 layer on the card and the CPU
+    chk = MOE_CHECK
+    one = build(cfg.replace(num_layers=chk["layers"]))
+    record["card_vs_cpu"] = _moe_card_vs_cpu(
+        torch, serve, one, _first_layers(torch, params, chk["layers"]),
+        prompts[:chk["batch"], :chk["prompt"]].contiguous(), chk["gen"])
+    return record
+
+
+def _moe_card_vs_cpu(torch, serve, model, params, prompts, gen: int) -> dict:
+    """``_card_vs_cpu`` for a moe model, with each MoE call's routing
+    recorded on both sides: the expert ids equal but at near-ties, the
+    prefill logits within LM_LOGIT_TOL at every position whose pairs
+    went to the same experts and were kept alike (a near-tie flip moves
+    its token, and through capacity the drops of later pairs), and the
+    greedy tokens equal unless a near-tie flipped a route."""
+    from repro_torch.utils.tree import tree_map
+
+    b, s = prompts.shape
+    runs = {}
+    for where, p, x in (("card", params, prompts),
+                        ("cpu", tree_map(lambda t: t.cpu(), params),
+                         prompts.cpu())):
+        t0 = time.perf_counter()
+        with _MoERecorder() as rec:
+            toks, logits, cache = serve.prefill_prompt(model, p, x,
+                                                       s + gen + 8)
+            rest, _ = serve.decode_tokens(model, p, cache, toks, s, gen - 1)
+        runs[where] = (logits.cpu(), torch.cat([toks, rest], 1).cpu(),
+                       rec.calls, time.perf_counter() - t0)
+    (lc, tc, rc, _), (lh, th, rh, cpu_s) = runs["card"], runs["cpu"]
+    layers = model.cfg.num_layers
+    ties = [_route_ties(c, h) for c, h in zip(rc, rh)]
+    alike = torch.ones((b * s,), dtype=torch.bool)
+    for c, h in zip(rc[:layers], rh[:layers]):  # the prefill's calls
+        alike &= ((c["experts"] == h["experts"])
+                  & (c["kept"] == h["kept"])).all(-1)
+    alike = alike.reshape(b, s)
+    gap = (lc - lh).abs()
+    within = (gap <= LM_LOGIT_TOL + LM_LOGIT_TOL * lh.abs()).all(-1)
+    if not bool(within[alike].all()):
+        raise AssertionError(f"moe card vs CPU: prefill logits differ by "
+                             f"{gap[alike].max().item():.3e} where the "
+                             f"routes agree")
+    if not torch.equal(tc, th) and not any(ties):
+        raise AssertionError(f"moe card vs CPU: greedy tokens differ with "
+                             f"every route equal:\n{tc}\n{th}")
+    moved = int((~alike).sum())
+    print(f"[moe] card vs CPU, {layers} layer, B={b} S={s}: expert ids "
+          f"equal but {sum(ties)} near-ties (probabilities within "
+          f"{ROUTE_TIE}) over {len(rc)} MoE calls; prefill logits max "
+          f"|gap| {gap[alike].max().item():.3e} at the {int(alike.sum())} "
+          f"positions routed alike (tol {LM_LOGIT_TOL} + {LM_LOGIT_TOL}"
+          f"·|cpu|; {moved} moved by a flip, max |gap| "
+          f"{gap.max().item():.3e}); {gen} greedy tokens "
+          f"{'equal' if torch.equal(tc, th) else 'differ after a near-tie'}"
+          f"; CPU run {cpu_s:.1f} s")
+    return {"layers": layers, "batch": b, "prompt": s, "gen": gen,
+            "route_near_ties": sum(ties), "positions_moved": moved,
+            "logits_max_abs_gap_alike": gap[alike].max().item(),
+            "logits_max_abs_gap": gap.max().item(), "tol": LM_LOGIT_TOL,
+            "tokens_equal": torch.equal(tc, th)}
+
+
+def _checksums(torch, tree) -> list:
+    """Per leaf, the sum of its 32-bit words (bitwise-equal leaves give
+    equal sums): a repeatability check that holds no second state."""
+    from repro_torch.utils.tree import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        if not isinstance(t, torch.Tensor):  # the host-int step
+            out.append(t)
+            continue
+        if t.dtype == torch.float32:
+            t = t.contiguous().view(torch.int32)
+        out.append(int(t.long().sum()))
+    return out
+
+
+def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
+                  swa_per_step: int, repeat: bool = False):
+    """The training CLI's step for ``cfg`` on the card: warm-up and timed
+    steps on one stream's batches, each step's launches, losses, ms and
+    peak memory; with ``repeat`` the last step runs twice from one state
+    and must give bitwise-equal states.  Returns (record, step, state,
+    batches, mean ms)."""
+    from repro_torch.core.api import init_train_state
+    from repro_torch.data.synthetic import batch_iterator
+    from repro_torch.utils.tree import tree_size
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    agents, gbatch, seq = run["agents"], run["batch"], run["seq"]
+    plan, shape, step, model, opt = _train_parts(cfg, agents, gbatch, seq,
+                                                 dev)
+    steps = run["warmup"] + run["timed"]
+    stream = batch_iterator(cfg, shape, num_agents=agents, seed=0, device=dev)
+    batches = [next(stream) for _ in range(steps + 1)]  # +1: the profile
+    del stream  # the stream's bigram table
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = init_train_state(params, opt, plan.train_cfg, device=dev)
+    del params
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    n_params = tree_size(state.params)
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers at full width, "
+          f"{n_params / 1e9:.3f} B parameters (fp32, seed 0); {agents} "
+          f"agents × {gbatch // agents} × {seq} tokens, "
+          f"comm={TRAIN['comm']!r}, sgd lr {TRAIN['lr']}")
+    ce_ops.fused_ce.launches = swa_ops.swa_attention.launches = 0
+    rows, repeat_equal = [], None
+    for k in range(steps):
+        ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
+        prev = state
+        t0 = time.perf_counter()
+        state, m = step(prev, batches[k])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append({"step": k, "ms": dt * 1e3, "loss": float(m["loss"]),
+                     "num_tx": float(m["num_tx"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "fused_ce": ce_ops.fused_ce.launches - ce0,
+                     "swa_attention": swa_ops.swa_attention.launches - swa0})
+        if repeat and k == steps - 1:
+            # the same step again from the same state: bitwise the same
+            # (the MoE combine and every other op of the step use no
+            # float atomics)
+            launches = (ce_ops.fused_ce.launches,
+                        swa_ops.swa_attention.launches)
+            first = _checksums(torch, state) + _checksums(torch, m)
+            del state, m
+            state, m = step(prev, batches[k])
+            repeat_equal = first == (_checksums(torch, state)
+                                     + _checksums(torch, m))
+            ce_ops.fused_ce.launches, swa_ops.swa_attention.launches = \
+                launches
+            if not repeat_equal:
+                raise AssertionError(f"{tag}: the step run twice from one "
+                                     f"state differs")
+        del prev
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"fused_ce": ce_ops.fused_ce.launches,
+                "swa_attention": swa_ops.swa_attention.launches}
+    for r in rows:
+        if r["fused_ce"] != 2 or r["swa_attention"] != swa_per_step:
+            raise AssertionError(
+                f"{tag} step {r['step']}: fused_ce launched {r['fused_ce']} "
+                f"times (want 2: the agents' losses, the lookahead probe), "
+                f"swa_attention {r['swa_attention']} (want {swa_per_step})")
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"{tag}: non-finite loss {r}")
+    timed = [r["ms"] for r in rows[run["warmup"]:]]
+    mean_ms = statistics.mean(timed)
+    for r in rows:
+        print(f"[{tag}] step {r['step']}: {r['ms']:8.2f} ms  loss "
+              f"{r['loss']:.5f}  num_tx {r['num_tx']:.0f}/{agents}  |g| "
+              f"{r['grad_norm']:.4f}  launches fused_ce {r['fused_ce']}, "
+              f"swa_attention {r['swa_attention']}")
+    print(f"[{tag}] {run['timed']} timed steps: {mean_ms:.2f} ms per step "
+          f"({gbatch * seq / (mean_ms / 1e3):.0f} tokens/s); peak memory "
+          f"{peak_gb:.2f} GB ({base_gb:.2f} GB allocated before the steps)"
+          + ("" if repeat_equal is None else
+             "; the last step run twice from one state: bitwise equal"))
+    record = {"arch": cfg.name, "layers": cfg.num_layers,
+              "params": n_params, "agents": agents, "global_batch": gbatch,
+              "seq": seq, "comm": TRAIN["comm"], "lr": TRAIN["lr"],
+              "steps": rows, "ms_per_step": mean_ms,
+              "tokens_per_s": gbatch * seq / (mean_ms / 1e3),
+              "launches": launches, "peak_memory_gb": peak_gb,
+              "allocated_before_gb": base_gb,
+              "repeat_bitwise_equal": repeat_equal}
+    return record, step, state, batches, mean_ms
+
+
+def _check_batch(batches) -> dict:
+    return {k: v[:TRAIN_CHECK["agents"], :TRAIN_CHECK["per_agent"],
+                 :TRAIN_CHECK["seq"]].contiguous()
+            for k, v in batches[0].items()}
+
+
+def phase_moe_train(torch, ce_ops, swa_ops) -> dict:
+    """mixtral-8x7b at full width, 1 layer, through the training CLI's
+    step: m = 2, ``gain_lookahead(lam=0.01)|int8+ef``; the router aux
+    loss finite; the step bitwise repeatable; then one step with the
+    experts narrowed on the card and the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run = MOE_TRAIN
+    cfg = get_config(MOE_ARCH).replace(num_layers=run["layers"])
+    record, step, state, batches, _ = _family_train(
+        torch, ce_ops, swa_ops, cfg, run, "moe train",
+        swa_per_step=2 * run["layers"], repeat=True)
+    from repro_torch.models import build
+
+    before = (ce_ops.fused_ce.launches, swa_ops.swa_attention.launches)
+    one_agent = {k: v[0] for k, v in batches[0].items()}
+    _, aux = build(cfg).forward(state.params, one_agent)
+    ce_ops.fused_ce.launches, swa_ops.swa_attention.launches = before
+    record["router_aux"] = float(aux)
+    if not math.isfinite(record["router_aux"]):
+        raise AssertionError(f"moe train: router aux {record['router_aux']}")
+    print(f"[moe train] after {len(record['steps'])} steps: router aux "
+          f"loss {record['router_aux']:.6f} on the first batch (weight "
+          f"{cfg.moe.router_aux_weight})")
+    check_batch = _check_batch(batches)
+    del step, state, batches
+    torch.cuda.empty_cache()
+    small = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, d_ff_expert=MOE_TRAIN_CHECK_FF))
+    record["card_vs_cpu"] = _train_card_vs_cpu(
+        torch, cfg, check_batch, dev, small=small, tag="[moe train]")
+    record["card_vs_cpu"]["d_ff_expert"] = MOE_TRAIN_CHECK_FF
+    return record
+
+
+def phase_hybrid(torch, swa_ops) -> dict:
+    """zamba2-1.2b at full width and depth served by replay through the
+    serving CLI's prefill and greedy decode (no kernel launch), decode
+    against a fresh replay, and the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import group_bounds
+    from repro_torch.utils.tree import tree_size
+
+    run = HYBRID_SERVE
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    model, params, prompts = _init_served(torch, cfg, run["batch"],
+                                          run["prompt"])
+    n_params = tree_size(params)
+    sites = len(group_bounds(cfg.num_layers, cfg.shared_attn_every))
+    print(f"[hybrid] {cfg.name}: {cfg.num_layers} Mamba2 layers and "
+          f"{sites} sites of the shared attention block, d "
+          f"{cfg.d_model}, state {cfg.ssm.state_dim}, vocab "
+          f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters in the "
+          f"init (param_count() {cfg.param_count() / 1e9:.2f} B, the "
+          f"reference's formula); weights and prompts in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    row = _lm_run(torch, swa_ops, serve, model, params, prompts, run["gen"],
+                  "replay", tag="hybrid")
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[hybrid] peak memory {row['peak_memory_gb']:.2f} GB")
+    chk = HYBRID_CHECK
+    record = {"arch": cfg.name, "layers": cfg.num_layers, "sites": sites,
+              "params": n_params, "param_count": cfg.param_count(),
+              "serve": row}
+    x = prompts[:chk["batch"], :chk["prompt"]].contiguous()
+    sens = _last_bit_sensitivity(torch, serve, model, params, x)
+    record["last_bit_sensitivity"] = sens
+    print(f"[hybrid] the model's own sensitivity on the card: weights "
+          f"scaled by 1 + 2^-23·N(0, 1) move the prefill logits by "
+          f"{sens:.3e} (smollm-135m's 30 layers: ~1e-6 on the CPU)")
+    record["card_vs_cpu"] = _card_vs_cpu(
+        torch, serve, model, params, x, gen=chk["gen"], tag="hybrid",
+        extra_tol=HYBRID_SENS_FACTOR * sens)
+    return record
+
+
+def _last_bit_sensitivity(torch, serve, model, params, prompts) -> float:
+    """How far the prefill logits move on the card when every weight
+    changes in its last bits (× 1 + 2^-23·N(0, 1), seed 13): the scale
+    at which two devices' roundings of the same model part."""
+    from repro_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device=prompts.device).manual_seed(13)
+    shaken = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+        t.shape, generator=gen, device=t.device)), params)
+    s = prompts.shape[1]
+    a = serve.prefill_prompt(model, params, prompts, s + 8)[1]
+    b = serve.prefill_prompt(model, shaken, prompts, s + 8)[1]
+    del shaken
+    return (a - b).abs().max().item()
+
+
+def phase_hybrid_train(torch, ce_ops, swa_ops) -> tuple:
+    """zamba2-1.2b at full width cut to HYBRID_TRAIN["layers"] layers
+    (two sites of the shared block) through the training CLI's step;
+    then one 2-layer step on the card and the CPU.  Returns (record,
+    what its profile needs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import group_bounds
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run = HYBRID_TRAIN
+    cfg = get_config(HYBRID_ARCH).replace(num_layers=run["layers"])
+    sites = len(group_bounds(cfg.num_layers, cfg.shared_attn_every))
+    record, step, state, batches, mean_ms = _family_train(
+        torch, ce_ops, swa_ops, cfg, run, "hybrid train",
+        swa_per_step=2 * sites)
+    record["sites"] = sites
+    small = cfg.replace(num_layers=HYBRID_TRAIN_CHECK_LAYERS)
+    record["card_vs_cpu"] = _train_card_vs_cpu(
+        torch, cfg, _check_batch(batches), dev, small=small,
+        tag="[hybrid train]")
+    return record, (step, state, batches[-1], mean_ms, record)
+
+
+def _ranges(torch, module, name: str):
+    """Wrap ``module.name`` so that each call is a profiler range that
+    the device has finished (synchronized on entry and exit): the
+    kernels a call launches run inside its range.  Returns the undo."""
+    from torch.profiler import record_function
+
+    fn = getattr(module, name)
+
+    def ranged(*a, **k):
+        torch.cuda.synchronize()
+        with record_function(f"chip_smoke::{name}"):
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+        return out
+
+    setattr(module, name, ranged)
+    return lambda: setattr(module, name, fn)
+
+
+def _kernels(prof):
+    """The device records (name, µs) of a trace without the device-side
+    copies of the ``chip_smoke::`` ranges (a profiler range also shows
+    on the device as an annotation spanning its kernels)."""
+    return [(n, t) for n, t in _device_intervals(prof)
+            if not n.startswith("chip_smoke::")]
+
+
+def _in_ranges(prof, name: str):
+    """The device kernels (name, µs) that ran inside the host ranges
+    ``chip_smoke::name`` of a trace, and the ranges' count."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name == f"chip_smoke::{name}"
+             and e.device_type == DeviceType.CPU]
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("chip_smoke::") and any(
+                   a <= e.time_range.start and e.time_range.end <= b
+                   for a, b in spans)]
+    return kernels, len(spans)
+
+
+GEMM_WORDS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "bmm")
+DISPATCH_WORDS = ("sort", "scatter", "gather", "index", "cat", "copy",
+                  "memcpy", "cumsum", "scan")
+
+
+def phase_moe_profile(torch, served: dict) -> dict:
+    """One prefill of [moe]'s served batch under torch.profiler, each
+    MoE layer a synchronized range: the device time of the layers' expert
+    products (GEMMs), of their dispatch (sort, scatters, gathers, copies)
+    and of the rest of the layer, against the whole prefill's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    run = MOE_SERVE
+    cfg = get_config(MOE_ARCH).replace(num_layers=run["layers"])
+    model, params, prompts = _init_served(torch, cfg, run["batch"],
+                                          run["prompt"])
+    model.prefill(params, {"tokens": prompts}, cache_len=run["prompt"])
+    torch.cuda.synchronize()
+    undo = _ranges(torch, moe, "moe_layer")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, {"tokens": prompts},
+                          cache_len=run["prompt"])
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    total = sum(t for _, t in _kernels(prof)) / 1e3
+    kernels, calls = _in_ranges(prof, "moe_layer")
+    if calls != cfg.num_layers or not kernels:
+        raise AssertionError(f"moe profile: {calls} ranges, "
+                             f"{len(kernels)} kernels in them")
+    parts = {"experts_gemm": 0.0, "dispatch": 0.0, "other": 0.0}
+    by_name: dict = {}
+    for n, t in kernels:
+        low = n.lower()
+        key = ("experts_gemm" if any(w in low for w in GEMM_WORDS) else
+               "dispatch" if any(w in low for w in DISPATCH_WORDS) else
+               "other")
+        parts[key] += t / 1e3
+        by_name[n] = by_name.get(n, 0.0) + t / 1e3
+    moe_ms = sum(parts.values())
+    record = {"prefill_device_ms": total, "moe_device_ms": moe_ms,
+              **{f"{k}_ms": v for k, v in parts.items()},
+              **{f"{k}_share_of_prefill": v / total
+                 for k, v in parts.items()},
+              "prefill_ms_unprofiled": served["prefill_ms"],
+              "moe_top": [{"name": n, "ms": t} for n, t in sorted(
+                  by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    print(f"[profile] moe prefill: {total:.3f} ms on the device; the "
+          f"{calls} MoE layers {moe_ms:.3f} ms: expert GEMMs "
+          f"{parts['experts_gemm']:.3f} ({parts['experts_gemm'] / total:.1%}"
+          f" of the prefill), dispatch {parts['dispatch']:.3f} "
+          f"({parts['dispatch'] / total:.2%}), other {parts['other']:.3f} "
+          f"({parts['other'] / total:.2%}); unprofiled prefill "
+          f"{served['prefill_ms']:.2f} ms")
+    for item in record["moe_top"]:
+        print(f"[profile]   moe {item['ms']:9.3f} ms  {item['name'][:90]}")
+    return record
+
+
+def phase_hybrid_profile(torch, step, state, batch, step_ms: float,
+                         train: dict) -> dict:
+    """One [hybrid train] step under torch.profiler with each SSD call a
+    synchronized range: the SSD forward's device time against the
+    step's (its backward runs in the autograd engine, outside the
+    ranges); then one SSD call's forward and forward + backward at the
+    step's shapes timed alone (``device_ms``), the SSD's share of the
+    step estimated from them; and the peak memory against the
+    parameter-sized trees and the decay tiles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
+    cfg_layers = train["layers"]
+    undo = _ranges(torch, ssm, "ssd_chunked")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    ivals = _kernels(prof)
+    busy = sum(t for _, t in ivals) / 1e3
+    kernels, calls = _in_ranges(prof, "ssd_chunked")
+    ssd_fwd_ms = sum(t for _, t in kernels) / 1e3
+    # one SSD call at the step's shapes: b = 1 per agent, vmapped over m
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    s = cfg.ssm
+    agents, seq = train["agents"], train["seq"]
+    heads = s.expand * cfg.d_model // s.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    xh = rnd(agents, 1, seq, heads, s.head_dim)
+    dt = torch.nn.functional.softplus(rnd(agents, 1, seq, heads))
+    A = -torch.exp(rnd(heads) * 0.5)
+    B, C = rnd(agents, 1, seq, s.state_dim), rnd(agents, 1, seq, s.state_dim)
+    w = rnd(agents, 1, seq, heads, s.head_dim)
+
+    def loss(xh, dt, B, C, w):
+        y, _ = ssm.ssd_chunked(xh, dt, A, B, C, s.chunk_size)
+        return (y * w).sum()
+
+    fwd = torch.func.vmap(loss)
+    fwd_bwd = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3)))
+    t_f = device_ms(torch, lambda: fwd(xh, dt, B, C, w), calls=5)
+    t_fb = device_ms(torch, lambda: fwd_bwd(xh, dt, B, C, w), calls=5)
+    # per step: each layer's SSD forward + backward (the loss) and forward
+    # (the probe)
+    est = cfg_layers * (t_fb + t_f)
+    chunks = seq // s.chunk_size if seq % s.chunk_size == 0 else 1
+    L = s.chunk_size if seq % s.chunk_size == 0 else seq
+    tile_gb = agents * L * L * heads * 4 / 1e9
+    p_gb = train["params"] * 4 / 1e9
+    record = {"step_device_ms": busy, "device_ops": len(ivals),
+              "step_ms_unprofiled": step_ms, "step_ms_profiled": wall_ms,
+              "idle_share": 1.0 - busy / step_ms,
+              "ssd_calls": calls, "ssd_forward_device_ms": ssd_fwd_ms,
+              "ssd_forward_share": ssd_fwd_ms / busy,
+              "ssd_call_forward_ms": t_f, "ssd_call_fwd_bwd_ms": t_fb,
+              "ssd_share_estimated": est / busy,
+              "decay_tile_gb": tile_gb, "chunks": chunks,
+              "params_gb": p_gb, "peak_memory_gb": train["peak_memory_gb"]}
+    print(f"[profile] hybrid train step: {busy:.2f} ms on the device in "
+          f"{len(ivals)} device ops against the unprofiled {step_ms:.2f} ms "
+          f"-> idle share {record['idle_share']:.3f} (the profiled step, "
+          f"its SSD calls synchronized, {wall_ms:.2f} ms); SSD forward "
+          f"{ssd_fwd_ms:.2f} ms in {calls} calls "
+          f"({record['ssd_forward_share']:.1%}); one SSD call alone "
+          f"(m = {agents}, S {seq}): forward {t_f:.3f} ms, forward + "
+          f"backward {t_fb:.3f} ms -> the SSD's share of the step "
+          f"≈ {cfg_layers} × ({t_fb:.3f} + {t_f:.3f}) / {busy:.2f} = "
+          f"{record['ssd_share_estimated']:.1%}")
+    print(f"[profile] hybrid train memory: peak {train['peak_memory_gb']:.2f}"
+          f" GB; the parameters {p_gb:.2f} GB (× m = {agents} per "
+          f"per-agent tree); one (m, L, L, h) decay tile {tile_gb * 1e3:.1f}"
+          f" MB per chunk ({chunks} chunks × {cfg_layers} layers: "
+          f"{tile_gb * chunks * cfg_layers:.2f} GB per tile kept)")
+    return record
 
 
 def ce_bound(t: int, d: int, v: int, itemsize: int):
@@ -3766,6 +4523,11 @@ def main() -> int:
     record["train_quadratic"] = phase_train_quadratic(
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches)
     record["train_resume"] = phase_train_resume(torch, ce_ops, swa_ops)
+    record["moe"] = phase_moe(torch, swa_ops)
+    record["moe_train"] = phase_moe_train(torch, ce_ops, swa_ops)
+    record["hybrid"] = phase_hybrid(torch, swa_ops)
+    record["hybrid_train"], hybrid_run = phase_hybrid_train(torch, ce_ops,
+                                                            swa_ops)
     # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
     record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
@@ -3788,6 +4550,10 @@ def main() -> int:
     record["train_profile"] = phase_train_profile(torch, step, state,
                                                   batches[-1], step_ms)
     record["sim_profile"] = phase_sim_profile(torch, *sim_run)
+    record["hybrid_profile"] = phase_hybrid_profile(torch, *hybrid_run)
+    del hybrid_run
+    torch.cuda.empty_cache()
+    record["moe_profile"] = phase_moe_profile(torch, record["moe"]["serve"])
     record["seconds"] = time.perf_counter() - t_start
 
     main_shape = record["times"][0]
@@ -3851,6 +4617,12 @@ def main() -> int:
         "launches_train": record["train"]["launches"]["swa_attention"],
         "launches_train_resume": record["train_resume"]["launches_resumed"][
             "swa_attention"],
+        "launches_moe": record["moe"]["serve"]["launches"],
+        "launches_moe_train": record["moe_train"]["launches"][
+            "swa_attention"],
+        "launches_hybrid": record["hybrid"]["serve"]["launches"],
+        "launches_hybrid_train": record["hybrid_train"]["launches"][
+            "swa_attention"],
     })
     # fused_ce at the train step's token count, width and vocabulary
     ce_time = record["ce_times"][0]
@@ -3866,6 +4638,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_ce/kernel.py:76",
         "launches": record["train"]["launches"]["fused_ce"],
         "launches_train_resume": record["train_resume"]["launches_resumed"][
+            "fused_ce"],
+        "launches_moe_train": record["moe_train"]["launches"]["fused_ce"],
+        "launches_hybrid_train": record["hybrid_train"]["launches"][
             "fused_ce"],
         "max_abs_err": ce_check["max_abs_err"],
         "ms": ce_time["ms"],

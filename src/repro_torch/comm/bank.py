@@ -63,17 +63,41 @@ from repro_torch.utils.tree import tree_map
 AgentEpilogue = Callable[..., tuple]
 
 
-def batch_prologue(loss_fn: Callable) -> Callable:
+def _grad_fn(loss_fn: Callable, aux_loss_fn: Optional[Callable]):
+    """``(params, batch) -> (grads, loss)``: the gradient of the
+    objective ``loss_fn + aux_loss_fn`` (of ``loss_fn`` alone without an
+    aux) and the value of ``loss_fn``, as the JAX package's
+    ``objective``: the aux term shapes the update, never the reported
+    loss or the trigger's gain."""
+    if aux_loss_fn is None:
+        return torch.func.grad_and_value(loss_fn)
+
+    def objective(params, batch):
+        main = loss_fn(params, batch)
+        return main + aux_loss_fn(params, batch), main
+
+    grad_fn = torch.func.grad_and_value(objective, has_aux=True)
+
+    def grads_and_main(params, batch):
+        grads, (_, main) = grad_fn(params, batch)
+        return grads, main
+
+    return grads_and_main
+
+
+def batch_prologue(loss_fn: Callable,
+                   aux_loss_fn: Optional[Callable] = None) -> Callable:
     """Phase 1 of the hybrid dispatch: the per-agent gradient of
-    ``loss_fn(params, agent_batch) -> scalar``, batched over agents.
+    ``loss_fn(params, agent_batch) -> scalar`` (plus ``aux_loss_fn``'s,
+    when given), batched over agents.
 
     Returns ``prologue(params, batch) -> (losses (A,), grads)`` — the
     user loss under ``torch.func.vmap`` of ``torch.func.grad_and_value``
     (the JAX package's ``vmap(value_and_grad)``), with ``params`` shared
     and every ``batch`` leaf split on its leading agent axis.
     """
-    grad_fn = torch.func.grad_and_value(loss_fn)
-    batched = torch.func.vmap(grad_fn, in_dims=(None, 0))
+    batched = torch.func.vmap(_grad_fn(loss_fn, aux_loss_fn),
+                              in_dims=(None, 0))
 
     def prologue(params, batch):
         grads, losses = batched(params, batch)
@@ -82,7 +106,8 @@ def batch_prologue(loss_fn: Callable) -> Callable:
     return prologue
 
 
-def agent_prologue(loss_fn: Callable) -> Callable:
+def agent_prologue(loss_fn: Callable,
+                   aux_loss_fn: Optional[Callable] = None) -> Callable:
     """The per-agent gradient of the ``switch``/``unroll`` dispatch
     loops: ``loss_fn``'s ``torch.func.grad_and_value`` on ONE agent's
     batch, unbatched (the JAX package's per-agent ``value_and_grad``).
@@ -91,7 +116,7 @@ def agent_prologue(loss_fn: Callable) -> Callable:
     ``agent_batch`` leaves carry a leading axis of one agent, and so do
     the loss and every gradient leaf, so the result is a one-agent block
     for the agent-batched stages."""
-    grad_fn = torch.func.grad_and_value(loss_fn)
+    grad_fn = _grad_fn(loss_fn, aux_loss_fn)
 
     def prologue(params, agent_batch):
         grads, loss = grad_fn(params, tree_map(lambda v: v[0], agent_batch))

@@ -2,26 +2,35 @@
 the JAX package's).
 
 ``get_config(arch_id)`` resolves ``--arch`` names.  The port carries the
-four dense architectures; the other families' ids are known and raise
-until their model code is ported.  ``reduced(cfg)`` is the smoke-test
+dense, moe (mixtral, kimi-k2) and hybrid (zamba2) architectures; the
+other families' ids are known and raise until their model code is
+ported.  ``reduced(cfg)`` is the smoke-test
 variant of the same family (a copy of ``repro.configs.reduced``).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepseek_7b, llama3_2_3b, qwen3_32b, smollm_135m
+from repro_torch.configs import (
+    deepseek_7b,
+    kimi_k2_1t,
+    llama3_2_3b,
+    mixtral_8x7b,
+    qwen3_32b,
+    smollm_135m,
+    zamba2_1_2b,
+)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.utils.todo import todo
 
 _REGISTRY = {
     m.CONFIG.name: m.CONFIG
-    for m in (deepseek_7b, qwen3_32b, llama3_2_3b, smollm_135m)
+    for m in (deepseek_7b, kimi_k2_1t, llama3_2_3b, mixtral_8x7b, qwen3_32b,
+              smollm_135m, zamba2_1_2b)
 }
 
-# the JAX package's other architectures: moe, ssm, hybrid, vlm and audio
-_NOT_PORTED = ("kimi-k2-1t-a32b", "mixtral-8x7b", "phi-3-vision-4.2b",
-               "whisper-medium", "xlstm-350m", "zamba2-1.2b")
+# the JAX package's other architectures: vlm, audio and ssm (xlstm)
+_NOT_PORTED = ("phi-3-vision-4.2b", "whisper-medium", "xlstm-350m")
 
 ARCH_IDS = tuple(sorted(_REGISTRY))
 

@@ -3,7 +3,7 @@
 Inputs are the JAX package's values with numpy-convertible leaves
 (``np.asarray`` of a JAX array, or ``jax.device_get`` output): a
 ``TrainState``, a ``Problem``, a round's batch, an LM's parameters and
-KV cache.  Nothing here imports
+serving cache.  Nothing here imports
 JAX; the objects are read through their attributes and ``np.asarray``.
 """
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.api import TrainState
 from repro_torch.core.regression import Problem
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import MambaState
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -104,8 +105,15 @@ def params_from_jax(params, *, device: DeviceLike = "cuda"):
     return to_torch(params, device)
 
 
-def cache_from_jax(cache, *, device: DeviceLike = "cuda") -> KVCache:
-    """A JAX ``KVCache`` (per layer, or stacked on a layer axis) as the
-    port's."""
+def cache_from_jax(cache, *, device: DeviceLike = "cuda"):
+    """A JAX serving cache as the port's: a ``KVCache`` (per layer, or
+    stacked on a layer axis), or the hybrid's ``{"mamba": MambaState,
+    "attn": KVCache}`` (states stacked over layers, caches over
+    shared-attention sites)."""
+    if isinstance(cache, Mapping):
+        m = cache["mamba"]
+        return {"mamba": MambaState(ssm=to_torch(m.ssm, device),
+                                    conv=to_torch(m.conv, device)),
+                "attn": cache_from_jax(cache["attn"], device=device)}
     return KVCache(k=to_torch(cache.k, device), v=to_torch(cache.v, device),
                    pos_ids=to_torch(cache.pos_ids, device))

@@ -98,7 +98,13 @@ from repro_torch.core.aggregation import masked_mean
 from repro_torch.net import channels as net_lib
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import not_ported, todo
-from repro_torch.utils.tree import tree_add_scaled, tree_leaves, tree_map
+from repro_torch.utils.tree import (
+    tree_add_scaled,
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 METRIC_KEYS = ("loss", "comm_rate", "any_tx", "num_tx", "mean_gain",
                "grad_norm", "wire_bytes")
@@ -258,7 +264,33 @@ def _block_index(rows: Tuple[int, ...], device: torch.device):
     return torch.tensor(rows, dtype=torch.long, device=device)
 
 
-def _check_options(opts: StepOptions, cfg: TrainConfig, aux_loss_fn):
+def _compress_leafwise(chain, skeleton, leaves: list, memory, alphas,
+                       delivered):
+    """The homogeneous round's payloads ``C(g + ef)`` and new EF memory
+    (None without ``memory``), leaf by leaf with the tree functions' own
+    ops.  ``leaves`` is the gradient tree flattened by
+    ``tree_flatten_with_path`` (``skeleton`` its structure); each entry
+    is released once used, so of the per-agent trees (each m × the
+    parameters: ~14 GB for an m = 2 step of one mixtral layer) one leaf
+    of ``g + ef`` is live beside the results, where whole-tree ops would
+    hold the gradients and ``g + ef`` too."""
+    mem = None if memory is None else dict(tree_flatten_with_path(memory))
+    sent, resid = [], []
+    for i in range(len(leaves)):
+        path, g = leaves[i]
+        leaves[i] = None
+        g_eff = ef_add(g, None if mem is None else mem[path])
+        del g
+        s = chain.compress_tree(g_eff)
+        sent.append(s)
+        if mem is not None:
+            resid.append(ef_residual(g_eff, s, alphas, delivered=delivered))
+        del g_eff, s
+    return (tree_unflatten(skeleton, sent),
+            None if mem is None else tree_unflatten(skeleton, resid))
+
+
+def _check_options(opts: StepOptions, cfg: TrainConfig):
     if opts.mesh is not None:
         raise todo("the fleet-sharded step (StepOptions.mesh)",
                    "queue 1 item 11")
@@ -267,8 +299,6 @@ def _check_options(opts: StepOptions, cfg: TrainConfig, aux_loss_fn):
             f"churn schedule has {len(opts.churn)} entries but "
             f"num_agents={cfg.num_agents}"
         )
-    if aux_loss_fn is not None:
-        raise todo("auxiliary losses (aux_loss_fn)", "queue 1 item 10")
     if cfg.microbatches > 1:
         raise todo("microbatched gradients (TrainConfig.microbatches)",
                    "queue 1 item 10")
@@ -293,6 +323,9 @@ def make_triggered_train_step(
     leading agent axis (size ``cfg.num_agents``) of every batch leaf.
     ``policy`` is a :class:`CommPolicy`, a spec string or a per-agent
     sequence of either; omitted, it resolves from ``cfg.comm``.
+    ``aux_loss_fn(params, batch) -> scalar`` (e.g. an MoE load-balance
+    term) is added to the differentiated objective, in every dispatch
+    path, but not to the reported loss or the trigger's gain.
     A trigger's ``kernel=true`` option routes its reductions through the
     ``gain_reduce`` kernel.  ``oracle`` is the ``(Σ, w*)`` pair the
     ``gain_exact`` trigger requires.
@@ -308,7 +341,7 @@ def make_triggered_train_step(
     """
     dev = resolve_device(device)
     opts = options or StepOptions()
-    _check_options(opts, cfg, aux_loss_fn)
+    _check_options(opts, cfg)
     agent_metrics = opts.agent_metrics
     resolved = normalize_policy(resolve_policy(cfg, policy), cfg.num_agents)
     hetero: Optional[Tuple[CommPolicy, ...]] = (
@@ -320,8 +353,8 @@ def make_triggered_train_step(
         # bank: the payload line's epilogue lives in one place
         hetero = (resolved,) * cfg.num_agents
     dispatch = opts.hetero_dispatch
-    prologue = batch_prologue(loss_fn)
-    per_agent_grad = agent_prologue(loss_fn)
+    prologue = batch_prologue(loss_fn, aux_loss_fn)
+    per_agent_grad = agent_prologue(loss_fn, aux_loss_fn)
 
     if hetero is None:
         trigger = resolved.build_trigger(loss_fn=loss_fn, probe_eps=cfg.lr,
@@ -575,10 +608,14 @@ def make_triggered_train_step(
                 alphas, gains = trigger(params, grads, batch, losses, step,
                                         eff_scale)
             if chain:
-                g_eff = ef_add(grads, state.ef_memory if use_ef else None)
-                sent = chain.compress_tree(g_eff)
-                new_ef = (ef_residual(g_eff, sent, alphas, delivered=ds)
-                          if use_ef else state.ef_memory)
+                skeleton = tree_map(lambda _: None, grads)
+                flat = tree_flatten_with_path(grads)
+                grads = None  # the list holds the gradient leaves now
+                sent, new_ef = _compress_leafwise(
+                    chain, skeleton, flat,
+                    state.ef_memory if use_ef else None, alphas, ds)
+                if not use_ef:
+                    new_ef = state.ef_memory
             else:
                 sent, new_ef = grads, state.ef_memory
             if use_net:
@@ -615,13 +652,14 @@ def make_triggered_train_step(
 
         # eq. (10) over what was DELIVERED (the decisions, when lossless)
         agg = masked_mean(sent, delivereds)
-        updates, opt_state = optimizer.update(agg, state.opt_state, params,
-                                              step)
-        new_params = tree_add_scaled(params, updates, 1.0)
         # wire ratios against the gradients' native dtype width
         db = dense_bits(sent)
         sb = structural_bytes(sent, per_agent=True)
         de = dense_entries(sent, per_agent=True)
+        sent = None  # the payloads' memory is free for the update
+        updates, opt_state = optimizer.update(agg, state.opt_state, params,
+                                              step)
+        new_params = tree_add_scaled(params, updates, 1.0)
         ratios = tuple(
             c.ratio_for(db, entries=de) if c else 1.0 for c in chains
         )

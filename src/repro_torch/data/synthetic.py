@@ -93,8 +93,10 @@ def lm_batch(cfg: ModelConfig, shape: InputShape, gen: torch.Generator,
              ) -> Dict[str, torch.Tensor]:
     """One training batch on ``gen``'s device: ``tokens`` and ``labels``
     (the tokens shifted by one), int32, shaped ``(num_agents,
-    per_agent_batch, S)``.  ``logits`` is the stream's bigram table."""
-    if cfg.arch_type != "dense":
+    per_agent_batch, S)``, for the dense, moe and hybrid families (as
+    the JAX package draws them).  ``logits`` is the stream's bigram
+    table."""
+    if cfg.arch_type not in ("dense", "moe", "hybrid"):
         raise todo(f"{cfg.arch_type!r} batches", "queue 1 item 10")
     b = global_batch or shape.global_batch
     s = seq_len or shape.seq_len

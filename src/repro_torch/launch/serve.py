@@ -111,7 +111,7 @@ def sampler(temperature: float, gen: torch.Generator) -> Callable:
 def prefill_prompt(model: Model, params, prompts: torch.Tensor,
                    cache_len: int, pick: Callable = greedy):
     """Run the prompts; returns (first new tokens (B, 1), prefill logits
-    (B, S, V), cache)."""
+    (B, S, V), or (B, 1, V) for a recurrent (hybrid) prefill, cache)."""
     logits, cache = model.prefill(params, {"tokens": prompts},
                                   cache_len=cache_len)
     return pick(logits[:, -1]), logits, cache

@@ -1,6 +1,6 @@
 """End-to-end training entry point: event-triggered data-parallel training of
-a dense LM on the deterministic synthetic token stream (port of
-``repro.launch.train``).
+an LM (the dense, moe and hybrid families) on the deterministic synthetic
+token stream (port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --reduced --steps 200 --comm "gain_lookahead(lam=0.01)"

@@ -9,7 +9,8 @@ documentation.
 
 Draws come from one explicit ``torch.Generator``; parameters land on its
 device.  The init distributions are the JAX package's (``normal`` scaled
-by ``1/sqrt(fan_in)`` or ``scale``, ``ones``, ``zeros``), the draws are
+by ``1/sqrt(fan_in)`` or ``scale``, ``ones``, ``zeros``, ``small_uniform``
+on [−0.05, 0.05)), the draws are
 not: weights that must equal the JAX package's are carried across with
 ``repro_torch.convert.params_from_jax``.
 """
@@ -19,8 +20,6 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
-
-from repro_torch.utils.todo import todo
 
 
 class Scope:
@@ -60,8 +59,9 @@ class Scope:
         elif init == "ones":
             value = torch.ones(full, dtype=self.dtype, device=dev)
         elif init == "small_uniform":
-            raise todo("the small_uniform init (ssm/xlstm families)",
-                       "queue 1 item 10")
+            value = (torch.rand(full, generator=self._gen, device=dev,
+                                dtype=torch.float32) * 0.1 - 0.05
+                     ).to(self.dtype)
         else:
             raise ValueError(f"unknown init {init!r}")
         self.params[name] = value

@@ -1,9 +1,17 @@
-"""The model stack, dense family (port of ``repro.models.transformer``).
+"""The model stack, dense, moe and hybrid families (port of
+``repro.models.transformer``).
 
-Pre-norm decoder blocks (GQA attention + SwiGLU) over a stacked
-parameter layer axis.  A Python loop over that axis replaces the JAX
-package's ``lax.scan``; ``constrain_params`` (a sharding annotation) has
-no counterpart on one card.  The causal self-attention runs the
+* dense / moe — pre-norm decoder blocks (GQA attention + SwiGLU, or the
+  sort-dispatched experts of :mod:`repro_torch.models.moe`) over a
+  stacked parameter layer axis; the router aux loss is summed over the
+  layers.
+* hybrid (zamba2) — stacked Mamba2 blocks (:mod:`repro_torch.models.ssm`)
+  with one *shared-weight* attention block applied after every group of
+  ``shared_attn_every`` layers; its gradient sums over its sites.
+
+A Python loop over the layer axis replaces the JAX package's
+``lax.scan``; ``constrain_params`` (a sharding annotation) has no
+counterpart on one card.  Every causal self-attention runs the
 ``swa_attention`` kernel (:func:`repro_torch.models.attention.attention`).
 
 Public entry points: ``init`` / ``forward`` / ``loss_fn``.  The loss
@@ -21,6 +29,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ce.ops import fused_ce_nll
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (
     build_embedding,
     build_rms_norm,
@@ -34,12 +44,12 @@ from repro_torch.models.param import Scope, init_pair
 from repro_torch.utils.todo import not_ported, todo
 from repro_torch.utils.tree import tree_map
 
-DENSE = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 
 
-def check_dense(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig) -> None:
     """Raise for the families whose model code is not ported yet."""
-    if cfg.arch_type not in DENSE:
+    if cfg.arch_type not in PORTED_FAMILIES:
         raise todo(f"the {cfg.arch_type!r} model family", "queue 1 item 10")
 
 
@@ -63,7 +73,10 @@ def _build_attn_block(scope: Scope, cfg: ModelConfig):
 
 def _build_ff(scope: Scope, cfg: ModelConfig):
     build_rms_norm(scope, "ln_ff", cfg.d_model)
-    build_swiglu(scope.sub("mlp"), cfg.d_model, cfg.d_ff)
+    if cfg.moe is not None:
+        MOE.build_moe(scope.sub("moe"), cfg)
+    else:
+        build_swiglu(scope.sub("mlp"), cfg.d_model, cfg.d_ff)
 
 
 def _build_decoder_block(scope: Scope, cfg: ModelConfig):
@@ -75,9 +88,10 @@ def _attn_out(p, o):
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
 
 
-def _self_attn(p, cfg, x, positions):
+def _self_attn(p, cfg, x, positions, *, window="cfg"):
     q, k, v = A.qkv(p["attn"], cfg, x, positions)
-    o = A.attention(q, k, v, causal=True, window=cfg.swa_window,
+    win = cfg.swa_window if window == "cfg" else window
+    o = A.attention(q, k, v, causal=True, window=win,
                     q_block=cfg.attn_q_block)
     return _attn_out(p["attn"], o)
 
@@ -85,6 +99,8 @@ def _self_attn(p, cfg, x, positions):
 def _ff(p, cfg, x):
     """Returns (out, aux)."""
     h = rms_norm(x, p["ln_ff"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return MOE.moe_layer(p["moe"], cfg, h)
     return swiglu(p["mlp"], h), 0.0
 
 
@@ -104,8 +120,12 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
     """Returns (params, logical_axes), drawn from ``gen`` onto its
     device.  The tree, names, shapes and init distributions are the
     JAX package's; the draws are not."""
-    check_dense(cfg)
+    check_family(cfg)
     dtype = dtype or dtype_of(cfg.param_dtype)
+
+    def mamba_block(s: Scope):
+        build_rms_norm(s, "ln", cfg.d_model)
+        SSM.build_mamba2(s.sub("mamba"), cfg)
 
     def build(sc: Scope):
         build_embedding(sc, cfg.vocab_size, cfg.d_model)
@@ -113,8 +133,14 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
             sc.param("out_embed", (cfg.vocab_size, cfg.d_model),
                      ("vocab", "embed"), scale=0.02)
         build_rms_norm(sc, "final_norm", cfg.d_model)
-        sc.stacked("blocks", cfg.num_layers,
-                   lambda s: _build_decoder_block(s, cfg))
+        if cfg.arch_type == "hybrid":
+            sc.stacked("blocks", cfg.num_layers, mamba_block)
+            shared = sc.sub("shared_attn")
+            _build_attn_block(shared, cfg)
+            _build_ff(shared, cfg)
+        else:
+            sc.stacked("blocks", cfg.num_layers,
+                       lambda s: _build_decoder_block(s, cfg))
 
     return init_pair(gen, dtype, build)
 
@@ -128,17 +154,45 @@ def positions_of(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
 
 
+def group_bounds(n_layers: int, every: int):
+    """The hybrid's layer groups ``[(start, end), ...]``: the shared
+    attention block runs after each."""
+    out, s = [], 0
+    while s < n_layers:
+        out.append((s, min(s + every, n_layers)))
+        s += every
+    return out
+
+
+def _shared_block(shared, cfg, x, positions):
+    """The hybrid's shared attention block: causal over the whole
+    sequence (no window), then its SwiGLU."""
+    h = rms_norm(x, shared["ln_attn"], cfg.norm_eps)
+    x = x + _self_attn(shared, cfg, h, positions, window=None)
+    ff, _ = _ff(shared, cfg, x)
+    return x + ff
+
+
 def forward_hidden(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor,
                                                               float, int]:
     """Backbone only. Returns (final hidden (B,S,D), aux_loss, prefix_len)."""
-    check_dense(cfg)
+    check_family(cfg)
     x = embed(params["embedding"], batch["tokens"],
               dtype_of(cfg.compute_dtype))
     positions = positions_of(x)
     aux = 0.0
-    for i in range(cfg.num_layers):
-        x, al = _decoder_block(layer(params["blocks"], i), cfg, x, positions)
-        aux = aux + al
+    if cfg.arch_type == "hybrid":
+        for s, e in group_bounds(cfg.num_layers, cfg.shared_attn_every):
+            for i in range(s, e):
+                lp = layer(params["blocks"], i)
+                x = x + SSM.mamba2_forward(
+                    lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps))
+            x = _shared_block(params["shared_attn"], cfg, x, positions)
+    else:
+        for i in range(cfg.num_layers):
+            x, al = _decoder_block(layer(params["blocks"], i), cfg, x,
+                                   positions)
+            aux = aux + al
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, 0
 
@@ -158,11 +212,9 @@ def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """Mean token CE over the batch's ``loss_mask`` (all tokens without
     one), from the ``fused_ce`` kernel's per-token NLL on the output
-    table: the full (B, S, V) logits never exist."""
-    if cfg.moe is not None:
-        raise todo("the router load-balance aux term of the moe loss",
-                   "queue 1 item 10")
-    x, _, prefix = forward_hidden(cfg, params, batch)
+    table: the full (B, S, V) logits never exist.  A moe model adds
+    ``router_aux_weight`` × the router load-balance loss."""
+    x, aux, prefix = forward_hidden(cfg, params, batch)
     if prefix:
         x = x[:, prefix:]
     table = output_table(cfg, params)
@@ -174,9 +226,13 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
                        batch["labels"].reshape(-1))
     mask = batch.get("loss_mask")
     if mask is None:
-        return nll.mean()
-    mask = mask.reshape(-1).float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        ce = nll.mean()
+    else:
+        mask = mask.reshape(-1).float()
+        ce = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    if cfg.moe is not None:
+        ce = ce + cfg.moe.router_aux_weight * aux
+    return ce
 
 
 __getattr__ = not_ported(__name__, {

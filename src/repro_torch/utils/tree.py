@@ -50,6 +50,25 @@ def tree_flatten_with_path(tree: Tree, prefix: Tuple = ()) -> List[Tuple]:
     return [(prefix, tree)]
 
 
+def tree_unflatten(skeleton: Tree, leaves) -> Tree:
+    """A tree of ``skeleton``'s structure whose leaves, in the order of
+    :func:`tree_flatten_with_path`, are ``leaves``."""
+    return _unflatten(skeleton, iter(leaves))
+
+
+def _unflatten(node, it):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``leaves`` (at an LM's size,
+    # gigabytes of tensors) alive until the cyclic collector runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    if _is_namedtuple(node):
+        return type(node)(*(_unflatten(x, it) for x in node))
+    if isinstance(node, (tuple, list)):
+        return type(node)(_unflatten(x, it) for x in node)
+    return next(it)
+
+
 def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     return [leaf for _, leaf in tree_flatten_with_path(tree)]
 

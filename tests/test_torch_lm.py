@@ -13,6 +13,7 @@ absolute on logits of magnitude ~1.5 at these sizes; logits are held to
 must be equal, except where the JAX logits' top two lie within 1e-4 of
 each other (a near-tie that a last-bit gap may flip).
 """
+import dataclasses
 import functools
 import re
 
@@ -37,8 +38,10 @@ from repro_torch.utils import tree as T
 torch.set_num_threads(1)
 
 DENSE = ("deepseek-7b", "llama3.2-3b", "qwen3-32b", "smollm-135m")
-NOT_PORTED = ("kimi-k2-1t-a32b", "mixtral-8x7b", "phi-3-vision-4.2b",
-              "whisper-medium", "xlstm-350m", "zamba2-1.2b")
+# the non-dense families: moe and hybrid are ported, the rest raise
+OTHER_FAMILIES = ("kimi-k2-1t-a32b", "mixtral-8x7b", "phi-3-vision-4.2b",
+                  "whisper-medium", "xlstm-350m", "zamba2-1.2b")
+MOE_AND_HYBRID = ("kimi-k2-1t-a32b", "mixtral-8x7b", "zamba2-1.2b")
 LOGIT_TOL = dict(atol=1e-5, rtol=1e-5)
 CACHE_TOL = dict(atol=5e-5, rtol=1e-5)
 NEAR_TIE = 1e-4
@@ -95,11 +98,24 @@ def test_dense_configs_match_jax(arch):
         assert got.param_count() == want.param_count()
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
 def test_other_families_raise_todo(arch):
-    jax_get_config(arch)  # known to the JAX package
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        get_config(arch)
+    """The moe and hybrid configs equal the JAX package's field for field
+    (full and reduced) and their reduced models initialise; the other
+    families' ids are known to the JAX package and still raise."""
+    want = jax_get_config(arch)  # known to the JAX package
+    if arch not in MOE_AND_HYBRID:
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            get_config(arch)
+        return
+    assert arch in list_archs()
+    for jax_fn, port_fn in VARIANTS[:2]:
+        got = port_fn(get_config(arch))
+        assert dataclasses.asdict(got) == dataclasses.asdict(jax_fn(want))
+        assert got.param_count() == jax_fn(want).param_count()
+    params, _ = build(reduced(get_config(arch))).init(
+        torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(t).all()) for t in T.tree_leaves(params))
 
 
 def _axes_leaves(axes: dict) -> list:
@@ -294,7 +310,7 @@ def test_serve_cli_unported_modes_raise(capsys):
     assert "fleet: mix=tiered_m64_adaptive m=64 rounds=2" in out
     assert re.search(r"^served 2 rounds at \S+ rounds/s", out, re.M), out
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        serve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+        serve.main(["--arch", "xlstm-350m", "--device", "cpu"])
 
 
 def test_greedy_serving_equals_prefill_argmax():
