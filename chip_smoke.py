@@ -129,9 +129,13 @@ Phases (any failure exits nonzero; no result line is printed then):
               rounds 60–139: ``agent_tx`` 0 in each.
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes
-              (with the moe and hybrid families'), one
-              hd = 128 shape, the JAX tests' S × W grid and the tensor-core
-              tiles' edges (S = 1000 at hd = 128, S = 77 with W = 5); a
+              (with the moe, hybrid and vlm families', and hd 32), one
+              hd = 128 shape, whisper's and phi-3-vision's training
+              shapes, the JAX tests' S × W grid and the tensor-core
+              tiles' edges (S = 1000 at hd = 128 and 96, S = 77 with W =
+              5 at hd = 64 and 32); every head dim of the kernel (32, 64,
+              96, 128) in both dtypes; hd 48, which has no instance,
+              raises on the card and launches nothing; a
               repeated launch is bitwise equal, a head-major tensor viewed
               in the model layout gives the contiguous tensor's result,
               and inputs one element off the 16-byte alignment (plain loads
@@ -140,7 +144,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               through the plain version, and ``torch.func.vmap`` over 3
               slices is ONE launch, bitwise equal to a loop of three.
    ce       — holds ``fused_ce`` against its plain version on the card at
-              the moe and hybrid train losses' shapes, the tensor-core
+              every family's train loss's shape (moe, hybrid, xlstm,
+              whisper, vlm), the tensor-core
               tiles' edges (T, D, V) ∈ {(129, 100, 129),
               (1000, 100, 50257), (257, 200, 49153)} and over
               T ∈ {64, 1000, 8192}, D ∈ {64, 576, 3072}, V ∈ {7, 1000,
@@ -223,6 +228,46 @@ Phases (any failure exits nonzero; no result line is printed then):
               loss and probe) and 2 ``fused_ce`` launches per step, ms
               per step, peak memory; a 2-layer step on the card and the
               CPU.
+   xlstm    — xlstm-350m at full width and depth (12 mLSTM/sLSTM pairs,
+              fp32, seed 0): batch 4, a 256-token prompt replayed through
+              decode, 32 tokens; no kernel launch; decode bitwise a fresh
+              replay; the chunkwise forward over 2 × 1024 tokens (4 mLSTM
+              chunks of 256) against the replay's logits at every
+              position, each chunk within 1e-4 plus 4× the forward's own
+              last-bit sensitivity there (the recurrence amplifies
+              rounding with the position); 2 layers on the card and the
+              CPU.
+   xlstm train — xlstm-350m at full width cut to 4 layers (2 pairs),
+              m = 2, global batch 2 × 512 (2 mLSTM chunks): 2 ``fused_ce``
+              and no ``swa_attention`` launch per step, the last step run
+              twice from one state bitwise equal; a 2-layer step on the
+              card and the CPU.
+   whisper  — whisper-medium at full width and depth (24 + 24 layers):
+              4 × 1500 stubbed frames encoded once by the prefill (the
+              cross K/V of every decoder layer, no logits), 32 greedy
+              decoder tokens; no kernel launch (a non-causal encoder,
+              plain decode); prefill ms, decode ms per step; the encoder
+              at attn_q_block 500 (``attend_blockwise``, 3 blocks) and 512
+              (the one-block fallback) within 1e-4·(1 + max) of the
+              plain encoder; 1 + 1 layers over 300 frames on the card
+              and the CPU: decode logits within 1e-4, tokens equal.
+   vlm      — phi-3-vision at full width and depth (32 layers, hd 96,
+              3.83 B parameters): batch 4, prompt 512 (tokens only, as
+              the reference's prefill), 32 tokens; 32 ``swa_attention``
+              launches at hd 96 in the prefill and none in decode, decode
+              against a fresh prefill; 2 layers on the card and the CPU.
+   vlm train — phi-3-vision at full width cut to 4 layers, m = 2, each
+              agent 576 projected patches + 512 tokens: 2 ``fused_ce``
+              launches a step over the 512 text tokens (the prefix
+              cropped, recorded at the loss's call) and 8
+              ``swa_attention`` launches at hd 96 (1088 positions); a
+              2-layer step on the card and the CPU.
+   whisper train — whisper-medium at full width and depth, m = 2, each
+              agent 1500 frames and 448 decoder tokens: 2 ``fused_ce``
+              and 48 ``swa_attention`` (the decoder's causal
+              self-attention, loss and probe) launches a step, ms per
+              step, peak memory; a 2 + 2-layer step on the card and the
+              CPU.
 6. times    — ``gain_reduce``'s, its plain version's and
               ``torch.linalg.vecdot``'s times at each shape beside the
               bytes-over-bandwidth bound: per call by CUDA events (median
@@ -232,7 +277,9 @@ Phases (any failure exits nonzero; no result line is printed then):
               taken again, and the tenth fails the run).
 7. swa times — the same for ``swa_attention`` at the served shapes
               (smollm's two, mixtral's (4, 1024, 32, 8, 128) W 4096,
-              zamba2's training (2, 512, 32, 32, 64) W = S),
+              zamba2's training (2, 512, 32, 32, 64) W = S,
+              phi-3-vision's (4, 512, 32, 32, 96) and hd 32's (4, 1024,
+              4, 2, 32), W = S),
               fp32 and bf16, beside its plain version,
               ``scaled_dot_product_attention`` with the same boolean mask
               and the GQA heads expanded (timed only, never on the path),
@@ -263,14 +310,19 @@ Phases (any failure exits nonzero; no result line is printed then):
               synchronized range (the SSD forward's device time, one SSD
               call's forward and forward + backward timed alone, the
               SSD's share of the step estimated from them, the peak
-              against the decay tiles); then one [moe] prefill with each
+              against the decay tiles); then 8 [xlstm] decode steps
+              (device ops, busy time, idle share) and one [whisper train]
+              step (device time by kernel, device ops, idle share); then
+              one [moe] prefill with each
               MoE layer a range: the expert GEMMs' and the dispatch's
               device time against the prefill's.
 
 Before the last line come the ``{"kernels": [...]}`` record (each kernel
 with its arithmetic path, ``tf32x3``, ``bf16-mma`` or ``fp32-fma``, and
 the path's bound; ``gain_reduce`` also with its launches in the
-quadratic frontier and its times at that frontier's (1024, 32)) and
+quadratic frontier and its times at that frontier's (1024, 32);
+``swa_attention`` and ``fused_ce`` with their launches on every LM path,
+``swa_attention`` also with its times at the hd 32 and 96 shapes) and
 the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  The full record is also written to
 ``chiprun_out/chip_smoke.json``.
@@ -356,12 +408,22 @@ TF32_FLOP_PER_S = 494.7e12
 SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096),
               # mixtral's served prefill (GQA 32/8, hd 128, W 4096 ≥ S)
               # and zamba2's shared block in training (W = S)
-              (4, 1024, 32, 8, 128, 4096), (2, 512, 32, 32, 64, 512))
-SWA_CHECK = SWA_SERVED + ((1, 2048, 24, 8, 128, 512),) + tuple(
+              (4, 1024, 32, 8, 128, 4096), (2, 512, 32, 32, 64, 512),
+              # phi-3-vision's served prefill (hd 96) and the reduced
+              # smollm's hd 32 (--reduced --d-model 128) at run (a)'s length
+              (4, 512, 32, 32, 96, 512), (4, 1024, 4, 2, 32, 1024))
+SWA_CHECK = SWA_SERVED + (
+    (1, 2048, 24, 8, 128, 512),
+    # whisper's decoder and phi-3-vision's patches + tokens in training
+    (2, 448, 16, 16, 64, 448), (2, 1088, 32, 32, 96, 1088)) + tuple(
     (2, s, 4, 2, 64, w) for s in (64, 200, 384) for w in (32, 128, 1 << 30))
 # the tensor-core tiles' edges: S not a multiple of the 64-row tiles with
-# hd = 128 (fp32 and bf16) and a window shorter than a tile
-SWA_EDGE = ((1, 1000, 8, 2, 128, 300), (1, 77, 6, 3, 64, 5))
+# hd = 128, 96 and 32 (fp32 and bf16) and a window shorter than a tile
+SWA_EDGE = ((1, 1000, 8, 2, 128, 300), (1, 77, 6, 3, 64, 5),
+            (1, 1000, 8, 2, 96, 300), (1, 77, 6, 3, 32, 5))
+# a head dim the kernel has no instance for: the card raises, never falls
+# back to the plain version
+SWA_NO_INSTANCE_HD = 48
 # kernel vs plain, |err| ≤ tol + tol·|plain| (the JAX tests' tolerances):
 # fp32 by 3×TF32 products (~2^-21 relative) and the order of the sums;
 # bf16 by one output rounding (P·V with P in two bf16 parts, ~2^-17)
@@ -390,6 +452,14 @@ CE_V = (7, 1000, 49152, 50257, 128256)
 CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256),
             # mixtral's and zamba2's train losses (m = 2 agents' tokens)
             (2048, 4096, 32000), (1024, 2048, 32000))
+# each family's train loss (T = the m = 2 agents' tokens): the moe and
+# hybrid ones timed above; xlstm's (2 × 512, d 1024, V 50304), whisper's
+# (2 × 448 decoder tokens, V 51865) and phi-3-vision's (2 × 512 text
+# tokens, d 3072, V 32064) checked only
+CE_TRAIN_LOSSES = {"moe": CE_TIMED[2], "hybrid": CE_TIMED[3],
+                   "xlstm": (1024, 1024, 50304),
+                   "whisper": (896, 1024, 51865),
+                   "vlm": (1024, 3072, 32064)}
 # the tensor-core tiles' edges: T and V not multiples of the 128-row and
 # 128-entry tiles, and D not a multiple of the 32 (fp32) or 64 (bf16)
 # columns of a k-chunk (D = 100 in bf16 is also off the 16-byte copies)
@@ -467,6 +537,45 @@ HYBRID_TRAIN_CHECK_LAYERS = 2
 # this many times the card's own last-bit sensitivity, measured in the
 # same run
 HYBRID_SENS_FACTOR = 4
+# the ssm family: xlstm-350m at full width and depth (12 mLSTM/sLSTM
+# pairs, d 1024, 4 heads, vocab 50304) served by replay; its chunkwise
+# forward over XLSTM_FORWARD_S tokens (4 mLSTM chunks of 256) against the
+# replay's logits at every position; trained at full width cut to 4
+# layers (2 pairs: every sLSTM position is a host iteration of ~20 ops
+# per pair, so a step of 512 positions is host-bound), global batch 2 ×
+# 512 (2 mLSTM chunks); card vs CPU at 2 layers (1 pair)
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_SERVE = dict(batch=4, prompt=256, gen=32)
+XLSTM_FORWARD = dict(batch=2, seq=1024)
+XLSTM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
+XLSTM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=3)
+# [profile] xlstm decode: steps after a short replayed prompt (a profile
+# of a whole train step, ~100 k device ops, costs ~2 minutes of trace
+# processing)
+XLSTM_PROFILED_PROMPT, XLSTM_PROFILED_STEPS = 16, 8
+# the audio family: whisper-medium at full width and depth (24 encoder and
+# 24 decoder layers, d 1024, 16 heads of 64, vocab 51865): encode 4 × 1500
+# frames (30 s of audio) once, then 32 greedy decoder tokens; the encoder
+# again with attn_q_block 500 (attend_blockwise in 3 blocks) and 512
+# (which does not divide 1500: the one-block fallback); card vs CPU at
+# 1 + 1 layers over 300 frames; trained at full depth, m = 2 × 1 × (1500
+# frames, 448 decoder tokens)
+WHISPER_ARCH = "whisper-medium"
+WHISPER_SERVE = dict(batch=4, frames=1500, gen=32, q_blocks=(500, 512))
+WHISPER_CHECK = dict(layers=1, batch=2, frames=300, gen=8)
+WHISPER_TRAIN = dict(agents=2, batch=2, seq=1500, warmup=1, timed=3)
+# encoder outputs (rms-normed, |x| ~ 1): blockwise against plain on the
+# card, 24 layers of fp32 sums in other orders
+WHISPER_ENC_TOL = 1e-4
+# the vlm family: phi-3-vision at full width and depth (32 layers, d 3072,
+# 32 heads of 96, vocab 32064; 3.83 B parameters, 15.3 GB): serve B 4 ×
+# 512 tokens (the prefill takes tokens only, as the reference's) + 32
+# greedy; card vs CPU at 2 layers; trained at full width cut to 4 layers,
+# m = 2 × 1 × (576 patches + 512 tokens)
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_SERVE = dict(batch=4, prompt=512, gen=32)
+VLM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
+VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=3)
 
 
 def nvidia_smi() -> str:
@@ -2820,6 +2929,19 @@ def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
                                  "differ from aligned ones")
     print(f"[swa] inputs one element off alignment at {shape[:5]}, fp32 "
           f"and bf16: equal to the aligned inputs' result")
+    hd = SWA_NO_INSTANCE_HD
+    q = torch.randn((1, 64, 2, hd), generator=gen, device="cuda")
+    launches = swa_ops.swa_attention.launches
+    try:
+        swa_ops.swa_attention(q, q, q, window=16)
+    except ValueError as err:
+        print(f"[swa] head dim {hd} (no kernel instance) raises on the "
+              f"card: {err}")
+    else:
+        raise AssertionError(f"swa_attention: head dim {hd} has no kernel "
+                             f"instance and did not raise")
+    if swa_ops.swa_attention.launches != launches:
+        raise AssertionError(f"swa_attention: head dim {hd} launched")
     results.append(_swa_grad_and_vmap(torch, swa_ops, swa_ref, gen))
     return results
 
@@ -2879,11 +3001,11 @@ def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
     layer; the hybrid's replays the prompt through decode (no launch)
     and returns the last position's logits."""
     b, s = prompts.shape
-    hybrid = model.cfg.arch_type == "hybrid"
+    recurrent = model.cfg.arch_type in ("hybrid", "ssm")
     cache_len = s + gen + 8
-    # warm-up (the hybrid's replay is a loop of decode steps: a few warm
+    # warm-up (a recurrent replay is a loop of decode steps: a few warm
     # every op it runs)
-    warm = prompts[:, :16] if hybrid else prompts
+    warm = prompts[:, :16] if recurrent else prompts
     toks, _, cache = serve.prefill_prompt(model, params, warm, cache_len)
     serve.decode_tokens(model, params, cache, toks, warm.shape[1], 2)
     del toks, cache
@@ -2901,13 +3023,13 @@ def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = swa_ops.swa_attention.launches
-    layers = 0 if hybrid else model.cfg.num_layers
+    layers = 0 if recurrent else model.cfg.num_layers
     if in_prefill != layers or launches != layers:
         raise AssertionError(
             f"LM run ({label}): swa_attention launched {in_prefill} times "
             f"in the prefill and {launches - in_prefill} in decode (want "
             f"{layers} and 0)")
-    if logits.shape != (b, 1 if hybrid else s, model.cfg.vocab_size):
+    if logits.shape != (b, 1 if recurrent else s, model.cfg.vocab_size):
         raise AssertionError(f"LM run ({label}): logits {logits.shape}")
     if not (bool(torch.isfinite(logits).all())
             and bool(torch.isfinite(last).all())):
@@ -2933,6 +3055,12 @@ def _lm_run(torch, swa_ops, serve, model, params, prompts, gen: int,
     if exact and not gap <= LM_LOGIT_TOL * (1 + last.abs().max().item()):
         raise AssertionError(f"LM run ({label}): decode differs from a "
                              f"fresh prefill by {gap:.3e}")
+    # an attention-free replay (ssm) is the same decode steps on the same
+    # states: the fresh replay's last logits are bitwise the decoded ones
+    # (the hybrid's shared attention reads a cache of another length)
+    if model.cfg.arch_type == "ssm" and check_decode and gap != 0:
+        raise AssertionError(f"LM run ({label}): decode differs from a "
+                             f"fresh replay by {gap:.3e} (want bitwise)")
     steps = gen - 1
     row = {"batch": b, "prompt": s, "gen": gen, "window": window,
            "launches": launches, "launches_prefill": in_prefill,
@@ -3168,7 +3296,7 @@ def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
     print(f"[ce] tile edges {CE_EDGE}, fp32 and bf16: vs plain max "
           f"{max(r['max_abs_err'] for r in results):.3e} within {CE_TOL} + "
           f"{CE_TOL}·|plain|; repeats bitwise equal")
-    for t, d, v in CE_TIMED[2:]:
+    for family, (t, d, v) in CE_TRAIN_LOSSES.items():
         for dtype in (torch.float32, torch.bfloat16):
             x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
             dt = _dtype_name(dtype)
@@ -3178,7 +3306,7 @@ def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
                             "max_abs_err": err, "tol": CE_TOL,
                             "bitwise_repeat": True})
             del x, table, labels
-        print(f"[ce] the {'moe' if d == 4096 else 'hybrid'} train loss's "
+        print(f"[ce] the {family} train loss's "
               f"({t}, {d}, {v}), fp32 and bf16: vs plain max "
               f"{max(r['max_abs_err'] for r in results[-2:]):.3e} within "
               f"{CE_TOL} + {CE_TOL}·|plain|; repeats bitwise equal")
@@ -3719,11 +3847,13 @@ def _route_ties(card, cpu) -> int:
     return len(rows)
 
 
-def _first_layers(torch, params, n: int):
-    """The parameters of a stacked model's first ``n`` layers (views)."""
+def _first_layers(torch, params, n: int, stacks=("blocks",)):
+    """The parameters of a stacked model's first ``n`` layers (views) of
+    each of its ``stacks``."""
     from repro_torch.utils.tree import tree_map
 
-    return {**params, "blocks": tree_map(lambda t: t[:n], params["blocks"])}
+    return {**params, **{k: tree_map(lambda t: t[:n], params[k])
+                         for k in stacks}}
 
 
 def _init_served(torch, cfg, batch: int, prompt: int):
@@ -3905,10 +4035,14 @@ def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     n_params = tree_size(state.params)
+    # the tokens a step trains on (whisper: decoder tokens, not frames;
+    # vlm: text tokens, not patches)
+    tokens = int(batches[0]["tokens"].numel())
+    leaves = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batches[0].items())
     print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers at full width, "
           f"{n_params / 1e9:.3f} B parameters (fp32, seed 0); {agents} "
-          f"agents × {gbatch // agents} × {seq} tokens, "
-          f"comm={TRAIN['comm']!r}, sgd lr {TRAIN['lr']}")
+          f"agents, batch leaves {leaves}, comm={TRAIN['comm']!r}, sgd lr "
+          f"{TRAIN['lr']}")
     ce_ops.fused_ce.launches = swa_ops.swa_attention.launches = 0
     rows, repeat_equal = [], None
     for k in range(steps):
@@ -3959,7 +4093,7 @@ def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
               f"{r['grad_norm']:.4f}  launches fused_ce {r['fused_ce']}, "
               f"swa_attention {r['swa_attention']}")
     print(f"[{tag}] {run['timed']} timed steps: {mean_ms:.2f} ms per step "
-          f"({gbatch * seq / (mean_ms / 1e3):.0f} tokens/s); peak memory "
+          f"({tokens / (mean_ms / 1e3):.0f} tokens/s); peak memory "
           f"{peak_gb:.2f} GB ({base_gb:.2f} GB allocated before the steps)"
           + ("" if repeat_equal is None else
              "; the last step run twice from one state: bitwise equal"))
@@ -3967,7 +4101,8 @@ def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
               "params": n_params, "agents": agents, "global_batch": gbatch,
               "seq": seq, "comm": TRAIN["comm"], "lr": TRAIN["lr"],
               "steps": rows, "ms_per_step": mean_ms,
-              "tokens_per_s": gbatch * seq / (mean_ms / 1e3),
+              "tokens_per_step": tokens,
+              "tokens_per_s": tokens / (mean_ms / 1e3),
               "launches": launches, "peak_memory_gb": peak_gb,
               "allocated_before_gb": base_gb,
               "repeat_bitwise_equal": repeat_equal}
@@ -4099,6 +4234,467 @@ def phase_hybrid_train(torch, ce_ops, swa_ops) -> tuple:
         torch, cfg, _check_batch(batches), dev, small=small,
         tag="[hybrid train]")
     return record, (step, state, batches[-1], mean_ms, record)
+
+
+# ----------------------------------------------------------------------
+# the ssm, audio and vlm families
+# ----------------------------------------------------------------------
+
+def _replay_logits(torch, model, params, tokens):
+    """Every position's logits (B, S, V) of ``tokens`` (B, S) by the
+    recurrent replay: one decode step per position from the empty
+    cache, as the reference's prefill replays a prompt."""
+    b, s = tokens.shape
+    cache, _ = model.init_cache(b, s, device=tokens.device)
+    out = []
+    for t in range(s):
+        logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
+                                          t)
+        out.append(logits)
+    return torch.cat(out, 1)
+
+
+def _forward_sensitivity(torch, model, params, x, logits):
+    """|Δ logits| (B, S, V) of ``model.forward`` on ``x`` when every
+    weight changes in its last bits (× 1 + 2^-23·N(0, 1), seed 13), as
+    :func:`_last_bit_sensitivity` shakes them: the scale at which two
+    orders of the same fp32 sums part, position by position."""
+    from repro_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device=x.device).manual_seed(13)
+    shaken = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+        t.shape, generator=gen, device=t.device)), params)
+    moved, _ = model.forward(shaken, {"tokens": x})
+    del shaken
+    return (moved - logits).abs()
+
+
+def phase_xlstm(torch, swa_ops) -> dict:
+    """xlstm-350m at full width and depth served by replay through the
+    serving CLI's prefill and greedy decode (no kernel launch, decode
+    bitwise a fresh replay); the chunkwise forward over
+    XLSTM_FORWARD["seq"] tokens against the replay's logits at every
+    position; 2 layers on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.utils.tree import tree_size
+
+    run, fwd, chk = XLSTM_SERVE, XLSTM_FORWARD, XLSTM_CHECK
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    model, params, prompts = _init_served(torch, cfg, run["batch"],
+                                          fwd["seq"])
+    n_params = tree_size(params)
+    print(f"[xlstm] {cfg.name}: {cfg.num_layers // 2} mLSTM/sLSTM pairs, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads, mLSTM chunk "
+          f"{cfg.xlstm.chunk_size}, vocab {cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters in the init (param_count() "
+          f"{cfg.param_count() / 1e9:.2f} B, the reference's formula; fp32, "
+          f"seed 0); weights and prompts in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    row = _lm_run(torch, swa_ops, serve, model, params,
+                  prompts[:, :run["prompt"]].contiguous(), run["gen"],
+                  "replay", tag="xlstm")
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[xlstm] peak memory {row['peak_memory_gb']:.2f} GB")
+    record = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+              "param_count": cfg.param_count(), "serve": row}
+    # the chunkwise (training) form against the recurrent (serving) form
+    x = prompts[:fwd["batch"]].contiguous()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, {"tokens": x})
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    replay = _replay_logits(torch, model, params, x)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    gap = (logits - replay).abs()
+    # the two forms sum in other orders, and the recurrence amplifies a
+    # rounding with the position (the reference's own forms part by 1e-4
+    # to 1.9e-3 over these 4 chunks at reduced width, ROADMAP §3): each
+    # chunk is held to LM_LOGIT_TOL + HYBRID_SENS_FACTOR × the forward's
+    # own last-bit sensitivity in that chunk, measured here
+    sens = _forward_sensitivity(torch, model, params, x, logits)
+    chunk = cfg.xlstm.chunk_size
+    starts = range(0, fwd["seq"], chunk)
+    by_chunk = [gap[:, c:c + chunk].max().item() for c in starts]
+    sens_by_chunk = [sens[:, c:c + chunk].max().item() for c in starts]
+    tol_by_chunk = [LM_LOGIT_TOL + HYBRID_SENS_FACTOR * t
+                    for t in sens_by_chunk]
+    for c, g, t in zip(starts, by_chunk, tol_by_chunk):
+        rel = LM_LOGIT_TOL * replay[:, c:c + chunk].abs()
+        if not bool((gap[:, c:c + chunk] <= t + rel).all()):
+            raise AssertionError(f"xlstm: the chunkwise forward differs from "
+                                 f"the replay by {g:.3e} in the chunk at "
+                                 f"{c} (tol {t:.3e}; per chunk {by_chunk})")
+    record["forward_vs_replay"] = {
+        "batch": fwd["batch"], "seq": fwd["seq"], "chunk": chunk,
+        "max_abs_gap": gap.max().item(), "max_abs_gap_by_chunk": by_chunk,
+        "last_bit_sensitivity_by_chunk": sens_by_chunk,
+        "tol_by_chunk": tol_by_chunk, "forward_ms": fwd_ms,
+        "replay_ms": replay_ms}
+    print(f"[xlstm] chunkwise forward over B={fwd['batch']} S={fwd['seq']} "
+          f"({fwd['seq'] // chunk} chunks of {chunk}) against the replay's "
+          f"logits at every position: max |gap| per chunk "
+          f"{', '.join(f'{g:.2e}' for g in by_chunk)}; the forward's "
+          f"last-bit sensitivity per chunk "
+          f"{', '.join(f'{g:.2e}' for g in sens_by_chunk)} (tol "
+          f"{LM_LOGIT_TOL} + {HYBRID_SENS_FACTOR}× that, + "
+          f"{LM_LOGIT_TOL}·|replay|); forward {fwd_ms:.1f} ms, replay "
+          f"{replay_ms:.1f} ms")
+    del logits, replay, gap, sens
+    x_chk = prompts[:chk["batch"], :chk["prompt"]].contiguous()
+    small = build(cfg.replace(num_layers=chk["layers"]))
+    small_params = _first_layers(torch, params, chk["layers"] // 2,
+                                 ("pairs",))
+    small_sens = _last_bit_sensitivity(torch, serve, small, small_params,
+                                       x_chk)
+    record["card_vs_cpu"] = _card_vs_cpu(
+        torch, serve, small, small_params, x_chk, gen=chk["gen"],
+        tag="xlstm", extra_tol=HYBRID_SENS_FACTOR * small_sens)
+    record["card_vs_cpu"]["layers"] = chk["layers"]
+    record["card_vs_cpu"]["last_bit_sensitivity"] = small_sens
+    return record, (model, params, prompts[:, :XLSTM_PROFILED_PROMPT],
+                    row["decode_ms_per_step"])
+
+
+def phase_xlstm_train(torch, ce_ops, swa_ops) -> dict:
+    """xlstm-350m at full width cut to XLSTM_TRAIN["layers"] layers
+    through the training CLI's step (no attention: 2 ``fused_ce`` and no
+    ``swa_attention`` launch a step), bitwise repeatable; one 2-layer
+    step on the card and the CPU."""
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run = XLSTM_TRAIN
+    cfg = get_config(XLSTM_ARCH).replace(num_layers=run["layers"])
+    record, step, state, batches, _ = _family_train(
+        torch, ce_ops, swa_ops, cfg, run, "xlstm train", swa_per_step=0,
+        repeat=True)
+    check_batch = _check_batch(batches)
+    del step, state, batches
+    torch.cuda.empty_cache()
+    record["card_vs_cpu"] = _train_card_vs_cpu(
+        torch, cfg, check_batch, dev,
+        small=cfg.replace(num_layers=XLSTM_CHECK["layers"]),
+        tag="[xlstm train]")
+    return record
+
+
+def phase_decode_profile(torch, model, params, prompts, step_ms: float,
+                         label: str) -> dict:
+    """XLSTM_PROFILED_STEPS decode steps under torch.profiler after a
+    short replayed prompt: device ops and busy time per step, and the
+    idle share against the unprofiled decode time of the served run
+    (a recurrent step's work does not depend on its position)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    s = prompts.shape[1]
+    n = XLSTM_PROFILED_STEPS
+    toks, _, cache = serve.prefill_prompt(model, params, prompts, s + n + 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve.decode_tokens(model, params, cache, toks, s, n)
+        torch.cuda.synchronize()
+    ivals = _device_intervals(prof)
+    if not ivals:
+        raise AssertionError("the profiler saw no device activity")
+    busy = sum(t for _, t in ivals) / 1e3 / n
+    gemm = sum(t for nm, t in ivals if "gemm" in nm.lower()
+               or "gemv" in nm.lower()) / 1e3 / n
+    record = {"steps": n, "device_ops_per_step": len(ivals) / n,
+              "busy_ms_per_step": busy, "gemm_ms_per_step": gemm,
+              "decode_ms_per_step": step_ms,
+              "idle_share": 1.0 - busy / step_ms}
+    print(f"[profile] {label} decode: {record['device_ops_per_step']:.0f} "
+          f"device ops and {busy:.3f} ms busy per step ({gemm:.3f} ms in "
+          f"GEMMs and GEMVs) against the unprofiled {step_ms:.3f} ms -> "
+          f"idle share {record['idle_share']:.3f}")
+    return record
+
+
+def _whisper_serve(torch, model, params, frames, first, gen: int) -> dict:
+    """Whisper served as the reference's prefill and decode_step run it:
+    the frames encoded once (``prefill``: the cross K/V of every decoder
+    layer, no logits), then ``gen`` greedy decoder steps from ``first``
+    at positions 0 … gen − 1.  Returns the cache, the tokens (B, gen),
+    every step's logits (B, gen, V) and the prefill and decode times."""
+    from repro_torch.launch import serve
+
+    cuda = frames.device.type == "cuda"
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"frame_embeds": frames},
+                                  cache_len=frames.shape[1])
+    if cuda:
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if logits is not None:
+        raise AssertionError("whisper: the prefill returned logits")
+    toks, out, steps = first, [], []
+    t0 = time.perf_counter()
+    for i in range(gen):
+        step_logits, cache = model.decode_step(params, cache, toks, i)
+        toks = serve.greedy(step_logits[:, 0])
+        steps.append(step_logits)
+        out.append(toks)
+    if cuda:
+        torch.cuda.synchronize()
+    return {"cache": cache, "tokens": torch.cat(out, 1),
+            "logits": torch.cat(steps, 1), "prefill_s": prefill_s,
+            "decode_s": time.perf_counter() - t0}
+
+
+def phase_whisper(torch, swa_ops) -> dict:
+    """whisper-medium at full width and depth: 4 × 1500 frames encoded
+    once, 32 greedy decoder tokens, no kernel launch (the encoder's
+    attention is non-causal, decode plain); the encoder through
+    ``attend_blockwise`` against the plain encoder; 1 + 1 layers on the
+    card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.transformer import whisper_encode
+    from repro_torch.utils.tree import tree_map, tree_size
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run, chk = WHISPER_SERVE, WHISPER_CHECK
+    cfg = get_config(WHISPER_ARCH)
+    model = build(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    # the stubbed frontend's frames, 0.02·N(0, 1) as lm_batch draws them,
+    # and each request's first decoder token
+    frames = 0.02 * torch.randn((run["batch"], run["frames"], cfg.d_model),
+                                generator=gen, device=dev)
+    first = torch.randint(0, cfg.vocab_size, (run["batch"], 1),
+                          generator=gen, device=dev)
+    n_params = tree_size(params)
+    print(f"[whisper] {cfg.name}: {cfg.encoder_layers} encoder and "
+          f"{cfg.num_layers} decoder layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim_}, vocab "
+          f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters (fp32, "
+          f"seed 0); {run['batch']} × {run['frames']} frames")
+    _whisper_serve(torch, model, params, frames, first, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    swa_ops.swa_attention.launches = 0
+    out = _whisper_serve(torch, model, params, frames, first, run["gen"])
+    launches = swa_ops.swa_attention.launches
+    if launches != 0:
+        raise AssertionError(f"whisper serving launched swa_attention "
+                             f"{launches} times (want 0: a non-causal "
+                             f"encoder and plain decode)")
+    cross = out["cache"]["cross_k"]
+    if cross.shape != (cfg.num_layers, run["batch"], run["frames"],
+                       cfg.num_kv_heads, cfg.head_dim_):
+        raise AssertionError(f"whisper: cross cache {tuple(cross.shape)}")
+    if not (bool(torch.isfinite(out["logits"]).all())
+            and bool(torch.isfinite(cross).all())):
+        raise AssertionError("whisper: non-finite logits or cross K/V")
+    steps = run["gen"]
+    row = {"batch": run["batch"], "frames": run["frames"], "gen": steps,
+           "launches": launches,
+           "prefill_ms": out["prefill_s"] * 1e3,
+           "frames_per_s": run["batch"] * run["frames"] / out["prefill_s"],
+           "decode_ms_per_step": out["decode_s"] / steps * 1e3,
+           "decode_tokens_per_s": run["batch"] * steps / out["decode_s"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_tokens": out["tokens"][0, :8].tolist()}
+    print(f"[whisper] B={run['batch']} frames={run['frames']}: "
+          f"swa_attention launches 0; prefill (encode once, cross K/V of "
+          f"{cfg.num_layers} layers) {row['prefill_ms']:.2f} ms "
+          f"({row['frames_per_s']:.0f} frames/s); decode "
+          f"{row['decode_ms_per_step']:.3f} ms/step "
+          f"({row['decode_tokens_per_s']:.1f} tok/s); peak memory "
+          f"{row['peak_memory_gb']:.2f} GB")
+    del out
+    record = {"arch": cfg.name, "params": n_params, "serve": row}
+    # attend_blockwise on the card: the encoder at attn_q_block against
+    # the plain encoder, on the served frames
+    plain = whisper_encode(cfg, params, {"frame_embeds": frames})
+    scale = plain.abs().max().item()
+    record["blockwise"] = []
+    for qb in run["q_blocks"]:
+        t0 = time.perf_counter()
+        got = whisper_encode(cfg.replace(attn_q_block=qb), params,
+                             {"frame_embeds": frames})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gap = (got - plain).abs().max().item()
+        blocks = run["frames"] // qb if run["frames"] % qb == 0 else 1
+        if not gap <= WHISPER_ENC_TOL * (1 + scale):
+            raise AssertionError(f"whisper: the encoder at attn_q_block "
+                                 f"{qb} differs from the plain one by "
+                                 f"{gap:.3e}")
+        record["blockwise"].append({"q_block": qb, "blocks": blocks,
+                                    "max_abs_gap": gap, "encode_ms": ms})
+        print(f"[whisper] encoder at attn_q_block {qb} ({blocks} "
+              f"block{'s' if blocks > 1 else ''} of "
+              f"{run['frames'] // blocks} queries"
+              + (", the ragged fallback" if blocks == 1 else "")
+              + f"): max |gap| {gap:.3e} from the plain encoder (tol "
+              f"{WHISPER_ENC_TOL}·(1 + {scale:.2f})); {ms:.1f} ms")
+        del got
+    del plain
+    # the same weights at 1 + 1 layers on the card and the CPU
+    small = build(cfg.replace(num_layers=chk["layers"],
+                              encoder_layers=chk["layers"]))
+    p_small = _first_layers(torch, params, chk["layers"],
+                            ("enc_blocks", "dec_blocks"))
+    x = frames[:chk["batch"], :chk["frames"]].contiguous()
+    f0 = first[:chk["batch"]]
+    t0 = time.perf_counter()
+    card = _whisper_serve(torch, small, p_small, x, f0, chk["gen"])
+    cpu = _whisper_serve(torch, small, tree_map(lambda t: t.cpu(), p_small),
+                         x.cpu(), f0.cpu(), chk["gen"])
+    cpu_s = time.perf_counter() - t0
+    enc_gap = (card["cache"]["cross_k"].cpu()
+               - cpu["cache"]["cross_k"]).abs()
+    gap = (card["logits"].cpu() - cpu["logits"]).abs()
+    tol = LM_LOGIT_TOL
+    if not bool((gap <= tol + tol * cpu["logits"].abs()).all()):
+        raise AssertionError(f"whisper card vs CPU: decode logits differ by "
+                             f"{gap.max().item():.3e}")
+    if not torch.equal(card["tokens"].cpu(), cpu["tokens"]):
+        raise AssertionError(f"whisper card vs CPU: greedy tokens differ:\n"
+                             f"{card['tokens']}\n{cpu['tokens']}")
+    record["card_vs_cpu"] = {
+        "layers": chk["layers"], "batch": chk["batch"],
+        "frames": chk["frames"], "gen": chk["gen"],
+        "cross_k_max_abs_gap": enc_gap.max().item(),
+        "logits_max_abs_gap": gap.max().item(), "tol": tol,
+        "tokens_equal": True}
+    print(f"[whisper] card vs CPU, {chk['layers']} + {chk['layers']} layers, "
+          f"B={chk['batch']} frames={chk['frames']}: cross keys max |gap| "
+          f"{enc_gap.max().item():.3e}, {chk['gen']} decode steps' logits "
+          f"max |gap| {gap.max().item():.3e} (tol {tol} + {tol}·|cpu|), "
+          f"greedy tokens equal; both runs {cpu_s:.1f} s")
+    return record
+
+
+def phase_whisper_train(torch, ce_ops, swa_ops) -> tuple:
+    """whisper-medium at full width and depth through the training CLI's
+    step: m = 2 × 1 × (1500 frames, 448 decoder tokens); 2 ``fused_ce``
+    and 2 × 24 ``swa_attention`` (the decoder's causal self-attention,
+    loss and probe) launches a step; one step at 2 + 2 layers on the card
+    and the CPU.  Returns (record, what its profile needs)."""
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run = WHISPER_TRAIN
+    cfg = get_config(WHISPER_ARCH)
+    record, step, state, batches, mean_ms = _family_train(
+        torch, ce_ops, swa_ops, cfg, run, "whisper train",
+        swa_per_step=2 * cfg.num_layers)
+    record["card_vs_cpu"] = _train_card_vs_cpu(
+        torch, cfg, _check_batch(batches), dev,
+        small=cfg.replace(num_layers=2, encoder_layers=2),
+        tag="[whisper train]")
+    return record, (step, state, batches[-1], mean_ms)
+
+
+def phase_vlm(torch, swa_ops) -> dict:
+    """phi-3-vision at full width and depth served through the serving
+    CLI's prefill (tokens only, as the reference's) and greedy decode:
+    one ``swa_attention`` launch per layer at hd 96 in the prefill, none
+    in decode, decode against a fresh prefill; 2 layers on the card
+    against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.utils.tree import tree_size
+
+    run, chk = VLM_SERVE, VLM_CHECK
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    model, params, prompts = _init_served(torch, cfg, run["batch"],
+                                          run["prompt"])
+    n_params = tree_size(params)
+    print(f"[vlm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim_}, "
+          f"vocab {cfg.vocab_size}, {cfg.num_patches} patches (training "
+          f"only): {n_params / 1e9:.3f} B parameters (fp32, seed 0); "
+          f"weights and prompts in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    row = _lm_run(torch, swa_ops, serve, model, params, prompts, run["gen"],
+                  "served", tag="vlm")
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["head_dim"] = cfg.head_dim_
+    print(f"[vlm] peak memory {row['peak_memory_gb']:.2f} GB")
+    record = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+              "serve": row}
+    small = build(cfg.replace(num_layers=chk["layers"]))
+    record["card_vs_cpu"] = _card_vs_cpu(
+        torch, serve, small, _first_layers(torch, params, chk["layers"]),
+        prompts[:chk["batch"], :chk["prompt"]].contiguous(), gen=chk["gen"],
+        tag="vlm")
+    record["card_vs_cpu"]["layers"] = chk["layers"]
+    return record
+
+
+def _fused_ce_rows(torch, ce_ops, swa_ops, model, params, batch) -> int:
+    """The rows (tokens) of the ``fused_ce`` call in one ``loss_fn`` of
+    ``batch``: recorded by a wrapper around the loss's call, outside
+    every counted run (the launch counters are put back)."""
+    from repro_torch.models import transformer
+
+    launches = (ce_ops.fused_ce.launches, swa_ops.swa_attention.launches)
+    nll, rows = transformer.fused_ce_nll, []
+
+    def recorded(x, table, labels):
+        rows.append(x.shape[0])
+        return nll(x, table, labels)
+
+    transformer.fused_ce_nll = recorded
+    try:
+        model.loss_fn(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        transformer.fused_ce_nll = nll
+        ce_ops.fused_ce.launches, swa_ops.swa_attention.launches = launches
+    return rows[0]
+
+
+def phase_vlm_train(torch, ce_ops, swa_ops) -> dict:
+    """phi-3-vision at full width cut to VLM_TRAIN["layers"] layers
+    through the training CLI's step, each agent's sequence 576 projected
+    patches + 512 tokens: 2 ``fused_ce`` launches a step over the tokens
+    alone (the prefix cropped), 2 ``swa_attention`` launches a layer
+    (loss and probe) at hd 96; one 2-layer step on the card and the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run = VLM_TRAIN
+    cfg = get_config(VLM_ARCH).replace(num_layers=run["layers"])
+    record, step, state, batches, _ = _family_train(
+        torch, ce_ops, swa_ops, cfg, run, "vlm train",
+        swa_per_step=2 * run["layers"])
+    one_agent = {k: v[0] for k, v in batches[0].items()}
+    rows = _fused_ce_rows(torch, ce_ops, swa_ops, build(cfg), state.params,
+                          one_agent)
+    want = one_agent["tokens"].numel()
+    seq = cfg.num_patches + one_agent["tokens"].shape[1]
+    if rows != want:
+        raise AssertionError(f"vlm train: fused_ce took {rows} rows, want "
+                             f"the {want} text tokens (the {cfg.num_patches} "
+                             f"patches cropped)")
+    record["fused_ce_rows_per_agent"] = rows
+    record["sequence_per_agent"] = seq
+    print(f"[vlm train] the loss's fused_ce takes {rows} rows per agent: "
+          f"the text tokens of a {seq}-position sequence, its "
+          f"{cfg.num_patches} patch positions cropped")
+    check_batch = _check_batch(batches)
+    del step, state, batches
+    torch.cuda.empty_cache()
+    record["card_vs_cpu"] = _train_card_vs_cpu(
+        torch, cfg, check_batch, dev, small=cfg.replace(num_layers=2),
+        tag="[vlm train]")
+    return record
 
 
 def _ranges(torch, module, name: str):
@@ -4357,7 +4953,8 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
     return rows
 
 
-def phase_train_profile(torch, step, state, batch, step_ms: float) -> dict:
+def phase_train_profile(torch, step, state, batch, step_ms: float,
+                        label: str = "train") -> dict:
     """One train step under torch.profiler: device time by kernel
     (the kernels, the backward's and the model's cuBLAS products, the
     elementwise ops), device ops and the idle share against the
@@ -4388,13 +4985,13 @@ def phase_train_profile(torch, step, state, batch, step_ms: float) -> dict:
               "kernel_device_ms": kernel_ms, "gemm_device_ms": gemm_ms,
               "top": [{"name": n, "ms": ms, "count": c}
                       for n, (ms, c) in top]}
-    print(f"[profile] train step: {busy:.2f} ms on the device in "
+    print(f"[profile] {label} step: {busy:.2f} ms on the device in "
           f"{len(ivals)} device ops against the unprofiled {step_ms:.2f} ms "
           f"-> idle share {record['idle_share']:.3f}; fused_ce "
           f"{kernel_ms['fused_ce']:.2f} ms, swa_attention "
           f"{kernel_ms['swa_attention']:.2f} ms, GEMMs {gemm_ms:.2f} ms")
     for n, (ms, c) in top:
-        print(f"[profile]   train {ms:9.3f} ms x{c:<5d} {n[:90]}")
+        print(f"[profile]   {label} {ms:9.3f} ms x{c:<5d} {n[:90]}")
     return record
 
 
@@ -4528,6 +5125,14 @@ def main() -> int:
     record["hybrid"] = phase_hybrid(torch, swa_ops)
     record["hybrid_train"], hybrid_run = phase_hybrid_train(torch, ce_ops,
                                                             swa_ops)
+    record["xlstm"], xlstm_run = phase_xlstm(torch, swa_ops)
+    record["xlstm_train"] = phase_xlstm_train(torch, ce_ops, swa_ops)
+    record["whisper"] = phase_whisper(torch, swa_ops)
+    record["vlm"] = phase_vlm(torch, swa_ops)
+    record["vlm_train"] = phase_vlm_train(torch, ce_ops, swa_ops)
+    torch.cuda.empty_cache()
+    record["whisper_train"], whisper_run = phase_whisper_train(
+        torch, ce_ops, swa_ops)
     # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
     record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
@@ -4552,6 +5157,11 @@ def main() -> int:
     record["sim_profile"] = phase_sim_profile(torch, *sim_run)
     record["hybrid_profile"] = phase_hybrid_profile(torch, *hybrid_run)
     del hybrid_run
+    record["xlstm_profile"] = phase_decode_profile(torch, *xlstm_run,
+                                                   label="xlstm")
+    record["whisper_train_profile"] = phase_train_profile(
+        torch, *whisper_run, label="whisper train")
+    del xlstm_run, whisper_run
     torch.cuda.empty_cache()
     record["moe_profile"] = phase_moe_profile(torch, record["moe"]["serve"])
     record["seconds"] = time.perf_counter() - t_start
@@ -4623,6 +5233,20 @@ def main() -> int:
         "launches_hybrid": record["hybrid"]["serve"]["launches"],
         "launches_hybrid_train": record["hybrid_train"]["launches"][
             "swa_attention"],
+        "launches_xlstm": record["xlstm"]["serve"]["launches"],
+        "launches_whisper": record["whisper"]["serve"]["launches"],
+        "launches_whisper_train": record["whisper_train"]["launches"][
+            "swa_attention"],
+        "launches_vlm": record["vlm"]["serve"]["launches"],
+        "launches_vlm_train": record["vlm_train"]["launches"][
+            "swa_attention"],
+        # the head dims added since the first instances (64, 128): each
+        # served shape's fp32 time row
+        "head_dims": {str(r["shape"][4]): {k: r[k] for k in (
+            "shape", "window", "dtype", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "device_ms")}
+            for r in record["swa_times"]
+            if r["shape"][4] in (32, 96) and r["dtype"] == "float32"},
     })
     # fused_ce at the train step's token count, width and vocabulary
     ce_time = record["ce_times"][0]
@@ -4642,6 +5266,11 @@ def main() -> int:
         "launches_moe_train": record["moe_train"]["launches"]["fused_ce"],
         "launches_hybrid_train": record["hybrid_train"]["launches"][
             "fused_ce"],
+        "launches_xlstm_train": record["xlstm_train"]["launches"][
+            "fused_ce"],
+        "launches_whisper_train": record["whisper_train"]["launches"][
+            "fused_ce"],
+        "launches_vlm_train": record["vlm_train"]["launches"]["fused_ce"],
         "max_abs_err": ce_check["max_abs_err"],
         "ms": ce_time["ms"],
         "plain_ms": ce_time["plain_ms"],

@@ -1,11 +1,10 @@
 """Configuration dataclasses and the architecture registry (copies of
 the JAX package's).
 
-``get_config(arch_id)`` resolves ``--arch`` names.  The port carries the
-dense, moe (mixtral, kimi-k2) and hybrid (zamba2) architectures; the
-other families' ids are known and raise until their model code is
-ported.  ``reduced(cfg)`` is the smoke-test
-variant of the same family (a copy of ``repro.configs.reduced``).
+``get_config(arch_id)`` resolves ``--arch`` names: every architecture of
+the JAX package, in its six families (dense, moe, hybrid, ssm, audio,
+vlm).  ``reduced(cfg)`` is the smoke-test variant of the same family (a
+copy of ``repro.configs.reduced``).
 """
 from __future__ import annotations
 
@@ -16,28 +15,26 @@ from repro_torch.configs import (
     kimi_k2_1t,
     llama3_2_3b,
     mixtral_8x7b,
+    phi3_vision_4_2b,
     qwen3_32b,
     smollm_135m,
+    whisper_medium,
+    xlstm_350m,
     zamba2_1_2b,
 )
 from repro_torch.configs.base import ModelConfig
-from repro_torch.utils.todo import todo
 
 _REGISTRY = {
     m.CONFIG.name: m.CONFIG
-    for m in (deepseek_7b, kimi_k2_1t, llama3_2_3b, mixtral_8x7b, qwen3_32b,
-              smollm_135m, zamba2_1_2b)
+    for m in (deepseek_7b, kimi_k2_1t, llama3_2_3b, mixtral_8x7b,
+              phi3_vision_4_2b, qwen3_32b, smollm_135m, whisper_medium,
+              xlstm_350m, zamba2_1_2b)
 }
-
-# the JAX package's other architectures: vlm, audio and ssm (xlstm)
-_NOT_PORTED = ("phi-3-vision-4.2b", "whisper-medium", "xlstm-350m")
 
 ARCH_IDS = tuple(sorted(_REGISTRY))
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in _NOT_PORTED:
-        raise todo(f"architecture {arch_id!r}", "queue 1 item 10")
     try:
         return _REGISTRY[arch_id]
     except KeyError:

@@ -17,6 +17,7 @@ from repro_torch.core.api import TrainState
 from repro_torch.core.regression import Problem
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import MambaState
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -107,13 +108,24 @@ def params_from_jax(params, *, device: DeviceLike = "cuda"):
 
 def cache_from_jax(cache, *, device: DeviceLike = "cuda"):
     """A JAX serving cache as the port's: a ``KVCache`` (per layer, or
-    stacked on a layer axis), or the hybrid's ``{"mamba": MambaState,
+    stacked on a layer axis); the hybrid's ``{"mamba": MambaState,
     "attn": KVCache}`` (states stacked over layers, caches over
-    shared-attention sites)."""
+    shared-attention sites); the ssm's ``{"mlstm": MLSTMState, "slstm":
+    SLSTMState}`` (stacked over pairs); or the audio family's ``{"self":
+    KVCache, "cross_k", "cross_v"}``."""
     if isinstance(cache, Mapping):
-        m = cache["mamba"]
-        return {"mamba": MambaState(ssm=to_torch(m.ssm, device),
-                                    conv=to_torch(m.conv, device)),
-                "attn": cache_from_jax(cache["attn"], device=device)}
+        if "mamba" in cache:
+            m = cache["mamba"]
+            return {"mamba": MambaState(ssm=to_torch(m.ssm, device),
+                                        conv=to_torch(m.conv, device)),
+                    "attn": cache_from_jax(cache["attn"], device=device)}
+        if "mlstm" in cache:
+            return {"mlstm": MLSTMState(*to_torch(tuple(cache["mlstm"]),
+                                                  device)),
+                    "slstm": SLSTMState(*to_torch(tuple(cache["slstm"]),
+                                                  device))}
+        return {"self": cache_from_jax(cache["self"], device=device),
+                "cross_k": to_torch(cache["cross_k"], device),
+                "cross_v": to_torch(cache["cross_v"], device)}
     return KVCache(k=to_torch(cache.k, device), v=to_torch(cache.v, device),
                    pos_ids=to_torch(cache.pos_ids, device))

@@ -25,8 +25,8 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.whisper_medium import DECODER_LEN
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import todo
 
 
 def _gumbel(shape, gen: torch.Generator) -> torch.Tensor:
@@ -91,24 +91,37 @@ def lm_batch(cfg: ModelConfig, shape: InputShape, gen: torch.Generator,
              seq_len: Optional[int] = None, *,
              logits: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-    """One training batch on ``gen``'s device: ``tokens`` and ``labels``
-    (the tokens shifted by one), int32, shaped ``(num_agents,
-    per_agent_batch, S)``, for the dense, moe and hybrid families (as
-    the JAX package draws them).  ``logits`` is the stream's bigram
-    table."""
-    if cfg.arch_type not in ("dense", "moe", "hybrid"):
-        raise todo(f"{cfg.arch_type!r} batches", "queue 1 item 10")
+    """One training batch on ``gen``'s device, leaves shaped
+    ``(num_agents, per_agent_batch, ...)``, as the JAX package forms it:
+    ``tokens`` and ``labels`` (the tokens shifted by one), int32, of S
+    positions; for vlm also ``patch_embeds`` (``num_patches`` stubbed
+    vision-tower outputs, 0.02·N(0, 1)); for audio ``frame_embeds`` (S
+    stubbed encoder frames, 0.02·N(0, 1)) and decoder ``tokens`` and
+    ``labels`` of min(S, ``DECODER_LEN``) positions.  ``logits`` is the
+    stream's bigram table."""
     b = global_batch or shape.global_batch
     s = seq_len or shape.seq_len
     if b % num_agents:
         raise ValueError(f"global batch {b} does not split over "
                          f"{num_agents} agents")
     per = b // num_agents
-    toks = sample_lm_tokens(gen, b, s + 1, cfg.vocab_size, logits=logits)
-    return {
-        "tokens": toks[:, :-1].reshape(num_agents, per, s),
-        "labels": toks[:, 1:].reshape(num_agents, per, s),
+    # audio: the decoder's tokens are the first DECODER_LEN + 1 of the
+    # chain the JAX package draws S + 1 long (the same distribution)
+    n_tok = min(s, DECODER_LEN) if cfg.is_encoder_decoder else s
+    toks = sample_lm_tokens(gen, b, n_tok + 1, cfg.vocab_size, logits=logits)
+    batch = {
+        "tokens": toks[:, :-1].reshape(num_agents, per, n_tok),
+        "labels": toks[:, 1:].reshape(num_agents, per, n_tok),
     }
+    if cfg.arch_type == "vlm" and cfg.num_patches:
+        batch["patch_embeds"] = 0.02 * torch.randn(
+            (num_agents, per, cfg.num_patches, cfg.d_model), generator=gen,
+            device=gen.device)
+    if cfg.is_encoder_decoder:
+        batch = {"frame_embeds": 0.02 * torch.randn(
+            (num_agents, per, s, cfg.d_model), generator=gen,
+            device=gen.device), **batch}
+    return batch
 
 
 def batch_iterator(cfg: ModelConfig, shape: InputShape, *,

@@ -48,9 +48,11 @@
 //     registers and V is read at rows 2c and 2c + 1.  P and V are split
 //     hi/lo like the scores.
 //   - The tensor cores round their sums toward zero, so each short k-chunk
-//     (32 of hd for S, a tile's 32 keys for P·V) is summed into a fresh
-//     accumulator and added to S or O in round-to-nearest on the CUDA cores
-//     (for O in one FMA with the online softmax's rescale).
+//     (4 k-steps of hd for S: 32 columns in fp32, 64 in bf16, the last one
+//     ragged where hd is not a multiple of that; a tile's 32 keys for P·V)
+//     is summed into a fresh accumulator and added to S or O in
+//     round-to-nearest on the CUDA cores (for O in one FMA with the online
+//     softmax's rescale).
 //   - The tile of queries is written once, O / max(l, 1e-30), in the
 //     input's dtype.
 //
@@ -80,7 +82,8 @@
 //                            strides, dtype, stream)
 //       enqueues the forward on `stream`; returns cudaGetLastError().
 //       strides: 12 int64 element strides, (batch, seq, head) for each of
-//       q, k, v, o.  hd ∈ {64, 128}; dtype: 0 = float32, 1 = bfloat16.
+//       q, k, v, o.  hd ∈ {32, 64, 96, 128}; dtype: 0 = float32,
+//       1 = bfloat16; any other hd or dtype returns cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +137,8 @@ __device__ __forceinline__ void stage_tile(uint32_t* dst, const T* base,
   constexpr int kLd = row_words<T, HD>();
   constexpr int kEpv = 16 / sizeof(T);  // elements per 16-byte segment
   constexpr int kSegs = HD / kEpv;      // segments per row
+  static_assert(ROWS * kSegs % kThreads == 0,
+                "a tile's 16-byte segments split evenly over the threads");
 #pragma unroll
   for (int i = 0; i < ROWS * kSegs / kThreads; ++i) {
     const int seg = tid + i * kThreads;
@@ -159,13 +164,18 @@ __device__ __forceinline__ void scores(float (&s)[kNT][4], const uint32_t* Qw,
   constexpr int kLd = row_words<T, HD>();
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kSteps = kF32 ? HD / 8 : HD / 16;  // k8 or k16 steps
+  static_assert(HD % 16 == 0, "hd is a whole number of k16 steps");
   zero(s);
 #pragma unroll
   for (int c0 = 0; c0 < kSteps; c0 += 4) {  // chunks of 4 steps
+    // the last chunk is ragged where kSteps is not a multiple of 4 (bf16
+    // at hd 32: 2 steps; at hd 96: 4 + 2)
+    constexpr int kChunk = 4;
+    const int c1 = c0 + kChunk < kSteps ? c0 + kChunk : kSteps;
     float c[kNT][4];
     zero(c);
 #pragma unroll
-    for (int ks = c0; ks < c0 + 4; ++ks) {
+    for (int ks = c0; ks < c1; ++ks) {
       const int k = ks * 8 + tig;  // in words
       const uint32_t w[4] = {Qw[gid * kLd + k], Qw[(gid + 8) * kLd + k],
                              Qw[gid * kLd + k + 4],
@@ -233,20 +243,30 @@ __device__ __forceinline__ void add_pv(float (&o)[HD / 8][4],
       const uint32_t* vr = Vb + (j * 8 + 2 * tig) * kLd + gid;
 #pragma unroll
       for (int n0 = 0; n0 < kN; n0 += 8) {  // 8 tiles at a time
-        uint32_t b_hi[8][2], b_lo[8][2];
+        // the last group is ragged where kN is not a multiple of 8 (hd 32:
+        // 4 tiles; hd 96: 8 + 4)
+        constexpr int kGroup = 8;
+        const int g = n0 + kGroup < kN ? kGroup : kN - n0;
+        uint32_t b_hi[kGroup][2], b_lo[kGroup][2];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int nn = n0 + i;
-          tc::split_tf32(__uint_as_float(vr[nn * 8]), b_hi[i][0], b_lo[i][0]);
-          tc::split_tf32(__uint_as_float(vr[kLd + nn * 8]), b_hi[i][1],
-                         b_lo[i][1]);
+        for (int i = 0; i < kGroup; ++i) {
+          if (i < g) {
+            const int nn = n0 + i;
+            tc::split_tf32(__uint_as_float(vr[nn * 8]), b_hi[i][0],
+                           b_lo[i][0]);
+            tc::split_tf32(__uint_as_float(vr[kLd + nn * 8]), b_hi[i][1],
+                           b_lo[i][1]);
+          }
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) tc::mma_tf32(c[n0 + i], a_lo, b_hi[i]);
+        for (int i = 0; i < kGroup; ++i)
+          if (i < g) tc::mma_tf32(c[n0 + i], a_lo, b_hi[i]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) tc::mma_tf32(c[n0 + i], a_hi, b_lo[i]);
+        for (int i = 0; i < kGroup; ++i)
+          if (i < g) tc::mma_tf32(c[n0 + i], a_hi, b_lo[i]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) tc::mma_tf32(c[n0 + i], a_hi, b_hi[i]);
+        for (int i = 0; i < kGroup; ++i)
+          if (i < g) tc::mma_tf32(c[n0 + i], a_hi, b_hi[i]);
       }
     }
   } else {
@@ -284,10 +304,12 @@ __device__ __forceinline__ void add_pv(float (&o)[HD / 8][4],
       o[nn][e] = fmaf(o[nn][e], alpha[e >> 1], c[nn][e]);
 }
 
-// hd = 64: 3 blocks of 4 warps per SM (registers ≤ 168 a thread) hide the
-// latencies of the fragment loads and the MMAs; hd = 128 needs more
+// hd ≤ 64: 3 blocks of 4 warps per SM (registers ≤ 168 a thread) hide the
+// latencies of the fragment loads and the MMAs; hd 96 and 128 keep more
+// accumulators (48 and 64 a thread) and their tiles more shared memory
+// (fp32: 75 and 99 KB a block, so 3 would not fit the SM's 228 KB): 2
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 2)
 swa_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int S,
                   int H, int B, int rep, int window, float scale_log2,
@@ -425,6 +447,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const Strides& st, cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, HD>();
   static_assert(smem <= 232448, "more than a block's shared memory");
+  // the blocks per SM that __launch_bounds__ promises must fit the SM's
+  // 228 KB of shared memory (1 KB of it reserved per block)
+  static_assert((HD <= 64 ? 3 : 2) * (smem + 1024) <= 233472,
+                "the blocks per SM do not fit the SM's shared memory");
   // above 48 KB of dynamic shared memory needs the opt-in, which is a
   // property of the kernel on the current device: set it every launch
   const cudaError_t err = cudaFuncSetAttribute(
@@ -455,14 +481,21 @@ extern "C" int swa_attention_launch(const void* q, const void* k,
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, S, H, KV, window, st, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, S, H, KV, window, st, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, KV, window, st, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, KV, window, st,
-                                      s);
+  using bf16 = __nv_bfloat16;
+  switch (dtype * 1000 + hd) {
+    case 32: return launch<float, 32>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 64: return launch<float, 64>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 96: return launch<float, 96>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 128:
+      return launch<float, 128>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 1032:
+      return launch<bf16, 32>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 1064:
+      return launch<bf16, 64>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 1096:
+      return launch<bf16, 96>(q, k, v, o, B, S, H, KV, window, st, s);
+    case 1128:
+      return launch<bf16, 128>(q, k, v, o, B, S, H, KV, window, st, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@
 ``swa_attention(q, k, v, *, window)`` is sliding-window causal attention
 in the model layout — q ``(B, S, H, hd)``, k/v ``(B, S, KV, hd)`` — over
 the keys ``(t − window, t]`` of each query ``t``; a window ≥ S is plain
-causal attention.  Any S; hd 64 or 128; fp32 or bf16; the output is
+causal attention.  Any S; fp32 or bf16; any head dim on the CPU, and on
+the card the kernel's instances, hd 32, 64, 96 or 128; the output is
 ``(B, S, H, hd)`` in ``q.dtype``.  This is the contract of the JAX
 package's wrapper (``repro.kernels.swa_attention.ops``), which pads and
 transposes for its kernel; this kernel reads the model layout through
@@ -49,7 +50,8 @@ from repro_torch.kernels.swa_attention.ref import NEG, swa_attention_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+# the head dims the kernel has an instance for (csrc/swa_attention.cu)
+HEAD_DIMS = (32, 64, 96, 128)
 # query rows per block of the kernel (csrc/swa_attention.cu)
 BLOCK_Q = 64
 # the arithmetic each dtype runs on: 3×TF32 tensor-core products for fp32
@@ -96,9 +98,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, s, h, kv) < 1 or h % kv:
         raise ValueError(f"swa_attention: need non-empty shapes and KV "
                          f"dividing H, got H={h}, KV={kv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"swa_attention: head dim {hd} not supported "
-                         f"(the kernel is built for {HEAD_DIMS})")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"swa_attention: dtypes differ {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -112,6 +111,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"swa_attention: window must be ≥ 1, got {window}")
 
 
+def check_head_dim(hd: int) -> None:
+    """Raise unless the kernel has an instance for head dim ``hd`` (the
+    CUDA path's test; the plain version takes any hd)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"swa_attention: head dim {hd} not supported on "
+                         f"the card (the kernel is built for {HEAD_DIMS})")
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              window: int) -> torch.Tensor:
     """The plain version on the CPU, the kernel on a CUDA device."""
@@ -122,6 +129,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("swa_attention: the head dim must be contiguous")
     b, s, h, hd = q.shape
+    check_head_dim(hd)
     if -(-s // BLOCK_Q) * h * b >= 2 ** 31:
         raise ValueError(f"swa_attention: shape {tuple(q.shape)} exceeds "
                          f"the kernel's grid (2^31 − 1 blocks)")

@@ -36,7 +36,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.data import synthetic as D
 from repro_torch.models import Model, build
 from repro_torch.utils.device import resolve_device
@@ -52,7 +52,8 @@ FLEET_MIXES = (
 
 def parse_args(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    choices=list(list_archs()))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -111,7 +112,8 @@ def sampler(temperature: float, gen: torch.Generator) -> Callable:
 def prefill_prompt(model: Model, params, prompts: torch.Tensor,
                    cache_len: int, pick: Callable = greedy):
     """Run the prompts; returns (first new tokens (B, 1), prefill logits
-    (B, S, V), or (B, 1, V) for a recurrent (hybrid) prefill, cache)."""
+    (B, S, V), or (B, 1, V) for a recurrent (hybrid, ssm) prefill,
+    cache)."""
     logits, cache = model.prefill(params, {"tokens": prompts},
                                   cache_len=cache_len)
     return pick(logits[:, -1]), logits, cache
@@ -199,6 +201,12 @@ def serve_decode(args) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.arch_type == "audio":
+        # as the JAX CLI: a prompt of tokens is no input for an encoder of
+        # audio frames
+        raise SystemExit("whisper decoding is driven through prefill (the "
+                         "encoder frames) and decode_step; the CLI demo "
+                         "serves the token-prompted LM families")
     model = build(cfg)
     params, _ = model.init(torch.Generator(device=device)
                            .manual_seed(args.seed))

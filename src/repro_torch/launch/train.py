@@ -1,6 +1,6 @@
 """End-to-end training entry point: event-triggered data-parallel training of
-an LM (the dense, moe and hybrid families) on the deterministic synthetic
-token stream (port of ``repro.launch.train``).
+an LM (any family of the model zoo) on the deterministic synthetic token
+stream (port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --reduced --steps 200 --comm "gain_lookahead(lam=0.01)"
@@ -17,7 +17,8 @@ The legacy ``--trigger/--lam/--mu/--period/--quantize/--topk/
 It runs on the card unless ``--device cpu`` is given; all ``--agents``
 run batched on the one device (default 1, the JAX CLI's data-axis size
 on one device).  Each step computes every agent's gradient and its
-lookahead probe through the ``swa_attention`` and ``fused_ce`` kernels.
+lookahead probe through the ``fused_ce`` kernel and, in every causal
+self-attention, the ``swa_attention`` kernel.
 Weights come from ``--seed``; batches from one bigram stream on the
 device.  Metrics reach the host only on log steps; the transmission and
 wire-byte totals are summed on the device and read once at the end.

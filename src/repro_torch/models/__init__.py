@@ -1,5 +1,5 @@
-"""The LM model zoo: the dense, moe and hybrid families (port of
-``repro.models``)."""
+"""The LM model zoo: the dense, moe, hybrid, ssm, audio and vlm families
+(port of ``repro.models``)."""
 from repro_torch.models.model_zoo import (  # noqa: F401
     Model,
     build,

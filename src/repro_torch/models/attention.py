@@ -9,7 +9,15 @@ Paths:
   the model computes it with ``attend``/``attend_blockwise`` and the
   Pallas kernel is that math's drop-in; the port wires the kernel in.
 * ``attend`` — direct masked attention, for ``causal=False``
-  (encoders, cross-attention); not on the dense serving path.
+  (the whisper encoder, cross-attention); not on the dense serving path.
+* ``attend_blockwise`` — the same math over blocks of ``q_block``
+  queries, each attending the full prefix (or its window), so one
+  block's score tile (B, H, q_block, Sk) is live at a time in the
+  forward; ``causal=False`` calls take it as the JAX package's
+  ``attention`` does (``q_block`` set and S > q_block, or S >
+  ``BLOCKWISE_THRESHOLD``).  The JAX package also rematerialises each
+  block in its backward (``jax.checkpoint``); here autograd keeps the
+  blocks' tiles (``remat`` is ROADMAP queue 1 item 10.4).
 * ``decode_attend`` — one new token against a KV cache (ring buffer for
   sliding windows), plain torch as in the JAX package.
 
@@ -25,9 +33,10 @@ import torch
 
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.utils.todo import not_ported, todo
+from repro_torch.utils.todo import not_ported
 
 BLOCKWISE_THRESHOLD = 8192
+Q_BLOCK = 1024
 
 NEG_INF = -1e30
 
@@ -93,17 +102,44 @@ def attend(q, k, v, *, causal=True, window=None, q_offset=0):
     return torch.einsum("bhqs,bshk->bqhk", w, v)
 
 
+def attend_blockwise(q, k, v, *, causal=True, window=None,
+                     q_block: int = Q_BLOCK):
+    """Same math as ``attend``, over blocks of ``q_block`` queries: each
+    block attends the full prefix (or its sliding window), so its score
+    tile is (B, H, q_block, Sk), not (B, H, Sq, Sk).  ``q_block`` falls
+    back to Sq when it does not divide Sq, as in the JAX package."""
+    b, sq, h, hd = q.shape
+    if sq % q_block:
+        q_block = sq  # fall back for ragged sizes
+    k_, v_ = _expand_kv(k, h), _expand_kv(v, h)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for q0 in range(0, sq, q_block):
+        qi = q[:, q0:q0 + q_block]
+        q_pos = q0 + torch.arange(q_block, device=q.device)
+        scores = torch.einsum("bqhk,bshk->bhqs", qi, k_).float()
+        scores = scores / math.sqrt(hd)
+        scores = scores + _mask(q_pos, k_pos, causal, window)[None, None]
+        w = torch.softmax(scores, dim=-1).to(qi.dtype)
+        outs.append(torch.einsum("bhqs,bshk->bqhk", w, v_))
+    return torch.cat(outs, dim=1)
+
+
 def attention(q, k, v, *, causal=True, window=None, q_block=None):
-    """Self-attention.  Causal: the ``swa_attention`` kernel, whose window
-    ``None`` means plain causal (window = S).  ``q_block`` selects the
-    JAX package's blockwise path, which bounds the score tile's memory;
-    the kernel never forms that tile, so it reads no ``q_block``."""
+    """Attention as the JAX package dispatches it.  Causal: the
+    ``swa_attention`` kernel, whose window ``None`` means plain causal
+    (window = S); the kernel never forms the score tile that ``q_block``
+    bounds, so it reads none.  Non-causal (an encoder, cross-attention):
+    ``attend_blockwise`` when ``q_block`` is set and S > q_block, or S >
+    ``BLOCKWISE_THRESHOLD``; else ``attend``."""
     if causal:
         return swa_ops.swa_attention(q, k, v, window=window or q.shape[1])
     s = q.shape[1]
-    if (q_block is not None and s > q_block) or s > BLOCKWISE_THRESHOLD:
-        raise todo("attend_blockwise (non-causal attention over long "
-                   "sequences)", "queue 1 item 10")
+    if q_block is not None and s > q_block:
+        return attend_blockwise(q, k, v, causal=False, window=window,
+                                q_block=q_block)
+    if s > BLOCKWISE_THRESHOLD:
+        return attend_blockwise(q, k, v, causal=False, window=window)
     return attend(q, k, v, causal=False, window=window)
 
 
@@ -190,8 +226,6 @@ def prefill_into_cache(p, cfg, k, v, cache_len: int) -> KVCache:
 
 
 __getattr__ = not_ported(__name__, {
-    "attend_blockwise": "queue 1 item 10",
     "abstract_kv_cache": "queue 1 item 12",
     "kv_cache_axes": "queue 1 item 11",
-    "Q_BLOCK": "queue 1 item 10",
 })

@@ -4,16 +4,26 @@ request against the cache, in plain torch as in the JAX package, and
 updates the cache in place (see
 :func:`repro_torch.models.attention.decode_attend`).  Per family:
 
-* dense / moe — ``prefill`` runs the prompt (its causal self-attention
-  through the ``swa_attention`` kernel) and captures each layer's K/V
-  into a cache of ``cache_len`` slots, a ring buffer of ``swa_window``
-  slots when the window is on.  A moe layer's experts run as in
-  training; at decode T = B tokens, so ``capacity`` gives its floor.
+* dense / moe / vlm — ``prefill`` runs the prompt (its causal
+  self-attention through the ``swa_attention`` kernel) and captures each
+  layer's K/V into a cache of ``cache_len`` slots, a ring buffer of
+  ``swa_window`` slots when the window is on.  A moe layer's experts run
+  as in training; at decode T = B tokens, so ``capacity`` gives its
+  floor.  vlm's prefill takes the tokens only, as the JAX package's.
 * hybrid (zamba2) — a cache of the Mamba2 (ssm, conv) states per layer
   and one KV cache of ``cache_len`` slots per shared-attention site.
-  ``prefill`` replays the prompt through ``decode_step`` (the state is
-  O(1) in the context, the JAX package's recurrent prefill) and returns
-  the last position's logits (B, 1, V); it launches no kernel.
+* ssm (xlstm) — the mLSTM matrix memory and the sLSTM (c, n, m, h)
+  states per pair, O(1) in the context.
+* The hybrid and ssm ``prefill`` replays the prompt through
+  ``decode_step`` (the JAX package's recurrent prefill) and returns the
+  last position's logits (B, 1, V); it launches no kernel.
+* audio (whisper) — a decoder self-attention cache of ``DECODER_LEN``
+  slots and the cross-attention K/V of every decoder layer over the
+  ``cache_len`` encoder frames.  ``prefill`` encodes the frames once and
+  fills the cross K/V; it returns no logits (``None``).  Decode is
+  plain: whisper serving launches no kernel.  As in the JAX package,
+  decode's self-attention applies RoPE (``decode_attend``), which the
+  decoder's training forward does not.
 """
 from __future__ import annotations
 
@@ -22,18 +32,22 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.whisper_medium import DECODER_LEN
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.models.transformer import (
     _attn_out,
     _ff,
     check_family,
+    cross_kv,
     dtype_of,
     group_bounds,
     layer,
     output_table,
     positions_of,
+    whisper_encode,
 )
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -60,13 +74,44 @@ def _stacked_kv(n: int, batch: int, C: int, cfg, dtype, device) -> A.KVCache:
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: DeviceLike = "cuda",
                dtype: Optional[torch.dtype] = None):
-    """Returns (cache, logical_axes) for one-token decoding: for dense
-    and moe a KVCache whose leaves carry a leading layer axis; for the
-    hybrid ``{"mamba": MambaState, "attn": KVCache}``, the states
-    stacked over layers and the caches over shared-attention sites."""
+    """Returns (cache, logical_axes) for one-token decoding: for dense,
+    moe and vlm a KVCache whose leaves carry a leading layer axis; for
+    the hybrid ``{"mamba": MambaState, "attn": KVCache}``, the states
+    stacked over layers and the caches over shared-attention sites; for
+    ssm ``{"mlstm": MLSTMState, "slstm": SLSTMState}`` stacked over pairs
+    (fp32 whatever ``dtype``, as the JAX package's); for audio ``{"self":
+    KVCache, "cross_k", "cross_v"}``, the cross K/V of ``cache_len``
+    encoder frames (zeros until ``prefill`` fills them)."""
     check_family(cfg)
     dtype = dtype or dtype_of(cfg.compute_dtype)
     device = resolve_device(device)
+    if cfg.arch_type == "ssm":
+        pairs = cfg.num_layers // 2
+        hd = int(cfg.d_model * cfg.xlstm.mlstm_proj_factor) // cfg.num_heads
+
+        def zeros(*shape):
+            return torch.zeros((pairs, batch) + shape, dtype=torch.float32,
+                               device=device)
+
+        m = XL.MLSTMState(C=zeros(cfg.num_heads, hd, hd),
+                          n=zeros(cfg.num_heads, hd))
+        s = XL.SLSTMState(c=zeros(cfg.d_model), n=zeros(cfg.d_model),
+                          m=zeros(cfg.d_model) - 20.0, h=zeros(cfg.d_model))
+        axes = {"mlstm": XL.MLSTMState(
+                    C=("layer", "batch", "heads", None, None),
+                    n=("layer", "batch", "heads", None)),
+                "slstm": XL.SLSTMState(*([("layer", "batch", "embed")]
+                                         * 4))}
+        return {"mlstm": m, "slstm": s}, axes
+    if cfg.arch_type == "audio":
+        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+                 cfg.head_dim_)
+        ax = ("layer", "batch", "cache_seq", "kv_heads", None)
+        return ({"self": _stacked_kv(cfg.num_layers, batch, DECODER_LEN, cfg,
+                                     dtype, device),
+                 "cross_k": torch.zeros(shape, dtype=dtype, device=device),
+                 "cross_v": torch.zeros(shape, dtype=dtype, device=device)},
+                {"self": _stacked_kv_axes(), "cross_k": ax, "cross_v": ax})
     if cfg.arch_type == "hybrid":
         n_sites = len(group_bounds(cfg.num_layers, cfg.shared_attn_every))
         one = SSM.init_mamba_state(cfg, batch, dtype, device)
@@ -110,6 +155,44 @@ def _hybrid_decode(cfg, params, cache, x, pos: int):
     return x
 
 
+def _xlstm_decode(cfg, params, cache, x):
+    mst, sst = cache["mlstm"], cache["slstm"]
+    for i in range(cfg.num_layers // 2):
+        lp = layer(params["pairs"], i)
+        y, m_new = XL.mlstm_decode_step(
+            lp["mlstm"], cfg, rms_norm(x, lp["ln_m"], cfg.norm_eps),
+            layer(mst, i))
+        x = x + y
+        y, s_new = XL.slstm_decode_step(
+            lp["slstm"], cfg, rms_norm(x, lp["ln_s"], cfg.norm_eps),
+            layer(sst, i))
+        x = x + y
+        x = x + XL.slstm_block_mlp(lp["slstm"], cfg, x)
+        for state, new in ((mst, m_new), (sst, s_new)):
+            for t, v in zip(state, new):
+                t[i].copy_(v)
+    return x
+
+
+def _whisper_decode(cfg, params, cache, x, pos: int):
+    dtype = x.dtype
+    x = x + params["dec_pos"][pos].to(dtype)[None, None]
+    for i in range(cfg.num_layers):
+        lp = layer(params["dec_blocks"], i)
+        hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        o, _ = A.decode_attend(lp["attn"], cfg, hn, layer(cache["self"], i),
+                               pos)
+        x = x + _attn_out(lp["attn"], o)
+        hn = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", hn, lp["cross"]["wq"].to(dtype))
+        o = A.attend(q, cache["cross_k"][i], cache["cross_v"][i],
+                     causal=False)
+        x = x + _attn_out(lp["cross"], o)
+        ff, _ = _ff(lp, cfg, x, gelu=True)
+        x = x + ff
+    return x
+
+
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                 pos: int):
     """tokens (B, 1) int; pos the tokens' absolute position.  Returns
@@ -118,6 +201,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     x = embed(params["embedding"], tokens, dtype_of(cfg.compute_dtype))
     if cfg.arch_type == "hybrid":
         x = _hybrid_decode(cfg, params, cache, x, pos)
+    elif cfg.arch_type == "ssm":
+        x = _xlstm_decode(cfg, params, cache, x)
+    elif cfg.arch_type == "audio":
+        x = _whisper_decode(cfg, params, cache, x, pos)
     else:
         for i in range(cfg.num_layers):
             x, _ = _attn_block_decode(layer(params["blocks"], i), cfg, x,
@@ -128,11 +215,22 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     """Run the prompt, return (logits, cache ready for ``decode_step``):
-    the logits (B,S,V) fp32 of every position, or for the hybrid, whose
-    prefill replays the prompt through ``decode_step``, the last
-    position's (B,1,V)."""
+    the logits (B,S,V) fp32 of every position; for the hybrid and ssm,
+    whose prefill replays the prompt through ``decode_step``, the last
+    position's (B,1,V); for audio, which encodes ``batch["frame_embeds"]``
+    once and fills the cross K/V (``cache_len`` is ignored: the cross
+    cache holds the encoder's frames), ``None``."""
     check_family(cfg)
-    if cfg.arch_type == "hybrid":
+    if cfg.arch_type == "audio":
+        enc = whisper_encode(cfg, params, batch)
+        cache, _ = init_cache(cfg, enc.shape[0], enc.shape[1],
+                              device=enc.device, dtype=enc.dtype)
+        for i in range(cfg.num_layers):
+            k, v = cross_kv(layer(params["dec_blocks"], i), enc)
+            cache["cross_k"][i].copy_(k)
+            cache["cross_v"][i].copy_(v)
+        return None, cache
+    if cfg.arch_type in ("hybrid", "ssm"):
         tokens = batch["tokens"]
         cache, _ = init_cache(cfg, tokens.shape[0], cache_len,
                               device=tokens.device)

@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norm, RoPE, SwiGLU, embeddings (port of
+"""Shared neural-net layers: norm, RoPE, sinusoidal positions, the
+SwiGLU and GELU MLPs, embeddings (port of
 ``repro.models.layers``).
 
 All functions are pure; parameters come in as trees built by
@@ -11,8 +12,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-
-from repro_torch.utils.todo import not_ported
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
@@ -44,6 +43,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, dim: int,
+                         dtype: torch.dtype = torch.float32,
+                         device=None) -> torch.Tensor:
+    """(seq_len, dim) sinusoidal position table: sin in the even
+    columns, cos in the odd, at rates exp(−2i·ln(10000)/dim), in fp32
+    as the JAX package forms it."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, device=device)) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * rate)
+    pe = torch.zeros((seq_len, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+
+
 def build_swiglu(scope, d_model: int, d_ff: int):
     scope.param("w_gate", (d_model, d_ff), ("embed", "ff"))
     scope.param("w_up", (d_model, d_ff), ("embed", "ff"))
@@ -53,6 +68,19 @@ def build_swiglu(scope, d_model: int, d_ff: int):
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ p["w_gate"])
     return (gate * (x @ p["w_up"])) @ p["w_down"]
+
+
+def build_gelu_mlp(scope, d_model: int, d_ff: int):
+    scope.param("w_in", (d_model, d_ff), ("embed", "ff"))
+    scope.param("b_in", (d_ff,), ("ff",), init="zeros")
+    scope.param("w_out", (d_ff, d_model), ("ff", "embed"))
+    scope.param("b_out", (d_model,), ("embed",), init="zeros")
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return h @ p["w_out"] + p["b_out"]
 
 
 def build_embedding(scope, vocab: int, d_model: int, name: str = "embedding"):
@@ -108,9 +136,3 @@ def cross_entropy_fused(table: torch.Tensor, x: torch.Tensor,
     return tot / torch.clamp(torch.as_tensor(cnt, dtype=torch.float32,
                                              device=x.device), min=1.0)
 
-
-__getattr__ = not_ported(__name__, {
-    "sinusoidal_positions": "queue 1 item 10",
-    "build_gelu_mlp": "queue 1 item 10",
-    "gelu_mlp": "queue 1 item 10",
-})

@@ -1,7 +1,7 @@
 """Model facade (port of ``repro.models.model_zoo``).
 
 ``build(cfg)`` returns a :class:`Model` bundling the init / forward /
-loss / decode closures of the dense, moe and hybrid families.  The workload specs and axes
+loss / decode closures of every family.  The workload specs and axes
 (``input_specs``/``input_axes``/``runs_shape``) belong to the dry-run,
 which the port has not reached.
 """

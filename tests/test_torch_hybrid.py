@@ -307,8 +307,9 @@ def test_greedy_serving_equals_forward_argmax():
 # the triggered train step and the CLIs
 # ----------------------------------------------------------------------
 
-def _check_hybrid_step(policy, tnext, tmet, jnext, jmet, terms):
-    tol, atol = HYBRID_GRAD_TOL, 1e-6
+def _check_hybrid_step(policy, tnext, tmet, jnext, jmet, terms, *,
+                       tol=HYBRID_GRAD_TOL):
+    atol = 1e-6
     tx_t, tx_j = tmet["agent_tx"].numpy(), np.asarray(jmet["agent_tx"])
     if not np.array_equal(tx_t, tx_j):
         gains = terms()[1]

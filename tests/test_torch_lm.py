@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.configs import reduced as jax_reduced
 from repro.data import synthetic as JD
 from repro.models import build as jax_build
@@ -38,10 +39,9 @@ from repro_torch.utils import tree as T
 torch.set_num_threads(1)
 
 DENSE = ("deepseek-7b", "llama3.2-3b", "qwen3-32b", "smollm-135m")
-# the non-dense families: moe and hybrid are ported, the rest raise
+# the non-dense families: moe, hybrid, vlm, audio and ssm
 OTHER_FAMILIES = ("kimi-k2-1t-a32b", "mixtral-8x7b", "phi-3-vision-4.2b",
                   "whisper-medium", "xlstm-350m", "zamba2-1.2b")
-MOE_AND_HYBRID = ("kimi-k2-1t-a32b", "mixtral-8x7b", "zamba2-1.2b")
 LOGIT_TOL = dict(atol=1e-5, rtol=1e-5)
 CACHE_TOL = dict(atol=5e-5, rtol=1e-5)
 NEAR_TIE = 1e-4
@@ -100,14 +100,12 @@ def test_dense_configs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", OTHER_FAMILIES)
 def test_other_families_raise_todo(arch):
-    """The moe and hybrid configs equal the JAX package's field for field
-    (full and reduced) and their reduced models initialise; the other
-    families' ids are known to the JAX package and still raise."""
-    want = jax_get_config(arch)  # known to the JAX package
-    if arch not in MOE_AND_HYBRID:
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            get_config(arch)
-        return
+    """Every family is ported now, so nothing raises: the other five
+    families' configs (moe, hybrid, vlm, audio, ssm) equal the JAX
+    package's field for field (full and reduced) and their reduced
+    models initialise.  (The name is kept from when the unported ids
+    raised.)"""
+    want = jax_get_config(arch)
     assert arch in list_archs()
     for jax_fn, port_fn in VARIANTS[:2]:
         got = port_fn(get_config(arch))
@@ -301,16 +299,23 @@ def test_serve_cli_on_the_cpu(capsys):
 
 
 def test_serve_cli_unported_modes_raise(capsys):
-    """``--fleet`` serves now (the durable paths are held in
-    tests/test_torch_session.py); the other model families still raise
-    with their ROADMAP item."""
+    """No mode raises now: ``--fleet`` serves (the durable paths are held
+    in tests/test_torch_session.py), and so does the decode demo of the
+    last family ported, xlstm, on the CPU; every arch id of the JAX
+    package is a choice of ``--arch``.  (The name is kept from when the
+    unported families raised.)"""
     assert serve.main(["--fleet", "--device", "cpu", "--rounds", "2",
                        "--log-every", "1"]) == 0
     out = capsys.readouterr().out
     assert "fleet: mix=tiered_m64_adaptive m=64 rounds=2" in out
     assert re.search(r"^served 2 rounds at \S+ rounds/s", out, re.M), out
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        serve.main(["--arch", "xlstm-350m", "--device", "cpu"])
+    assert serve.main(["--arch", "xlstm-350m", "--reduced", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "6", "--gen",
+                       "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=xlstm-350m")
+    assert len(eval(lines[3].split("-> ")[1])) == 3
+    assert set(list_archs()) == set(jax_list_archs())
 
 
 def test_greedy_serving_equals_prefill_argmax():

@@ -145,18 +145,26 @@ def _passes(a: np.ndarray, b: np.ndarray, fp32: bool):
 
 
 def chunked_matmul(a: np.ndarray, b: np.ndarray, fp32: bool, chunk: int,
-                   chunked: bool = True) -> np.ndarray:
+                   chunked: bool = True, ragged: bool = False) -> np.ndarray:
     """a (M, K) @ b (N, K)ᵀ: k-chunks of ``chunk`` columns, each in a fresh
     accumulator added in round-to-nearest fp32 (or, with ``chunked``
-    False, the whole of K in one accumulator)."""
+    False, the whole of K in one accumulator).  K is padded with zeros
+    to whole chunks (``fused_ce``'s copies), or with ``ragged`` the last
+    chunk is cut short at K (``swa_attention``'s loop over hd's
+    k-steps)."""
     step, block = (8, 4) if fp32 else (16, 8)
-    passes = _passes(_pad(a, chunk), _pad(b, chunk), fp32)
+    if ragged:
+        assert a.shape[1] % step == 0, "hd is a whole number of k-steps"
+        passes = _passes(a, b, fp32)
+    else:
+        passes = _passes(_pad(a, chunk), _pad(b, chunk), fp32)
     k = passes[0][0].shape[1]
     if not chunked:
         return mma_chunk(passes, 0, k, step, block)
     acc = np.zeros((a.shape[0], b.shape[0]))
     for k0 in range(0, k, chunk):
-        acc = rn32(acc + mma_chunk(passes, k0, k0 + chunk, step, block))
+        acc = rn32(acc + mma_chunk(passes, k0, min(k0 + chunk, k), step,
+                                   block))
     return acc
 
 
@@ -283,8 +291,8 @@ def swa_block(q, k, v, q0: int, window: int, fp32: bool,
               p_parts: int = 2, round_out: bool = True) -> np.ndarray:
     """Rows q0 … q0 + 63 of one head (q (S, hd), k and v (S, hd) of its kv
     head, values fp32 or bf16) as swa_attention.cu computes them: the
-    block's key tiles, Q·Kᵀ in k-chunks of 32 (fp32) or 64 (bf16) of hd,
-    the online softmax in log2 units, P·V per 32-key tile (tf32: 3×TF32
+    block's key tiles, Q·Kᵀ in k-chunks of 32 (fp32) or 64 (bf16) of hd
+    (the last one ragged where hd is not a multiple), the online softmax in log2 units, P·V per 32-key tile (tf32: 3×TF32
     in the kernel's key order; bf16: P in ``p_parts`` bf16 parts, small
     part first), O rescaled by one FMA per tile, O / max(l, 1e-30) at the
     end, rounded to the input's dtype unless ``round_out`` is False."""
@@ -302,7 +310,8 @@ def swa_block(q, k, v, q0: int, window: int, fp32: bool,
         vt = np.zeros((32, hd), np.float32)
         kt[keys < s_len] = k[keys[keys < s_len]]
         vt[keys < s_len] = v[keys[keys < s_len]]
-        s = chunked_matmul(qs, kt, fp32, chunk=32 if fp32 else 64)
+        s = chunked_matmul(qs, kt, fp32, chunk=32 if fp32 else 64,
+                           ragged=True)
         keep = ((keys[None] <= rows[:, None])
                 & (keys[None] > rows[:, None] - window)
                 & (keys[None] < s_len))
@@ -348,11 +357,17 @@ def _swa_inputs(shape, seed, fp32):
 
 
 # the [swa] check's shapes (B, S, H, KV, hd, W): the served two, the JAX
-# tests' S = 384 row of its grid, one hd = 128 shape and the hd = 128 edge
+# tests' S = 384 row of its grid, one hd = 128 shape and the hd = 128 edge;
+# then the head dims whose k-chunks are ragged in bf16 (2 k16-steps at hd
+# 32, 4 + 2 at hd 96) and whose fp32 P·V takes n8 tiles in a ragged last
+# group (4 at hd 32, 8 + 4 at hd 96): phi-3-vision's served shape, the
+# reduced smollm's hd 32 at --d-model 128, and both head dims' edges
 SWA_SHAPES = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096),
               (2, 384, 4, 2, 64, 32), (2, 384, 4, 2, 64, 128),
               (2, 384, 4, 2, 64, 1 << 30), (1, 2048, 24, 8, 128, 512),
-              (1, 1000, 8, 2, 128, 300))
+              (1, 1000, 8, 2, 128, 300),
+              (4, 512, 32, 32, 96, 512), (4, 1024, 4, 2, 32, 1024),
+              (1, 1000, 8, 2, 96, 300), (1, 77, 6, 3, 32, 5))
 
 
 def _swa_case(shape, fp32, **kw):
