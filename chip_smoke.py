@@ -187,6 +187,22 @@ Phases (any failure exits nonzero; no result line is printed then):
               ``swa_attention`` launches per step, finite gains, ms per
               step and peak memory; one 2-layer step against the CPU as
               above, the mean gain within 1e-4 too.
+   remat    — the same model, shape and first batch, one step with
+              ``remat=False`` and one with ``remat=True`` (each after a
+              warm-up call) from the same state, under the [train] policy
+              and then the [train quadratic] one: ms, peak memory and
+              launches of each, ``swa_attention`` 60 → 90 (lookahead:
+              the backward recomputes each block's attention) and 60 →
+              150 (quadratic: the HVP's jvp rule and its backward
+              recompute it too), ``fused_ce`` 2; decisions equal, loss
+              and mean gain within 1e-4, the parameters bitwise equal (or
+              the largest gap printed and held to 1e-4 of a leaf's max,
+              an int8 rounding midpoint a level apart).
+   microbatch — the same step with ``microbatches=2`` (each agent's 2
+              sequences one at a time), alone and with ``remat``, against
+              the plain step: the kernels launched once per slice,
+              decisions equal, loss and parameters within 1e-4 (the
+              slices' sums associate otherwise), ms and peak memory.
    train resume — the training CLI (``repro_torch.launch.train.main``)
               on smollm-135m at full width cut to 4 layers, m = 4,
               ``gain_lookahead(lam=0.01)|int8+ef``: 4 steps with
@@ -223,11 +239,14 @@ Phases (any failure exits nonzero; no result line is printed then):
               tokens; no kernel launch in prefill or decode; prefill ms,
               decode ms per step, tokens/s, peak memory; decode against
               a fresh replay; 64 tokens on the card and the CPU.
-   hybrid train — zamba2-1.2b at full width cut to 12 layers (2 sites),
-              m = 2, global batch 2 × 512: 4 ``swa_attention`` (2 sites,
-              loss and probe) and 2 ``fused_ce`` launches per step, ms
-              per step, peak memory; a 2-layer step on the card and the
-              CPU.
+   hybrid train — zamba2-1.2b at full width and depth (38 layers, 7
+              sites) with ``remat`` (each Mamba2 layer checkpointed, the
+              shared block not), m = 2, global batch 2 × 512: 14
+              ``swa_attention`` (7 sites, loss and probe) and 2
+              ``fused_ce`` launches per step, ms per step, peak memory;
+              then cut to 12 layers (2 sites) without remat: 4 and 2
+              launches per step, ms, peak memory (the profile's step); a
+              2-layer step on the card and the CPU.
    xlstm    — xlstm-350m at full width and depth (12 mLSTM/sLSTM pairs,
               fp32, seed 0): batch 4, a 256-token prompt replayed through
               decode, 32 tokens; no kernel launch; decode bitwise a fresh
@@ -261,13 +280,17 @@ Phases (any failure exits nonzero; no result line is printed then):
               launches a step over the 512 text tokens (the prefix
               cropped, recorded at the loss's call) and 8
               ``swa_attention`` launches at hd 96 (1088 positions); a
-              2-layer step on the card and the CPU.
+              2-layer step on the card and the CPU; why the depth stays
+              cut (the parameter-sized trees of an m = 2 step at 32
+              layers, with or without remat).
    whisper train — whisper-medium at full width and depth, m = 2, each
-              agent 1500 frames and 448 decoder tokens: 2 ``fused_ce``
-              and 48 ``swa_attention`` (the decoder's causal
-              self-attention, loss and probe) launches a step, ms per
-              step, peak memory; a 2 + 2-layer step on the card and the
-              CPU.
+              agent 1500 frames and 448 decoder tokens: with ``remat``
+              and ``attn_q_block`` 500 (the encoder blockwise, each block
+              checkpointed) 2 ``fused_ce`` and 72 ``swa_attention``
+              launches a step; then plain, 2 and 48 (the decoder's causal
+              self-attention, loss and probe); ms per step and both peak
+              memories, the first losses within 1e-4; a 2 + 2-layer step
+              on the card and the CPU.
 6. times    — ``gain_reduce``'s, its plain version's and
               ``torch.linalg.vecdot``'s times at each shape beside the
               bytes-over-bandwidth bound: per call by CUDA events (median
@@ -485,6 +508,15 @@ TRAIN_QUAD = dict(TRAIN, warmup=1, timed=3,
                   comm="gain_quadratic(lam=0.01)|int8+ef")
 # card vs CPU: one step of the same model cut to 2 layers, full width
 TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=128)
+# swa_attention launches per causal self-attention site in one step
+# ([remat], [microbatch]: per slice): the agents' losses and the probe
+# (lookahead) or the HVP's forward (quadratic); under remat the backward
+# recomputes each checkpointed block, and the HVP recomputes it twice
+# more (its jvp rule and its backward)
+REMAT_SWA_PER_LAYER = {("lookahead", False): 2, ("lookahead", True): 3,
+                       ("quadratic", False): 2, ("quadratic", True): 5}
+# timed calls of each [remat]/[microbatch] variant, after one warm-up
+KNOB_TIMED = 2
 # durable serving: each half of the [durable] lineage, its checkpoint
 # period; [kill] drives the faults CLI with CI's kill-and-resume numbers
 # (.github/workflows/ci.yml:185-200); [telemetry] serves in thread mode
@@ -528,6 +560,10 @@ HYBRID_SERVE = dict(batch=4, prompt=256, gen=32)
 HYBRID_CHECK = dict(batch=2, prompt=64, gen=8)
 HYBRID_TRAIN = dict(layers=12, agents=2, batch=2, seq=512, warmup=1,
                     timed=3)
+# ... and at all 38 layers (7 sites) with remat: each Mamba2 layer keeps
+# only its input for the backward, so the parameter state (weights, 2
+# gradients, 2 EF memories, 2 probes: ~7 × 4.7 GB) is what fills the card
+HYBRID_TRAIN_FULL = dict(HYBRID_TRAIN, layers=38)
 HYBRID_TRAIN_CHECK_LAYERS = 2
 # card vs CPU through 38 recurrent layers: the two devices' roundings
 # part as a last-bit change of the weights does, and this model amplifies
@@ -564,6 +600,9 @@ WHISPER_ARCH = "whisper-medium"
 WHISPER_SERVE = dict(batch=4, frames=1500, gen=32, q_blocks=(500, 512))
 WHISPER_CHECK = dict(layers=1, batch=2, frames=300, gen=8)
 WHISPER_TRAIN = dict(agents=2, batch=2, seq=1500, warmup=1, timed=3)
+# ... and with remat and the encoder's score tiles in 3 query blocks of
+# 500 frames (each checkpointed)
+WHISPER_TRAIN_REMAT = dict(remat=True, attn_q_block=500)
 # encoder outputs (rms-normed, |x| ~ 1): blockwise against plain on the
 # card, 24 layers of fp32 sums in other orders
 WHISPER_ENC_TOL = 1e-4
@@ -576,6 +615,9 @@ VLM_ARCH = "phi-3-vision-4.2b"
 VLM_SERVE = dict(batch=4, prompt=512, gen=32)
 VLM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
 VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=3)
+# an m = 2 step's parameter-sized trees: weights, 2 gradients, 2 EF
+# memories, 2 lookahead probes
+VLM_STATE_TREES = 7
 
 
 def nvidia_smi() -> str:
@@ -3408,9 +3450,11 @@ def _ce_vmap(torch, ce_ops, gen) -> dict:
 
 
 def _train_parts(cfg, agents: int, batch: int, seq: int, device,
-                 comm: str = TRAIN["comm"]):
+                 comm: str = TRAIN["comm"], **knobs):
     """What the training CLI builds: the plan, its step, the model and
-    its optimizer (``repro_torch.launch.train.main``'s calls)."""
+    its optimizer (``repro_torch.launch.train.main``'s calls); ``knobs``
+    are ``plan_run``'s memory knobs (``remat``, ``attn_q_block``,
+    ``microbatches``)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps as S
     from repro_torch.models import build
@@ -3419,7 +3463,7 @@ def _train_parts(cfg, agents: int, batch: int, seq: int, device,
     shape = InputShape("train_smoke", seq_len=seq, global_batch=batch,
                        kind="train")
     plan = S.plan_run(cfg, shape, num_agents=agents, comm=comm,
-                      optimizer="sgd", lr=TRAIN["lr"])
+                      optimizer="sgd", lr=TRAIN["lr"], **knobs)
     step = S.build_train_step(plan, compute_dtype="float32", device=device)
     return (plan, shape, step, build(plan.cfg),
             opt_lib.from_config(plan.train_cfg))
@@ -3604,6 +3648,219 @@ def phase_train_quadratic(torch, ce_ops, swa_ops, cfg, dev, batches) -> dict:
     return record
 
 
+def _knob_step(torch, ce_ops, swa_ops, cfg, dev, params, batch, comm: str,
+               **knobs) -> dict:
+    """One TRAIN step of ``cfg`` with ``plan_run``'s ``knobs`` from a
+    fresh state on ``params`` (EF memory 0): a warm-up call (which also
+    fills the allocator's cache), then KNOB_TIMED calls from the same
+    state, their launches counted from 0 (per call) and their peak
+    memory from a reset.  Returns the mean ms, the peak, the launches
+    per call, the metrics and new parameters (``{path: tensor}``)."""
+    from repro_torch.core.api import init_train_state
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    plan, _, step, _, opt = _train_parts(cfg, TRAIN["agents"], TRAIN["batch"],
+                                         TRAIN["seq"], dev, comm, **knobs)
+    state = init_train_state(params, opt, plan.train_cfg, device=dev)
+    step(state, batch)  # warm-up, result dropped: new shapes, cached blocks
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times, per_call = [], []
+    for _ in range(KNOB_TIMED):
+        new = m = None  # the last call's state is not held during this one
+        ce_ops.fused_ce.launches = swa_ops.swa_attention.launches = 0
+        t0 = time.perf_counter()
+        new, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_call.append({"fused_ce": ce_ops.fused_ce.launches,
+                         "swa_attention": swa_ops.swa_attention.launches})
+    if any(c != per_call[0] for c in per_call):
+        raise AssertionError(f"{knobs}: launches differ between calls "
+                             f"{per_call}")
+    launches = per_call[0]
+    ms = statistics.mean(times)
+    out = {"knobs": knobs, "comm": comm, "ms": ms, "ms_calls": times,
+           "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "allocated_before_gb": base_gb,
+           "metrics": {k: v.cpu() for k, v in m.items()},
+           "params": dict(tree_flatten_with_path(new.params))}
+    for k in ("loss", "mean_gain", "num_tx"):
+        if not math.isfinite(float(out["metrics"][k])):
+            raise AssertionError(f"{knobs}: non-finite {k} {out['metrics']}")
+    return out
+
+
+def _agent_grads(torch, model, params, batch) -> dict:
+    """Each agent's gradient ``{path: (agents, *shape)}``: where the int8
+    wire may round two steps one level apart."""
+    from repro_torch.comm.bank import batch_prologue
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    _, grads = batch_prologue(model.loss_fn)(params, batch)
+    return dict(tree_flatten_with_path(grads))
+
+
+def _hold_variant(torch, label: str, got: dict, want: dict,
+                  grads) -> dict:
+    """``got`` (a :func:`_knob_step`) against ``want`` from the same
+    state and batch: the decisions equal, the loss and the gain within
+    TRAIN_TOL, the parameters bitwise or else each leaf within
+    TRAIN_TOL of its largest value but at an int8 rounding midpoint, a
+    level apart (``grads()``: the agents' gradients that find those)."""
+    mg, mw = got["metrics"], want["metrics"]
+    if not torch.equal(mg["num_tx"], mw["num_tx"]):
+        raise AssertionError(f"{label}: num_tx {mg['num_tx']} vs "
+                             f"{mw['num_tx']}")
+    gaps = {}
+    for key in ("loss", "mean_gain", "grad_norm"):
+        gaps[key] = (abs(float(mg[key]) - float(mw[key]))
+                     / abs(float(mw[key])))
+        if not gaps[key] <= TRAIN_TOL:
+            raise AssertionError(f"{label}: {key} {float(mg[key])} vs "
+                                 f"{float(mw[key])}")
+    equal = all(torch.equal(got["params"][p], w)
+                for p, w in want["params"].items())
+    worst, tied = 0.0, 0
+    if not equal:
+        worst, tied = _params_within(
+            torch, got["params"], want["params"], grads(),
+            TRAIN["agents"], label)
+    return {"params_bitwise_equal": equal,
+            "params_max_gap_over_leaf_max": worst,
+            "int8_midpoint_elements_one_level_apart": tied,
+            "rel_gaps": gaps}
+
+
+def _variant_text(v: dict) -> str:
+    return (f"{v['ms']:.2f} ms, peak {v['peak_memory_gb']:.2f} GB "
+            f"({v['allocated_before_gb']:.2f} GB before), launches "
+            f"fused_ce {v['launches']['fused_ce']}, swa_attention "
+            f"{v['launches']['swa_attention']}")
+
+
+def _match_text(h: dict) -> str:
+    if h["params_bitwise_equal"]:
+        return "params bitwise equal"
+    return (f"params NOT bitwise: within "
+            f"{h['params_max_gap_over_leaf_max']:.2e} of each leaf's max "
+            f"(tol {TRAIN_TOL}) apart from "
+            f"{h['int8_midpoint_elements_one_level_apart']} elements at an "
+            f"int8 rounding midpoint, a level apart")
+
+
+def phase_remat(torch, ce_ops, swa_ops, cfg, dev, batch) -> tuple:
+    """``remat`` on the LM train slice: smollm-135m at full width and
+    depth, TRAIN's settings, one step with ``remat=False`` and one with
+    ``remat=True`` from the same state and batch, under
+    ``gain_lookahead`` and then ``gain_quadratic`` (the HVP through the
+    checkpointed blocks).  Each causal self-attention runs once more per
+    step under remat (REMAT_SWA_PER_LAYER); the parameters after the step
+    are bitwise equal (the recompute runs the forward's products on the
+    same shapes, and its backward the plain step's formulas).  Returns
+    (record, the plain lookahead step for [microbatch])."""
+    from repro_torch.models import build
+
+    model = build(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    layers = cfg.num_layers
+    record, base = {}, None
+    for trig, comm in (("lookahead", TRAIN["comm"]),
+                       ("quadratic", TRAIN_QUAD["comm"])):
+        runs = {}
+        for remat in (False, True):
+            v = _knob_step(torch, ce_ops, swa_ops, cfg, dev, params, batch,
+                           comm, remat=remat)
+            want = REMAT_SWA_PER_LAYER[trig, remat] * layers
+            if v["launches"] != {"fused_ce": 2, "swa_attention": want}:
+                raise AssertionError(
+                    f"[remat] {trig} remat={remat}: launches {v['launches']}"
+                    f", want fused_ce 2 and swa_attention {want}")
+            runs[remat] = v
+        # bitwise expected: the recompute runs the forward's products on
+        # the same shapes, and its backward the plain step's formulas; a
+        # gap would mean cuBLAS picked another algorithm for a product
+        held = _hold_variant(
+            torch, f"[remat] {trig}", runs[True], runs[False],
+            lambda: _agent_grads(torch, model, params, batch))
+        for remat in (False, True):
+            print(f"[remat] {cfg.name} {layers} layers, {comm!r}, "
+                  f"remat={remat}: {_variant_text(runs[remat])}")
+        m = runs[True]["metrics"]
+        print(f"[remat] {trig}: remat against plain from one state: "
+              f"{_match_text(held)}; num_tx {float(m['num_tx']):.0f}/"
+              f"{TRAIN['agents']} equal, loss {float(m['loss']):.6f} (rel gap "
+              f"{held['rel_gaps']['loss']:.2e}), mean gain "
+              f"{float(m['mean_gain']):.6e} (rel gap "
+              f"{held['rel_gaps']['mean_gain']:.2e}); peak "
+              f"{runs[False]['peak_memory_gb']:.2f} -> "
+              f"{runs[True]['peak_memory_gb']:.2f} GB, "
+              f"{runs[False]['ms']:.2f} -> {runs[True]['ms']:.2f} ms a step")
+        if trig == "lookahead":
+            base = runs[False]
+        record[trig] = {
+            "check": held, **{f"remat_{r}": {k: v for k, v in runs[r].items()
+                                             if k not in ("params",
+                                                          "metrics")}
+                              for r in (False, True)},
+            "metrics": {str(r): {k: float(v) for k, v in
+                                 runs[r]["metrics"].items()}
+                        for r in (False, True)}}
+        del runs
+        torch.cuda.empty_cache()
+    return record, (model, params, base)
+
+
+def phase_microbatch(torch, ce_ops, swa_ops, cfg, dev, batch, base) -> dict:
+    """``microbatches=2`` on the [remat] phase's lookahead step (each
+    agent's 2 sequences in 2 slices), alone and with ``remat``, against
+    the plain step from the same state: the loss and the parameters
+    within TRAIN_TOL (the slices' sums associate otherwise), the
+    decisions equal, each kernel once per slice, and the peak memory.
+    A loop under ``grad`` keeps every slice's graph, so microbatching
+    alone is not expected to lower the peak much."""
+    model, params, plain = base
+    layers = cfg.num_layers
+    grads = None
+
+    def agent_grads():
+        nonlocal grads
+        if grads is None:
+            grads = _agent_grads(torch, model, params, batch)
+        return grads
+
+    record = {"plain": {k: v for k, v in plain.items()
+                        if k not in ("params", "metrics")}}
+    for remat in (False, True):
+        v = _knob_step(torch, ce_ops, swa_ops, cfg, dev, params, batch,
+                       TRAIN["comm"], microbatches=2, remat=remat)
+        want = {"fused_ce": 4, "swa_attention":
+                2 * REMAT_SWA_PER_LAYER["lookahead", remat] * layers}
+        if v["launches"] != want:
+            raise AssertionError(f"[microbatch] remat={remat}: launches "
+                                 f"{v['launches']}, want {want}")
+        held = _hold_variant(torch, f"[microbatch] remat={remat}", v, plain,
+                             agent_grads)
+        m = v["metrics"]
+        print(f"[microbatch] {cfg.name}, microbatches=2, remat={remat}: "
+              f"{_variant_text(v)}; against the plain step (peak "
+              f"{plain['peak_memory_gb']:.2f} GB, {plain['ms']:.2f} ms): "
+              f"loss {float(m['loss']):.6f} (rel gap "
+              f"{held['rel_gaps']['loss']:.2e}), num_tx "
+              f"{float(m['num_tx']):.0f}/{TRAIN['agents']} equal, "
+              f"{_match_text(held)}")
+        record[f"microbatches_2_remat_{remat}"] = {
+            "check": held, **{k: x for k, x in v.items()
+                              if k not in ("params", "metrics")},
+            "metrics": {k: float(x) for k, x in m.items()}}
+        del v
+    del grads
+    torch.cuda.empty_cache()
+    return record
+
+
 def phase_train_resume(torch, ce_ops, swa_ops) -> dict:
     """The train CLI's resume on the card: smollm-135m at full width cut
     to TRAIN_RESUME["layers"] layers, m = 4, ``--ckpt-every 2``.  An
@@ -3755,22 +4012,8 @@ def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
         if not gaps[key] <= TRAIN_TOL:
             raise AssertionError(f"train card vs CPU: {key} {float(mc[key])} "
                                  f"vs {float(mh[key])}")
-    worst, tied = 0.0, 0
-    for path, want in ph.items():
-        scale = want.abs().max().item()
-        diff = (pc[path] - want).abs()
-        g = g_cpu[path]
-        level = g.abs().amax(dim=tuple(range(1, g.ndim)), keepdim=True) / 127
-        r = (g / level).abs()
-        tie = (r - r.floor() - 0.5).abs() <= 127 * TRAIN_TOL
-        allowed = torch.where(
-            tie.any(0), TRAIN["lr"] * (level * tie).sum(0) / agents, 0.0)
-        if not bool((diff <= TRAIN_TOL * scale + allowed).all()):
-            raise AssertionError(f"train card vs CPU: params {path} differ "
-                                 f"by {diff.max().item() / scale:.3e} of "
-                                 f"their largest value")
-        tied += int((diff > TRAIN_TOL * scale).sum())
-        worst = max(worst, (diff * ~tie.any(0)).max().item() / scale)
+    worst, tied = _params_within(torch, pc, ph, g_cpu, agents,
+                                 "train card vs CPU")
     tag = tag or ("[train quadratic]" if gains else "[train]")
     gain_text = (f", mean gain {float(mh['mean_gain']):.6e} (rel gap "
                  f"{gaps['mean_gain']:.2e})" if gains else "")
@@ -3788,6 +4031,35 @@ def _train_card_vs_cpu(torch, cfg, batch, dev, comm: str = TRAIN["comm"],
             "params_max_gap_over_leaf_max": worst, "tol": TRAIN_TOL,
             "int8_boundary_elements_one_level_apart": tied,
             "num_tx": float(mh["num_tx"])}
+
+
+def _params_within(torch, got: dict, want: dict, grads: dict, agents: int,
+                   what: str):
+    """Hold one step's parameters (``{path: tensor}``) to another's
+    taken from the same state with EF memory 0: every element within
+    ``TRAIN_TOL`` of its leaf's largest value, except where an agent's
+    gradient ``grads[path]`` (``(agents, *shape)``) lies within
+    ``TRAIN_TOL``·max|g| of an int8 rounding boundary, where the two may
+    round one level apart (lr · level / agents each; ROADMAP §3).
+    Returns (the largest gap elsewhere over its leaf's max, the number
+    of elements that needed a level)."""
+    worst, tied = 0.0, 0
+    for path, w in want.items():
+        scale = w.abs().max().item()
+        diff = (got[path] - w).abs()
+        g = grads[path]
+        level = g.abs().amax(dim=tuple(range(1, g.ndim)), keepdim=True) / 127
+        r = (g / level).abs()
+        tie = (r - r.floor() - 0.5).abs() <= 127 * TRAIN_TOL
+        allowed = torch.where(
+            tie.any(0), TRAIN["lr"] * (level * tie).sum(0) / agents, 0.0)
+        if not bool((diff <= TRAIN_TOL * scale + allowed).all()):
+            raise AssertionError(f"{what}: params {path} differ by "
+                                 f"{diff.max().item() / scale:.3e} of "
+                                 f"their largest value")
+        tied += int((diff > TRAIN_TOL * scale).sum())
+        worst = max(worst, (diff * ~tie.any(0)).max().item() / scale)
+    return worst, tied
 
 
 # ----------------------------------------------------------------------
@@ -4008,12 +4280,12 @@ def _checksums(torch, tree) -> list:
 
 
 def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
-                  swa_per_step: int, repeat: bool = False):
+                  swa_per_step: int, repeat: bool = False, **knobs):
     """The training CLI's step for ``cfg`` on the card: warm-up and timed
     steps on one stream's batches, each step's launches, losses, ms and
     peak memory; with ``repeat`` the last step runs twice from one state
-    and must give bitwise-equal states.  Returns (record, step, state,
-    batches, mean ms)."""
+    and must give bitwise-equal states; ``knobs`` go to ``plan_run``.
+    Returns (record, step, state, batches, mean ms)."""
     from repro_torch.core.api import init_train_state
     from repro_torch.data.synthetic import batch_iterator
     from repro_torch.utils.tree import tree_size
@@ -4021,7 +4293,7 @@ def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
     dev = torch.device("cuda", torch.cuda.current_device())
     agents, gbatch, seq = run["agents"], run["batch"], run["seq"]
     plan, shape, step, model, opt = _train_parts(cfg, agents, gbatch, seq,
-                                                 dev)
+                                                 dev, **knobs)
     steps = run["warmup"] + run["timed"]
     stream = batch_iterator(cfg, shape, num_agents=agents, seed=0, device=dev)
     batches = [next(stream) for _ in range(steps + 1)]  # +1: the profile
@@ -4042,7 +4314,7 @@ def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
     print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers at full width, "
           f"{n_params / 1e9:.3f} B parameters (fp32, seed 0); {agents} "
           f"agents, batch leaves {leaves}, comm={TRAIN['comm']!r}, sgd lr "
-          f"{TRAIN['lr']}")
+          f"{TRAIN['lr']}" + (f"; {knobs}" if knobs else ""))
     ce_ops.fused_ce.launches = swa_ops.swa_attention.launches = 0
     rows, repeat_equal = [], None
     for k in range(steps):
@@ -4097,7 +4369,7 @@ def _family_train(torch, ce_ops, swa_ops, cfg, run: dict, tag: str,
           f"{peak_gb:.2f} GB ({base_gb:.2f} GB allocated before the steps)"
           + ("" if repeat_equal is None else
              "; the last step run twice from one state: bitwise equal"))
-    record = {"arch": cfg.name, "layers": cfg.num_layers,
+    record = {"arch": cfg.name, "layers": cfg.num_layers, "knobs": knobs,
               "params": n_params, "agents": agents, "global_batch": gbatch,
               "seq": seq, "comm": TRAIN["comm"], "lr": TRAIN["lr"],
               "steps": rows, "ms_per_step": mean_ms,
@@ -4214,21 +4486,33 @@ def _last_bit_sensitivity(torch, serve, model, params, prompts) -> float:
 
 
 def phase_hybrid_train(torch, ce_ops, swa_ops) -> tuple:
-    """zamba2-1.2b at full width cut to HYBRID_TRAIN["layers"] layers
-    (two sites of the shared block) through the training CLI's step;
-    then one 2-layer step on the card and the CPU.  Returns (record,
-    what its profile needs)."""
+    """zamba2-1.2b at full width and depth (38 layers, 7 sites of the
+    shared block) with ``remat`` through the training CLI's step; then
+    cut to HYBRID_TRAIN["layers"] layers (two sites) without it, for the
+    profile (whose trace it bounds), and one 2-layer step on the card
+    and the CPU.  Returns (record, what its profile needs)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import group_bounds
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    full = get_config(HYBRID_ARCH)
+    assert full.num_layers == HYBRID_TRAIN_FULL["layers"]
+    sites = len(group_bounds(full.num_layers, full.shared_attn_every))
+    # remat checkpoints the Mamba2 layers only: the shared block's
+    # launches (loss and probe at each site) do not move
+    remat_record = _family_train(
+        torch, ce_ops, swa_ops, full, HYBRID_TRAIN_FULL, "hybrid train",
+        swa_per_step=2 * sites, remat=True)[0]
+    remat_record["sites"] = sites
+    torch.cuda.empty_cache()
     run = HYBRID_TRAIN
-    cfg = get_config(HYBRID_ARCH).replace(num_layers=run["layers"])
+    cfg = full.replace(num_layers=run["layers"])
     sites = len(group_bounds(cfg.num_layers, cfg.shared_attn_every))
     record, step, state, batches, mean_ms = _family_train(
         torch, ce_ops, swa_ops, cfg, run, "hybrid train",
         swa_per_step=2 * sites)
     record["sites"] = sites
+    record["full_depth_remat"] = remat_record
     small = cfg.replace(num_layers=HYBRID_TRAIN_CHECK_LAYERS)
     record["card_vs_cpu"] = _train_card_vs_cpu(
         torch, cfg, _check_batch(batches), dev, small=small,
@@ -4577,18 +4861,40 @@ def phase_whisper(torch, swa_ops) -> dict:
 
 def phase_whisper_train(torch, ce_ops, swa_ops) -> tuple:
     """whisper-medium at full width and depth through the training CLI's
-    step: m = 2 × 1 × (1500 frames, 448 decoder tokens); 2 ``fused_ce``
-    and 2 × 24 ``swa_attention`` (the decoder's causal self-attention,
-    loss and probe) launches a step; one step at 2 + 2 layers on the card
-    and the CPU.  Returns (record, what its profile needs)."""
+    step: m = 2 × 1 × (1500 frames, 448 decoder tokens); first with
+    WHISPER_TRAIN_REMAT (3 × 24 ``swa_attention`` launches a step), its
+    state freed, then plain: 2 ``fused_ce`` and 2 × 24 ``swa_attention``
+    (the decoder's causal self-attention, loss and probe) launches a
+    step; both peaks; one step at 2 + 2 layers on the card and the CPU.
+    Returns (record, what its profile needs)."""
     from repro_torch.configs import get_config
 
     dev = torch.device("cuda", torch.cuda.current_device())
     run = WHISPER_TRAIN
     cfg = get_config(WHISPER_ARCH)
+    # remat: the decoder's causal self-attention runs once more a step
+    remat_record = _family_train(
+        torch, ce_ops, swa_ops, cfg, run, "whisper train",
+        swa_per_step=REMAT_SWA_PER_LAYER["lookahead", True] * cfg.num_layers,
+        **WHISPER_TRAIN_REMAT)[0]
+    torch.cuda.empty_cache()
     record, step, state, batches, mean_ms = _family_train(
         torch, ce_ops, swa_ops, cfg, run, "whisper train",
         swa_per_step=2 * cfg.num_layers)
+    # the same batches and initial state: the first step's loss (forward
+    # only; the blockwise encoder sums in other orders)
+    first = (remat_record["steps"][0]["loss"], record["steps"][0]["loss"])
+    gap = abs(first[0] - first[1]) / abs(first[1])
+    if not gap <= TRAIN_TOL:
+        raise AssertionError(f"whisper train: first loss with "
+                             f"{WHISPER_TRAIN_REMAT} {first[0]} vs {first[1]}")
+    print(f"[whisper train] peak memory {record['peak_memory_gb']:.2f} GB "
+          f"plain, {remat_record['peak_memory_gb']:.2f} GB with "
+          f"{WHISPER_TRAIN_REMAT} ({record['ms_per_step']:.2f} -> "
+          f"{remat_record['ms_per_step']:.2f} ms a step); first loss rel gap "
+          f"{gap:.2e}")
+    record["remat"] = remat_record
+    record["remat_first_loss_rel_gap"] = gap
     record["card_vs_cpu"] = _train_card_vs_cpu(
         torch, cfg, _check_batch(batches), dev,
         small=cfg.replace(num_layers=2, encoder_layers=2),
@@ -4685,6 +4991,25 @@ def phase_vlm_train(torch, ce_ops, swa_ops) -> dict:
                              f"patches cropped)")
     record["fused_ce_rows_per_agent"] = rows
     record["sequence_per_agent"] = seq
+    # why the depth stays cut, with or without remat: the parameter-sized
+    # trees of an m = 2 step (weights, 2 gradients, 2 EF memories, 2
+    # lookahead probes) at full depth
+    from repro_torch.utils.tree import tree_size
+
+    per_layer = tree_size(state.params["blocks"]) / cfg.num_layers
+    outside = record["params"] - per_layer * cfg.num_layers
+    full_layers = get_config(VLM_ARCH).num_layers
+    full_gb = (outside + per_layer * full_layers) * 4 / 1e9
+    record["depth_reckoning"] = {"full_layers": full_layers,
+                                 "params_gb_full_depth": full_gb,
+                                 "trees": VLM_STATE_TREES}
+    print(f"[vlm train] depth: {per_layer / 1e6:.1f} M parameters a layer, "
+          f"{outside / 1e6:.1f} M outside them; at all {full_layers} layers "
+          f"{full_gb:.2f} GB in fp32, × {VLM_STATE_TREES} parameter-sized "
+          f"trees of an m = {run['agents']} step = "
+          f"{VLM_STATE_TREES * full_gb:.1f} GB > 80 GB with or without "
+          f"remat (which drops activations, not these): the depth stays "
+          f"{cfg.num_layers}")
     print(f"[vlm train] the loss's fused_ce takes {rows} rows per agent: "
           f"the text tokens of a {seq}-position sequence, its "
           f"{cfg.num_patches} patch positions cropped")
@@ -5119,6 +5444,13 @@ def main() -> int:
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev)
     record["train_quadratic"] = phase_train_quadratic(
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches)
+    record["remat"], remat_base = phase_remat(
+        torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches[0])
+    record["microbatch"] = phase_microbatch(
+        torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches[0],
+        remat_base)
+    del remat_base
+    torch.cuda.empty_cache()
     record["train_resume"] = phase_train_resume(torch, ce_ops, swa_ops)
     record["moe"] = phase_moe(torch, swa_ops)
     record["moe_train"] = phase_moe_train(torch, ce_ops, swa_ops)
@@ -5233,6 +5565,18 @@ def main() -> int:
         "launches_hybrid": record["hybrid"]["serve"]["launches"],
         "launches_hybrid_train": record["hybrid_train"]["launches"][
             "swa_attention"],
+        "launches_hybrid_train_full_remat": record["hybrid_train"][
+            "full_depth_remat"]["launches"]["swa_attention"],
+        "launches_remat": record["remat"]["lookahead"]["remat_True"][
+            "launches"]["swa_attention"],
+        "launches_remat_quadratic": record["remat"]["quadratic"][
+            "remat_True"]["launches"]["swa_attention"],
+        "launches_microbatch": record["microbatch"][
+            "microbatches_2_remat_False"]["launches"]["swa_attention"],
+        "launches_microbatch_remat": record["microbatch"][
+            "microbatches_2_remat_True"]["launches"]["swa_attention"],
+        "launches_whisper_train_remat": record["whisper_train"]["remat"][
+            "launches"]["swa_attention"],
         "launches_xlstm": record["xlstm"]["serve"]["launches"],
         "launches_whisper": record["whisper"]["serve"]["launches"],
         "launches_whisper_train": record["whisper_train"]["launches"][
@@ -5266,6 +5610,12 @@ def main() -> int:
         "launches_moe_train": record["moe_train"]["launches"]["fused_ce"],
         "launches_hybrid_train": record["hybrid_train"]["launches"][
             "fused_ce"],
+        "launches_hybrid_train_full_remat": record["hybrid_train"][
+            "full_depth_remat"]["launches"]["fused_ce"],
+        "launches_remat": record["remat"]["lookahead"]["remat_True"][
+            "launches"]["fused_ce"],
+        "launches_microbatch": record["microbatch"][
+            "microbatches_2_remat_False"]["launches"]["fused_ce"],
         "launches_xlstm_train": record["xlstm_train"]["launches"][
             "fused_ce"],
         "launches_whisper_train": record["whisper_train"]["launches"][

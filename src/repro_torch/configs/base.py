@@ -75,8 +75,8 @@ class ModelConfig:
     encoder_layers: int = 0
     # vlm (phi-3-vision): number of prepended image-patch embeddings (stub)
     num_patches: int = 0
-    # memory/perf knobs of the JAX package: remat (the port accepts it
-    # and does not checkpoint yet, ROADMAP queue 1 item 10.4) and the
+    # memory/perf knobs of the JAX package: remat (every block body
+    # rematerialised in the backward, repro_torch.utils.remat) and the
     # blockwise attention tile (non-causal attention only: the port's
     # causal attention kernel never forms the score tile it bounds)
     remat: bool = False

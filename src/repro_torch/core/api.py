@@ -60,6 +60,11 @@ its state, ``scale`` and ``chan_scale`` (:mod:`repro_torch.core.frontier`):
 nothing in it writes in place into an input, branches on a tensor's
 value or reads one back to the host.
 
+``TrainConfig.microbatches`` = m > 1 makes each agent's loss (and aux
+loss) the mean over m equal slices of its batch (:func:`_microbatched`),
+as the JAX package does; the plain step is not microbatched there
+either.
+
 The fleet-sharded mesh path is not ported yet: asking for it raises
 ``NotImplementedError`` with its ROADMAP item.  Every tensor stays on
 the step's device; a state on another device is an error, not a silent
@@ -299,9 +304,35 @@ def _check_options(opts: StepOptions, cfg: TrainConfig):
             f"churn schedule has {len(opts.churn)} entries but "
             f"num_agents={cfg.num_agents}"
         )
-    if cfg.microbatches > 1:
-        raise todo("microbatched gradients (TrainConfig.microbatches)",
-                   "queue 1 item 10")
+
+
+def _microbatched(fn, m: int):
+    """``fn(params, batch) -> scalar`` over ``m`` equal microbatches.
+
+    Each batch leaf is cut along its leading axis into ``m`` equal
+    slices; the result is the fp32 sum of ``fn`` over the slices, in
+    order from 0, over ``m``, as the JAX package's scan sums them.  Its
+    gradient is the full batch's (the loss is a token mean over equal
+    slices).  A Python loop under ``grad`` keeps every slice's graph, as
+    JAX's scan keeps its residuals, so the peak falls only where a
+    block is rematerialised.  A batch that ``m`` does not divide raises,
+    as JAX's reshape does."""
+
+    def looped(params, batch):
+        leaves = tree_leaves(batch)
+        n = leaves[0].shape[0]
+        if any(x.shape[0] % m for x in leaves):
+            raise ValueError(
+                f"microbatches={m} does not divide the agent's batch of "
+                f"{n}")
+        k = n // m
+        tot = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for j in range(m):
+            tot = tot + fn(params,
+                           tree_map(lambda x: x[j * k:(j + 1) * k], batch))
+        return tot / m
+
+    return looped
 
 
 def make_triggered_train_step(
@@ -343,6 +374,10 @@ def make_triggered_train_step(
     opts = options or StepOptions()
     _check_options(opts, cfg)
     agent_metrics = opts.agent_metrics
+    if cfg.microbatches > 1:
+        loss_fn = _microbatched(loss_fn, cfg.microbatches)
+        if aux_loss_fn is not None:
+            aux_loss_fn = _microbatched(aux_loss_fn, cfg.microbatches)
     resolved = normalize_policy(resolve_policy(cfg, policy), cfg.num_agents)
     hetero: Optional[Tuple[CommPolicy, ...]] = (
         resolved if isinstance(resolved, tuple) else None

@@ -2,7 +2,12 @@
 card (port of ``repro.launch.steps``).
 
 * ``plan_run`` fixes the run: the model config, the workload shape, the
-  number of agents (the paper's m) and the :class:`TrainConfig`.
+  number of agents (the paper's m) and the :class:`TrainConfig`.  Its
+  memory knobs are the JAX package's: ``remat`` checkpoints every block
+  of the model (its backward recomputes the block's activations),
+  ``attn_q_block`` bounds the score tile of non-causal attention (the
+  causal kernel forms none), and ``microbatches`` sums each agent's loss
+  over that many equal slices of its batch.
 * ``build_train_step`` wires the model's loss into the event-triggered
   train step (:func:`repro_torch.core.api.make_triggered_train_step`).
 
@@ -49,10 +54,14 @@ def plan_run(
     trigger: Optional[TriggerConfig] = None,
     optimizer: str = "sgd",
     lr: float = 1e-2,
+    remat: bool = False,
+    attn_q_block: Optional[int] = None,
     microbatches: int = 1,
 ) -> RunPlan:
     if shape.name == "long_500k":
         cfg = long_context_variant(cfg)
+    if remat or attn_q_block:
+        cfg = cfg.replace(remat=remat, attn_q_block=attn_q_block)
     trigger = trigger or TriggerConfig(kind="gain_lookahead", lam=0.0)
     if comm is not None and not isinstance(comm, str):
         from repro_torch.comm import CommPolicy

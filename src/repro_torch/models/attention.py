@@ -15,9 +15,10 @@ Paths:
   block's score tile (B, H, q_block, Sk) is live at a time in the
   forward; ``causal=False`` calls take it as the JAX package's
   ``attention`` does (``q_block`` set and S > q_block, or S >
-  ``BLOCKWISE_THRESHOLD``).  The JAX package also rematerialises each
-  block in its backward (``jax.checkpoint``); here autograd keeps the
-  blocks' tiles (``remat`` is ROADMAP queue 1 item 10.4).
+  ``BLOCKWISE_THRESHOLD``).  Each block is rematerialised in the
+  backward (:func:`repro_torch.utils.remat.checkpoint`, as the JAX
+  package's ``jax.checkpoint``), so no block's tile is kept for it
+  either.
 * ``decode_attend`` — one new token against a KV cache (ring buffer for
   sliding windows), plain torch as in the JAX package.
 
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.utils.remat import checkpoint
 from repro_torch.utils.todo import not_ported
 
 BLOCKWISE_THRESHOLD = 8192
@@ -106,22 +108,27 @@ def attend_blockwise(q, k, v, *, causal=True, window=None,
                      q_block: int = Q_BLOCK):
     """Same math as ``attend``, over blocks of ``q_block`` queries: each
     block attends the full prefix (or its sliding window), so its score
-    tile is (B, H, q_block, Sk), not (B, H, Sq, Sk).  ``q_block`` falls
-    back to Sq when it does not divide Sq, as in the JAX package."""
+    tile is (B, H, q_block, Sk), not (B, H, Sq, Sk), and the block is
+    checkpointed: the backward recomputes its softmax instead of keeping
+    every block's tile.  ``q_block`` falls back to Sq when it does not
+    divide Sq, as in the JAX package."""
     b, sq, h, hd = q.shape
     if sq % q_block:
         q_block = sq  # fall back for ragged sizes
     k_, v_ = _expand_kv(k, h), _expand_kv(v, h)
-    k_pos = torch.arange(k.shape[1], device=q.device)
-    outs = []
-    for q0 in range(0, sq, q_block):
-        qi = q[:, q0:q0 + q_block]
-        q_pos = q0 + torch.arange(q_block, device=q.device)
+
+    @checkpoint
+    def block(q0, qi, k_, v_):
+        q_pos = q0 + torch.arange(q_block, device=qi.device)
+        k_pos = torch.arange(k_.shape[1], device=qi.device)
         scores = torch.einsum("bqhk,bshk->bhqs", qi, k_).float()
         scores = scores / math.sqrt(hd)
         scores = scores + _mask(q_pos, k_pos, causal, window)[None, None]
         w = torch.softmax(scores, dim=-1).to(qi.dtype)
-        outs.append(torch.einsum("bhqs,bshk->bqhk", w, v_))
+        return torch.einsum("bhqs,bshk->bqhk", w, v_)
+
+    outs = [block(q0, q[:, q0:q0 + q_block], k_, v_)
+            for q0 in range(0, sq, q_block)]
     return torch.cat(outs, dim=1)
 
 

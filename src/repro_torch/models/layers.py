@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.remat import checkpoint
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
@@ -113,26 +115,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None):
 def cross_entropy_fused(table: torch.Tensor, x: torch.Tensor,
                         labels: torch.Tensor, mask=None, chunk: int = 512):
     """Mean token CE from hidden states (B, S, D), one sequence chunk of
-    fp32 logits (B, chunk, V) at a time.  The JAX version also
-    rematerializes each chunk in its backward; here autograd keeps them,
-    and the memory-bounded loss is the ``fused_ce`` kernel's, whose
-    backward recomputes the logits chunk by chunk."""
+    fp32 logits (B, chunk, V) at a time, each chunk checkpointed as in
+    the JAX version: its backward recomputes the chunk's logits, so one
+    chunk's tile is live, not all of them.  (The model's loss is the
+    ``fused_ce`` kernel's, whose backward recomputes the logits chunk by
+    chunk as well.)"""
     b, s, _ = x.shape
     if s % chunk:
         chunk = s
-    tf = table.float()
+
+    @checkpoint
+    def chunk_nll(table, x_c, y_c, m_c):
+        logits = x_c.float() @ table.float().T
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y_c.long()[..., None])[..., 0]
+        nll = logz - gold
+        if m_c is None:
+            return nll.sum(), nll.numel()
+        return (nll * m_c).sum(), m_c.sum()
+
     tot = cnt = 0.0
     for c0 in range(0, s, chunk):
-        logits = x[:, c0:c0 + chunk].float() @ tf.T
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk].long()[..., None])[..., 0]
-        nll = logz - gold
-        if mask is None:
-            tot, cnt = tot + nll.sum(), cnt + nll.numel()
-        else:
-            m = mask[:, c0:c0 + chunk].float()
-            tot, cnt = tot + (nll * m).sum(), cnt + m.sum()
+        m = None if mask is None else mask[:, c0:c0 + chunk].float()
+        t, c = chunk_nll(table, x[:, c0:c0 + chunk],
+                         labels[:, c0:c0 + chunk], m)
+        tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(torch.as_tensor(cnt, dtype=torch.float32,
                                              device=x.device), min=1.0)
 

@@ -19,9 +19,15 @@
 
 A Python loop over the layer axis replaces the JAX package's
 ``lax.scan``; ``constrain_params`` (a sharding annotation) has no
-counterpart on one card.  Every causal self-attention runs the
-``swa_attention`` kernel (:func:`repro_torch.models.attention.attention`);
-non-causal attention is plain (``attend`` or ``attend_blockwise``).
+counterpart on one card.  With ``cfg.remat`` each block body is
+rematerialised in the backward
+(:func:`repro_torch.utils.remat.checkpoint`) at the JAX package's
+boundaries: a dense/moe/vlm decoder block, each Mamba2 layer of a
+hybrid group (not the shared attention block), an xlstm mLSTM/sLSTM
+pair, and whisper's encoder and decoder blocks.  Every causal
+self-attention runs the ``swa_attention`` kernel
+(:func:`repro_torch.models.attention.attention`); non-causal attention
+is plain (``attend`` or ``attend_blockwise``).
 
 Public entry points: ``init`` / ``forward`` / ``loss_fn`` /
 ``whisper_encode``.  The loss runs the ``fused_ce`` kernel on the output
@@ -55,6 +61,7 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.param import Scope, init_pair
+from repro_torch.utils.remat import checkpoint
 from repro_torch.utils.tree import tree_map
 
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
@@ -114,6 +121,11 @@ def _self_attn(p, cfg, x, positions, *, causal=True, rope=True,
     o = A.attention(q, k, v, causal=causal, window=win,
                     q_block=cfg.attn_q_block)
     return _attn_out(p["attn"], o)
+
+
+def _maybe_remat(cfg, fn):
+    """Checkpoint a (params, carry…) block body when cfg.remat is set."""
+    return checkpoint(fn) if cfg.remat else fn
 
 
 def _ff(p, cfg, x, *, gelu: bool = False):
@@ -240,24 +252,28 @@ def forward_hidden(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor,
     positions = positions_of(x)
     aux = 0.0
     if cfg.arch_type == "hybrid":
+        mamba = _maybe_remat(cfg, lambda lp, h: h + SSM.mamba2_forward(
+            lp["mamba"], cfg, rms_norm(h, lp["ln"], cfg.norm_eps)))
         for s, e in group_bounds(cfg.num_layers, cfg.shared_attn_every):
             for i in range(s, e):
-                lp = layer(params["blocks"], i)
-                x = x + SSM.mamba2_forward(
-                    lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps))
+                x = mamba(layer(params["blocks"], i), x)
             x = _shared_block(params["shared_attn"], cfg, x, positions)
     elif cfg.arch_type == "ssm":
+        def pair(lp, h):
+            h = h + XL.mlstm_forward(lp["mlstm"], cfg,
+                                     rms_norm(h, lp["ln_m"], cfg.norm_eps))
+            h = h + XL.slstm_forward(lp["slstm"], cfg,
+                                     rms_norm(h, lp["ln_s"], cfg.norm_eps))
+            return h + XL.slstm_block_mlp(lp["slstm"], cfg, h)
+
+        pair = _maybe_remat(cfg, pair)
         for i in range(cfg.num_layers // 2):
-            lp = layer(params["pairs"], i)
-            x = x + XL.mlstm_forward(lp["mlstm"], cfg,
-                                     rms_norm(x, lp["ln_m"], cfg.norm_eps))
-            x = x + XL.slstm_forward(lp["slstm"], cfg,
-                                     rms_norm(x, lp["ln_s"], cfg.norm_eps))
-            x = x + XL.slstm_block_mlp(lp["slstm"], cfg, x)
+            x = pair(layer(params["pairs"], i), x)
     else:
+        block = _maybe_remat(
+            cfg, lambda lp, h, pos: _decoder_block(lp, cfg, h, pos))
         for i in range(cfg.num_layers):
-            x, al = _decoder_block(layer(params["blocks"], i), cfg, x,
-                                   positions)
+            x, al = block(layer(params["blocks"], i), x, positions)
             aux = aux + al
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, prefix
@@ -282,11 +298,14 @@ def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
 # whisper
 # ======================================================================
 
-def cross_kv(lp, enc: torch.Tensor):
+def cross_kv(lp, enc: torch.Tensor, enc_v: Optional[torch.Tensor] = None):
     """A decoder layer's cross-attention keys and values (B, S_enc, KV,
-    hd) from the encoder output."""
+    hd) from the encoder output (the values from ``enc_v`` when given:
+    the same tensor, as a separate input of a checkpointed block)."""
+    enc_v = enc if enc_v is None else enc_v
     k = torch.einsum("bsd,dhk->bshk", enc, lp["cross"]["wk"].to(enc.dtype))
-    v = torch.einsum("bsd,dhk->bshk", enc, lp["cross"]["wv"].to(enc.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_v,
+                     lp["cross"]["wv"].to(enc_v.dtype))
     return k, v
 
 
@@ -298,12 +317,16 @@ def whisper_encode(cfg: ModelConfig, params, batch) -> torch.Tensor:
     enc = frames + sinusoidal_positions(frames.shape[1], cfg.d_model, dtype,
                                         frames.device)[None]
     pos_e = positions_of(enc)
+
+    def enc_block(lp, h, pos):
+        hn = rms_norm(h, lp["ln_attn"], cfg.norm_eps)
+        h = h + _self_attn(lp, cfg, hn, pos, causal=False, rope=False)
+        ff, _ = _ff(lp, cfg, h, gelu=True)
+        return h + ff
+
+    enc_block = _maybe_remat(cfg, enc_block)
     for i in range(cfg.encoder_layers):
-        lp = layer(params["enc_blocks"], i)
-        hn = rms_norm(enc, lp["ln_attn"], cfg.norm_eps)
-        enc = enc + _self_attn(lp, cfg, hn, pos_e, causal=False, rope=False)
-        ff, _ = _ff(lp, cfg, enc, gelu=True)
-        enc = enc + ff
+        enc = enc_block(layer(params["enc_blocks"], i), enc, pos_e)
     return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
 
@@ -314,18 +337,27 @@ def _whisper_hidden(cfg, params, batch):
     x = embed(params["embedding"], tokens, dtype)
     x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)[None]
     pos_d = positions_of(x)
-    for i in range(cfg.num_layers):
-        lp = layer(params["dec_blocks"], i)
-        hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        x = x + _self_attn(lp, cfg, hn, pos_d, causal=True, rope=False)
-        hn = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-        q, _, _ = A.qkv(lp["cross"], cfg, hn, pos_d, rope=False)
-        k, v = cross_kv(lp, enc)
+
+    # the encoder output comes into a decoder block twice, for the values
+    # and then the keys: a checkpointed block then hands its two
+    # gradient terms to autograd in the order the plain graph adds them
+    # (the values' first), so the encoder's gradient is bitwise the
+    # plain path's
+    def dec_block(lp, h, enc_v, enc_k, pos):
+        hn = rms_norm(h, lp["ln_attn"], cfg.norm_eps)
+        h = h + _self_attn(lp, cfg, hn, pos, causal=True, rope=False)
+        hn = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
+        q, _, _ = A.qkv(lp["cross"], cfg, hn, pos, rope=False)
+        k, v = cross_kv(lp, enc_k, enc_v)
         o = A.attention(q, k, v, causal=False, window=None,
                         q_block=cfg.attn_q_block)
-        x = x + _attn_out(lp["cross"], o)
-        ff, _ = _ff(lp, cfg, x, gelu=True)
-        x = x + ff
+        h = h + _attn_out(lp["cross"], o)
+        ff, _ = _ff(lp, cfg, h, gelu=True)
+        return h + ff
+
+    dec_block = _maybe_remat(cfg, dec_block)
+    for i in range(cfg.num_layers):
+        x = dec_block(layer(params["dec_blocks"], i), x, enc, enc, pos_d)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, 0.0
 

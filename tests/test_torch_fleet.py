@@ -174,7 +174,7 @@ def _mismatch(tnext, tm, jnext, jm, g_eff):
 
 def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
                 churn=None, chan_scale=None, port_dispatch="hybrid",
-                optimizer="sgd", lr=None):
+                optimizer="sgd", lr=None, microbatches=1):
     """Run the port's step and the JAX step (``dispatch`` path) from the
     same state each round and compare (controller rows included).
     ``port_dispatch`` is the port's path, or a tuple of paths: each is
@@ -192,8 +192,10 @@ def _parity_run(cfg_lr, specs, dispatch, *, alt=None, rounds=10, seed=0,
     lr = cfg_lr.stepsize if lr is None else lr
     paths = ((port_dispatch,) if isinstance(port_dispatch, str)
              else tuple(port_dispatch))
-    jcfg = JTrainConfig(lr=lr, optimizer=optimizer, num_agents=m, comm=comm)
-    tcfg = TrainConfig(lr=lr, optimizer=optimizer, num_agents=m, comm=comm)
+    jcfg = JTrainConfig(lr=lr, optimizer=optimizer, num_agents=m, comm=comm,
+                        microbatches=microbatches)
+    tcfg = TrainConfig(lr=lr, optimizer=optimizer, num_agents=m, comm=comm,
+                       microbatches=microbatches)
     jopt, topt = jopt_lib.from_config(jcfg), opt_lib.from_config(tcfg)
 
     def jax_step(mode):
@@ -403,9 +405,11 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unported_paths_raise_with_roadmap_pointer():
-    """Microbatching and the fleet-sharded mesh still raise with their
-    ROADMAP items; the switch/unroll dispatch, a lossy homogeneous step,
-    ``masked_mean_quantized`` and the drifting problem now run."""
+    """The fleet-sharded mesh still raises with its ROADMAP item; the
+    switch/unroll dispatch, a lossy homogeneous step,
+    ``masked_mean_quantized``, the drifting problem and a microbatched
+    step now run (``microbatches=2`` halves each agent's batch: the
+    mean of the halves' mean losses is the whole batch's)."""
     cfg = TrainConfig(optimizer="sgd", num_agents=2,
                       comm=("always", "never"))
     opt = opt_lib.from_config(cfg)
@@ -436,8 +440,18 @@ def test_unported_paths_raise_with_roadmap_pointer():
     assert mem is None
     micro = TrainConfig(optimizer="sgd", num_agents=2, comm="always",
                         microbatches=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        make_triggered_train_step(tloss, opt, micro, device="cpu")
+    whole = dataclasses.replace(micro, microbatches=1)
+    batch = (torch.arange(24.0).reshape(2, 4, 3) / 10, torch.ones(2, 4))
+    (s_m, m_m), (s_w, m_w) = (
+        make_triggered_train_step(tloss, opt, c, device="cpu")(
+            init_train_state({"w": torch.ones(3)}, opt, c, device="cpu"),
+            batch)
+        for c in (micro, whole))
+    np.testing.assert_allclose(float(m_m["loss"]), float(m_w["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(s_m.params["w"].numpy(),
+                               s_w.params["w"].numpy(), rtol=1e-6)
+    assert float(m_m["num_tx"]) == 2.0
     from repro_torch.data import synthetic
 
     assert callable(synthetic.drifting_problem)

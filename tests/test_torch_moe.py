@@ -367,14 +367,16 @@ def _terms_fn(jm, lr: float, aux_loss_fn=None):
 
 
 def step_parity(jm, tm, jp, policy: str, batches, *, aux=None,
-                check=_check_step):
+                check=_check_step, microbatches: int = 1):
     """Triggered steps with m = 2 from the JAX step's state each round:
     the port's homogeneous step against JAX's ``unroll`` path (its
     reference loop over agents).  ``aux`` is a pair (JAX, port) of
     ``aux_loss_fn``s.  Returns the outcomes of ``check`` (by default
     tests/test_torch_train.py's ``_check_step``)."""
-    jcfg = JTrainConfig(lr=LR, optimizer="sgd", num_agents=2, comm=policy)
-    tcfg = TrainConfig(lr=LR, optimizer="sgd", num_agents=2, comm=policy)
+    jcfg = JTrainConfig(lr=LR, optimizer="sgd", num_agents=2, comm=policy,
+                        microbatches=microbatches)
+    tcfg = TrainConfig(lr=LR, optimizer="sgd", num_agents=2, comm=policy,
+                       microbatches=microbatches)
     jo, to = jopt.from_config(jcfg), opt_lib.from_config(tcfg)
     jaux, taux = aux or (None, None)
     jstep = jax.jit(jmake(jm.loss_fn, jo, jcfg, policy=(policy, policy),

@@ -463,14 +463,15 @@ def test_train_cli_on_the_cpu(capsys):
 
 def test_train_cli_raises_for_what_is_not_ported(tmp_path, capsys):
     """``--ckpt-dir`` is ported (it writes the bare TrainState at the
-    last step; resume is held in tests/test_torch_session.py);
-    microbatching still raises with its ROADMAP item."""
+    last step; resume is held in tests/test_torch_session.py), and so is
+    ``--microbatches``: two slices of each agent's batch train."""
     train_cli.main(["--device", "cpu", "--reduced", "--steps", "1",
                     "--seq", "8", "--batch", "2", "--ckpt-dir",
                     str(tmp_path)])
     assert f"checkpoint -> {tmp_path}" in capsys.readouterr().out
     manifest = checkpointer.read_manifest(str(tmp_path))
     assert manifest["step"] == 1 and manifest["paths"][0] == ".step"
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        train_cli.main(["--device", "cpu", "--reduced", "--steps", "1",
-                        "--seq", "8", "--batch", "2", "--microbatches", "2"])
+    train_cli.main(["--device", "cpu", "--reduced", "--steps", "1",
+                    "--seq", "8", "--batch", "2", "--microbatches", "2"])
+    assert re.search(r"done: 1 steps, transmissions \d/1",
+                     capsys.readouterr().out)
