@@ -180,6 +180,19 @@ Phases (any failure exits nonzero; no result line is printed then):
               grad_norm within 1e-4 relative, params within 1e-4 of each
               leaf's largest value, the same decisions; the peak memory
               may exceed the earlier runs' 36.75 GB by at most 1 %.
+   dryrun   — the dry-run against the card: [train]'s step once more
+              under the cost counter (``repro_torch.analysis.cost``),
+              its flops, HBM bytes and device ops equal to the ``meta``
+              trace of the same plan (``lower_for``); the step's counted
+              TFLOP, ``model_flops``, [train]'s ms per step, the counted
+              rate against the fp32 peak and the MFU, beside the card's
+              name and power limit; the trace's memory estimate within
+              10 % of the card's peak above what was allocated before;
+              ``build_prefill_step`` and ``build_serve_step`` at B 4 ×
+              1024 and one decode token bitwise the direct ``forward``
+              and ``decode_step``; then the dry-run records of
+              smollm-135m and mixtral-8x7b at train_4k and prefill_32k
+              (traced on ``meta`` on the host), their roofline terms.
    train quadratic — the same model, shape and batches gated by
               ``gain_quadratic(lam=0.01)|int8+ef``: each agent's gain from
               a Hessian-vector product, forward over reverse through both
@@ -297,7 +310,10 @@ Phases (any failure exits nonzero; no result line is printed then):
               of 100 calls after warm-up), and on the device by the
               profiler, whose trace must hold as many device records as
               the calls make (counted in one-call traces; a short trace is
-              taken again, and the tenth fails the run).
+              taken again, and the tenth fails the run).  Then the
+              device time of an empty kernel (the card's launch floor)
+              beside the kernel's at (64, 32), and the kernel's HBM share
+              at (1, 2^26) (bytes over bandwidth / device time).
 7. swa times — the same for ``swa_attention`` at the served shapes
               (smollm's two, mixtral's (4, 1024, 32, 8, 128) W 4096,
               zamba2's training (2, 512, 32, 32, 64) W = S,
@@ -363,11 +379,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# fp32 rate outside the tensor cores (gain_reduce's arithmetic is fp32 FMA)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
 # the fleet's rows, the quadratic frontier's 16 lanes × 64 agents, the
 # m = 4096 fleet's, and one long row
 SHAPES = ((64, 32), (1024, 32), (4096, 32), (1, 1 << 26))
@@ -417,12 +428,6 @@ DRIFT_AMP, DRIFT_PERIOD = 2.0, 16
 FRONTIER_PLAIN_LANES = (0, 11)      # scales 0.0 and 4.0
 LOSSY_PLAIN_LANES = (1, 2)          # (0.6, 20 % loss), (1.0, lossless)
 DRIFT_PLAIN_LANES = (0, 3)          # (0.6, lag 1), (1.0, lag 2)
-
-# the dense tensor-core rates (data sheet): bf16, the peak for bf16
-# inputs, and TF32, which fp32 inputs reach through 3×TF32 (three TF32
-# products per fp32 product)
-BF16_FLOP_PER_S = 989e12
-TF32_FLOP_PER_S = 494.7e12
 
 # swa_attention shapes (B, S, H, KV, hd, W): the two the LM runs serve
 # (smollm-135m's 9 query and 3 kv heads of 64) and the moe and hybrid
@@ -529,6 +534,13 @@ TELEMETRY = dict(watchdog=0.5, stall_round=40, rounds=200,
 # the train CLI's resume at full width, cut to 4 layers (an int8+ef
 # checkpoint of m = 4 agents stays under 1 GB)
 TRAIN_RESUME = dict(TRAIN, layers=4, steps=4, every=2)
+# [dryrun]: the serving steps' batch and prompt (LM run (a)'s), the
+# (arch, shape) pairs whose dry-run records it writes, and the memory
+# estimate's bound against the card's peak
+DRYRUN_SERVE = dict(batch=4, seq=1024)
+DRYRUN_PAIRS = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+                ("mixtral-8x7b", "train_4k"), ("mixtral-8x7b", "prefill_32k"))
+DRYRUN_MEMORY_TOL = 0.10
 # fp32 forward and backward of 2 layers and a 49152-way softmax, sums in
 # other orders on the card and the CPU
 TRAIN_TOL = 1e-4
@@ -696,15 +708,15 @@ def time_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(rows: int, n: int, itemsize: int):
-    """Least time (ms) for the same work: every input byte read once
-    and the (rows, 2) fp32 output written once over HBM bandwidth, vs
-    4 flops per element pair at the fp32 peak."""
-    nbytes = 2 * rows * n * itemsize + rows * 2 * 4
-    flops = 4 * rows * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(gr_ops, rows: int, n: int, dtype):
+    """Least time (ms) for the same work and what bounds it: the
+    kernel's own cost record (every input byte read once and the
+    (rows, 2) fp32 output written once, 4 flops per element pair) at the
+    H100's peaks (``repro_torch.analysis.roofline.kernel_bound``)."""
+    from repro_torch.analysis.roofline import kernel_bound
+
+    work = gr_ops.cost(rows, n, dtype)
+    return kernel_bound(work["path_flops"], work["hbm_bytes"], work["path"])
 
 
 def phase_build(*kernel_ops) -> dict:
@@ -2824,7 +2836,7 @@ def phase_times(torch, gr_ops, ref) -> list:
                 "library_": lambda g=g, h=h: (torch.linalg.vecdot(g, g),
                                               torch.linalg.vecdot(g, h)),
             }
-            bound_ms, bound_by = bound(rows, n, g.element_size())
+            bound_ms, bound_by = bound(gr_ops, rows, n, dtype)
             cases.append(({"shape": [rows, n],
                            "dtype": str(dtype).split(".")[-1],
                            "bound_ms": bound_ms, "bound_by": bound_by},
@@ -2851,6 +2863,40 @@ def phase_times(torch, gr_ops, ref) -> list:
     return [row for row, _, _ in cases]
 
 
+def phase_launch_floor(torch, gr_ops, times: list) -> dict:
+    """The card's launch floor and ``gain_reduce``'s HBM share: the
+    device time of a kernel that does nothing (``gain_reduce.cu``'s
+    ``gain_reduce_empty``, one block of one thread), beside the kernel's
+    at the fleet's (64, 32); and at one (1, 2^26) row, the kernel's
+    bytes over HBM bandwidth as a share of its device time, from the
+    same [times] run."""
+    import ctypes
+
+    lib = gr_ops._library()
+    lib.gain_reduce_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.gain_reduce_empty_launch.restype = ctypes.c_int
+
+    def empty():
+        err = lib.gain_reduce_empty_launch(
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel: CUDA error {err}")
+
+    floor = device_ms(torch, empty)
+    fleet = next(r for r in times if r["shape"] == [64, 32]
+                 and r["dtype"] == "float32")
+    rows = {r["dtype"]: r for r in times if r["shape"] == [1, 1 << 26]}
+    shares = {dt: r["bound_ms"] / r["device_ms"] for dt, r in rows.items()}
+    print(f"[times] empty kernel {floor:.5f} ms on the device, "
+          f"gain_reduce (64, 32) fp32 {fleet['device_ms']:.5f} ms; "
+          f"gain_reduce (1, 2^26): HBM share "
+          + ", ".join(f"{dt} {shares[dt]:.1%} ({rows[dt]['bound_ms']:.4f} "
+                      f"/ {rows[dt]['device_ms']:.4f} ms)" for dt in rows))
+    return {"empty_device_ms": floor,
+            "fleet_device_ms": fleet["device_ms"],
+            "hbm_share_1x2p26": shares}
+
+
 # ----------------------------------------------------------------------
 # swa_attention and the LM slice
 # ----------------------------------------------------------------------
@@ -2872,38 +2918,36 @@ def _swa_inputs(torch, gen, shape, dtype, head_major: bool = False):
     return out
 
 
-def path_bounds(flops: int, tc_flops: int, nbytes: int,
-                itemsize: int) -> dict:
-    """Least times (ms) for a kernel's work: on its tensor-core path, the
-    ``tc_flops`` it runs there (fp32 inputs in 3×TF32, three products
-    per product, at the dense TF32 rate; bf16 at the bf16 rate) and, for
-    fp32, the function's ``flops`` on the fp32 CUDA cores (67 TFLOP/s,
-    the design before the tensor cores), each the larger of the
-    operations' time and the bytes' time over HBM bandwidth.
+def path_bounds(work: dict) -> dict:
+    """Least times (ms) for a kernel's work, from its own cost record
+    (``ops.cost``) at the H100's peaks
+    (``repro_torch.analysis.roofline.kernel_bound``): on its tensor-core
+    path, the operations it runs there (fp32 inputs in 3×TF32, three
+    products per product, at the dense TF32 rate; bf16 at the bf16
+    rate) and, for fp32, the function's flops on the fp32 CUDA cores
+    (67 TFLOP/s, the design before the tensor cores), each the larger
+    of the operations' time and the bytes' time over HBM bandwidth.
     ``bound_ms`` is the path's: the least time the arithmetic the kernel
     runs could take."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rate = TF32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
-    t_tc = tc_flops / rate * 1e3
-    t_fma = flops / FP32_FLOP_PER_S * 1e3 if itemsize == 4 else None
-    return {"bound_ms": max(t_tc, t_bytes),
-            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
-            "bound_fp32_fma_ms": (None if t_fma is None
-                                  else max(t_fma, t_bytes))}
+    from repro_torch.analysis.roofline import kernel_bound
+
+    ms, by = kernel_bound(work["path_flops"], work["hbm_bytes"],
+                          work["path"])
+    fma = (kernel_bound(work["flops"], work["hbm_bytes"], "fp32")[0]
+           if work["path"] == "tf32x3" else None)
+    return {"bound_ms": ms, "bound_by": by, "bound_fp32_fma_ms": fma}
 
 
-def swa_bound(shape, itemsize: int):
-    """The bounds of :func:`path_bounds` for one call: 4·hd flops per
-    (query, visible key) pair, q, k, v read and o written once; the
-    tensor cores run them three times in fp32 (3×TF32) and Q·Kᵀ once and
-    P·V twice (P in two bf16 parts) in bf16."""
+def swa_bound(swa_ops, shape, dtype):
+    """The bounds of :func:`path_bounds` for one call of the kernel's
+    cost record: the two products' 4·hd flops per (query, visible key)
+    pair and head, the softmax's and the normalisation's, q, k, v read
+    and o written once; the tensor cores run the products three times
+    in fp32 (3×TF32) and Q·Kᵀ once and P·V twice (P in two bf16 parts)
+    in bf16."""
     b, s, h, kv, hd, w = shape
-    w = min(w, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w  # Σ_q min(q + 1, W)
-    flops = 4 * hd * h * b * pairs
-    tc_flops = 3 * flops if itemsize == 4 else 3 * flops // 2
-    nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
-    return path_bounds(flops, tc_flops, nbytes, itemsize), flops, nbytes
+    work = swa_ops.cost(b, s, h, kv, hd, w, dtype)
+    return path_bounds(work), work["flops"], work["hbm_bytes"]
 
 
 def phase_swa_kernel(torch, swa_ops, swa_ref) -> list:
@@ -3238,7 +3282,7 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
             }
             lib_err = (fns["library_"]().transpose(1, 2).float()
                        - fns["plain_"]().float()).abs().max().item()
-            bounds, flops, nbytes = swa_bound(shape, q.element_size())
+            bounds, flops, nbytes = swa_bound(swa_ops, shape, dtype)
             cases.append(({"shape": list(shape[:5]), "window": w,
                            "dtype": _dtype_name(dtype),
                            "path": swa_ops.PATHS[dtype], "flops": flops,
@@ -3858,6 +3902,184 @@ def phase_microbatch(torch, ce_ops, swa_ops, cfg, dev, batch, base) -> dict:
         del v
     del grads
     torch.cuda.empty_cache()
+    return record
+
+
+def _count_diff(card, trace) -> dict:
+    """The op names whose (count, flops, bytes) differ between two
+    counters."""
+    names = set(card.by_op) | set(trace.by_op)
+    return {n: (card.by_op.get(n), trace.by_op.get(n)) for n in sorted(names)
+            if card.by_op.get(n) != trace.by_op.get(n)}
+
+
+def phase_dryrun(torch, ce_ops, swa_ops, cfg, dev, step, state, batch,
+                 step_ms: float, card: str) -> dict:
+    """The dry-run's counts against the card.  (a) [train]'s step, run
+    once on the card under the cost counter, counts exactly the flops,
+    HBM bytes and device ops of the ``meta`` trace of the same plan
+    (``lower_for``; the batch in ``input_specs``' contiguous layout).
+    (b) The step's counted TFLOP, ``model_flops``, [train]'s ms per
+    step, the counted rate over the path's peak and the MFU
+    (``model_flops / (ms × peak)``).  (c) The trace's memory estimate
+    (its temporaries and outputs) within DRYRUN_MEMORY_TOL of the card's
+    peak above what was allocated before the step.  (d) The prefill and
+    serve steps (``build_prefill_step``, ``build_serve_step``) at B 4 ×
+    1024 and one decode token, bitwise the direct ``forward`` and
+    ``decode_step`` calls.  (e) ``dryrun.run_one`` for DRYRUN_PAIRS
+    (traced on ``meta`` on the host), their terms printed."""
+    from repro_torch.analysis.cost import CostCounter, summarize
+    from repro_torch.analysis.roofline import PEAK_FLOPS, model_flops, step_path
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    from repro_torch.models import build
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    agents, gbatch, seq = TRAIN["agents"], TRAIN["batch"], TRAIN["seq"]
+    plan, shape, *_ = _train_parts(cfg, agents, gbatch, seq, dev)
+    t0 = time.perf_counter()
+    lowered = S.lower_for(plan, compute_dtype="float32")
+    trace, estimate = lowered.cost(), lowered.memory()
+    trace_s = time.perf_counter() - t0
+    del lowered
+
+    batch = {k: v.contiguous() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
+    t0 = time.perf_counter()
+    with CostCounter() as counted:
+        new_state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = {"fused_ce": ce_ops.fused_ce.launches - ce0,
+                "swa_attention": swa_ops.swa_attention.launches - swa0}
+    loss = float(metrics["loss"])
+    del new_state, metrics
+    torch.cuda.empty_cache()
+    same = (counted.flops == trace.flops
+            and counted.hbm_bytes == trace.hbm_bytes
+            and counted.device_ops == trace.device_ops)
+    if not same:
+        raise AssertionError(
+            f"[dryrun] the card counted {summarize(counted)}, the meta "
+            f"trace {summarize(trace)}; by op: {_count_diff(counted, trace)}")
+    for name, n in launches.items():
+        if counted.by_op[f"kernel:{name}"].count != n:
+            raise AssertionError(f"[dryrun] {name}: {n} launches, "
+                                 f"{counted.by_op[f'kernel:{name}'].count} "
+                                 f"counted")
+    if not math.isfinite(loss):
+        raise AssertionError(f"[dryrun] non-finite loss {loss}")
+
+    path = step_path("float32")
+    peak_flops = PEAK_FLOPS[path]
+    useful = model_flops(plan.cfg, shape)
+    rate_share = trace.flops / (step_ms / 1e3) / peak_flops
+    mfu = useful / (step_ms / 1e3 * peak_flops)
+    est_bytes = estimate["temp_bytes"] + estimate["output_bytes"]
+    gap = est_bytes / peak - 1
+    print(f"[dryrun] {cfg.name} [train]'s step ({agents} agents × "
+          f"{gbatch // agents} × {seq}, {TRAIN['comm']}, fp32): the card's "
+          f"count equals the meta trace's: {trace.flops / 1e12:.4f} TFLOP "
+          f"({trace.dot_flops / 1e12:.4f} in products), "
+          f"{trace.hbm_bytes / 1e9:.2f} GB of HBM traffic, "
+          f"{trace.device_ops} device ops (fused_ce {launches['fused_ce']}, "
+          f"swa_attention {launches['swa_attention']}); traced in "
+          f"{trace_s:.1f} s, counted on the card in {counted_ms:.1f} ms")
+    print(f"[dryrun] model_flops 6·N·D {useful / 1e12:.4f} TFLOP "
+          f"(useful/counted {useful / trace.flops:.3f}); [train] "
+          f"{step_ms:.2f} ms a step: counted rate "
+          f"{trace.flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s = "
+          f"{rate_share:.1%} of the {path} peak "
+          f"({peak_flops / 1e12:g} TFLOP/s), MFU {mfu:.1%}; bound "
+          f"t_compute {trace.flops / peak_flops * 1e3:.2f} ms, t_memory "
+          f"{trace.hbm_bytes / 3.35e12 * 1e3:.2f} ms; on {card}")
+    print(f"[dryrun] memory: estimate {est_bytes / 1e9:.3f} GB (temp "
+          f"{estimate['temp_bytes'] / 1e9:.3f} + output "
+          f"{estimate['output_bytes'] / 1e9:.3f}; arguments "
+          f"{estimate['argument_bytes'] / 1e9:.3f}) vs the card's peak "
+          f"{peak / 1e9:.3f} GB above the {before / 1e9:.3f} GB allocated "
+          f"before: {gap:+.2%}")
+    if abs(gap) > DRYRUN_MEMORY_TOL:
+        raise AssertionError(f"[dryrun] memory estimate {est_bytes} bytes "
+                             f"vs the card's {peak}: {gap:+.2%}")
+    record = {"trace": summarize(trace), "dot_flops": trace.dot_flops,
+              "counted": summarize(counted), "launches": launches,
+              "trace_s": trace_s, "counted_ms": counted_ms,
+              "model_flops": useful, "step_ms": step_ms, "path": path,
+              "peak_flops": peak_flops, "counted_rate_share": rate_share,
+              "mfu": mfu, "memory_estimate": estimate,
+              "memory_peak_bytes": peak, "memory_before_bytes": before,
+              "memory_gap": gap, "card": card,
+              "top_hbm": [(n, r.count, r.hbm_bytes)
+                          for n, r in trace.top(8)],
+              "top_flops": [(n, r.count, r.flops)
+                            for n, r in trace.top(8, "flops")]}
+    print("[dryrun] top HBM contributors: " + ", ".join(
+        f"{n} ×{c} {b / 1e9:.1f} GB" for n, c, b in record["top_hbm"]))
+
+    # (d) the serving steps
+    b, s = DRYRUN_SERVE["batch"], DRYRUN_SERVE["seq"]
+    model = build(cfg.replace(compute_dtype="float32"))
+    pplan = S.plan_run(cfg, InputShape("prefill_smoke", s, b, "prefill"))
+    pstep, params, pbatch = S.build_prefill_step(
+        pplan, compute_dtype="float32", device=dev)
+    swa0 = swa_ops.swa_attention.launches
+    logits = pstep(params, pbatch)
+    prefill_launches = swa_ops.swa_attention.launches - swa0
+    want, _ = model.forward(params, pbatch)
+    if not torch.equal(logits, want):
+        raise AssertionError("[dryrun] the prefill step differs from "
+                             "model.forward")
+    if prefill_launches != cfg.num_layers:
+        raise AssertionError(f"[dryrun] prefill step: {prefill_launches} "
+                             f"swa_attention launches, want "
+                             f"{cfg.num_layers}")
+    del logits, want, params, pbatch
+    dplan = S.plan_run(cfg, InputShape("decode_smoke", s, b, "decode"))
+    sstep, params, (cache, tokens, pos) = S.build_serve_step(
+        dplan, compute_dtype="float32", device=dev)
+    direct = tree_map(torch.clone, cache)
+    got, cache = sstep(params, cache, tokens, pos)
+    want, direct = model.decode_step(params, direct, tokens, int(pos))
+    if not (torch.equal(got, want) and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(cache),
+                                               tree_leaves(direct)))):
+        raise AssertionError("[dryrun] the serve step differs from "
+                             "decode_step")
+    print(f"[dryrun] prefill step (B {b} × {s}) bitwise model.forward "
+          f"({prefill_launches} swa_attention); serve step (one token at "
+          f"position {int(pos)} against a {s}-slot cache) bitwise "
+          f"decode_step, logits and cache")
+    record["serving"] = {"prefill_launches": prefill_launches,
+                         "bitwise": True}
+    del got, want, cache, direct, params, tokens
+    torch.cuda.empty_cache()
+
+    # (e) the dry-run's own records
+    out_dir = REPO / "chiprun_out" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    record["pairs"] = {}
+    for arch, shape_name in DRYRUN_PAIRS:
+        rec = dryrun.run_one(arch, shape_name, False, out_dir)
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {arch} {shape_name}: {rec}")
+        r, m = rec["roofline"], rec["memory_analysis"]
+        print(f"[dryrun] {rec['name']}: {rec['cost']['flops'] / 1e12:.1f} "
+              f"TFLOP, {rec['cost']['hbm_bytes'] / 1e12:.2f} TB, "
+              f"{rec['cost']['device_ops']} ops; t_compute "
+              f"{r['t_compute_s']:.4f} s, t_memory {r['t_memory_s']:.4f} s "
+              f"-> {r['bottleneck']}; useful {r['useful_flop_ratio']:.3f}, "
+              f"MFU bound {r['mfu_bound']:.4f}; memory "
+              f"{m['total_bytes'] / 1e9:.1f} GB; traced in "
+              f"{rec['trace_seconds']} s")
+        record["pairs"][rec["name"]] = {k: rec[k] for k in (
+            "cost", "memory_analysis", "roofline", "trace_seconds")}
     return record
 
 
@@ -5218,14 +5440,13 @@ def phase_hybrid_profile(torch, step, state, batch, step_ms: float,
     return record
 
 
-def ce_bound(t: int, d: int, v: int, itemsize: int):
-    """The bounds of :func:`path_bounds` for one call: 2·T·D·V flops, x
-    and the table read once, the int64 labels read and the fp32 NLL
-    written once."""
-    flops = 2 * t * d * v
-    tc_flops = 3 * flops if itemsize == 4 else flops  # 3×TF32 in fp32
-    nbytes = (t * d + v * d) * itemsize + t * 8 + t * 4
-    return path_bounds(flops, tc_flops, nbytes, itemsize), flops, nbytes
+def ce_bound(ce_ops, t: int, d: int, v: int, dtype):
+    """The bounds of :func:`path_bounds` for one call of the kernel's
+    cost record: 2·T·D·V flops and the online logsumexp's, x and the
+    table read once, the int64 labels read and the fp32 NLL and
+    logsumexp written once."""
+    work = ce_ops.cost(1, t, d, v, dtype)
+    return path_bounds(work), work["flops"], work["hbm_bytes"]
 
 
 def phase_ce_times(torch, ce_ops, ce_ref) -> list:
@@ -5249,7 +5470,7 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
             }
             lib_err = (fns["library_"]().float()
                        - fns["plain_"]()).abs().max().item()
-            bounds, flops, nbytes = ce_bound(t, d, v, x.element_size())
+            bounds, flops, nbytes = ce_bound(ce_ops, t, d, v, dtype)
             row = {"shape": [t, d, v], "dtype": _dtype_name(dtype),
                    "path": ce_ops.PATHS[dtype], "flops": flops,
                    "bytes": nbytes, **bounds, "library_max_abs_err": lib_err}
@@ -5442,6 +5663,10 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     record["train"], (step, state, batches, step_ms) = phase_train(
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev)
+    record["dryrun"] = phase_dryrun(torch, ce_ops, swa_ops,
+                                    get_config(LM_ARCH), dev, step, state,
+                                    batches[0], record["train"]["ms_per_step"],
+                                    card)
     record["train_quadratic"] = phase_train_quadratic(
         torch, ce_ops, swa_ops, get_config(LM_ARCH), dev, batches)
     record["remat"], remat_base = phase_remat(
@@ -5467,6 +5692,8 @@ def main() -> int:
         torch, ce_ops, swa_ops)
     # the profiler runs last: its callbacks slow every later host dispatch
     record["times"] = phase_times(torch, gr_ops, ref)
+    record["launch_floor"] = phase_launch_floor(torch, gr_ops,
+                                                record["times"])
     record["swa_times"] = phase_swa_times(torch, swa_ops, swa_ref)
     record["ce_times"] = phase_ce_times(torch, ce_ops, ce_ref)
     record["profile"] = phase_profile(
@@ -5523,6 +5750,8 @@ def main() -> int:
         "library_device_ms": main_shape["library_device_ms"],
         "shape": main_shape["shape"],
         "dtype": main_shape["dtype"],
+        "launch_floor_device_ms": record["launch_floor"]["empty_device_ms"],
+        "hbm_share_1x2p26": record["launch_floor"]["hbm_share_1x2p26"],
         "launches_frontier": record["frontier_quadratic"]["launches"],
         "launches_durable": record["durable"]["launches"],
         "frontier": {k: frontier_shape[k] for k in (

@@ -3,8 +3,9 @@ the JAX package's).
 
 ``get_config(arch_id)`` resolves ``--arch`` names: every architecture of
 the JAX package, in its six families (dense, moe, hybrid, ssm, audio,
-vlm).  ``reduced(cfg)`` is the smoke-test variant of the same family (a
-copy of ``repro.configs.reduced``).
+vlm); ``SHAPES`` holds the workload shapes.  ``reduced(cfg)`` is the
+smoke-test variant of the same family (a copy of
+``repro.configs.reduced``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch.configs import (
     xlstm_350m,
     zamba2_1_2b,
 )
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _REGISTRY = {
     m.CONFIG.name: m.CONFIG

@@ -1,9 +1,9 @@
 """Configuration dataclasses (copies of ``repro.configs.base``).
 
-The model configs (``ModelConfig`` and its sub-configs) and the
-training-side configs the triggered step reads.  The workload shapes
-and the sharding config belong to the dry-run and the mesh, which the
-port has not reached.
+The model configs (``ModelConfig`` and its sub-configs), the workload
+shapes the dry-run traces (``SHAPES``) and the training-side configs
+the triggered step reads.  The sharding config belongs to the mesh,
+which the port has not reached.
 """
 from __future__ import annotations
 
@@ -157,6 +157,14 @@ class InputShape:
     kind: str  # "train" | "prefill" | "decode"
 
 
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class TriggerConfig:
     """The paper's communication trigger, as a legacy policy config.
@@ -200,6 +208,5 @@ class TrainConfig:
 
 
 __getattr__ = not_ported(__name__, {
-    "SHAPES": "queue 1 item 12",
     "ShardingConfig": "queue 1 item 11",
 })

@@ -12,7 +12,10 @@ itself and reads x and the table through strides.
 
 For tensors on the CPU it computes the plain version in ``ref.py``; for
 tensors on a CUDA device it launches the kernel, or raises — nothing
-falls back.  The kernel is built at first use (:mod:`repro_torch.kernels.build`)
+falls back; for tensors on ``meta`` (the dry-run's shape-only trace) it
+returns empty outputs of the right shapes.  Each call records its work
+(:func:`cost`) with an active cost counter
+(:func:`repro_torch.analysis.cost.kernel_call`).  The kernel is built at first use (:mod:`repro_torch.kernels.build`)
 and loaded with ``ctypes``.  ``fused_ce.launches`` counts the kernel
 launches made through this module.
 
@@ -47,6 +50,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.cost import kernel_call
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.autograd import first_order
 from repro_torch.kernels.fused_ce.ref import fused_ce_lse_ref
@@ -72,6 +76,26 @@ PATHS = {torch.float32: "tf32x3", torch.bfloat16: "bf16-mma"}
 # tokens per recomputed logits chunk in the backward (the JAX package's
 # default chunk of cross_entropy_fused)
 BACKWARD_CHUNK = 512
+
+
+def cost(g: int, t: int, d: int, v: int, dtype: torch.dtype, *,
+         label_bytes: int = 8, shared_table: bool = False) -> dict:
+    """The work of one call over ``g`` groups of ``t`` tokens: ``flops``,
+    the function's (2·T·D·V for the logits, then the online logsumexp's
+    max, subtract, exp and sum per logit, and its log and the NLL's
+    subtraction per token); ``hbm_bytes``, x, the table (once when the
+    groups share it), the labels read once and the NLL and logsumexp
+    written once; ``path`` and ``path_flops``, the operations the tensor
+    cores run (3×TF32: three products per product)."""
+    itemsize = dtype.itemsize
+    products = 2 * g * t * d * v
+    tables = 1 if shared_table else g
+    return {"flops": products + 4 * g * t * v + 3 * g * t,
+            "hbm_bytes": (g * t * d + tables * v * d) * itemsize
+            + g * t * label_bytes + 2 * g * t * 4,
+            "path": PATHS[dtype],
+            "path_flops": 3 * products if dtype == torch.float32
+            else products}
 
 
 def library_path() -> Path:
@@ -146,9 +170,22 @@ def _check(x: torch.Tensor, table: torch.Tensor,
 def _forward(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
     """``(nll, lse)`` ``(G, T)`` fp32 for a group of token matrices x
     ``(G, T, D)``, tables ``(G, V, D)`` and labels ``(G, T)``: the plain
-    version on the CPU, the kernel on a CUDA device."""
+    version on the CPU, empty results on ``meta``, the kernel on a CUDA
+    device; its work recorded with any cost counter."""
+    g, t, d = x.shape
+    work = cost(g, t, d, table.shape[1], x.dtype,
+                label_bytes=labels.element_size(),
+                shared_table=g > 1 and table.stride(0) == 0)
+    with kernel_call("fused_ce", work["flops"], work["hbm_bytes"]):
+        return _run(x, table, labels)
+
+
+def _run(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
     if x.device.type == "cpu":
         return fused_ce_lse_ref(x, table, labels)
+    if x.device.type == "meta":
+        return (torch.empty(x.shape[:2], dtype=torch.float32, device="meta"),
+                torch.empty(x.shape[:2], dtype=torch.float32, device="meta"))
     if x.device.type != "cuda":
         raise ValueError(f"fused_ce: unsupported device {x.device}")
     if x.stride(-1) != 1 or table.stride(-1) != 1:

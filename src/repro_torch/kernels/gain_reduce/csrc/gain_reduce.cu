@@ -32,6 +32,10 @@
 //       enqueues the reduction of the contiguous (rows, n) inputs into the
 //       (rows, 2) fp32 output on `stream`; returns cudaGetLastError().
 //   dtype: 0 = float32, 1 = bfloat16.
+//   int gain_reduce_empty_launch(stream)
+//       enqueues one launch of a kernel that does nothing (one block of
+//       one thread): the card's launch floor, the yardstick of this
+//       kernel's time at the fleet's shape; returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -249,5 +253,12 @@ extern "C" int gain_reduce_launch(const void* g, const void* h, void* out,
                            threads_for(plan.nsplit), 0, s>>>(
       static_cast<const float*>(scratch), plan.nsplit,
       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void gain_reduce_empty() {}
+
+extern "C" int gain_reduce_empty_launch(void* stream) {
+  gain_reduce_empty<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,10 @@
 two ``(A, N)`` (or 1-D, ``A = 1``) tensors of equal shape and dtype,
 fp32 or bf16.  For tensors on the CPU it computes the plain version in
 ``ref.py``; for tensors on a CUDA device it launches the kernel, or
-raises — nothing falls back.
+raises — nothing falls back; for tensors on ``meta`` (the dry-run's
+shape-only trace) it returns an empty result of the right shape.  Each
+call records its work (:func:`cost`) with an active cost counter
+(:func:`repro_torch.analysis.cost.kernel_call`).
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` beside this file (:mod:`repro_torch.kernels.build`), and
@@ -30,6 +33,7 @@ from pathlib import Path
 import torch
 from torch._C._functorch import is_functorch_wrapped_tensor
 
+from repro_torch.analysis.cost import kernel_call
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.gain_reduce.ref import gain_reduce_ref
 
@@ -38,6 +42,17 @@ BUILD_DIR = SOURCE.parent.parent / "build"
 NVCC_FLAGS = _build.NVCC_FLAGS
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cost(rows: int, n: int, dtype: torch.dtype) -> dict:
+    """The work of one call: ``flops``, 2·rows·n multiply-adds (gᵀg and
+    gᵀh); ``hbm_bytes``, g and h read once and the (rows, 2) fp32 result
+    written once; ``path`` and ``path_flops``, fp32 FMAs on the CUDA
+    cores."""
+    itemsize = dtype.itemsize
+    flops = 4 * rows * n
+    return {"flops": flops, "hbm_bytes": 2 * rows * n * itemsize + rows * 8,
+            "path": "fp32-fma", "path_flops": flops}
 
 
 def library_path() -> Path:
@@ -88,7 +103,7 @@ def _check(g: torch.Tensor, h: torch.Tensor) -> None:
 def gain_reduce(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``[gᵀg, gᵀh]`` per row, fp32, shape ``g.shape[:-1] + (2,)``."""
     _check(g, h)
-    if g.device.type not in ("cpu", "cuda"):
+    if g.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"gain_reduce: unsupported device {g.device}")
     if g.device.type == "cuda" and (g.requires_grad or h.requires_grad):
         raise RuntimeError(
@@ -105,9 +120,15 @@ class GainReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(g, h):
-        if g.device.type == "cpu":
-            return gain_reduce_ref(g, h)
-        return _launch(g, h)
+        rows, n = (1, g.shape[0]) if g.ndim == 1 else tuple(g.shape)
+        work = cost(rows, n, g.dtype)
+        with kernel_call("gain_reduce", work["flops"], work["hbm_bytes"]):
+            if g.device.type == "cpu":
+                return gain_reduce_ref(g, h)
+            if g.device.type == "meta":
+                return torch.empty(g.shape[:-1] + (2,), dtype=torch.float32,
+                                   device="meta")
+            return _launch(g, h)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -12,7 +12,10 @@ strides and masks the ragged edge itself.
 
 For tensors on the CPU it computes the plain version in ``ref.py``; for
 tensors on a CUDA device it launches the kernel, or raises — nothing
-falls back.  The kernel is built at first use (:mod:`repro_torch.kernels.build`)
+falls back; for tensors on ``meta`` (the dry-run's shape-only trace) it
+returns an empty output of the right shape.  Each call records its
+work (:func:`cost`) with an active cost counter
+(:func:`repro_torch.analysis.cost.kernel_call`).  The kernel is built at first use (:mod:`repro_torch.kernels.build`)
 and loaded with ``ctypes``.  ``swa_attention.launches`` counts the kernel
 launches made through this wrapper.
 
@@ -43,6 +46,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.cost import kernel_call
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.autograd import first_order
 from repro_torch.kernels.swa_attention.ref import NEG, swa_attention_ref
@@ -58,6 +62,28 @@ BLOCK_Q = 64
 # inputs, bf16 tensor-core products for bf16 (P in two bf16 parts for
 # P·V; fp32 softmax and sums)
 PATHS = {torch.float32: "tf32x3", torch.bfloat16: "bf16-mma"}
+
+
+def cost(b: int, s: int, h: int, kv: int, hd: int, window: int,
+         dtype: torch.dtype) -> dict:
+    """The work of one call: ``flops``, the function's (the two products,
+    4·hd per query, visible key and head, over the window's pairs
+    Σ_q min(q + 1, W), not the plain version's S×S; the softmax's 5 per
+    pair and head; the normalisation's one per output element);
+    ``hbm_bytes``, q, k, v read once and the output written once;
+    ``path`` and ``path_flops``, the operations the tensor cores run
+    (3×TF32: three products per product; bf16: Q·Kᵀ once, P·V twice
+    with P in two bf16 parts)."""
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    products = 4 * hd * h * b * pairs
+    itemsize = dtype.itemsize
+    return {"flops": products + 5 * h * b * pairs + b * s * h * hd,
+            "hbm_bytes": (2 * b * s * h * hd + 2 * b * s * kv * hd)
+            * itemsize,
+            "path": PATHS[dtype],
+            "path_flops": (3 * products if dtype == torch.float32
+                           else 3 * products // 2)}
 
 
 def library_path() -> Path:
@@ -121,9 +147,22 @@ def check_head_dim(hd: int) -> None:
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              window: int) -> torch.Tensor:
-    """The plain version on the CPU, the kernel on a CUDA device."""
+    """The plain version on the CPU, an empty result on ``meta``, the
+    kernel on a CUDA device; its work recorded with any cost counter."""
+    b, s, h, hd = q.shape
+    work = cost(b, s, h, k.shape[2], hd, window, q.dtype)
+    with kernel_call("swa_attention", work["flops"], work["hbm_bytes"]):
+        return _run(q, k, v, window)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         window: int) -> torch.Tensor:
     if q.device.type == "cpu":
-        return swa_attention_ref(q, k, v, window=window)
+        # in the kernel's layout (a contiguous output), so that what
+        # follows runs the same ops on every device
+        return swa_attention_ref(q, k, v, window=window).contiguous()
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"swa_attention: unsupported device {q.device}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):

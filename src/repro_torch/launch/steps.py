@@ -1,4 +1,4 @@
-"""Train-step construction: the triggered train step of an LM on one
+"""Step construction: the train, prefill and serve steps of an LM on one
 card (port of ``repro.launch.steps``).
 
 * ``plan_run`` fixes the run: the model config, the workload shape, the
@@ -7,34 +7,46 @@ card (port of ``repro.launch.steps``).
   of the model (its backward recomputes the block's activations),
   ``attn_q_block`` bounds the score tile of non-causal attention (the
   causal kernel forms none), and ``microbatches`` sums each agent's loss
-  over that many equal slices of its batch.
+  over that many equal slices of its batch.  Its sharding knobs
+  (``fsdp``, ``seq_shard``, ``inner_batch_shard``, ``cache_seq_shard``)
+  belong to the mesh (ROADMAP queue 1 item 11) and raise.
 * ``build_train_step`` wires the model's loss into the event-triggered
   train step (:func:`repro_torch.core.api.make_triggered_train_step`).
+* ``build_prefill_step`` / ``build_serve_step`` cover prefill (the full
+  sequence's forward) and the decode shapes (one token against a
+  ``seq_len`` cache, written in place).  They return the step with its
+  parameters and inputs: drawn from seed 0 on a real device, the
+  abstract stand-ins on ``meta``.
+* ``lower_for`` is the dry-run's counterpart of ``jit(...).lower``: the
+  plan's step with its ``meta`` state and inputs, traced on demand for
+  its cost (:mod:`repro_torch.analysis.cost`) and memory.
 
 On one card there is no mesh: no sharding rules, no FSDP gather hooks
 and no fleet-sharded step, and the agent count is the caller's (default
 1, the size of the JAX CLI's data axis on one device).  Every agent's
 gradient and lookahead probe run batched on the card, through the
-``swa_attention`` and ``fused_ce`` kernels.  ``build_prefill_step``,
-``build_serve_step`` and ``lower_for`` belong to the dry-run (ROADMAP
-queue 1 item 12).
+``swa_attention`` and ``fused_ce`` kernels.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
+import torch
+
+from repro_torch.analysis.cost import CostCounter, MemoryTracker, tensor_leaves
 from repro_torch.configs.base import (
     InputShape,
     ModelConfig,
     TrainConfig,
     TriggerConfig,
 )
-from repro_torch.core.api import make_triggered_train_step
-from repro_torch.models import build, long_context_variant
+from repro_torch.core.api import init_train_state, make_triggered_train_step
+from repro_torch.models import build, input_specs, long_context_variant
+from repro_torch.models.transformer import dtype_of
 from repro_torch.optim import optimizers as opt_lib
-from repro_torch.utils.device import DeviceLike
-from repro_torch.utils.todo import not_ported
+from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.todo import todo
 
 
 @dataclass(frozen=True)
@@ -57,7 +69,16 @@ def plan_run(
     remat: bool = False,
     attn_q_block: Optional[int] = None,
     microbatches: int = 1,
+    fsdp: Optional[bool] = None,
+    seq_shard: bool = False,
+    inner_batch_shard: bool = False,
+    cache_seq_shard: bool = False,
 ) -> RunPlan:
+    for knob, on in (("fsdp", fsdp), ("seq_shard", seq_shard),
+                     ("inner_batch_shard", inner_batch_shard),
+                     ("cache_seq_shard", cache_seq_shard)):
+        if on:
+            raise todo(f"plan_run({knob}=True)", "queue 1 item 11")
     if shape.name == "long_500k":
         cfg = long_context_variant(cfg)
     if remat or attn_q_block:
@@ -92,8 +113,143 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
                                      plan.train_cfg, device=device)
 
 
-__getattr__ = not_ported(__name__, {
-    "build_prefill_step": "queue 1 item 12",
-    "build_serve_step": "queue 1 item 12",
-    "lower_for": "queue 1 item 12",
-})
+def _params(model, dtype: torch.dtype, device: torch.device):
+    """The model's parameters at ``dtype``: drawn from seed 0 on a real
+    device, the abstract stand-ins on ``meta``."""
+    if device.type == "meta":
+        return model.init(abstract=True, dtype=dtype)[0]
+    return model.init(torch.Generator(device=device).manual_seed(0),
+                      dtype=dtype)[0]
+
+
+def _materialize(specs: dict, cfg: ModelConfig, device: torch.device,
+                 gen: torch.Generator) -> dict:
+    """Real inputs of ``specs``' shapes and dtypes on ``device``: token
+    ids uniform over the vocabulary, embeddings standard normal."""
+    out = {}
+    for key, spec in specs.items():
+        if spec.dtype.is_floating_point:
+            out[key] = torch.randn(spec.shape, generator=gen, device=device,
+                                   dtype=torch.float32).to(spec.dtype)
+        else:
+            out[key] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                     generator=gen, device=device,
+                                     dtype=spec.dtype)
+    return out
+
+
+def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
+                       device: DeviceLike = "cuda"):
+    """Full-sequence forward (inference prefill).  Returns ``(step,
+    params, batch)`` with ``step(params, batch) -> logits``: the
+    parameters at ``compute_dtype`` and the batch of ``input_specs``,
+    drawn from seed 0 on ``device``, or their ``meta`` stand-ins."""
+    cfg = plan.cfg.replace(compute_dtype=compute_dtype)
+    model = build(cfg)
+    dev = resolve_device(device)
+    params = _params(model, dtype_of(compute_dtype), dev)
+    batch = input_specs(cfg, plan.shape)
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batch = _materialize(batch, cfg, dev, gen)
+
+    def prefill_step(params, batch):
+        logits, _ = model.forward(params, batch)
+        return logits
+
+    return prefill_step, params, batch
+
+
+def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
+                     device: DeviceLike = "cuda"):
+    """One-token decode against a ``seq_len`` cache (decode shapes).
+    Returns ``(step, params, (cache, tokens, pos))`` with ``step(params,
+    cache, tokens, pos) -> (logits, cache)``, the cache written in place
+    (the JAX package donates it): on ``device`` a zero cache (the
+    model's ``init_cache``), tokens drawn from seed 0 and the 0-d int32
+    position ``seq_len − 1``; on ``meta`` the stand-ins."""
+    cfg = plan.cfg.replace(compute_dtype=compute_dtype)
+    model = build(cfg)
+    dev = resolve_device(device)
+    params = _params(model, dtype_of(compute_dtype), dev)
+    inputs = input_specs(cfg, plan.shape)
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(0)
+        inputs = dict(
+            _materialize({"tokens": inputs["tokens"]}, cfg, dev, gen),
+            cache=model.init_cache(plan.shape.global_batch,
+                                   plan.shape.seq_len, device=dev)[0],
+            pos=torch.tensor(plan.shape.seq_len - 1, dtype=torch.int32,
+                             device=dev))
+
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return serve_step, params, (inputs["cache"], inputs["tokens"],
+                                inputs["pos"])
+
+
+@dataclass
+class Lowered:
+    """A step with its ``meta`` arguments: the counterpart of JAX's
+    ``Lowered``/``Compiled`` for the dry-run.  :meth:`cost` and
+    :meth:`memory` trace the step once (nothing is allocated or
+    computed) and keep what the trace found."""
+
+    step: Callable
+    args: tuple
+    _cost: Optional[CostCounter] = None
+    _memory: Optional[dict] = None
+
+    def _trace(self) -> None:
+        with CostCounter() as counter, MemoryTracker() as tracker:
+            out = self.step(*self.args)
+        outputs = tracker.new_bytes(out)
+        self._cost = counter
+        self._memory = {
+            "argument_bytes": self.argument_bytes,
+            "temp_bytes": tracker.peak_bytes - outputs,
+            "output_bytes": outputs,
+        }
+
+    @property
+    def argument_bytes(self) -> int:
+        """The state and batch (or parameters and inputs), exact."""
+        return sum(t.nbytes for t in tensor_leaves(self.args))
+
+    def cost(self) -> CostCounter:
+        """The traced step's flops, HBM bytes and device ops."""
+        if self._cost is None:
+            self._trace()
+        return self._cost
+
+    def memory(self) -> dict:
+        """``argument_bytes``, ``temp_bytes`` (the high-water of the storage the step allocates,
+        less its outputs) and ``output_bytes`` (the outputs' new storage:
+        an argument written in place adds nothing)."""
+        if self._memory is None:
+            self._trace()
+        return self._memory
+
+
+def lower_for(plan: RunPlan, *, compute_dtype: str = "bfloat16") -> Lowered:
+    """The right step for the plan's shape kind, with its ``meta`` state
+    and inputs (parameters at ``compute_dtype``, as the JAX package's)."""
+    meta = torch.device("meta")
+    if plan.shape.kind == "train":
+        cfg = plan.cfg.replace(compute_dtype=compute_dtype)
+        model = build(cfg)
+        params = _params(model, dtype_of(compute_dtype), meta)
+        state = init_train_state(params, opt_lib.from_config(plan.train_cfg),
+                                 plan.train_cfg, device=meta)
+        batch = input_specs(cfg, plan.shape, num_agents=plan.num_agents)
+        step = build_train_step(plan, compute_dtype=compute_dtype,
+                                device=meta)
+        return Lowered(step, (state, batch))
+    if plan.shape.kind == "prefill":
+        step, params, batch = build_prefill_step(
+            plan, compute_dtype=compute_dtype, device=meta)
+        return Lowered(step, (params, batch))
+    step, params, inputs = build_serve_step(plan, compute_dtype=compute_dtype,
+                                            device=meta)
+    return Lowered(step, (params,) + inputs)

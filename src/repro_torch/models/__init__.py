@@ -3,5 +3,8 @@
 from repro_torch.models.model_zoo import (  # noqa: F401
     Model,
     build,
+    input_axes,
+    input_specs,
     long_context_variant,
+    runs_shape,
 )

@@ -174,26 +174,50 @@ def init_kv_cache(batch: int, cache_len: int, kv_heads: int, head_dim: int,
                                       device=device))
 
 
-def decode_attend(p, cfg, x, cache: KVCache, pos: int):
+def abstract_kv_cache(batch: int, cache_len: int, kv_heads: int,
+                      head_dim: int, dtype: torch.dtype) -> KVCache:
+    """The cache's shapes and dtypes as empty ``meta`` tensors (the
+    dry-run's stand-in): nothing allocated."""
+    shape = (batch, cache_len, kv_heads, head_dim)
+    return KVCache(k=torch.empty(shape, dtype=dtype, device="meta"),
+                   v=torch.empty(shape, dtype=dtype, device="meta"),
+                   pos_ids=torch.empty((cache_len,), dtype=torch.int32,
+                                       device="meta"))
+
+
+def decode_attend(p, cfg, x, cache: KVCache, pos):
     """One-token attention against the cache.
 
-    x: (B, 1, D); pos: the new token's absolute position.  Returns
-    (out (B,1,H,hd), cache).  Unlike the JAX package, which returns a
-    new cache, the new key, value and position are written into
-    ``cache``'s tensors in place (one slot each): the returned cache is
-    the argument, and no copy of the whole cache is made per token.
+    x: (B, 1, D); pos: the new token's absolute position, an int or a
+    0-d integer tensor on x's device (the serve step's input, as the
+    JAX package's traced ``pos``).  Returns (out (B,1,H,hd), cache).
+    Unlike the JAX package, which returns a new cache, the new key,
+    value and position are written into ``cache``'s tensors in place
+    (one slot each): the returned cache is the argument, and no copy of
+    the whole cache is made per token.  A tensor ``pos`` is never read
+    on the host: its slot is computed and written on the device
+    (``index_copy_``), so the step traces on ``meta`` and writes the
+    same values as an int ``pos``.
     """
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = qkv(p, cfg, x, positions, rope=True)
     C = cache.k.shape[1]
+    traced = torch.is_tensor(pos)
+    positions = (pos.to(torch.int64).expand(b, 1) if traced else
+                 torch.full((b, 1), pos, dtype=torch.int64, device=x.device))
+    q, k_new, v_new = qkv(p, cfg, x, positions, rope=True)
     if cfg.swa_window is not None:
         slot = pos % C  # ring buffer: cache holds only the window
     else:
-        slot = min(pos, C - 1)
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.pos_ids[slot] = pos
+        slot = pos.clamp(max=C - 1) if traced else min(pos, C - 1)
+    if traced:
+        slot = slot.reshape(1).to(torch.int64)
+        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+        cache.pos_ids.index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    else:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+        cache.pos_ids[slot] = pos
 
     h = cfg.num_heads
     kv_heads = cfg.num_kv_heads
@@ -233,6 +257,5 @@ def prefill_into_cache(p, cfg, k, v, cache_len: int) -> KVCache:
 
 
 __getattr__ = not_ported(__name__, {
-    "abstract_kv_cache": "queue 1 item 12",
     "kv_cache_axes": "queue 1 item 11",
 })

@@ -81,7 +81,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     ssm ``{"mlstm": MLSTMState, "slstm": SLSTMState}`` stacked over pairs
     (fp32 whatever ``dtype``, as the JAX package's); for audio ``{"self":
     KVCache, "cross_k", "cross_v"}``, the cross K/V of ``cache_len``
-    encoder frames (zeros until ``prefill`` fills them)."""
+    encoder frames (zeros until ``prefill`` fills them).  On
+    ``device="meta"`` the leaves are the dry-run's abstract stand-ins
+    (the JAX package's ``abstract=True``): shapes and dtypes, no data."""
     check_family(cfg)
     dtype = dtype or dtype_of(cfg.compute_dtype)
     device = resolve_device(device)
@@ -137,7 +139,7 @@ def _attn_block_decode(lp, cfg, x, cache_l, pos):
     return x + ff, cache_l
 
 
-def _hybrid_decode(cfg, params, cache, x, pos: int):
+def _hybrid_decode(cfg, params, cache, x, pos):
     shared = params["shared_attn"]
     mamba = cache["mamba"]
     for site, (s, e) in enumerate(group_bounds(cfg.num_layers,
@@ -174,9 +176,13 @@ def _xlstm_decode(cfg, params, cache, x):
     return x
 
 
-def _whisper_decode(cfg, params, cache, x, pos: int):
+def _whisper_decode(cfg, params, cache, x, pos):
     dtype = x.dtype
-    x = x + params["dec_pos"][pos].to(dtype)[None, None]
+    if torch.is_tensor(pos):  # a traced position: no read to the host
+        row = params["dec_pos"].index_select(0, pos.reshape(1).long())[0]
+    else:
+        row = params["dec_pos"][pos]
+    x = x + row.to(dtype)[None, None]
     for i in range(cfg.num_layers):
         lp = layer(params["dec_blocks"], i)
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
@@ -194,9 +200,11 @@ def _whisper_decode(cfg, params, cache, x, pos: int):
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
-                pos: int):
-    """tokens (B, 1) int; pos the tokens' absolute position.  Returns
-    (logits (B,1,V) fp32, cache), the cache updated in place."""
+                pos):
+    """tokens (B, 1) int; pos the tokens' absolute position, an int or a
+    0-d integer tensor on the tokens' device (the serve step's traced
+    input; see :func:`~repro_torch.models.attention.decode_attend`).
+    Returns (logits (B,1,V) fp32, cache), the cache updated in place."""
     check_family(cfg)
     x = embed(params["embedding"], tokens, dtype_of(cfg.compute_dtype))
     if cfg.arch_type == "hybrid":

@@ -52,7 +52,7 @@ def sinusoidal_positions(seq_len: int, dim: int,
     columns, cos in the odd, at rates exp(−2i·ln(10000)/dim), in fp32
     as the JAX package forms it."""
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
-    rate = -torch.log(torch.tensor(10000.0, device=device)) / dim
+    rate = -torch.full((), 10000.0, device=device).log() / dim
     div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
                                  device=device) * rate)
     pe = torch.zeros((seq_len, dim), dtype=torch.float32, device=device)

@@ -1,24 +1,32 @@
-"""Model facade (port of ``repro.models.model_zoo``).
+"""Model facade and workload input specs (port of
+``repro.models.model_zoo``).
 
 ``build(cfg)`` returns a :class:`Model` bundling the init / forward /
-loss / decode closures of every family.  The workload specs and axes
-(``input_specs``/``input_axes``/``runs_shape``) belong to the dry-run,
-which the port has not reached.
+loss / decode closures of every family.  ``input_specs(cfg, shape,
+...)`` gives the inputs the dry-run traces against as empty ``meta``
+tensors (the JAX package's ``jax.ShapeDtypeStruct`` stand-ins), and
+``input_axes`` the matching logical-axis tree:
+
+* train shapes  → ``train_step`` inputs, leading *agent* axis
+* prefill       → full-sequence forward inputs
+* decode shapes → ``serve_step`` inputs: ONE token + a ``seq_len`` cache
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.whisper_medium import DECODER_LEN
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
-from repro_torch.utils.todo import not_ported
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable                 # (gen, dtype=None) -> (params, axes)
+    init: Callable                 # (gen=None, abstract=False, dtype=None)
     forward: Callable              # (params, batch) -> (logits, aux)
     loss_fn: Callable              # (params, batch) -> scalar
     init_cache: Callable           # (batch, cache_len, device, dtype)
@@ -38,15 +46,105 @@ def build(cfg: ModelConfig) -> Model:
     )
 
 
+# ======================================================================
+# Workload specs (meta stand-ins, no allocation)
+# ======================================================================
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(
+    cfg: ModelConfig,
+    shape: InputShape,
+    *,
+    num_agents: int = 1,
+    compute_dtype=None,
+) -> Dict[str, Any]:
+    """Inputs for the step function this workload traces, as ``meta``
+    tensors.
+
+    train/prefill → batch dict (train adds the leading agent axis);
+    decode        → {"tokens", "pos", "cache"}.
+    """
+    dt = compute_dtype or T.dtype_of(cfg.compute_dtype)
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    if shape.kind in ("train", "prefill"):
+        agents = num_agents if shape.kind == "train" else 1
+        if B % agents:
+            raise ValueError(f"global batch {B} does not split over "
+                             f"{agents} agents")
+        per = B // agents
+        lead = (agents, per) if shape.kind == "train" else (B,)
+
+        if cfg.arch_type == "audio":
+            dec = min(S, DECODER_LEN)
+            return {
+                "frame_embeds": _meta(lead + (S, cfg.d_model), dt),
+                "tokens": _meta(lead + (dec,), i32),
+                "labels": _meta(lead + (dec,), i32),
+            }
+        specs = {
+            "tokens": _meta(lead + (S,), i32),
+            "labels": _meta(lead + (S,), i32),
+        }
+        if cfg.arch_type == "vlm":
+            specs["patch_embeds"] = _meta(
+                lead + (cfg.num_patches, cfg.d_model), dt)
+        return specs
+
+    # decode: one new token against a seq_len cache
+    cache, _ = D.init_cache(cfg, B, S, device="meta", dtype=dt)
+    return {
+        "tokens": _meta((B, 1), i32),
+        "pos": _meta((), i32),
+        "cache": cache,
+    }
+
+
+def input_axes(cfg: ModelConfig, shape: InputShape, *, num_agents: int = 1):
+    """Logical-axis tree matching ``input_specs`` (for the mesh, ROADMAP
+    queue 1 item 11)."""
+    if shape.kind in ("train", "prefill"):
+        lead = ("agent", "inner_batch") if shape.kind == "train" else ("batch",)
+        if cfg.arch_type == "audio":
+            return {
+                "frame_embeds": lead + ("seq", "embed"),
+                "tokens": lead + ("seq",),
+                "labels": lead + ("seq",),
+            }
+        axes = {"tokens": lead + ("seq",), "labels": lead + ("seq",)}
+        if cfg.arch_type == "vlm":
+            axes["patch_embeds"] = lead + ("patch", "embed")
+        return axes
+
+    _, cache_axes = D.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta")
+    return {
+        "tokens": ("batch", None),
+        "pos": (),
+        "cache": cache_axes,
+    }
+
+
+def runs_shape(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Assignment skip rules. Returns (run?, reason)."""
+    if shape.name == "long_500k":
+        if cfg.arch_type == "audio":
+            return False, (
+                "whisper encoder is full-attention over frames by construction "
+                "and the decoder context is architecturally capped at 448; a "
+                "500k decoder cache has no meaningful interpretation"
+            )
+        if not cfg.subquadratic:
+            return True, "runs with the sliding-window variant (swa_window=4096 override)"
+    return True, ""
+
+
 def long_context_variant(cfg: ModelConfig) -> ModelConfig:
     """Dense archs get a first-class SWA variant for ``long_500k``."""
     if cfg.subquadratic or cfg.arch_type == "audio":
         return cfg
     return cfg.replace(swa_window=4096)
-
-
-__getattr__ = not_ported(__name__, {
-    "input_specs": "queue 1 item 12",
-    "input_axes": "queue 1 item 12",
-    "runs_shape": "queue 1 item 12",
-})

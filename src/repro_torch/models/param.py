@@ -13,6 +13,11 @@ by ``1/sqrt(fan_in)`` or ``scale``, ``ones``, ``zeros``, ``small_uniform``
 on [−0.05, 0.05)), the draws are
 not: weights that must equal the JAX package's are carried across with
 ``repro_torch.convert.params_from_jax``.
+
+An abstract scope (``abstract=True``, no generator) builds every leaf
+as an empty tensor on the ``meta`` device instead: the same tree,
+names, shapes and dtypes, nothing allocated and nothing drawn (the JAX
+package's ``jax.ShapeDtypeStruct`` leaves, for the dry-run).
 """
 from __future__ import annotations
 
@@ -23,16 +28,19 @@ import torch
 
 
 class Scope:
-    def __init__(self, gen: torch.Generator, dtype: torch.dtype,
-                 lead: Tuple[int, ...] = ()):
+    def __init__(self, gen: Optional[torch.Generator], dtype: torch.dtype,
+                 lead: Tuple[int, ...] = (), abstract: bool = False):
+        if gen is None and not abstract:
+            raise ValueError("a concrete init needs a torch.Generator")
         self._gen = gen
         self.dtype = dtype
+        self.abstract = abstract
         self._lead = lead  # leading stacked axes (the layer axis)
         self.params: dict = {}
         self.axes: dict = {}
 
     def sub(self, name: str) -> "Scope":
-        child = Scope(self._gen, self.dtype, self._lead)
+        child = Scope(self._gen, self.dtype, self._lead, self.abstract)
         self.params[name] = child.params
         self.axes[name] = child.axes
         return child
@@ -48,8 +56,10 @@ class Scope:
         if len(shape) != len(axes):
             raise ValueError(f"{name}: shape {shape} vs axes {axes}")
         full = self._lead + tuple(shape)
-        dev = self._gen.device
-        if init == "normal":
+        dev = "meta" if self.abstract else self._gen.device
+        if self.abstract:
+            value = torch.empty(full, dtype=self.dtype, device=dev)
+        elif init == "normal":
             fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
             s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
             value = (torch.randn(full, generator=self._gen, device=dev,
@@ -74,15 +84,17 @@ class Scope:
         ``build_fn(scope)`` defines one instance; every leaf gains a
         leading ``(n, ...)`` axis with logical name ``"layer"``.  Each
         instance draws independently (``fan_in`` is the instance's)."""
-        child = Scope(self._gen, self.dtype, self._lead + (n,))
+        child = Scope(self._gen, self.dtype, self._lead + (n,),
+                      self.abstract)
         build_fn(child)
         self.params[name] = child.params
         self.axes[name] = child.axes
         return child.params
 
 
-def init_pair(gen: torch.Generator, dtype: torch.dtype, build_fn: Callable):
+def init_pair(gen: Optional[torch.Generator], dtype: torch.dtype,
+              build_fn: Callable, abstract: bool = False):
     """Run ``build_fn(scope)`` and return ``(params, axes)`` trees."""
-    sc = Scope(gen, dtype)
+    sc = Scope(gen, dtype, abstract=abstract)
     build_fn(sc)
     return sc.params, sc.axes

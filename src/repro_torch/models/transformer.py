@@ -147,11 +147,13 @@ def _decoder_block(p, cfg, x, positions):
 # init
 # ======================================================================
 
-def init(cfg: ModelConfig, gen: torch.Generator, *,
-         dtype: Optional[torch.dtype] = None):
+def init(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
+         abstract: bool = False, dtype: Optional[torch.dtype] = None):
     """Returns (params, logical_axes), drawn from ``gen`` onto its
     device.  The tree, names, shapes and init distributions are the
-    JAX package's; the draws are not."""
+    JAX package's; the draws are not.  ``abstract=True`` allocates
+    nothing: every leaf is an empty ``meta`` tensor of its shape and
+    dtype (``gen`` is not read)."""
     check_family(cfg)
     dtype = dtype or dtype_of(cfg.param_dtype)
 
@@ -201,7 +203,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
             sc.stacked("blocks", cfg.num_layers,
                        lambda s: _build_decoder_block(s, cfg))
 
-    return init_pair(gen, dtype, build)
+    return init_pair(gen, dtype, build, abstract)
 
 
 # ======================================================================
