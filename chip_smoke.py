@@ -127,6 +127,34 @@ Phases (any failure exits nonzero; no result line is printed then):
               1 s under a 0.5 s watchdog: exactly one ``"stall"`` event;
               the first metro agent crashed by a ``FaultInjector`` for
               rounds 60–139: ``agent_tx`` 0 in each.
+   shard    — the fleet-sharded step (``repro_torch.sharding``) over 4
+              gateway ranks that ``repro_torch.launch.mesh.spawn``
+              starts on the backend ``choose_backend`` picks (gloo with
+              one card: the ranks share it), each serving its 16 agents
+              through ``build_linreg_fleet_session(mesh=)``: (a)
+              ``TIERED_M64_QUADRATIC`` for 200 rounds, each rank
+              launching ``gain_reduce`` once per round and the payload
+              ``all_reduce`` running once per round; (b)
+              ``TIERED_M64_ADAPTIVE_LOSSY`` for 240 rounds, its
+              delivered bytes against the budgets printed; each round of
+              both, gathered, held to the single-process hybrid step on
+              the card from the same state (``_hold_round``) and the
+              ranks' parameters bitwise equal; (c) the counted
+              ``all_reduce`` operand bytes of one step equal at m = 64
+              and m = 1024, and equal to the payload (n × 4 bytes) plus
+              the packed scalars; (d) sketch-native: fewer operand bytes
+              than the dense gateway at n = 4096, and the dense
+              gateway's params within 1e-5 at n = 6; sharded rounds/s
+              beside [slice]'s and [fleet lossy]'s, and where a sharded
+              round's time goes: a round's two ``all_reduce`` calls
+              alone (on CUDA tensors, and staged through host copies),
+              and the unsharded [slice] session run on every rank at
+              once (the card time-sliced).  [shard frontier]:
+              the quadratic frontier (16 lanes, 40 rounds) sharded: one
+              ``gain_reduce`` launch and one payload ``all_reduce`` per
+              round on every rank, lanes 0 and 11 held to the unsharded
+              frontier step from the same stacked state every round;
+              rounds/s beside [frontier quadratic]'s.
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes
               (with the moe, hybrid and vlm families', and hd 32), one
@@ -414,6 +442,16 @@ PROFILED_ROUNDS = 20
 DISPATCH_ROUNDS = 4
 # one step of two paths from the same state (ROADMAP's parity contract)
 STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
+# the fleet-sharded phases: gateway ranks, the O(#gateways) check's
+# second fleet size (the m = 64 tiers, 16 times over), the sketch-native
+# model widths, and the spawn's time limit
+SHARD_GATEWAYS = 4
+SHARD_BIG_M = 1024
+SKETCH_BIG_N, SKETCH_SMALL_N, SKETCH_ROUNDS = 4096, 6, 3
+SKETCH_SMALL = "gain_lookahead(lam=0.5)|sketch(rows=5,cols=16,seed=3)+ef"
+SKETCH_BIG = "always|sketch(rows=5,cols=64,seed=3)"
+SHARD_TIMEOUT_S = 300
+SHARD_PROBE_CALLS, SHARD_PROBE_ROUNDS = 100, 60
 # the frontiers: benchmarks/tiered_m64.py:34-35's 16 λ scales,
 # benchmarks/lossy_channels.py:55-56's budget × severity grid and
 # benchmarks/async_rounds.py:65-71's budget × lag grid and drift
@@ -1516,11 +1554,13 @@ def _linreg_loss(torch):
     return loss_fn
 
 
-def _fleet_step(torch, net, dev, dispatch: str = "hybrid", **options):
-    """The fleet session's train step for ``net`` on TIERED_M64_CFG (the
-    loss, optimizer and policies of ``build_linreg_fleet_session``) on
-    the ``dispatch`` path, with its initial state, config and optimizer;
-    ``options`` go to ``StepOptions``."""
+def _fleet_step(torch, net, dev, dispatch: str = "hybrid", cfg_lr=None,
+                **options):
+    """The fleet session's train step for ``net`` on TIERED_M64_CFG (or
+    ``cfg_lr``; the loss, optimizer and policies of
+    ``build_linreg_fleet_session``) on the ``dispatch`` path, with its
+    initial state, config and optimizer; ``options`` go to
+    ``StepOptions``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.paper_linreg import TIERED_M64_CFG
     from repro_torch.core.api import (
@@ -1530,7 +1570,7 @@ def _fleet_step(torch, net, dev, dispatch: str = "hybrid", **options):
     )
     from repro_torch.optim import optimizers as opt_lib
 
-    cfg_lr = TIERED_M64_CFG
+    cfg_lr = cfg_lr or TIERED_M64_CFG
     cfg = TrainConfig(lr=cfg_lr.stepsize, optimizer="sgd",
                       num_agents=cfg_lr.num_agents,
                       comm=net.policies(lam_base=1.0))
@@ -2141,6 +2181,483 @@ def phase_frontier_drifting(torch) -> dict:
           f" rounds; lanes {list(DRIFT_PLAIN_LANES)} match the plain step, "
           f"the first {CHECK_ROUNDS} rounds the CPU "
           f"({_tie_text(checks['plain'])}; {_tie_text(checks['cpu'])})")
+    return record
+
+
+def _stack_trees(torch, states):
+    """A list of TrainStates as one, every tensor leaf stacked along a
+    new leading axis (``step`` the first's)."""
+    from repro_torch.utils.tree import tree_map
+
+    first = states[0]
+    return type(first)(first.step, *(
+        None if first[i] is None else tree_map(
+            lambda *xs: torch.stack(xs), first[i],
+            *(s[i] for s in states[1:]))
+        for i in range(1, len(first))))
+
+
+def _on_device(state, dev):
+    from repro_torch.utils.tree import tree_map
+
+    return type(state)(state.step, *(
+        None if f is None else tree_map(lambda x: x.to(dev), f)
+        for f in state[1:]))
+
+
+def _shard_serve(torch, gr_ops, mesh, net, rounds: int) -> dict:
+    """One gateway's session of ``net`` (the [slice] problem and batch
+    stream: every rank draws the global batch, the step takes its
+    slice) for ``rounds`` rounds, counting launches and collectives from
+    0; the gathered per-round metrics and states before/after each
+    round (on rank 0), the final params and rounds/s on every rank."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import TIERED_M64_CFG
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.launch.session import build_linreg_fleet_session
+    from repro_torch.sharding.agent_shard import gather_agents
+
+    cfg, seed, dev = TIERED_M64_CFG, 0, mesh.device
+    problem = R.make_problem(cfg, step_generator(seed, 0, dev), device=dev)
+    hist, stamps, states = [], [], []
+    session = None
+
+    def on_round(k, metrics):
+        stamps.append(time.perf_counter())
+        hist.append(metrics)
+        states.append(session.state)
+
+    session = build_linreg_fleet_session(
+        net=net, cfg_lr=cfg, seed=seed, device=dev, mesh=mesh,
+        batch_fn=lambda k: R.agent_batches(
+            problem, step_generator(seed + 1, k, dev)),
+        on_round=on_round)
+    states.append(session.state)
+    gr_ops.gain_reduce.launches = 0
+    mesh.collectives.reset()
+    session.run(rounds)
+    torch.cuda.synchronize()
+    out = {"launches": gr_ops.gain_reduce.launches,
+           "collectives": mesh.collectives.by_tag(),
+           "rounds_per_s": (len(stamps) - 1 - CHECK_ROUNDS)
+           / (stamps[-1] - stamps[CHECK_ROUNDS]),
+           "params": session.state.params["w"].cpu(),
+           "tiers": list(session.rollup.snapshot().get("tiers", {}))}
+    metrics = gather_agents(
+        {k: torch.from_numpy(np.stack([h[k] for h in hist]))
+         for k in hist[0]}, mesh, axis=1)
+    stacked = gather_agents(_stack_trees(torch, states), mesh, axis=1)
+    if mesh.rank == 0:
+        out["metrics"] = {k: v.numpy() for k, v in metrics.items()}
+        out["states"] = stacked
+    return out
+
+
+def _shard_bytes(torch, mesh) -> dict:
+    """The collectives of one sharded step of TIERED_M64_QUADRATIC's
+    policies at m = 64 and of the same tiers 16 times over (m = 1024),
+    on TIERED_M64_CFG's model: ``{m: {tag: counts}}``."""
+    import dataclasses
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.sharding.agent_shard import scatter_agents
+
+    dev = mesh.device
+    out = {}
+    for m in (TIERED_M64_CFG.num_agents, SHARD_BIG_M):
+        reps = m // TIERED_M64_CFG.num_agents
+        net = dataclasses.replace(TIERED_M64_QUADRATIC, tiers=tuple(
+            dataclasses.replace(t, count=t.count * reps)
+            for t in TIERED_M64_QUADRATIC.tiers))
+        cfg_lr = dataclasses.replace(TIERED_M64_CFG, num_agents=m)
+        step, state, cfg, _ = _fleet_step(torch, net, dev, mesh=mesh,
+                                          cfg_lr=cfg_lr)
+        problem = R.make_problem(cfg_lr, step_generator(0, 0, dev),
+                                 device=dev)
+        batch = R.agent_batches(problem, step_generator(1, 0, dev))
+        state = scatter_agents(state, mesh)
+        mesh.collectives.reset()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out[m] = mesh.collectives.by_tag()
+    return out
+
+
+def _shard_sketch(torch, mesh) -> dict:
+    """Sketch-native against the dense gateway: the params after
+    SKETCH_ROUNDS rounds of SKETCH_SMALL at n = SKETCH_SMALL_N (m = 64,
+    normal batches from seed 13), and the all_reduce operand bytes of
+    one SKETCH_BIG step at n = SKETCH_BIG_N."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.api import init_train_state
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding.agent_shard import (
+        make_sharded_train_step,
+        scatter_agents,
+    )
+
+    dev, m = mesh.device, 64
+    loss_fn = _linreg_loss(torch)
+    out = {"params": {}, "operand_bytes": {}}
+    for comm, n, rounds in ((SKETCH_SMALL, SKETCH_SMALL_N, SKETCH_ROUNDS),
+                            (SKETCH_BIG, SKETCH_BIG_N, 1)):
+        cfg = TrainConfig(lr=0.1, optimizer="sgd", num_agents=m, comm=comm)
+        opt = opt_lib.from_config(cfg)
+        for native in (False, True):
+            step = make_sharded_train_step(loss_fn, opt, cfg, mesh,
+                                           sketch_native=native, device=dev)
+            gen = torch.Generator(dev).manual_seed(13)
+            state = scatter_agents(init_train_state(
+                {"w": torch.randn(n, generator=gen, device=dev)}, opt, cfg,
+                device=dev), mesh)
+            mesh.collectives.reset()
+            for _ in range(rounds):
+                batch = (torch.randn(m, 8, n, generator=gen, device=dev),
+                         torch.randn(m, 8, generator=gen, device=dev))
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            if n == SKETCH_BIG_N:
+                out["operand_bytes"][native] = mesh.collectives.stats()[
+                    "all-reduce"]["operand_bytes"]
+            else:
+                out["params"][native] = (state.params["w"].cpu(),
+                                         float(metrics["num_tx"]),
+                                         float(metrics["wire_bytes"]))
+    return out
+
+
+def _shard_frontier_rank(torch, gr_ops, mesh) -> dict:
+    """One gateway's quadratic frontier over FRONTIER_SCALES for
+    TIERED_M64_CFG.steps rounds (``make_frontier_step(mesh=)`` on the
+    [slice] batch stream): launches and collectives counted from 0, the
+    gathered stacked state before each round and the metrics (rank 0),
+    rounds/s."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.core.frontier import make_frontier_step, stack_states
+    from repro_torch.sharding.agent_shard import gather_agents, scatter_agents
+
+    dev = mesh.device
+    _, batch_fn = _frontier_problem(torch, dev)
+    _, state0, cfg, opt = _fleet_step(torch, TIERED_M64_QUADRATIC, dev)
+    bstep = make_frontier_step(_linreg_loss(torch), opt, cfg, mesh=mesh,
+                               device=dev)
+    scales = torch.tensor(FRONTIER_SCALES, dtype=torch.float32, device=dev)
+    states = [stack_states(scatter_agents(state0, mesh), len(scales))]
+    hist, stamps = [], []
+    gr_ops.gain_reduce.launches = 0
+    mesh.collectives.reset()
+    for k in range(TIERED_M64_CFG.steps):
+        nxt, m = bstep(states[-1], batch_fn(k), scales)
+        hist.append(_numpy_metrics(m))
+        stamps.append(time.perf_counter())
+        states.append(nxt)
+    torch.cuda.synchronize()
+    out = {"launches": gr_ops.gain_reduce.launches,
+           "collectives": mesh.collectives.by_tag(),
+           "rounds_per_s": (len(stamps) - 1 - CHECK_ROUNDS)
+           / (stamps[-1] - stamps[CHECK_ROUNDS])}
+    metrics = gather_agents(
+        {k: torch.from_numpy(np.stack([h[k] for h in hist]))
+         for k in hist[0]}, mesh, axis=2)
+    stacked = gather_agents(_stack_trees(torch, states), mesh, axis=2)
+    if mesh.rank == 0:
+        out["metrics"] = {k: v.numpy() for k, v in metrics.items()}
+        out["states"] = stacked
+    return out
+
+
+def _shard_probes(torch, mesh) -> dict:
+    """Where a sharded round's time goes, on every rank at once: the two
+    ``all_reduce`` calls of a round alone (the payload's 32 floats and
+    the 9 packed scalars, synchronized; median of SHARD_PROBE_CALLS
+    pairs) on CUDA tensors, and under gloo also staged through host
+    copies (each tensor copied to the CPU, reduced there, copied back);
+    and the unsharded [slice] session run by all ranks at once (the card
+    time-sliced between SHARD_GATEWAYS processes): its rounds/s."""
+    import statistics as stats
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.core import regression as R
+    from repro_torch.data.synthetic import step_generator
+    from repro_torch.launch.session import build_linreg_fleet_session
+
+    dev = mesh.device
+
+    def pair_ms(staged: bool) -> float:
+        operands = (torch.zeros(TIERED_M64_CFG.n, device=dev),
+                    torch.zeros(5 + mesh.size, device=dev))
+        pairs = []
+        for i in range(SHARD_PROBE_CALLS + 10):
+            t = time.perf_counter()
+            for x in operands:
+                if staged:
+                    x.copy_(mesh.all_reduce(x.cpu(), "probe"))
+                else:
+                    mesh.all_reduce(x, "probe")
+            torch.cuda.synchronize()
+            if i >= 10:
+                pairs.append(time.perf_counter() - t)
+        return 1e3 * stats.median(pairs)
+
+    out = {"all_reduce_pair_ms": pair_ms(False),
+           "all_reduce_pair_host_staged_ms": (
+               pair_ms(True) if mesh.backend == "gloo" else None)}
+    problem = R.make_problem(TIERED_M64_CFG, step_generator(0, 0, dev),
+                             device=dev)
+    stamps = []
+    session = build_linreg_fleet_session(
+        net=TIERED_M64_QUADRATIC, cfg_lr=TIERED_M64_CFG, seed=0, device=dev,
+        batch_fn=lambda k: R.agent_batches(problem,
+                                           step_generator(1, k, dev)),
+        on_round=lambda k, m: stamps.append(time.perf_counter()))
+    mesh.barrier()
+    session.run(SHARD_PROBE_ROUNDS)
+    torch.cuda.synchronize()
+    out["contended_rounds_per_s"] = (len(stamps) - 1 - CHECK_ROUNDS) / (
+        stamps[-1] - stamps[CHECK_ROUNDS])
+    return out
+
+
+def _shard_rank(mesh) -> dict:
+    """Everything [shard] and [shard frontier] run on one gateway rank
+    (a process of its own: ``spawn`` starts it)."""
+    import torch
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_ADAPTIVE_LOSSY,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.kernels.gain_reduce import ops as gr_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {
+        "rank": mesh.rank, "backend": mesh.backend, "world": mesh.size,
+        "device": str(mesh.device),
+        "quadratic": _shard_serve(torch, gr_ops, mesh, TIERED_M64_QUADRATIC,
+                                  ROUNDS),
+        "lossy": _shard_serve(torch, gr_ops, mesh, TIERED_M64_ADAPTIVE_LOSSY,
+                              NET_ROUNDS),
+        "bytes": _shard_bytes(torch, mesh),
+        "sketch": _shard_sketch(torch, mesh),
+        "frontier": _shard_frontier_rank(torch, gr_ops, mesh),
+        "probes": _shard_probes(torch, mesh),
+    }
+
+
+def _shard_hold(torch, label, net, run, batch_fn, step, scale: float,
+                lane=None) -> dict:
+    """Every round of a gathered sharded run held to ``step`` (the
+    single-process step, or the unsharded frontier step when ``lane`` is
+    given) from the same state on the same batch (``_hold_round``)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ties, splits = [], []
+    for k in range(len(run["metrics"]["loss"])):
+        start = _on_device(_lane(run["states"], k), dev)._replace(step=k)
+        got_next = _lane(run["states"], k + 1)
+        got_m = {key: v[k] for key, v in run["metrics"].items()}
+        batch = batch_fn(k)
+        nxt, m = step(start, batch) if lane is None else step(
+            start, batch, torch.tensor(FRONTIER_SCALES, dtype=torch.float32,
+                                       device=dev))
+        want = (_numpy_metrics(m), nxt)
+        if lane is not None:
+            start, got_next, nxt = (_lane(start, lane),
+                                    _lane(got_next, lane), _lane(nxt, lane))
+            got_m = {key: v[lane] for key, v in got_m.items()}
+            want = ({key: v[lane] for key, v in want[0].items()}, nxt)
+        _hold_round(torch, label, net, k, start, batch, (got_m, got_next),
+                    want, scale, ties, splits)
+    return {"ties": ties, "splits": splits}
+
+
+def phase_shard(torch, card: str, rates: dict) -> dict:
+    """The [shard] phase (the module docstring's): one spawn of
+    SHARD_GATEWAYS ranks runs every gateway program, [shard frontier]'s
+    too, and the checks here hold the gathered results.  ``rates`` are
+    the unsharded runs' rounds/s ([slice], [fleet lossy], [frontier
+    quadratic]) measured earlier in this call."""
+    import numpy as np
+
+    from repro_torch.configs.paper_linreg import (
+        TIERED_M64_ADAPTIVE_LOSSY,
+        TIERED_M64_CFG,
+        TIERED_M64_QUADRATIC,
+    )
+    from repro_torch.launch.mesh import choose_backend, spawn
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    backend = choose_backend(SHARD_GATEWAYS, "cuda")
+    print(f"[shard] backend {backend}, world {SHARD_GATEWAYS}, "
+          f"torch.cuda.device_count() {torch.cuda.device_count()}, card "
+          f"{card}")
+    t0 = time.perf_counter()
+    ranks = spawn(_shard_rank, SHARD_GATEWAYS, timeout_s=SHARD_TIMEOUT_S,
+                  backend=backend, device="cuda")
+    spawn_s = time.perf_counter() - t0
+    if [r["rank"] for r in ranks] != list(range(SHARD_GATEWAYS)) or any(
+            r["backend"] != backend for r in ranks):
+        raise AssertionError(f"shard: ranks {[(r['rank'], r['backend']) for r in ranks]}")
+    problem, batch_fn = _frontier_problem(torch, dev)
+    record = {"backend": backend, "world": SHARD_GATEWAYS,
+              "cuda_device_count": torch.cuda.device_count(),
+              "rank_devices": [r["device"] for r in ranks],
+              "spawn_s": spawn_s}
+    for key, net, rounds, unsharded in (
+            ("quadratic", TIERED_M64_QUADRATIC, ROUNDS, rates["slice"]),
+            ("lossy", TIERED_M64_ADAPTIVE_LOSSY, NET_ROUNDS,
+             rates["fleet_lossy"])):
+        runs = [r[key] for r in ranks]
+        run = runs[0]
+        launches = [r["launches"] for r in runs]
+        payload = [r["collectives"]["payload"]["count"] for r in runs]
+        scalars = [r["collectives"]["scalars"]["count"] for r in runs]
+        if payload != [rounds] * SHARD_GATEWAYS or scalars != payload:
+            raise AssertionError(f"shard {net.name}: payload all_reduce "
+                                 f"{payload}, scalars {scalars} in {rounds} "
+                                 f"rounds (want one each per round)")
+        if key == "quadratic" and launches != [rounds] * SHARD_GATEWAYS:
+            raise AssertionError(f"shard {net.name}: gain_reduce launches "
+                                 f"per rank {launches} in {rounds} rounds "
+                                 f"(want one per round on every rank)")
+        if not all(torch.equal(r["params"], run["params"]) for r in runs):
+            raise AssertionError(f"shard {net.name}: the ranks' params "
+                                 f"differ")
+        losses = run["metrics"]["loss"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"shard {net.name}: loss {losses[0]} -> "
+                                 f"{losses[-1]}")
+        step = _fleet_step(torch, net, dev)[0]
+        held = _shard_hold(torch, f"shard {net.name}", net, run, batch_fn,
+                           step, 1.0)
+        rate = float(np.median([r["rounds_per_s"] for r in runs]))
+        row = {"net": net.name, "rounds": rounds, "launches_per_rank":
+               launches, "payload_all_reduce_per_rank": payload,
+               "collectives_rank0": run["collectives"],
+               "rounds_per_s": rate, "unsharded_rounds_per_s": unsharded,
+               "loss_first": float(losses[0]),
+               "loss_last": float(losses[-1]),
+               "gateway_tiers": [r["tiers"] for r in runs], **held}
+        text = ""
+        if key == "lossy":
+            hist = [{k: v[i] for k, v in run["metrics"].items()}
+                    for i in range(rounds)]
+            rows = _tier_bytes(net, {"hist": hist}, TOL_BUDGET)
+            row["tier_bytes"] = rows
+            text = f"; delivered bytes/agent/round vs budget: " \
+                   f"{_budget_text(rows)}"
+        record[key] = row
+        print(f"[shard] {net.name} x {rounds} rounds on {SHARD_GATEWAYS} "
+              f"gateways of {TIERED_M64_CFG.num_agents // SHARD_GATEWAYS} "
+              f"agents ({backend}): gain_reduce launches per rank "
+              f"{launches}; payload all_reduce per rank {payload}; every "
+              f"round held to the single-process hybrid step "
+              f"({_tie_text(held)}); loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; {rate:.1f} rounds/s sharded vs "
+              f"{unsharded:.1f} unsharded{text}")
+
+    tags = [r["bytes"] for r in ranks]
+    m0, m1 = TIERED_M64_CFG.num_agents, SHARD_BIG_M
+    payload_b = TIERED_M64_CFG.n * 4
+    scalars_b = (5 + SHARD_GATEWAYS) * 4
+    for t in tags:
+        per = {m: (t[m]["payload"]["operand_bytes"],
+                   t[m]["scalars"]["operand_bytes"],
+                   sum(v["count"] for v in t[m].values())) for m in (m0, m1)}
+        if per[m0] != per[m1] or per[m0] != (payload_b, scalars_b, 2):
+            raise AssertionError(f"shard: all_reduce operand bytes per step "
+                                 f"{per} (want {payload_b} + {scalars_b} in "
+                                 f"2 calls at both m)")
+    record["operand_bytes"] = {str(m): tags[0][m] for m in (m0, m1)}
+    sk = ranks[0]["sketch"]
+    ops = sk["operand_bytes"]
+    (dense_w, dense_tx, dense_wire), (nat_w, nat_tx, nat_wire) = (
+        sk["params"][False], sk["params"][True])
+    gap = float((dense_w - nat_w).abs().max())
+    if not (ops[True] < ops[False] and gap < 1e-5
+            and (dense_tx, dense_wire) == (nat_tx, nat_wire)):
+        raise AssertionError(f"shard sketch-native: operand bytes {ops}, "
+                             f"params gap {gap}, (num_tx, wire) "
+                             f"{(dense_tx, dense_wire)} vs "
+                             f"{(nat_tx, nat_wire)}")
+    record["sketch_native"] = {"operand_bytes": {
+        "dense": ops[False], "sketch_native": ops[True]},
+        "params_gap": gap}
+    print(f"[shard] all_reduce operand bytes per step {payload_b} + "
+          f"{scalars_b} in 2 calls at m = {m0} and m = {m1} on every rank; "
+          f"sketch-native at n = {SKETCH_BIG_N}: {ops[True]} operand bytes "
+          f"vs the dense gateway's {ops[False]}; at n = {SKETCH_SMALL_N} "
+          f"its params within {gap:.2e} of the dense gateway's; the spawn "
+          f"took {spawn_s:.1f} s")
+
+    fr = [r["frontier"] for r in ranks]
+    rounds = TIERED_M64_CFG.steps
+    launches = [r["launches"] for r in fr]
+    payload = [r["collectives"]["payload"] for r in fr]
+    lanes = len(FRONTIER_SCALES)
+    if launches != [rounds] * SHARD_GATEWAYS or any(
+            p["count"] != rounds
+            or p["operand_bytes"] != rounds * lanes * payload_b
+            for p in payload):
+        raise AssertionError(f"shard frontier: gain_reduce launches "
+                             f"{launches}, payload all_reduce {payload} in "
+                             f"{rounds} rounds (want one each per round)")
+    _, _, cfg, opt = _fleet_step(torch, TIERED_M64_QUADRATIC, dev)
+    from repro_torch.core.frontier import make_frontier_step
+
+    bstep = make_frontier_step(_linreg_loss(torch), opt, cfg, device=dev)
+    held = {g: _shard_hold(torch, f"shard frontier lane {g}",
+                           TIERED_M64_QUADRATIC, fr[0], batch_fn, bstep,
+                           FRONTIER_SCALES[g], lane=g)
+            for g in FRONTIER_PLAIN_LANES}
+    rate = float(np.median([r["rounds_per_s"] for r in fr]))
+    record["frontier"] = {
+        "lanes": lanes, "rounds": rounds, "launches_per_rank": launches,
+        "payload_all_reduce_per_rank": [p["count"] for p in payload],
+        "rounds_per_s": rate, "lane_rounds_per_s": rate * lanes,
+        "unsharded_rounds_per_s": rates["frontier_quadratic"],
+        "held_lanes": {str(g): h for g, h in held.items()}}
+    probes = [r["probes"] for r in ranks]
+    pair_ms = float(np.median([p["all_reduce_pair_ms"] for p in probes]))
+    staged = [p["all_reduce_pair_host_staged_ms"] for p in probes]
+    staged_ms = None if None in staged else float(np.median(staged))
+    contended = float(np.median([p["contended_rounds_per_s"]
+                                 for p in probes]))
+    record["probes"] = {"per_rank": probes, "all_reduce_pair_ms": pair_ms,
+                        "all_reduce_pair_host_staged_ms": staged_ms,
+                        "contended_rounds_per_s": contended}
+    staged_text = "" if staged_ms is None else (
+        f", {staged_ms:.3f} ms staged through host copies")
+    print(f"[shard] where a sharded round goes: the two all_reduce calls "
+          f"alone {pair_ms:.3f} ms a round on CUDA tensors ({backend}; "
+          f"median over ranks of each rank's median of "
+          f"{SHARD_PROBE_CALLS}){staged_text}; the unsharded [slice] "
+          f"session on all {SHARD_GATEWAYS} ranks at once {contended:.1f} "
+          f"rounds/s each (alone, earlier: {rates['slice']:.1f})")
+    print(f"[shard frontier] {TIERED_M64_QUADRATIC.name}: {lanes} lanes x "
+          f"{rounds} rounds on {SHARD_GATEWAYS} gateways: gain_reduce "
+          f"launches per rank {launches}, payload all_reduce per rank "
+          f"{[p['count'] for p in payload]} ({lanes} lanes x {payload_b} "
+          f"bytes each); lanes {list(FRONTIER_PLAIN_LANES)} held to the "
+          f"unsharded frontier step every round ("
+          + "; ".join(_tie_text(h) for h in held.values())
+          + f"); {rate:.1f} rounds/s sharded vs "
+          f"{rates['frontier_quadratic']:.1f} unsharded")
     return record
 
 
@@ -5651,6 +6168,10 @@ def main() -> int:
         torch, gr_ops)
     record["frontier_lossy"] = phase_frontier_lossy(torch)
     record["frontier_drifting"] = phase_frontier_drifting(torch)
+    record["shard"] = phase_shard(torch, card, {
+        "slice": record["slice"]["rounds_per_s"],
+        "fleet_lossy": record["fleet_lossy"]["rounds_per_s"],
+        "frontier_quadratic": record["frontier_quadratic"]["rounds_per_s"]})
     record["durable"] = phase_durable(torch, gr_ops)
     record["kill"] = phase_kill(torch)
     record["telemetry"] = phase_telemetry(torch)
@@ -5753,6 +6274,10 @@ def main() -> int:
         "launch_floor_device_ms": record["launch_floor"]["empty_device_ms"],
         "hbm_share_1x2p26": record["launch_floor"]["hbm_share_1x2p26"],
         "launches_frontier": record["frontier_quadratic"]["launches"],
+        "launches_shard_per_rank": record["shard"]["quadratic"][
+            "launches_per_rank"],
+        "launches_shard_frontier_per_rank": record["shard"]["frontier"][
+            "launches_per_rank"],
         "launches_durable": record["durable"]["launches"],
         "frontier": {k: frontier_shape[k] for k in (
             "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",

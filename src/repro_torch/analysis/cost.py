@@ -34,9 +34,16 @@ kernels' backward and ``jvp`` rules are plain PyTorch and count as such.
 the high-water of the storage allocated while it is active and live at
 once, found by following every new storage to its release.
 
-Collectives wait for the multi-device port (ROADMAP queue 1 item 11):
-on one card ``wire_bytes`` is 0 and ``collectives`` empty, and with no
-``while`` loops ``unannotated_whiles`` is always 0.
+Collectives (the counterpart of ``repro.analysis.hlo_stats``'s
+``collective_stats``): every collective the port issues goes through a
+:class:`~repro_torch.launch.mesh.Mesh` method, which records its kind,
+operand bytes and group size with :func:`collective_call` on the mesh's
+:class:`CollectiveLog` and on every active counter.  Wire bytes follow
+the ring algorithms' factors for a group of n: all-reduce 2·b·(n−1)/n,
+all-gather b·(n−1), reduce-scatter and all-to-all b·(n−1)/n,
+collective-permute b.  A step on one card issues none: ``wire_bytes``
+is 0 and ``collectives`` empty.  With no ``while`` loops
+``unannotated_whiles`` is always 0.
 """
 from __future__ import annotations
 
@@ -135,6 +142,62 @@ def op_cost(func, args, kwargs, out) -> Optional[Tuple[float, float,
     return flops, dot, float(nbytes)
 
 
+def wire_bytes(kind: str, operand_bytes: float, group_size: int) -> float:
+    """Bytes one rank sends for one collective (``hlo_stats``' factors)."""
+    n = max(int(group_size), 1)
+    if kind == "all-reduce":
+        return 2.0 * operand_bytes * (n - 1) / n
+    if kind == "all-gather":
+        return float(operand_bytes * (n - 1))
+    if kind in ("reduce-scatter", "all-to-all"):
+        return operand_bytes * (n - 1) / n
+    if kind == "collective-permute":
+        return float(operand_bytes)
+    raise ValueError(f"unknown collective kind {kind!r}")
+
+
+class CollectiveLog:
+    """Per-kind ``{count, operand_bytes, wire_bytes}`` of the collectives
+    recorded on it, and the same per call-site tag."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._kinds: Dict[str, dict] = {}
+        self._tags: Dict[str, dict] = {}
+
+    def record(self, kind: str, operand_bytes: int, group_size: int,
+               tag: str) -> None:
+        wire = wire_bytes(kind, operand_bytes, group_size)
+        for table, key in ((self._kinds, kind), (self._tags, tag)):
+            row = table.setdefault(key, {"count": 0, "operand_bytes": 0,
+                                         "wire_bytes": 0.0})
+            row["count"] += 1
+            row["operand_bytes"] += int(operand_bytes)
+            row["wire_bytes"] += wire
+
+    def stats(self) -> Dict[str, dict]:
+        """``hlo_stats.collective_stats``' table: kind → counts."""
+        return {k: dict(v) for k, v in self._kinds.items()}
+
+    def by_tag(self) -> Dict[str, dict]:
+        return {k: dict(v) for k, v in self._tags.items()}
+
+
+def total_wire_bytes(stats: Dict[str, dict]) -> float:
+    """The wire bytes of a :meth:`CollectiveLog.stats` table."""
+    return float(sum(s["wire_bytes"] for s in stats.values()))
+
+
+def collective_call(log: CollectiveLog, kind: str, operand_bytes: int,
+                    group_size: int, tag: str) -> None:
+    """Record one collective on ``log`` and on every active counter."""
+    log.record(kind, operand_bytes, group_size, tag)
+    for c in _ACTIVE:
+        c.collectives.record(kind, operand_bytes, group_size, tag)
+
+
 @dataclass
 class OpCost:
     count: int = 0
@@ -157,6 +220,7 @@ class CostCounter(TorchDispatchMode):
         self.hbm_bytes = 0.0
         self.device_ops = 0
         self.by_op: Dict[str, OpCost] = defaultdict(OpCost)
+        self.collectives = CollectiveLog()
         self._muted = 0
 
     def __enter__(self):
@@ -196,13 +260,13 @@ class CostCounter(TorchDispatchMode):
 
 
 def summarize(cost: CostCounter) -> dict:
-    """``hlo_cost.summarize``'s keys (one card: no wire bytes, no
-    collectives, no ``while`` loops), and the device ops."""
+    """``hlo_cost.summarize``'s keys (no ``while`` loops), and the device
+    ops."""
     return {
         "flops": cost.flops,
         "hbm_bytes": cost.hbm_bytes,
-        "wire_bytes": 0.0,
-        "collectives": {},
+        "wire_bytes": total_wire_bytes(cost.collectives.stats()),
+        "collectives": cost.collectives.stats(),
         "unannotated_whiles": 0,
         "device_ops": cost.device_ops,
     }

@@ -185,18 +185,23 @@ class StageBank:
             for t in self.triggers
         )
 
-    def policy_blocks(self) -> Tuple[Tuple[Tuple[int, ...], ...],
-                                     Tuple[int, ...]]:
+    def policy_blocks(self, agents: Optional[Sequence[int]] = None
+                      ) -> Tuple[Tuple[Tuple[int, ...], ...],
+                                 Tuple[int, ...]]:
         """Static sort-by-policy layout for the blocked epilogue dispatch.
 
         Returns ``(block_rows, inv)``: ``block_rows[p]`` are branch
-        ``p``'s agent indices (agent order within the block), and
-        ``inv[i]`` is agent ``i``'s position in the concatenation of the
-        blocks, so ``cat(outs)[inv]`` restores agent order.
+        ``p``'s rows (agent order within the block), and ``inv[i]`` is
+        row ``i``'s position in the concatenation of the blocks, so
+        ``cat(outs)[inv]`` restores row order.  The rows are the agents,
+        or, with ``agents`` (a gateway's slice of global agent indices),
+        positions in ``agents``; a policy none of them holds has an
+        empty block.
         """
+        agents = range(len(self.agent_index)) if agents is None else agents
         rows: list = [[] for _ in self.policies]
-        for i, p in enumerate(self.agent_index):
-            rows[p].append(i)
+        for i, a in enumerate(agents):
+            rows[self.agent_index[a]].append(i)
         perm = [i for r in rows for i in r]
         inv = [0] * len(perm)
         for pos, i in enumerate(perm):

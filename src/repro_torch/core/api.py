@@ -65,16 +65,19 @@ loss) the mean over m equal slices of its batch (:func:`_microbatched`),
 as the JAX package does; the plain step is not microbatched there
 either.
 
-The fleet-sharded mesh path is not ported yet: asking for it raises
-``NotImplementedError`` with its ROADMAP item.  Every tensor stays on
-the step's device; a state on another device is an error, not a silent
-copy.
+``StepOptions.mesh`` routes to the fleet-sharded step
+(:func:`repro_torch.sharding.agent_shard.make_sharded_train_step`): the
+hybrid dispatch partitioned over the gateways of a
+:class:`~repro_torch.launch.mesh.Mesh`, built on the same
+:class:`HybridMachinery` and :func:`hybrid_dispatch` as the hybrid path
+here, so the two cannot drift.  Every tensor stays on the step's device;
+a state on another device is an error, not a silent copy.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -102,7 +105,6 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregation import masked_mean
 from repro_torch.net import channels as net_lib
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import not_ported, todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_with_path,
@@ -142,8 +144,12 @@ class StepOptions:
     per-agent tuple of ``(join, leave)`` rounds (agent ``i`` is active
     while ``join <= step < leave``).  ``barriers`` is accepted and has
     no effect: JAX pins XLA's fusions with it, and PyTorch runs each op
-    as it is dispatched, with no fusion to pin.  ``mesh`` is not ported
-    and raises when the step is built."""
+    as it is dispatched, with no fusion to pin.  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`) swaps in the fleet-sharded
+    step partitioned over the mesh's agent axes; ``rules`` overrides its
+    sharding rules and ``sketch_native`` turns on the gateway
+    sketch-space merge; ``hetero_dispatch`` is ignored there (the
+    sharded step is the hybrid dispatch, partitioned)."""
 
     hetero_dispatch: str = "hybrid"
     barriers: bool = True
@@ -296,9 +302,6 @@ def _compress_leafwise(chain, skeleton, leaves: list, memory, alphas,
 
 
 def _check_options(opts: StepOptions, cfg: TrainConfig):
-    if opts.mesh is not None:
-        raise todo("the fleet-sharded step (StepOptions.mesh)",
-                   "queue 1 item 11")
     if opts.churn is not None and len(opts.churn) != cfg.num_agents:
         raise ValueError(
             f"churn schedule has {len(opts.churn)} entries but "
@@ -372,6 +375,25 @@ def make_triggered_train_step(
     """
     dev = resolve_device(device)
     opts = options or StepOptions()
+    if opts.mesh is not None:
+        # the hybrid step partitioned over the mesh's gateways
+        # (microbatching and policy resolution happen inside)
+        from repro_torch.sharding.agent_shard import make_sharded_train_step
+
+        step = make_sharded_train_step(
+            loss_fn, optimizer, cfg, opts.mesh, policy=policy,
+            aux_loss_fn=aux_loss_fn, oracle=oracle, rules=opts.rules,
+            sketch_native=opts.sketch_native,
+            agent_metrics=opts.agent_metrics, churn=opts.churn, device=dev)
+        if opts.scale is None and opts.chan_scale is None:
+            return step
+
+        def pinned(state, batch, scale=None, chan_scale=None):
+            return step(state, batch,
+                        opts.scale if scale is None else scale,
+                        opts.chan_scale if chan_scale is None else chan_scale)
+
+        return pinned
     _check_options(opts, cfg)
     agent_metrics = opts.agent_metrics
     if cfg.microbatches > 1:
@@ -401,24 +423,13 @@ def make_triggered_train_step(
         needs_net = channel is not None
         chains = (chain,)
     else:
-        bank = build_stage_bank(hetero, loss_fn=loss_fn, probe_eps=cfg.lr,
-                                oracle=oracle)
-        needs_ef = bank.needs_ef
-        needs_ctrl = bank.needs_ctrl
-        needs_net = bank.needs_net
-        chains = bank.agent_chains()
-        prologue_fns, _ = bank.prologues()
-        batch_free = bank.epilogue_batch_free
-        block_rows, inv_order = bank.policy_blocks()
-        blocks = tuple(_block_index(r, dev) for r in block_rows)
-        in_order = inv_order == tuple(range(len(inv_order)))
-        inv_ix = None if in_order else torch.tensor(
-            inv_order, dtype=torch.long, device=dev)
-        branches = {(has_mem, has_ctrl, has_net):
-                    bank.epilogues(has_mem, has_ctrl, has_net)
-                    for has_mem in (False, True)
-                    for has_ctrl in (False, True)
-                    for has_net in (False, True)}
+        mach = _machinery(hetero, loss_fn, aux_loss_fn, cfg, oracle)
+        bank = mach.bank
+        needs_ef, needs_ctrl, needs_net = (mach.needs_ef, mach.needs_ctrl,
+                                           mach.needs_net)
+        chains = mach.chains
+        hybrid_run = hybrid_dispatch(mach, range(cfg.num_agents), dev)
+        branches = _branches(bank)
         # the unrolled loop's stages, agent by agent (built once per
         # distinct policy: the bank's own)
         stages = [(bank.triggers[b], bank.chains[b], bank.ef_flags[b],
@@ -427,11 +438,6 @@ def make_triggered_train_step(
     if opts.churn is not None:
         joins = torch.tensor([j for j, _ in opts.churn], device=dev)
         leaves = torch.tensor([e for _, e in opts.churn], device=dev)
-
-    def merge(parts):
-        """Concatenate per-block results and restore agent order."""
-        merged = _cat(parts)
-        return merged if inv_ix is None else _take(merged, inv_ix)
 
     def check_device(state: TrainState):
         for leaf in tree_leaves(state.params):
@@ -455,30 +461,13 @@ def make_triggered_train_step(
 
     def hybrid_round(state, batch, scale, chan_scale, use_ef, use_ctrl,
                      use_net):
-        params, step = state.params, state.step
-        losses, grads = prologue(params, batch)
-        # phase 1: every distinct gain precursor, once for all agents
-        pres = torch.stack(
-            [fn(params, grads, batch, losses).float()
-             for fn in prologue_fns], 1) if prologue_fns else None
-        mem = state.ef_memory if use_ef else None
-        ctrl = state.ctrl_state if use_ctrl else None
-        net = state.net_state if use_net else None
-        # every agent's channel keys, one derivation per seed
-        keys = {seed: net_lib.round_keys(
-            seed, step, net_lib.net_rows(net)[:, 2])
-            for seed in bank.key_seeds} if use_net else None
-        # phase 2: each distinct policy's epilogue on its own block
-        outs = [
-            epi(params, _take(grads, rows),
-                None if batch_free else _take(batch, rows),
-                losses[rows], step, _take(mem, rows), _take(ctrl, rows),
-                scale, None if pres is None else pres[rows],
-                _take(net, rows), chan_scale, _take(keys, rows))
-            for rows, epi in zip(blocks, branches[use_ef, use_ctrl, use_net])
-        ]
-        return losses, [merge([o[k] for o in outs])
-                        for k in range(len(outs[0]))]
+        losses, _, merged = hybrid_run(
+            state.params, state.step, batch,
+            state.ef_memory if use_ef else None,
+            state.ctrl_state if use_ctrl else None,
+            state.net_state if use_net else None,
+            scale, chan_scale, use_ef, use_ctrl, use_net)
+        return losses, merged
 
     def switch_round(state, batch, scale, chan_scale, use_ef, use_ctrl,
                      use_net):
@@ -747,7 +736,132 @@ def make_plain_train_step(loss_fn: Callable, optimizer, cfg: TrainConfig,
                                      **kw)
 
 
-__getattr__ = not_ported(__name__, {
-    "HybridMachinery": "queue 1 item 11",
-    "build_hybrid_machinery": "queue 1 item 11",
-})
+class HybridMachinery(NamedTuple):
+    """The resolved policy machinery behind the hybrid dispatch (the JAX
+    package's named tuple).
+
+    :func:`make_triggered_train_step`'s hybrid path and the fleet-sharded
+    step (:mod:`repro_torch.sharding.agent_shard`) both run
+    :func:`hybrid_dispatch` over it: the same per-agent ops, over all
+    agents or over one gateway's slice.  ``grad_prologue`` is batched
+    over the agents (``(params, batch) -> (losses (A,), grads)``), where
+    the JAX package's is one agent's ``value_and_grad`` that its callers
+    vmap."""
+
+    bank: Any                        # deduped StageBank over the agents
+    grad_prologue: Callable          # (params, batch) -> (losses, grads)
+    prologue_fns: Tuple[Callable, ...]
+    scan_batch_free: bool            # epilogues never touch the batch
+    chains: Tuple[Any, ...]          # per-agent chain (wire pricing)
+    needs_ef: bool
+    needs_ctrl: bool
+    needs_net: bool
+
+
+def _machinery(policies: Tuple[CommPolicy, ...], loss_fn, aux_loss_fn,
+               cfg: TrainConfig, oracle) -> HybridMachinery:
+    bank = build_stage_bank(policies, loss_fn=loss_fn, probe_eps=cfg.lr,
+                            oracle=oracle)
+    prologue_fns, _ = bank.prologues()
+    return HybridMachinery(
+        bank=bank,
+        grad_prologue=batch_prologue(loss_fn, aux_loss_fn),
+        prologue_fns=tuple(prologue_fns),
+        scan_batch_free=bank.epilogue_batch_free,
+        chains=bank.agent_chains(),
+        needs_ef=bank.needs_ef,
+        needs_ctrl=bank.needs_ctrl,
+        needs_net=bank.needs_net,
+    )
+
+
+def build_hybrid_machinery(
+    loss_fn: Callable,
+    cfg: TrainConfig,
+    *,
+    policy=None,
+    aux_loss_fn: Optional[Callable] = None,
+    oracle: Optional[tuple] = None,
+) -> HybridMachinery:
+    """Resolve a policy into the hybrid dispatch's stage-bank machinery.
+
+    ``cfg.microbatches`` wraps the losses (:func:`_microbatched`); a
+    homogeneous policy is widened to a per-agent tuple, so the bank is
+    always a (deduped: one policy then) :class:`StageBank`."""
+    if cfg.microbatches > 1:
+        loss_fn = _microbatched(loss_fn, cfg.microbatches)
+        if aux_loss_fn is not None:
+            aux_loss_fn = _microbatched(aux_loss_fn, cfg.microbatches)
+    resolved = normalize_policy(resolve_policy(cfg, policy), cfg.num_agents)
+    hetero = (resolved if isinstance(resolved, tuple)
+              else (resolved,) * cfg.num_agents)
+    return _machinery(hetero, loss_fn, aux_loss_fn, cfg, oracle)
+
+
+def _branches(bank) -> dict:
+    """The bank's epilogues for every (EF, controller, channel) slot
+    combination."""
+    return {(has_mem, has_ctrl, has_net):
+            bank.epilogues(has_mem, has_ctrl, has_net)
+            for has_mem in (False, True)
+            for has_ctrl in (False, True)
+            for has_net in (False, True)}
+
+
+def hybrid_dispatch(mach: HybridMachinery, agents: Sequence[int],
+                    device: torch.device) -> Callable:
+    """The hybrid dispatch's round over the global agent indices
+    ``agents`` (every agent, or one gateway's slice), as
+
+        run(params, step, batch, mem, ctrl, net, scale, chan_scale,
+            use_ef, use_ctrl, use_net) -> (losses, grads, outs)
+
+    where the batch and the per-agent slots (``None`` where unused) hold
+    the rows of ``agents`` in order, and ``outs`` is the epilogue's
+    ``[alphas, gains, sent, new EF memory, controller rows]`` (then
+    ``[delivered, net state]`` with a channel slot) in the same order.
+    Phase 1 computes the gradients and every distinct gain precursor
+    once for all the rows (a kernel-gated precursor is one
+    ``gain_reduce`` launch); phase 2 runs each distinct policy's
+    epilogue on its own block of rows.  Channel keys come from the rows'
+    agent-index column, so a gateway draws its agents' global keys."""
+    bank = mach.bank
+    block_rows, inv_order = bank.policy_blocks(agents)
+    present = tuple(p for p, rows in enumerate(block_rows) if rows)
+    blocks = tuple(_block_index(block_rows[p], device) for p in present)
+    inv_ix = None if inv_order == tuple(range(len(inv_order))) else (
+        torch.tensor(inv_order, dtype=torch.long, device=device))
+    branches = _branches(bank)
+    batch_free = mach.scan_batch_free
+
+    def merge(parts):
+        """Concatenate per-block results and restore row order."""
+        merged = _cat(parts)
+        return merged if inv_ix is None else _take(merged, inv_ix)
+
+    def run(params, step, batch, mem, ctrl, net, scale, chan_scale, use_ef,
+            use_ctrl, use_net):
+        losses, grads = mach.grad_prologue(params, batch)
+        # phase 1: every distinct gain precursor, once for all rows
+        pres = torch.stack(
+            [fn(params, grads, batch, losses).float()
+             for fn in mach.prologue_fns], 1) if mach.prologue_fns else None
+        # every row's channel keys, one derivation per seed
+        keys = {seed: net_lib.round_keys(
+            seed, step, net_lib.net_rows(net)[:, 2])
+            for seed in bank.key_seeds} if use_net else None
+        # phase 2: each distinct policy's epilogue on its own block
+        epilogues = branches[use_ef, use_ctrl, use_net]
+        outs = [
+            epilogues[p](params, _take(grads, rows),
+                         None if batch_free else _take(batch, rows),
+                         losses[rows], step, _take(mem, rows),
+                         _take(ctrl, rows), scale,
+                         None if pres is None else pres[rows],
+                         _take(net, rows), chan_scale, _take(keys, rows))
+            for rows, p in zip(blocks, present)
+        ]
+        return losses, grads, [merge([o[k] for o in outs])
+                               for k in range(len(outs[0]))]
+
+    return run

@@ -32,6 +32,16 @@ lane), and a ``gain_quadratic(kernel=true)`` precursor is one
 ``gain_reduce`` launch over all lanes' agents (the kernel's ``vmap``
 rule folds the lanes into its rows).  Batches come from a round-indexed
 ``batch_fn(k)``, the contract of ``FleetSession`` and the simulator.
+
+Sharded.  With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` of
+gateway ranks) every rank runs the fleet-sharded step for its agents:
+the lanes' local phases (gradients, triggers, compressors, partial sums)
+run under the frontier's ``vmap``, the lanes' partials are stacked, and
+ONE payload ``all_reduce`` (and one of the packed scalars) per round
+carries every lane, outside any ``vmap``; then the lanes' updates run
+under ``vmap`` again.  The state each rank holds and returns is its own
+(per-agent slots of its agents, a leading lane axis; gather it with
+``gather_agents(..., axis=1)``).
 """
 from __future__ import annotations
 
@@ -46,8 +56,8 @@ from repro_torch.core.api import (
     init_train_state,
     make_triggered_train_step,
 )
+from repro_torch.sharding.agent_shard import ShardedTrainStep, scatter_agents
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import tree_map
 
 
@@ -117,39 +127,56 @@ def make_frontier_step(
     signature and changes nothing: the axis is there exactly when
     ``chan_scales`` is passed.  ``hetero_dispatch`` passes through to
     the step (the ``switch`` and ``unroll`` loops map over the grid like
-    ``hybrid``).  Use :func:`run_frontier` for the whole-run loop."""
-    if mesh is not None or rules is not None:
-        raise todo("the fleet-sharded frontier (mesh, rules)",
-                   "queue 1 item 11")
+    ``hybrid``).  ``mesh``/``rules`` select the fleet-sharded step (the
+    module docstring's "Sharded"; ``hetero_dispatch`` is ignored there).
+    Use :func:`run_frontier` for the whole-run loop."""
     step = make_triggered_train_step(
         loss_fn, optimizer, cfg, policy=policy, aux_loss_fn=aux_loss_fn,
         oracle=oracle, device=device,
         options=StepOptions(hetero_dispatch=hetero_dispatch, barriers=False,
-                            agent_metrics=True, churn=churn))
+                            agent_metrics=True, mesh=mesh, rules=rules,
+                            churn=churn))
+    sharded = isinstance(step, ShardedTrainStep)
 
     def batched_step(states: TrainState, batch, scales, chan_scales=None):
         # the lanes' tensors are mapped; empty slots (None) and the
         # shared host step are not, and the step keeps that layout
         leaves, spec = pytree.tree_flatten(tuple(states[1:]))
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        chan_dim = None if chan_scales is None else 0
 
         def fill(tensors):
             it = iter(tensors)
-            return pytree.tree_unflatten(
+            return TrainState(states.step, *pytree.tree_unflatten(
                 [next(it) if isinstance(x, torch.Tensor) else x
-                 for x in leaves], spec)
+                 for x in leaves], spec))
 
-        def lane(tensors, scale, chan_scale):
-            new, metrics = step(TrainState(states.step, *fill(tensors)),
-                                batch, scale, chan_scale)
+        def out(new, metrics):
             return [x for x in pytree.tree_leaves(tuple(new[1:]))
                     if isinstance(x, torch.Tensor)], metrics
 
-        new_tensors, metrics = torch.func.vmap(
-            lane, in_dims=(0, 0, None if chan_scales is None else 0))(
-            [x for x in leaves if isinstance(x, torch.Tensor)], scales,
-            chan_scales)
-        return TrainState(states.step + 1, *fill(new_tensors)), metrics
+        if not sharded:
+            def lane(tensors, scale, chan_scale):
+                return out(*step(fill(tensors), batch, scale, chan_scale))
 
+            new_tensors, metrics = torch.func.vmap(
+                lane, in_dims=(0, 0, chan_dim))(tensors, scales,
+                                                chan_scales)
+            return TrainState(states.step + 1,
+                              *fill(new_tensors)[1:]), metrics
+
+        # the lanes' local phases, then the round's two collectives over
+        # all lanes at once, then the lanes' updates
+        payload, scalars, carry = torch.func.vmap(
+            lambda t, s, c: step.local(fill(t), batch, s, c),
+            in_dims=(0, 0, chan_dim))(tensors, scales, chan_scales)
+        payload, scalars = step.reduce(payload, scalars)
+        new_tensors, metrics = torch.func.vmap(
+            lambda t, c, p, s: out(*step.finish(fill(t), c, p, s)))(
+            tensors, carry, payload, scalars)
+        return TrainState(states.step + 1, *fill(new_tensors)[1:]), metrics
+
+    batched_step.sharded = sharded
     return batched_step
 
 
@@ -182,7 +209,9 @@ def run_frontier(
     ``chan_scales`` adds the channel-severity axis, aligned lane for lane
     with ``scales``; ``churn`` threads a per-agent ``((join, leave),
     ...)`` schedule to every lane (see :class:`StepOptions`).
-    ``mesh``/``rules`` (the fleet-sharded step) are not ported."""
+    ``mesh``/``rules`` run the fleet-sharded step on this rank (see
+    :func:`make_frontier_step`): every rank calls this with the same
+    arguments, and its result holds its own agents' slots."""
     dev = resolve_device(device)
     scales = torch.as_tensor(scales, dtype=torch.float32).to(dev)
     if scales.ndim != 1:
@@ -200,9 +229,11 @@ def run_frontier(
         loss_fn, optimizer, cfg, policy=policy, aux_loss_fn=aux_loss_fn,
         oracle=oracle, hetero_dispatch=hetero_dispatch, mesh=mesh,
         rules=rules, churn=churn, device=dev)
-    states = stack_states(
-        init_train_state(params, optimizer, cfg, policy=policy, device=dev),
-        grid)
+    state0 = init_train_state(params, optimizer, cfg, policy=policy,
+                              device=dev)
+    if batched_step.sharded:
+        state0 = scatter_agents(state0, mesh, device=dev)
+    states = stack_states(state0, grid)
     history = []
     for k in range(steps):
         states, metrics = batched_step(states, batch_fn(k), scales,

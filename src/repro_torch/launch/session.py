@@ -38,6 +38,16 @@ a relaunched session auto-resumes from the latest complete checkpoint
 keyed by the restored round index) and monotone rollup counters.
 ``watchdog_timeout`` arms a :class:`Watchdog` that flags stalled rounds
 as a ``"stall"`` degradation event without killing the loop.
+
+Sharded serving: with a ``mesh`` of gateway ranks every rank runs its
+own session over its own agents (the fleet-sharded step,
+:mod:`repro_torch.sharding.agent_shard`), and its rollup counts the
+tiers of those agents; the scalar counters are the fleet's.  A
+checkpoint is written by rank 0 from the gathered state, in the JAX
+package's format, with every gateway's rollup beside it; on restore
+every rank takes its slice.  A sharded session's checkpoint restores in
+an unsharded session of either package (whose rollup then starts
+afresh), and the other way round.
 """
 from __future__ import annotations
 
@@ -160,12 +170,17 @@ class FleetSession:
         set and ``resume`` is on, construction restores the latest
         complete checkpoint (state, key, round index, rollup) before the
         first round runs.
+    mesh:
+        The gateway mesh of a sharded ``step_fn`` (``state`` is then
+        this rank's); every rank constructs its session, and the
+        checkpoints gather and scatter the per-agent slots over it.
     """
 
     def __init__(self, step_fn: Callable, state, batch_fn: Callable,
                  rollup: CommRollup, *, key: Optional[torch.Tensor] = None,
                  on_round: Optional[Callable] = None,
-                 options: Optional[SessionOptions] = None):
+                 options: Optional[SessionOptions] = None, mesh=None):
+        self._mesh = mesh
         self._step = step_fn
         self._state = state
         self._batch_fn = batch_fn
@@ -201,20 +216,37 @@ class FleetSession:
 
     def _ckpt_tree(self):
         """The tree a session checkpoint round-trips: the full TrainState
-        and the key's two words as uint32, as the JAX session writes
+        (gathered from every gateway when sharded: a collective) and the
+        key's two words as uint32, as the JAX session writes
         ``key_data`` of its key."""
-        return {"state": self._state,
+        state = self._state
+        if self._mesh is not None:
+            from repro_torch.sharding.agent_shard import gather_agents
+
+            state = gather_agents(state, self._mesh)
+        return {"state": state,
                 "key": self._key.cpu().numpy().astype(np.uint32)}
 
     def checkpoint(self) -> Optional[int]:
         """Atomically persist the session at its current round (the state
         is pulled to the host: one sync); returns the checkpoint step
-        (the round index) or None when disabled."""
+        (the round index) or None when disabled.  Sharded, every rank
+        calls it and rank 0 writes."""
         if not self.options.ckpt_dir:
             return None
-        extra = {"round": self._round, "rollup": self.rollup.state_dict()}
-        ckpt.save(self.options.ckpt_dir, self._round, self._ckpt_tree(),
-                  extra=extra)
+        tree = self._ckpt_tree()
+        if self._mesh is None:
+            extra = {"round": self._round,
+                     "rollup": self.rollup.state_dict()}
+            ckpt.save(self.options.ckpt_dir, self._round, tree, extra=extra)
+            return self._round
+        rollups = self._mesh.all_gather_object(self.rollup.state_dict(),
+                                               "gather")
+        if self._mesh.rank == 0:
+            ckpt.save(self.options.ckpt_dir, self._round, tree,
+                      extra={"round": self._round,
+                             "gateway_rollups": rollups})
+        self._mesh.barrier()
         return self._round
 
     def _try_resume(self) -> None:
@@ -226,11 +258,21 @@ class FleetSession:
         extra = ckpt.read_manifest(
             self.options.ckpt_dir, step=step).get("extra") or {}
         self._state = tree["state"]
+        rollup = extra.get("rollup")
+        if self._mesh is not None:
+            from repro_torch.sharding.agent_shard import scatter_agents
+
+            self._state = scatter_agents(self._state, self._mesh)
+            # this gateway's rollup, where the checkpoint has one per
+            # gateway of this mesh (a whole-fleet rollup is not its)
+            shards = extra.get("gateway_rollups") or ()
+            rollup = (shards[self._mesh.rank]
+                      if len(shards) == self._mesh.size else None)
         self._key = torch.from_numpy(tree["key"].astype(np.int64)).to(
             self._key.device)
         self._round = int(extra.get("round", step))
-        if extra.get("rollup"):
-            self.rollup.load_state(extra["rollup"])
+        if rollup:
+            self.rollup.load_state(rollup)
         self.rollup.record_restart()
 
     def run(self, rounds: int = 0) -> int:
@@ -409,6 +451,7 @@ def build_linreg_fleet_session(
     options: Optional[SessionOptions] = None,
     batch_fn: Optional[Callable] = None,
     churn: Optional[Tuple[Tuple[int, int], ...]] = None,
+    mesh=None,
 ) -> FleetSession:
     """A :class:`FleetSession` serving the paper's linreg fleet on
     ``device``.
@@ -428,7 +471,11 @@ def build_linreg_fleet_session(
     ``k``'s batch from ``(seed + 1, k)``; ``batch_fn(k)`` replaces that
     stream when given.  ``options`` arms checkpointing, resume and the
     watchdog; the session's key is ``PRNGKey(seed + 1)``, as the JAX
-    builder's.
+    builder's.  ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` of
+    gateway ranks) routes through ``StepOptions.mesh`` to the
+    fleet-sharded step: every rank builds its session, serves its agents
+    (the global batch is drawn and each gateway takes its slice) and
+    rolls up its agents' tiers.
     """
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.paper_linreg import (
@@ -460,12 +507,25 @@ def build_linreg_fleet_session(
                       num_agents=cfg_lr.num_agents,
                       comm=net.policies(lam_base=lam_base))
     opt = opt_lib.from_config(cfg)
+    from repro_torch.sharding.agent_shard import (
+        ShardedTrainStep,
+        gateway_agents,
+        scatter_agents,
+    )
+
     step_fn = make_triggered_train_step(
         loss_fn, opt, cfg,
-        options=StepOptions(agent_metrics=True, churn=churn), device=dev)
+        options=StepOptions(agent_metrics=True, churn=churn, mesh=mesh),
+        device=dev)
     state = init_train_state(
         {"w": torch.zeros(cfg_lr.n, dtype=torch.float32)}, opt, cfg,
         device=dev)
+    agents = range(net.num_agents)
+    if isinstance(step_fn, ShardedTrainStep):
+        state = scatter_agents(state, mesh, device=dev)
+        agents = gateway_agents(mesh, net.num_agents)
+    else:
+        mesh = None  # one gateway: the plain hybrid step
     if batch_fn is None:
         problem = R.make_problem(cfg_lr, step_generator(seed, 0, dev),
                                  device=dev)
@@ -474,11 +534,14 @@ def build_linreg_fleet_session(
             return R.agent_batches(problem,
                                    step_generator(seed + 1, k, dev))
 
+    # the tiers of the agents this session serves, in tier order
+    index = [net.tier_index()[a] for a in agents]
+    tiers = sorted(set(index))
     rollup = CommRollup(
-        tier_names=tuple(t.name for t in net.tiers),
-        tier_index=net.tier_index(),
-        budgets=net.budgets(),
+        tier_names=tuple(net.tiers[t].name for t in tiers),
+        tier_index=tuple(tiers.index(t) for t in index),
+        budgets=tuple(net.budgets()[a] for a in agents),
         window=window, clock=clock)
     return FleetSession(step_fn, state, batch_fn, rollup,
                         key=prng.PRNGKey(seed + 1), on_round=on_round,
-                        options=options)
+                        options=options, mesh=mesh)

@@ -405,8 +405,10 @@ def test_entry_points_refuse_a_missing_card():
 
 
 def test_unported_paths_raise_with_roadmap_pointer():
-    """The fleet-sharded mesh still raises with its ROADMAP item; the
-    switch/unroll dispatch, a lossy homogeneous step,
+    """A mesh that is not the port's ``Mesh`` is refused (the sharded
+    step needs its process group), and ``build_hybrid_machinery`` builds
+    the hybrid dispatch's machinery; the switch/unroll dispatch, a lossy
+    homogeneous step,
     ``masked_mean_quantized``, the drifting problem and a microbatched
     step now run (``microbatches=2`` halves each agent's batch: the
     mean of the halves' mean losses is the whole batch's)."""
@@ -421,7 +423,7 @@ def test_unported_paths_raise_with_roadmap_pointer():
                                      device="cpu"),
                     (torch.ones(2, 4, 3), torch.zeros(2, 4)))
         assert float(m["num_tx"]) == 1.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises((TypeError, ValueError), match="Mesh"):
         make_triggered_train_step(tloss, opt, cfg, device="cpu",
                                   options=StepOptions(mesh=object()))
     lossy = TrainConfig(optimizer="sgd", num_agents=2,
@@ -455,5 +457,15 @@ def test_unported_paths_raise_with_roadmap_pointer():
     from repro_torch.data import synthetic
 
     assert callable(synthetic.drifting_problem)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        from repro_torch.core.api import build_hybrid_machinery  # noqa
+    from repro_torch.core.api import HybridMachinery, build_hybrid_machinery
+
+    mach = build_hybrid_machinery(tloss, cfg)
+    assert isinstance(mach, HybridMachinery)
+    assert mach.bank.agent_index == (0, 1) and len(mach.chains) == 2
+    assert (mach.needs_ef, mach.needs_ctrl, mach.needs_net) == (
+        False, False, False)
+    losses, grads = mach.grad_prologue({"w": torch.ones(3)},
+                                       (torch.ones(2, 4, 3),
+                                        torch.zeros(2, 4)))
+    np.testing.assert_allclose(losses.numpy(), 4.5)
+    assert grads["w"].shape == (2, 3)

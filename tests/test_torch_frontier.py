@@ -313,7 +313,7 @@ def test_frontier_argument_checks(problem):
     with pytest.raises(ValueError, match="align"):
         _frontier(_cfg("always @ bernoulli(p=0.5)"), batches, [1.0, 1.0],
                   chan_scales=[1.0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises((TypeError, ValueError), match="Mesh"):
         _frontier(_cfg("always"), batches, [1.0], mesh=object())
 
 
