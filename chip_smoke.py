@@ -155,6 +155,25 @@ Phases (any failure exits nonzero; no result line is printed then):
               round on every rank, lanes 0 and 11 held to the unsharded
               frontier step from the same stacked state every round;
               rounds/s beside [frontier quadratic]'s.
+   mesh     — the LM train step over a (data 2, model 2) mesh of 4 gloo
+              ranks sharing the card (``build_train_step(mesh=...)``,
+              ``int8+ef``, sgd, fp32, 2 agents × 2 × 1024 tokens, weights
+              from seed 0): llama3.2-3b at full width (every head, kv
+              head, ff column and vocab row split over model) cut to 2
+              layers, 3 steps with fsdp off and 3 with fsdp on; then
+              smollm-135m at full depth (its 9/3 heads whole, ff and
+              vocab split), fsdp on, 2 steps, and 1 step with
+              ``fleet_shard=True``.  Rank 0 first runs the single-process
+              step of each on the card; every job is held to it (first
+              step's parameters per element, int8 one-level exemptions
+              counted; decisions equal and loss, gain and |g| within
+              1e-4 every step; the last step's parameters in L2), and
+              each rank launches ``swa_attention`` 2 × layers times and
+              ``fused_ce`` twice a step, as the single-process step.
+              Prints per rank the ms per step beside the single-process
+              step's, the collectives per step by kind and mesh axes
+              with their operand and wire bytes, the peak memory and the
+              bytes held at rest.
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes
               (with the moe, hybrid and vlm families', and hd 32), one
@@ -274,12 +293,14 @@ Phases (any failure exits nonzero; no result line is printed then):
               step run twice from one state bitwise equal (per-leaf
               checksums); one step with d_ff_expert narrowed to 1024 on
               the card and the CPU under [train]'s rules.
-   hybrid   — zamba2-1.2b at full width and depth (38 Mamba2 layers, 7
-              sites of the shared attention block, fp32, seed 0):
+   hybrid   — zamba2-1.2b at full width cut to 12 of its 38 Mamba2
+              layers (2 sites of the shared attention block; [mesh]'s
+              time came out of this replay), fp32, seed 0:
               batch 4, a 256-token prompt replayed through decode, 32
               tokens; no kernel launch in prefill or decode; prefill ms,
               decode ms per step, tokens/s, peak memory; decode against
-              a fresh replay; 64 tokens on the card and the CPU.
+              a fresh replay; 64 tokens through its first 6 layers on
+              the card and the CPU.
    hybrid train — zamba2-1.2b at full width and depth (38 layers, 7
               sites) with ``remat`` (each Mamba2 layer checkpointed, the
               shared block not), m = 2, global batch 2 × 512: 14
@@ -288,8 +309,9 @@ Phases (any failure exits nonzero; no result line is printed then):
               then cut to 12 layers (2 sites) without remat: 4 and 2
               launches per step, ms, peak memory (the profile's step); a
               2-layer step on the card and the CPU.
-   xlstm    — xlstm-350m at full width and depth (12 mLSTM/sLSTM pairs,
-              fp32, seed 0): batch 4, a 256-token prompt replayed through
+   xlstm    — xlstm-350m at full width cut to 6 of its 12 mLSTM/sLSTM
+              pairs ([mesh]'s time came out of this replay), fp32, seed
+              0: batch 4, a 256-token prompt replayed through
               decode, 32 tokens; no kernel launch; decode bitwise a fresh
               replay; the chunkwise forward over 2 × 1024 tokens (4 mLSTM
               chunks of 256) against the replay's logits at every
@@ -297,7 +319,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               last-bit sensitivity there (the recurrence amplifies
               rounding with the position); 2 layers on the card and the
               CPU.
-   xlstm train — xlstm-350m at full width cut to 4 layers (2 pairs),
+   xlstm train — xlstm-350m at full width cut to 2 layers (1 pair; 4
+              until [mesh] needed the time),
               m = 2, global batch 2 × 512 (2 mLSTM chunks): 2 ``fused_ce``
               and no ``swa_attention`` launch per step, the last step run
               twice from one state bitwise equal; a 2-layer step on the
@@ -321,7 +344,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               launches a step over the 512 text tokens (the prefix
               cropped, recorded at the loss's call) and 8
               ``swa_attention`` launches at hd 96 (1088 positions); a
-              2-layer step on the card and the CPU; why the depth stays
+              1-layer step on the card and the CPU (2 until [mesh]
+              needed the time); why the depth stays
               cut (the parameter-sized trees of an m = 2 step at 32
               layers, with or without remat).
    whisper train — whisper-medium at full width and depth, m = 2, each
@@ -396,7 +420,9 @@ the card's ``nvidia-smi`` name and power limit; the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
+import os
 import math
 import statistics
 import subprocess
@@ -477,7 +503,9 @@ SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096),
               (4, 1024, 32, 8, 128, 4096), (2, 512, 32, 32, 64, 512),
               # phi-3-vision's served prefill (hd 96) and the reduced
               # smollm's hd 32 (--reduced --d-model 128) at run (a)'s length
-              (4, 512, 32, 32, 96, 512), (4, 1024, 4, 2, 32, 1024))
+              (4, 512, 32, 32, 96, 512), (4, 1024, 4, 2, 32, 1024),
+              # a [mesh] rank's llama3.2-3b heads at model 2 (24/8 → 12/4)
+              (2, 1024, 12, 4, 128, 1024))
 SWA_CHECK = SWA_SERVED + (
     (1, 2048, 24, 8, 128, 512),
     # whisper's decoder and phi-3-vision's patches + tokens in training
@@ -517,12 +545,16 @@ CE_D = (64, 576, 3072)
 CE_V = (7, 1000, 49152, 50257, 128256)
 CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256),
             # mixtral's and zamba2's train losses (m = 2 agents' tokens)
-            (2048, 4096, 32000), (1024, 2048, 32000))
+            (2048, 4096, 32000), (1024, 2048, 32000),
+            # a [mesh] rank's llama3.2-3b loss: its agent's 2 × 1024
+            # tokens against its half of the vocabulary (model 2)
+            (2048, 3072, 64128))
 # each family's train loss (T = the m = 2 agents' tokens): the moe and
 # hybrid ones timed above; xlstm's (2 × 512, d 1024, V 50304), whisper's
 # (2 × 448 decoder tokens, V 51865) and phi-3-vision's (2 × 512 text
 # tokens, d 3072, V 32064) checked only
 CE_TRAIN_LOSSES = {"moe": CE_TIMED[2], "hybrid": CE_TIMED[3],
+                   "dense_mesh_block": CE_TIMED[4],
                    "xlstm": (1024, 1024, 50304),
                    "whisper": (896, 1024, 51865),
                    "vlm": (1024, 3072, 32064)}
@@ -599,15 +631,18 @@ MOE_TRAIN_CHECK_FF = 1024
 # router probabilities within this (relative) of each other are a
 # near-tie that a last-bit gap between card and CPU may flip
 ROUTE_TIE = 1e-5
-# the hybrid family: zamba2-1.2b at full width and depth (38 Mamba2
-# layers, 7 sites of the shared attention block; 1.17 B parameters in
-# the init) served by replay; trained at full width cut to 12 layers (2
+# the hybrid family: zamba2-1.2b at full width (38 Mamba2 layers, 7
+# sites of the shared attention block; 1.17 B parameters in the init)
+# served by replay cut to 12 layers (2 sites: the replay is host-bound,
+# ~45 ms a token at 38, and [mesh] needed the time), its card-vs-CPU
+# check at 6 (1 site: at 19 layers the CPU took 22.8 s); trained at full
+# width cut to 12 layers (2
 # sites), global batch 2 × 512 (the SSD keeps (m, L, L, h) decay tiles of
 # 33.6 MB per chunk and layer for the backward); its card-vs-CPU step at
 # 2 layers (1 site)
 HYBRID_ARCH = "zamba2-1.2b"
-HYBRID_SERVE = dict(batch=4, prompt=256, gen=32)
-HYBRID_CHECK = dict(batch=2, prompt=64, gen=8)
+HYBRID_SERVE = dict(layers=12, batch=4, prompt=256, gen=32)
+HYBRID_CHECK = dict(layers=6, batch=2, prompt=64, gen=8)
 HYBRID_TRAIN = dict(layers=12, agents=2, batch=2, seq=512, warmup=1,
                     timed=3)
 # ... and at all 38 layers (7 sites) with remat: each Mamba2 layer keeps
@@ -623,18 +658,21 @@ HYBRID_TRAIN_CHECK_LAYERS = 2
 # this many times the card's own last-bit sensitivity, measured in the
 # same run
 HYBRID_SENS_FACTOR = 4
-# the ssm family: xlstm-350m at full width and depth (12 mLSTM/sLSTM
-# pairs, d 1024, 4 heads, vocab 50304) served by replay; its chunkwise
+# the ssm family: xlstm-350m at full width (12 mLSTM/sLSTM pairs, d
+# 1024, 4 heads, vocab 50304) served by replay cut to 12 layers (6
+# pairs: the replay of 2 × 1024 positions is host-bound, and [mesh]
+# needed the time); its chunkwise
 # forward over XLSTM_FORWARD_S tokens (4 mLSTM chunks of 256) against the
-# replay's logits at every position; trained at full width cut to 4
-# layers (2 pairs: every sLSTM position is a host iteration of ~20 ops
-# per pair, so a step of 512 positions is host-bound), global batch 2 ×
+# replay's logits at every position; trained at full width cut to 2
+# layers (1 pair: every sLSTM position is a host iteration of ~20 ops
+# per pair, so a step of 512 positions is host-bound; 4 until [mesh]
+# needed the time), global batch 2 ×
 # 512 (2 mLSTM chunks); card vs CPU at 2 layers (1 pair)
 XLSTM_ARCH = "xlstm-350m"
-XLSTM_SERVE = dict(batch=4, prompt=256, gen=32)
+XLSTM_SERVE = dict(layers=12, batch=4, prompt=256, gen=32)
 XLSTM_FORWARD = dict(batch=2, seq=1024)
 XLSTM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
-XLSTM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=3)
+XLSTM_TRAIN = dict(layers=2, agents=2, batch=2, seq=512, warmup=1, timed=3)
 # [profile] xlstm decode: steps after a short replayed prompt (a profile
 # of a whole train step, ~100 k device ops, costs ~2 minutes of trace
 # processing)
@@ -669,6 +707,36 @@ VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=3)
 # memories, 2 lookahead probes
 VLM_STATE_TREES = 7
 
+
+# [mesh]: MESH_WORLD gloo ranks share the card as a (data 2, model 2)
+# mesh.  llama3.2-3b at full width (d 3072, 24/8 heads of 128, d_ff 8192,
+# vocab 128256: every head, kv head, ff column and vocab row splits over
+# model 2) cut to 2 of its 28 layers, and smollm-135m at full depth (its
+# 9/3 heads stay whole, its ff and vocab split); 2 agents × 2 × 1024
+# tokens, fp32, sgd.  At 4 layers the four ranks run out of the card's
+# 80 GB at the end of the first step (19.96 GB peak on rank 0; a rank
+# holds its blocks at rest, the old and the new EF memory, the whole
+# gradient, the payload and the flat aggregate, each but the first a
+# whole parameter tree).  fleet_shard runs on smollm: the hybrid
+# dispatch's epilogue holds the gradient, g + ef, the payload and the
+# residual of every leaf at once (the homogeneous step's goes leaf by
+# leaf), and at llama's width the four ranks ran out of the card there
+# (16.1 GB a rank).  The jobs: (run, fsdp, fleet_shard, steps), each
+# from seed 0.
+MESH_WORLD, MESH_MODEL = 4, 2
+MESH_TIMEOUT_S = 600
+MESH_COMM = "gain_lookahead(lam=0.01)|int8+ef"
+MESH_LR = 0.05
+MESH_RUNS = {
+    "llama": dict(arch="llama3.2-3b", layers=2, agents=2, per_agent=2,
+                  seq=1024, steps=3),
+    "smollm": dict(arch="smollm-135m", layers=30, agents=2, per_agent=2,
+                   seq=1024, steps=2),
+}
+MESH_JOBS = {"fsdp_off": ("llama", False, False, 3),
+             "fsdp_on": ("llama", True, False, 3),
+             "smollm": ("smollm", True, False, 2),
+             "fleet_shard": ("smollm", True, True, 1)}
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -2661,6 +2729,365 @@ def phase_shard(torch, card: str, rates: dict) -> dict:
     return record
 
 
+# ----------------------------------------------------------------------
+# [mesh]: the LM train step over a (data, model) mesh of gloo ranks
+# ----------------------------------------------------------------------
+
+def _mesh_batches(torch, cfg, agents: int, per: int, seq: int, steps: int,
+                  dev):
+    """``steps`` LM batches of uniform tokens (seeds 20, 21, ...; the
+    labels are the tokens shifted by one) on ``dev``: every rank draws
+    the same global batches.  (``lm_batch``'s bigram table would be
+    vocab² floats: 61 GiB at llama's 128256.)"""
+    out = []
+    for k in range(steps):
+        gen = torch.Generator(device=dev).manual_seed(20 + k)
+        toks = torch.randint(0, cfg.vocab_size, (agents, per, seq + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        out.append({"tokens": toks[..., :-1].contiguous(),
+                    "labels": toks[..., 1:].contiguous()})
+    return out
+
+
+def _mesh_cfg(name: str):
+    from repro_torch.configs import get_config
+
+    run = MESH_RUNS[name]
+    return get_config(run["arch"]).replace(num_layers=run["layers"]), run
+
+
+def _mesh_params(torch, model, dev):
+    """The run's weights: seed 0 on the rank's card (every rank and the
+    single-process reference draw the same)."""
+    return model.init(torch.Generator(device=dev).manual_seed(0))[0]
+
+
+def _cpu_tree(tree):
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    return {p: x.detach().cpu() for p, x in tree_flatten_with_path(tree)}
+
+
+def _mesh_reference(torch, ce_ops, swa_ops, name: str, dev) -> dict:
+    """The single-process step (no mesh) of run ``name`` on the card from
+    seed 0: its per-step metrics and ms, the parameters after the first
+    and the last step and the agents' gradients at the start (for the
+    int8 exemptions), all on the CPU; launches per step."""
+    from repro_torch.comm.bank import batch_prologue
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.api import init_train_state
+    from repro_torch.launch import steps as S
+    from repro_torch.models import build
+    from repro_torch.optim import optimizers as opt_lib
+
+    cfg, run = _mesh_cfg(name)
+    batches = _mesh_batches(torch, cfg, run["agents"], run["per_agent"],
+                            run["seq"], run["steps"], dev)
+    shape = InputShape("mesh", run["seq"], run["agents"] * run["per_agent"],
+                       "train")
+    plan = S.plan_run(cfg, shape, num_agents=run["agents"],
+                      comm=MESH_COMM, lr=MESH_LR)
+    step = S.build_train_step(plan, compute_dtype="float32", device=dev)
+    model = build(plan.cfg)
+    opt = opt_lib.from_config(plan.train_cfg)
+    state = init_train_state(_mesh_params(torch, model, dev), opt,
+                             plan.train_cfg, device=dev)
+    _, grads = batch_prologue(model.loss_fn)(state.params, batches[0])
+    out = {"grads": _cpu_tree(grads), "steps": []}
+    del grads
+    torch.cuda.empty_cache()
+    for k, b in enumerate(batches):
+        ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        print(f"[mesh] rank 0 single-process {name} step {k}: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+        out["steps"].append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "metrics": {key: v.cpu() for key, v in m.items()},
+            "launches": (swa_ops.swa_attention.launches - swa0,
+                         ce_ops.fused_ce.launches - ce0)})
+        if k == 0:
+            out["first"] = _cpu_tree(state.params)
+    out["last"] = _cpu_tree(state.params)
+    del state, step, batches, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_job(torch, ce_ops, swa_ops, mesh, name: str, fsdp: bool,
+              fleet_shard: bool, steps: int, keep: bool = False,
+              against=None) -> dict:
+    """``steps`` steps of run ``name`` on ``mesh`` from seed 0: per step
+    the launches, the collectives by kind and axis, the ms; the bytes at
+    rest and this rank's peak; with ``keep`` the rank's blocks at rest
+    after the first and the last step (CPU); and either, on rank 0, the
+    gathered
+    parameters then, or, with ``against`` (another job's result on this
+    rank, its blocks a superset of these), the largest gap of this
+    rank's blocks from that job's over every rank (one small
+    ``all_reduce``: no gather)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.api import init_train_state
+    from repro_torch.launch import steps as S
+    from repro_torch.models import build
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding.rules import (
+        NamedSharding,
+        gather_tree,
+        shard_tree,
+        split_spec,
+    )
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+
+    dev = mesh.device
+    cfg, run = _mesh_cfg(name)
+    batches = _mesh_batches(torch, cfg, run["agents"], run["per_agent"],
+                            run["seq"], steps, dev)
+    shape = InputShape("mesh", run["seq"], run["agents"] * run["per_agent"],
+                       "train")
+    plan = S.plan_run(cfg, shape, mesh, num_agents=run["agents"],
+                      comm=MESH_COMM, lr=MESH_LR, fsdp=fsdp)
+    step = S.build_train_step(plan, compute_dtype="float32", device=dev,
+                              mesh=mesh, fleet_shard=fleet_shard)
+    model = build(plan.cfg)
+    opt = opt_lib.from_config(plan.train_cfg)
+    state = shard_tree(init_train_state(_mesh_params(torch, model, dev), opt,
+                                        plan.train_cfg, device=dev),
+                       step.state_shardings)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shardings = step.state_shardings.params
+    rest = sum(x.nbytes for x in tree_leaves((state.params,
+                                               state.opt_state)))
+    out = {"rest_bytes": rest, "steps": []}
+    for k, b in enumerate(batches):
+        mesh.collectives.reset()
+        ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out["steps"].append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": (swa_ops.swa_attention.launches - swa0,
+                         ce_ops.fused_ce.launches - ce0),
+            "collectives": mesh.collectives.by_axis(),
+            "metrics": {key: v.cpu() for key, v in m.items()}})
+        if mesh.rank == 0:
+            print(f"[mesh] rank 0 {name} fsdp {fsdp} fleet_shard "
+                  f"{fleet_shard} step {k}: {out['steps'][-1]['ms']:.1f} ms, "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak",
+                  flush=True)
+        if k not in (0, steps - 1):
+            continue
+        key = "first" if k == 0 else "last"
+        if keep:
+            out[f"blocks_{key}"] = _cpu_tree(state.params)
+        if against is None:
+            full = gather_tree(state.params, shardings)
+            if mesh.rank == 0:
+                out[key] = _cpu_tree(full)
+            del full
+            continue
+        # this rank's blocks against the same rank's blocks of a job
+        # that splits no more: each leaf's data block of them
+        gap, same = 0.0, True
+        flat = dict(tree_flatten_with_path(shardings))
+        for path, x in _cpu_tree(state.params).items():
+            data = NamedSharding(mesh, split_spec(flat[path].spec)[0])
+            w = data.local(against[f"blocks_{key}"][path])
+            same &= torch.equal(x, w)
+            gap = max(gap, float((x - w).abs().max() / w.abs().max()))
+        red = mesh.all_reduce(torch.tensor([gap, float(not same)],
+                                           device=dev), "check", op="max")
+        out[f"vs_{key}"] = (float(red[0]), not bool(red[1]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step, batches, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(mesh) -> dict:
+    """Everything [mesh] runs on one rank of the (data 2, model 2) mesh
+    (a process of its own: ``spawn`` starts it).  Rank 0 first runs the
+    single-process reference of each run while the others wait."""
+    import torch
+
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "backend": mesh.backend, "device": str(mesh.device), "jobs": {}}
+    if mesh.rank == 0:
+        out["reference"] = {name: _mesh_reference(torch, ce_ops, swa_ops,
+                                                  name, mesh.device)
+                            for name in MESH_RUNS}
+    mesh.barrier()
+    for job, (name, fsdp, fleet, steps) in MESH_JOBS.items():
+        # fsdp on is held, rank by rank, to fsdp off's blocks (which are
+        # held to the single-process step): its blocks are theirs split
+        # further over data, so no gather is needed
+        out["jobs"][job] = _mesh_job(
+            torch, ce_ops, swa_ops, mesh, name, fsdp, fleet, steps,
+            keep=job == "fsdp_off",
+            against=out["jobs"]["fsdp_off"] if job == "fsdp_on" else None)
+        mesh.barrier()
+    if mesh.rank == 0:
+        out["held"] = _mesh_hold(torch, out)
+    for rec in out["jobs"].values():
+        for key in ("first", "last", "blocks_first", "blocks_last"):
+            rec.pop(key, None)
+    if mesh.rank == 0:
+        for rec in out["reference"].values():
+            for key in ("first", "last", "grads"):
+                rec.pop(key)
+    return out
+
+
+def _mesh_hold(torch, out) -> dict:
+    """Rank 0's checks: each job's gathered parameters after its first
+    step against the single-process step's from the same state
+    (``_params_within``: TRAIN_TOL of each leaf's largest value, one
+    int8 level where a gradient lies at a rounding boundary), after the
+    last step within TRAIN_TOL in each leaf's relative L2 norm; decisions
+    equal every step, loss, mean gain and grad_norm within TRAIN_TOL.
+    A job held to another rank by rank (``vs_first``/``vs_last``) within
+    TRAIN_TOL of each leaf's largest value."""
+    held = {}
+    for job, (name, fsdp, fleet, steps) in MESH_JOBS.items():
+        ref, got = out["reference"][name], out["jobs"][job]
+        agents = MESH_RUNS[name]["agents"]
+        for k, (g, r) in enumerate(zip(got["steps"], ref["steps"])):
+            gm, rm = g["metrics"], r["metrics"]
+            if not torch.equal(gm["num_tx"], rm["num_tx"]):
+                raise AssertionError(f"mesh {job} step {k}: num_tx "
+                                     f"{gm['num_tx']} vs {rm['num_tx']}")
+            for key in ("loss", "mean_gain", "grad_norm"):
+                a, b = float(gm[key]), float(rm[key])
+                if not abs(a - b) <= TRAIN_TOL * abs(b):
+                    raise AssertionError(f"mesh {job} step {k}: {key} {a} "
+                                         f"vs {b}")
+        if "vs_first" in got:
+            (gap0, same0), (gap1, same1) = got["vs_first"], got["vs_last"]
+            if not max(gap0, gap1) <= TRAIN_TOL:
+                raise AssertionError(f"mesh {job}: blocks {gap0:.3e} / "
+                                     f"{gap1:.3e} from fsdp_off's")
+            held[job] = {"vs_fsdp_off_first": gap0, "vs_fsdp_off_last": gap1,
+                         "bitwise_fsdp_off": same0 and same1}
+            continue
+        dev = torch.device("cuda", torch.cuda.current_device())
+        on = {p: x.to(dev) for p, x in got["first"].items()}
+        worst, tied = _params_within(
+            torch, on, {p: x.to(dev) for p, x in ref["first"].items()},
+            {p: x.to(dev) for p, x in ref["grads"].items()}, agents,
+            f"mesh {job} step 0")
+        del on
+        last = 0.0
+        if steps > 1:
+            for p, x in got["last"].items():
+                w = ref["last"][p]
+                last = max(last, float((x - w).norm() / w.norm()))
+            if not last <= TRAIN_TOL:
+                raise AssertionError(f"mesh {job}: parameters after {steps} "
+                                     f"steps {last:.3e} apart in L2")
+        held[job] = {"first_step_worst": worst, "int8_one_level": tied,
+                     "last_step_rel_l2": last}
+        torch.cuda.empty_cache()
+    return held
+
+
+def phase_mesh(torch, card: str) -> dict:
+    """The [mesh] phase (the module docstring's): one spawn of MESH_WORLD
+    gloo ranks sharing the card runs every job; rank 0 holds them to the
+    single-process step; the parent checks the counts and prints."""
+    from repro_torch.launch.mesh import choose_backend, spawn
+
+    backend = choose_backend(MESH_WORLD, "cuda")
+    # the ranks share the card: this process keeps none of its cache,
+    # and theirs grows in segments (less of the card held unused)
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_mesh_rank, MESH_WORLD, timeout_s=MESH_TIMEOUT_S,
+                      backend=backend, device="cuda", model=MESH_MODEL)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    record = {"backend": backend, "world": MESH_WORLD, "spawn_s": spawn_s,
+              "coords": [r["coords"] for r in ranks],
+              "held": r0["held"], "jobs": {}}
+    for job, (name, fsdp, fleet, steps) in MESH_JOBS.items():
+        cfg, run = _mesh_cfg(name)
+        ref = r0["reference"][name]
+        layers = cfg.num_layers
+        for r in ranks:
+            for k, s in enumerate(r["jobs"][job]["steps"]):
+                if s["launches"] != (2 * layers, 2) or ref["steps"][k][
+                        "launches"] != (2 * layers, 2):
+                    raise AssertionError(
+                        f"mesh {job} rank {r['rank']} step {k}: launches "
+                        f"(swa_attention, fused_ce) {s['launches']}, "
+                        f"single-process {ref['steps'][k]['launches']} "
+                        f"(want {(2 * layers, 2)})")
+        peaks = [r["jobs"][job]["peak_gb"] for r in ranks]
+        rest = [r["jobs"][job]["rest_bytes"] for r in ranks]
+        ms = [[s["ms"] for s in r["jobs"][job]["steps"]] for r in ranks]
+        coll = r0["jobs"][job]["steps"][-1]["collectives"]
+        ref_ms = [s["ms"] for s in ref["steps"][:steps]]
+        row = {"arch": run["arch"], "layers": layers, "fsdp": fsdp,
+               "fleet_shard": fleet, "steps": steps,
+               "ms_per_step_ranks": ms, "ms_per_step_single": ref_ms,
+               "peak_gb_ranks": peaks, "peak_gb_sum": sum(peaks),
+               "rest_bytes_ranks": rest,
+               "launches_per_step": list(r0["jobs"][job]["steps"][0][
+                   "launches"]),
+               "collectives_per_step_rank0": coll,
+               "loss": [float(s["metrics"]["loss"])
+                        for s in r0["jobs"][job]["steps"]]}
+        record["jobs"][job] = row
+        kinds = ", ".join(f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.1f}"
+                          f" MB, wire {v['wire_bytes'] / 1e6:.1f} MB)"
+                          for k, v in sorted(coll.items()))
+        print(f"[mesh] {job}: {run['arch']} {layers} layers, (data 2, model "
+              f"2), fsdp {fsdp}, fleet_shard {fleet}, {steps} steps: ms per "
+              f"step rank 0 {[round(x, 1) for x in ms[0]]} vs single-process "
+              f"{[round(x, 1) for x in ref_ms]}; launches per step per rank "
+              f"(swa_attention, fused_ce) {row['launches_per_step']}; peak "
+              f"GB per rank {[round(p, 2) for p in peaks]} (sum "
+              f"{sum(peaks):.2f}); bytes at rest per rank {rest}")
+        print(f"[mesh] {job} collectives per step on rank 0: {kinds}")
+        h = r0["held"][job]
+        if "vs_fsdp_off_first" in h:
+            print(f"[mesh] {job} vs the single-process step: decisions "
+                  f"equal, loss/gain/|g| within {TRAIN_TOL}; each rank's "
+                  f"blocks after the first and the last step within "
+                  f"{h['vs_fsdp_off_first']:.2e} / "
+                  f"{h['vs_fsdp_off_last']:.2e} of fsdp_off's (bitwise "
+                  f"equal: {h['bitwise_fsdp_off']})")
+            continue
+        print(f"[mesh] {job} vs the single-process step: decisions equal, "
+              f"loss/gain/|g| within {TRAIN_TOL}; first step's params "
+              f"within {h['first_step_worst']:.2e} of each leaf's max apart "
+              f"from {h['int8_one_level']} elements one int8 level apart; "
+              f"after {steps} steps {h['last_step_rel_l2']:.2e} in L2")
+    print(f"[mesh] spawn {spawn_s:.1f} s")
+    return record
+
+
 def _fresh_dir(path: Path) -> str:
     import shutil
 
@@ -3946,6 +4373,7 @@ def phase_ce_kernel(torch, ce_ops, ce_ref) -> list:
     print("[ce] strided x (row stride 600, offset 1), fp32 and bf16: equal "
           "to the contiguous x's result")
     results.append(_ce_grad(torch, ce_ops, ce_ref, gen))
+    results.append(_ce_mesh_block(torch, ce_ops, ce_ref, gen))
     results.append(_ce_vmap(torch, ce_ops, gen))
     return results
 
@@ -3975,6 +4403,74 @@ def _ce_grad(torch, ce_ops, ce_ref, gen) -> dict:
           f"(tol {CE_GRAD_TOL})")
     return {"grad_shape": list(CE_GRAD_SHAPE),
             "grad_max_err_over_scale": max(errs), "grad_tol": CE_GRAD_TOL}
+
+
+def _ce_mesh_block(torch, ce_ops, ce_ref, gen) -> dict:
+    """The launch a [mesh] rank makes for its half of llama3.2-3b's
+    vocabulary (``vocab_parallel_nll``): both outputs of
+    ``fused_ce_nll_lse`` on the second block, labels drawn over the whole
+    vocabulary and those outside the block pointed at row 0, against the
+    plain (nll, logsumexp); then the backward with nonzero cotangents of
+    both outputs against autograd through the plain version.  The
+    backward reads the kernel's lse, so each softmax entry P_tv it forms
+    carries a relative error up to e^δ_t − 1 (δ_t the measured lse gap
+    of token t); the gradients are held within CE_GRAD_TOL·max|g| plus
+    what that propagates to: |Δdx_t| ≤ (e^δ_t − 1)·|c_t|·max|table| and
+    |Δdtable_v| ≤ Σ_t (e^δ_t − 1)·|c_t|·max|x_t|·P_tv, with c_t the
+    token's cotangent on P (dnll_t + dlse_t)."""
+    t, d, v = CE_TIMED[4]
+    x, table, _ = _ce_inputs(torch, gen, t, d, v, torch.float32)
+    labels = torch.randint(0, 2 * v, (t,), generator=gen, device="cuda")
+    rel = labels - v
+    inside = (rel >= 0) & (rel < v)
+    rows = torch.where(inside, rel, torch.zeros_like(rel))
+    before = ce_ops.fused_ce.launches
+    nll, lse = ce_ops.fused_ce_nll_lse(x, table, rows)
+    want_nll, want_lse = ce_ref.fused_ce_lse_ref(x, table, rows)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("nll", nll, want_nll), ("lse", lse, want_lse)):
+        err = (got - want).abs()
+        if got.shape != (t,) or not bool(
+                (err <= CE_TOL + CE_TOL * want.abs()).all()):
+            raise AssertionError(
+                f"fused_ce_nll_lse {name} at the [mesh] block ({t}, {d}, "
+                f"{v}): {tuple(got.shape)}, max err {err.max().item():.3e}")
+        errs[name] = err.max().item()
+    w = torch.rand((t,), generator=gen, device="cuda")
+    u = torch.rand((t,), generator=gen, device="cuda") - 0.5
+    leaves = [x.clone().requires_grad_(True), table.clone().requires_grad_(True)]
+    n, l = ce_ops.fused_ce_nll_lse(*leaves, rows)
+    got = torch.autograd.grad((n * w + l * u).sum(), leaves)
+    plain = [x.clone().requires_grad_(True), table.clone().requires_grad_(True)]
+    n, l = ce_ref.fused_ce_lse_ref(*plain, rows)
+    want = torch.autograd.grad((n * w + l * u).sum(), plain)
+    ce_ops.fused_ce.launches = before  # check launches do not count
+    k = torch.expm1((lse - want_lse).abs()) * (w + u).abs()
+    probs = torch.softmax(x @ table.T, -1)
+    carried = {"dx": (k.max() * table.abs().max()).item(),
+               "dtable": ((k * x.abs().amax(1)) @ probs).max().item()}
+    del probs
+    for name, g, p in zip(("dx", "dtable"), got, want):
+        err, scale = (g - p).abs().max().item(), p.abs().max().item()
+        if not err <= CE_GRAD_TOL * scale + carried[name]:
+            raise AssertionError(
+                f"fused_ce_nll_lse {name} with a logsumexp cotangent: "
+                f"{err:.3e} vs autograd of the plain version (scale "
+                f"{scale:.3e}, the lse gap carries {carried[name]:.3e})")
+        errs[name + "_over_scale"] = err / scale
+        errs[name + "_lse_carried"] = carried[name]
+    print(f"[ce] the [mesh] block ({t}, {d}, {v}), {int(inside.sum())} of "
+          f"{t} labels inside it, the rest at row 0: nll max "
+          f"{errs['nll']:.3e}, lse max {errs['lse']:.3e} vs the plain "
+          f"(nll, logsumexp) within {CE_TOL} + {CE_TOL}·|plain|; backward "
+          f"with nonzero dnll and dlse: dx, dtable "
+          f"{errs['dx_over_scale']:.2e}, {errs['dtable_over_scale']:.2e}·"
+          f"max|g| from autograd (tol {CE_GRAD_TOL}·max|g| plus the lse "
+          f"gap's {errs['dx_lse_carried']:.2e}, "
+          f"{errs['dtable_lse_carried']:.2e})")
+    return {"mesh_block": {"shape": [t, d, v], "max_abs_err": errs,
+                           "tol": CE_TOL, "grad_tol": CE_GRAD_TOL}}
 
 
 def _ce_vmap(torch, ce_ops, gen) -> dict:
@@ -5165,16 +5661,18 @@ def phase_moe_train(torch, ce_ops, swa_ops) -> dict:
 
 
 def phase_hybrid(torch, swa_ops) -> dict:
-    """zamba2-1.2b at full width and depth served by replay through the
-    serving CLI's prefill and greedy decode (no kernel launch), decode
-    against a fresh replay, and the card against the CPU."""
+    """zamba2-1.2b at full width (HYBRID_SERVE's layers) served by
+    replay through the serving CLI's prefill and greedy decode (no
+    kernel launch), decode against a fresh replay, and the card against
+    the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models import build
     from repro_torch.models.transformer import group_bounds
     from repro_torch.utils.tree import tree_size
 
     run = HYBRID_SERVE
-    cfg = get_config(HYBRID_ARCH)
+    cfg = get_config(HYBRID_ARCH).replace(num_layers=run["layers"])
     t0 = time.perf_counter()
     model, params, prompts = _init_served(torch, cfg, run["batch"],
                                           run["prompt"])
@@ -5197,13 +5695,15 @@ def phase_hybrid(torch, swa_ops) -> dict:
               "params": n_params, "param_count": cfg.param_count(),
               "serve": row}
     x = prompts[:chk["batch"], :chk["prompt"]].contiguous()
-    sens = _last_bit_sensitivity(torch, serve, model, params, x)
+    small = build(cfg.replace(num_layers=chk["layers"]))
+    p_small = _first_layers(torch, params, chk["layers"])
+    sens = _last_bit_sensitivity(torch, serve, small, p_small, x)
     record["last_bit_sensitivity"] = sens
     print(f"[hybrid] the model's own sensitivity on the card: weights "
           f"scaled by 1 + 2^-23·N(0, 1) move the prefill logits by "
           f"{sens:.3e} (smollm-135m's 30 layers: ~1e-6 on the CPU)")
     record["card_vs_cpu"] = _card_vs_cpu(
-        torch, serve, model, params, x, gen=chk["gen"], tag="hybrid",
+        torch, serve, small, p_small, x, gen=chk["gen"], tag="hybrid",
         extra_tol=HYBRID_SENS_FACTOR * sens)
     return record
 
@@ -5293,9 +5793,9 @@ def _forward_sensitivity(torch, model, params, x, logits):
 
 
 def phase_xlstm(torch, swa_ops) -> dict:
-    """xlstm-350m at full width and depth served by replay through the
-    serving CLI's prefill and greedy decode (no kernel launch, decode
-    bitwise a fresh replay); the chunkwise forward over
+    """xlstm-350m at full width (XLSTM_SERVE's layers) served by replay
+    through the serving CLI's prefill and greedy decode (no kernel
+    launch, decode bitwise a fresh replay); the chunkwise forward over
     XLSTM_FORWARD["seq"] tokens against the replay's logits at every
     position; 2 layers on the card against the CPU."""
     from repro_torch.configs import get_config
@@ -5304,7 +5804,7 @@ def phase_xlstm(torch, swa_ops) -> dict:
     from repro_torch.utils.tree import tree_size
 
     run, fwd, chk = XLSTM_SERVE, XLSTM_FORWARD, XLSTM_CHECK
-    cfg = get_config(XLSTM_ARCH)
+    cfg = get_config(XLSTM_ARCH).replace(num_layers=run["layers"])
     t0 = time.perf_counter()
     model, params, prompts = _init_served(torch, cfg, run["batch"],
                                           fwd["seq"])
@@ -5708,7 +6208,7 @@ def phase_vlm_train(torch, ce_ops, swa_ops) -> dict:
     through the training CLI's step, each agent's sequence 576 projected
     patches + 512 tokens: 2 ``fused_ce`` launches a step over the tokens
     alone (the prefix cropped), 2 ``swa_attention`` launches a layer
-    (loss and probe) at hd 96; one 2-layer step on the card and the
+    (loss and probe) at hd 96; one 1-layer step on the card and the
     CPU."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
@@ -5755,8 +6255,9 @@ def phase_vlm_train(torch, ce_ops, swa_ops) -> dict:
     check_batch = _check_batch(batches)
     del step, state, batches
     torch.cuda.empty_cache()
+    # one layer: at two the CPU step took 20.9 s, and [mesh] needed it
     record["card_vs_cpu"] = _train_card_vs_cpu(
-        torch, cfg, check_batch, dev, small=cfg.replace(num_layers=2),
+        torch, cfg, check_batch, dev, small=cfg.replace(num_layers=1),
         tag="[vlm train]")
     return record
 
@@ -5976,7 +6477,10 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for t, d, v in CE_TIMED:
-        for dtype in (torch.float32, torch.bfloat16):
+        # [mesh]'s vocabulary block runs in fp32 only
+        dtypes = ((torch.float32,) if (t, d, v) == CE_TIMED[4]
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
             x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
             fns = {
                 "": lambda x=x, w=table, y=labels: ce_ops.fused_ce_nll(x, w, y),
@@ -6121,8 +6625,28 @@ def phase_lm_profile(torch, model, params, prompts, run: dict) -> dict:
     return record
 
 
+# wall seconds of each phase function in this run (every ``phase_*``
+# timed; a phase that calls another counts it too)
+PHASE_SECONDS: dict = {}
+
+
+def _timed(fn):
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        PHASE_SECONDS[fn.__name__] = (PHASE_SECONDS.get(fn.__name__, 0.0)
+                                      + time.perf_counter() - t0)
+        return out
+
+    return run
+
+
 def main() -> int:
     import torch
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed(fn)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -6172,6 +6696,7 @@ def main() -> int:
         "slice": record["slice"]["rounds_per_s"],
         "fleet_lossy": record["fleet_lossy"]["rounds_per_s"],
         "frontier_quadratic": record["frontier_quadratic"]["rounds_per_s"]})
+    record["mesh"] = phase_mesh(torch, card)
     record["durable"] = phase_durable(torch, gr_ops)
     record["kill"] = phase_kill(torch)
     record["telemetry"] = phase_telemetry(torch)
@@ -6245,6 +6770,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["moe_profile"] = phase_moe_profile(torch, record["moe"]["serve"])
     record["seconds"] = time.perf_counter() - t_start
+    record["phase_seconds"] = dict(PHASE_SECONDS)
+    print("[times] phase seconds: " + ", ".join(
+        f"{k[6:]} {v:.1f}" for k, v in sorted(
+            PHASE_SECONDS.items(), key=lambda kv: -kv[1])))
 
     main_shape = record["times"][0]
     assert main_shape["shape"] == [64, 32] and main_shape["dtype"] == "float32"
@@ -6338,6 +6867,15 @@ def main() -> int:
         "launches_vlm": record["vlm"]["serve"]["launches"],
         "launches_vlm_train": record["vlm_train"]["launches"][
             "swa_attention"],
+        "launches_mesh_per_rank_step": {
+            job: row["launches_per_step"][0]
+            for job, row in record["mesh"]["jobs"].items()},
+        "mesh_local_heads": {k: r[k] for r in record["swa_times"]
+                             if r["shape"] == list(SWA_SERVED[-1][:5])
+                             and r["dtype"] == "float32"
+                             for k in ("shape", "window", "dtype", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "device_ms")},
         # the head dims added since the first instances (64, 128): each
         # served shape's fp32 time row
         "head_dims": {str(r["shape"][4]): {k: r[k] for k in (
@@ -6375,6 +6913,15 @@ def main() -> int:
         "launches_whisper_train": record["whisper_train"]["launches"][
             "fused_ce"],
         "launches_vlm_train": record["vlm_train"]["launches"]["fused_ce"],
+        "launches_mesh_per_rank_step": {
+            job: row["launches_per_step"][1]
+            for job, row in record["mesh"]["jobs"].items()},
+        "mesh_vocab_block": {k: r[k] for r in record["ce_times"]
+                             if r["shape"] == list(CE_TIMED[4])
+                             and r["dtype"] == "float32"
+                             for k in ("shape", "dtype", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "device_ms")},
         "max_abs_err": ce_check["max_abs_err"],
         "ms": ce_time["ms"],
         "plain_ms": ce_time["plain_ms"],

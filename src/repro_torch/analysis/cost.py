@@ -158,7 +158,9 @@ def wire_bytes(kind: str, operand_bytes: float, group_size: int) -> float:
 
 class CollectiveLog:
     """Per-kind ``{count, operand_bytes, wire_bytes}`` of the collectives
-    recorded on it, and the same per call-site tag."""
+    recorded on it, and the same per call-site tag and per kind and mesh
+    axes (``"all-reduce@model"``; a call recorded without its axes goes
+    under ``"@mesh"``)."""
 
     def __init__(self):
         self.reset()
@@ -166,11 +168,14 @@ class CollectiveLog:
     def reset(self) -> None:
         self._kinds: Dict[str, dict] = {}
         self._tags: Dict[str, dict] = {}
+        self._axes: Dict[str, dict] = {}
 
     def record(self, kind: str, operand_bytes: int, group_size: int,
-               tag: str) -> None:
+               tag: str, axes=None) -> None:
         wire = wire_bytes(kind, operand_bytes, group_size)
-        for table, key in ((self._kinds, kind), (self._tags, tag)):
+        where = f"{kind}@{','.join(axes) if axes else 'mesh'}"
+        for table, key in ((self._kinds, kind), (self._tags, tag),
+                           (self._axes, where)):
             row = table.setdefault(key, {"count": 0, "operand_bytes": 0,
                                          "wire_bytes": 0.0})
             row["count"] += 1
@@ -184,6 +189,10 @@ class CollectiveLog:
     def by_tag(self) -> Dict[str, dict]:
         return {k: dict(v) for k, v in self._tags.items()}
 
+    def by_axis(self) -> Dict[str, dict]:
+        """``"kind@axes"`` → counts: which mesh axes each kind ran over."""
+        return {k: dict(v) for k, v in self._axes.items()}
+
 
 def total_wire_bytes(stats: Dict[str, dict]) -> float:
     """The wire bytes of a :meth:`CollectiveLog.stats` table."""
@@ -191,11 +200,12 @@ def total_wire_bytes(stats: Dict[str, dict]) -> float:
 
 
 def collective_call(log: CollectiveLog, kind: str, operand_bytes: int,
-                    group_size: int, tag: str) -> None:
-    """Record one collective on ``log`` and on every active counter."""
-    log.record(kind, operand_bytes, group_size, tag)
+                    group_size: int, tag: str, axes=None) -> None:
+    """Record one collective (over the mesh ``axes``, where given) on
+    ``log`` and on every active counter."""
+    log.record(kind, operand_bytes, group_size, tag, axes)
     for c in _ACTIVE:
-        c.collectives.record(kind, operand_bytes, group_size, tag)
+        c.collectives.record(kind, operand_bytes, group_size, tag, axes)
 
 
 @dataclass
@@ -221,6 +231,10 @@ class CostCounter(TorchDispatchMode):
         self.device_ops = 0
         self.by_op: Dict[str, OpCost] = defaultdict(OpCost)
         self.collectives = CollectiveLog()
+        # every dispatched op's name and its outputs' shapes (costed or
+        # not): repro_torch.analysis.hlo_stats reads them
+        self.op_names: Dict[str, int] = defaultdict(int)
+        self.shapes: Dict[tuple, int] = defaultdict(int)
         self._muted = 0
 
     def __enter__(self):
@@ -246,6 +260,9 @@ class CostCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self._muted:
+            self.op_names[func.overloadpacket.__name__] += 1
+            for t in tensor_leaves(out):
+                self.shapes[tuple(t.shape)] += 1
             cost = op_cost(func, args, kwargs, out)
             if cost is not None:
                 flops, dot, nbytes = cost

@@ -11,7 +11,7 @@ step takes, and the record names it: a float32 step's products run on
 the CUDA cores (the port keeps ``torch.backends.cuda.matmul.allow_tf32``
 off, so fp32 SGEMM is 67 TFLOP/s; with it on, TF32 at 494.7), a bf16
 step's on the tensor cores (989).  ``LINK_BW``, the collective term,
-waits for the multi-device port (ROADMAP queue 1 item 11): until then
+waits for the multi-device port (ROADMAP queue 1 item 11.2): until then
 it is 0 and so is ``t_collective``.
 
 MODEL_FLOPS (analytic "useful" compute) = 6·N·D for training (fwd+bwd)
@@ -42,7 +42,7 @@ PEAK_FLOPS: Dict[str, float] = {
 }
 HBM_BW = 3.35e12        # bytes/s
 HBM_BYTES = 80e9        # bytes
-LINK_BW = 0.0           # bytes/s of a link: multi-device, item 11
+LINK_BW = 0.0           # bytes/s of a link: multi-device, item 11.2
 
 
 def step_path(compute_dtype: str) -> str:

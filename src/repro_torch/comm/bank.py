@@ -58,6 +58,7 @@ from repro_torch.comm.error_feedback import ef_add, ef_residual
 from repro_torch.comm.policy import CommPolicy
 from repro_torch.comm.triggers import TriggerFn
 from repro_torch.net import channels as net_lib
+from repro_torch.sharding.constraint import constrain_params, whole_over_model
 from repro_torch.utils.tree import tree_map
 
 AgentEpilogue = Callable[..., tuple]
@@ -70,7 +71,16 @@ def _grad_fn(loss_fn: Callable, aux_loss_fn: Optional[Callable]):
     ``objective``: the aux term shapes the update, never the reported
     loss or the trigger's gain."""
     if aux_loss_fn is None:
-        return torch.func.grad_and_value(loss_fn)
+        grad_fn = torch.func.grad_and_value(loss_fn)
+
+        def grads_and_main(params, batch):
+            grads, main = grad_fn(params, batch)
+            # the JAX package pins each agent's gradient to the data-free
+            # layout here (repro.core.api); the port then makes it whole
+            # over the model axis (no-ops without a mesh hook)
+            return whole_over_model(constrain_params(grads, "")), main
+
+        return grads_and_main
 
     def objective(params, batch):
         main = loss_fn(params, batch)
@@ -80,7 +90,7 @@ def _grad_fn(loss_fn: Callable, aux_loss_fn: Optional[Callable]):
 
     def grads_and_main(params, batch):
         grads, (_, main) = grad_fn(params, batch)
-        return grads, main
+        return whole_over_model(constrain_params(grads, "")), main
 
     return grads_and_main
 

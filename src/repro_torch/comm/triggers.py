@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.registry import Registry, StageSpec
+from repro_torch.sharding.constraint import constrain_params, whole_over_model
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_agents,
@@ -257,7 +258,10 @@ def _lookahead_gain_fn(ctx: TriggerContext, who: str):
 
     def gain_of(params, grads, batch, losses):
         shared = tree_map(lambda v: v.unsqueeze(0), params)
-        probes = tree_add_scaled(shared, grads, -eps)
+        # the probe points are per agent: the JAX package pins them to
+        # the data-free layout, as the gradients; here they are formed
+        # there, from the gradients' blocks (no-ops without a hook)
+        probes = tree_add_scaled(shared, constrain_params(grads, ""), -eps)
         probed = torch.func.vmap(loss_fn)(probes, batch)
         return probed - losses
 
@@ -286,7 +290,10 @@ def _gain_quadratic(args, ctx):
         return torch.func.jvp(grad_fn, (params,), (g,))[1]
 
     def prologue(params, grads, batch, losses):
-        hg = torch.func.vmap(hvp, in_dims=(None, 0, 0))(params, grads, batch)
+        # the tangent in the parameters' layout; H g made whole as the
+        # gradient is (no-ops without a mesh hook)
+        hg = whole_over_model(torch.func.vmap(hvp, in_dims=(None, 0, 0))(
+            params, constrain_params(grads, ""), batch))
         if use_kernel:
             terms = _fused_gain_terms(tree_flatten_agents(grads),
                                       tree_flatten_agents(hg))

@@ -2,16 +2,13 @@
 
 The model configs (``ModelConfig`` and its sub-configs), the workload
 shapes the dry-run traces (``SHAPES``) and the training-side configs
-the triggered step reads.  The sharding config belongs to the mesh,
-which the port has not reached.
+the triggered step reads, and the mesh's ``ShardingConfig``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
-
-from repro_torch.utils.todo import not_ported
 
 
 @dataclass(frozen=True)
@@ -207,6 +204,12 @@ class TrainConfig:
     seed: int = 0
 
 
-__getattr__ = not_ported(__name__, {
-    "ShardingConfig": "queue 1 item 11",
-})
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Mesh-axis assignment. Axis names must exist in the active mesh."""
+
+    data_axes: Tuple[str, ...] = ("data",)       # batch / agent axes
+    model_axes: Tuple[str, ...] = ("model",)     # tensor-parallel axes
+    fsdp: bool = False                           # shard params over data_axes
+    agent_axes: Tuple[str, ...] = ("data",)      # per-agent gradient axis
+    remat: str = "none"                          # none | full | dots

@@ -72,6 +72,19 @@ hybrid dispatch partitioned over the gateways of a
 :class:`HybridMachinery` and :func:`hybrid_dispatch` as the hybrid path
 here, so the two cannot drift.  Every tensor stays on the step's device;
 a state on another device is an error, not a silent copy.
+
+``placement`` (a :class:`~repro_torch.sharding.placement.Placement`,
+which :func:`repro_torch.launch.steps.build_train_step` makes for an LM
+on a (data, model) mesh) runs the homogeneous step on one rank of the
+mesh, as the JAX package's step runs under ``jit`` with its agent axis
+sharded over data: the rank's parameters and optimizer state at rest are
+its blocks, gathered over the data axes at the start of the round (the
+model reads its tensor-parallel blocks, and each agent's gradient is
+made whole over "model" after the backward); its agents are its data
+coordinate's; the masked mean's sums and the
+agents' metric vectors are reduced over the agent axes; and the rank
+applies its block of the update.  The per-agent metric vectors are the
+fleet's.
 """
 from __future__ import annotations
 
@@ -105,6 +118,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregation import masked_mean
 from repro_torch.net import channels as net_lib
 from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_with_path,
@@ -348,6 +362,7 @@ def make_triggered_train_step(
     oracle: Optional[tuple] = None,
     options: Optional[StepOptions] = None,
     device: DeviceLike = "cuda",
+    placement=None,
 ):
     """Build ``train_step(state, batch, scale=None, chan_scale=None)
     -> (state, metrics)``.
@@ -372,6 +387,9 @@ def make_triggered_train_step(
     The step runs on ``device``: its state and batch must live there.
     Metrics are 0-dim (and, with ``agent_metrics``, ``(A,)``) tensors on
     that device; nothing is copied to the host inside the step.
+
+    ``placement`` runs the step on one rank of an LM mesh (the module
+    doc); with ``StepOptions.mesh`` it goes to the fleet-sharded step.
     """
     dev = resolve_device(device)
     opts = options or StepOptions()
@@ -384,7 +402,8 @@ def make_triggered_train_step(
             loss_fn, optimizer, cfg, opts.mesh, policy=policy,
             aux_loss_fn=aux_loss_fn, oracle=oracle, rules=opts.rules,
             sketch_native=opts.sketch_native,
-            agent_metrics=opts.agent_metrics, churn=opts.churn, device=dev)
+            agent_metrics=opts.agent_metrics, churn=opts.churn, device=dev,
+            placement=placement)
         if opts.scale is None and opts.chan_scale is None:
             return step
 
@@ -410,6 +429,9 @@ def make_triggered_train_step(
         # bank: the payload line's epilogue lives in one place
         hetero = (resolved,) * cfg.num_agents
     dispatch = opts.hetero_dispatch
+    if placement is not None and hetero is not None:
+        raise todo("per-agent policies (or a delay line) on an LM mesh "
+                   "without fleet_shard=True", "queue 1 item 11.2")
     prologue = batch_prologue(loss_fn, aux_loss_fn)
     per_agent_grad = agent_prologue(loss_fn, aux_loss_fn)
 
@@ -436,8 +458,10 @@ def make_triggered_train_step(
                    bank.adaptive_flags[b], bank.channels[b])
                   for b in bank.agent_index]
     if opts.churn is not None:
-        joins = torch.tensor([j for j, _ in opts.churn], device=dev)
-        leaves = torch.tensor([e for _, e in opts.churn], device=dev)
+        rows = (range(cfg.num_agents) if placement is None
+                else placement.agents)
+        joins = torch.tensor([opts.churn[i][0] for i in rows], device=dev)
+        leaves = torch.tensor([opts.churn[i][1] for i in rows], device=dev)
 
     def check_device(state: TrainState):
         for leaf in tree_leaves(state.params):
@@ -590,7 +614,19 @@ def make_triggered_train_step(
         return _cat([p[0] for p in per]), merged
 
     def train_step(state: TrainState, batch, scale=None, chan_scale=None):
+        if placement is None:
+            return round_(state, batch, scale, chan_scale)
+        with placement.active():
+            return round_(state, batch, scale, chan_scale)
+
+    def round_(state: TrainState, batch, scale, chan_scale):
         check_device(state)
+        at_rest = state.params
+        if placement is not None:
+            # the round's parameter tree; the batch's rows of this
+            # rank's agents
+            state = state._replace(params=placement.gather_params(at_rest))
+            batch = placement.local_rows(batch)
         if scale is None:
             scale = opts.scale
         if chan_scale is None:
@@ -674,20 +710,45 @@ def make_triggered_train_step(
             if use_net:
                 new_net = freeze(new_net, state.net_state, act)
 
-        # eq. (10) over what was DELIVERED (the decisions, when lossless)
-        agg = masked_mean(sent, delivereds)
+        stale_col = net_lib.net_rows(new_net)[:, 0] if use_net else None
+        if placement is not None:
+            # the fleet's vectors from every rank's agents: one reduce
+            cols = [losses, alphas, gains, delivereds]
+            cols += [stale_col] if use_net else []
+            cols += [act] if act is not None else []
+            fleet = placement.agent_columns(torch.stack(
+                [c.float() for c in cols], 1)).unbind(1)
+            losses, alphas, gains, delivereds = fleet[:4]
+            stale_col = fleet[4] if use_net else None
+            act = fleet[-1] if act is not None else None
         # wire ratios against the gradients' native dtype width
         db = dense_bits(sent)
         sb = structural_bytes(sent, per_agent=True)
         de = dense_entries(sent, per_agent=True)
+        # eq. (10) over what was DELIVERED (the decisions, when lossless)
+        if placement is None:
+            agg = masked_mean(sent, delivereds)
+        else:
+            mine = delivereds[placement.agents.start:placement.agents.stop]
+            skeleton = tree_map(lambda _: None, sent)
+            payload = tree_leaves(sent)
+            sent = None  # the list holds the payload leaves now
+            agg = placement.masked_mean(
+                payload, skeleton, mine,
+                torch.clamp(delivereds.sum(), min=1.0))
         sent = None  # the payloads' memory is free for the update
-        updates, opt_state = optimizer.update(agg, state.opt_state, params,
-                                              step)
-        new_params = tree_add_scaled(params, updates, 1.0)
+        if placement is None:
+            updates, opt_state = optimizer.update(agg, state.opt_state,
+                                                  params, step)
+            new_params = tree_add_scaled(params, updates, 1.0)
+        else:
+            # this rank's block of the update, on its block at rest
+            updates, opt_state = optimizer.update(
+                placement.update_block(agg), state.opt_state, at_rest, step)
+            new_params = tree_add_scaled(at_rest, updates, 1.0)
         ratios = tuple(
             c.ratio_for(db, entries=de) if c else 1.0 for c in chains
         )
-        stale_col = net_lib.net_rows(new_net)[:, 0] if use_net else None
         metrics = round_metrics(
             losses, alphas, gains, structural=sb, ratios=ratios,
             delivered=delivereds if use_net else None, staleness=stale_col,
@@ -707,7 +768,9 @@ def make_triggered_train_step(
                 metrics["agent_staleness"] = stale_col
             if needs_ctrl and new_ctrl is not None:
                 # the controllers' per-agent thresholds
-                metrics["agent_lam"] = new_ctrl[..., 0]
+                lam = new_ctrl[..., 0]
+                metrics["agent_lam"] = lam if placement is None else (
+                    placement.agent_columns(lam[:, None])[:, 0])
         return (
             TrainState(step + 1, new_params, opt_state, new_ef,
                        new_ctrl, new_net),

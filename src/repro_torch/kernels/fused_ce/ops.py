@@ -23,13 +23,14 @@ The call is a ``torch.autograd.Function`` in the form ``torch.func``
 composes with (``forward`` without ``ctx``, ``setup_context``, a
 ``vmap`` rule), on both devices:
 
-* its forward returns the NLL and keeps the logsumexp;
+* its forward returns the NLL and the logsumexp (both differentiable:
+  :func:`fused_ce_nll_lse`; :func:`fused_ce_nll` reads the NLL);
 * its backward is plain PyTorch (the JAX package, too, differentiates a
   plain chunked loss, ``repro.models.layers.cross_entropy_fused``): the
   logits are recomputed ``BACKWARD_CHUNK`` tokens at a time,
   P = exp(logits − lse), the one-hot of the labels subtracted, scaled by
-  the incoming gradient, then dx = (P − Y)·table and
-  dtable += (P − Y)ᵀ·x;
+  the incoming gradient (plus P scaled by the logsumexp's), then
+  dx = (P − Y)·table and dtable += (P − Y)ᵀ·x;
 * its ``jvp`` rule (forward mode) is plain PyTorch too, chunked like
   the backward: the tangent of the NLL is
   ``Σ_v p_v·(ẋ·t_v + x·ṫ_v) − (ẋ·t_gold + x·ṫ_gold)``, that of the
@@ -220,13 +221,14 @@ def _run(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor):
     return nll, lse
 
 
-def fused_ce_backward(x, table, labels, lse, dnll, *, chunk: int):
-    """(dx, dtable) of Σ dnll ⊙ nll, in plain PyTorch, for the grouped
-    layout of :func:`_forward`.  The logits are recomputed ``chunk``
-    tokens at a time (the (T, V) matrix never exists whole); arithmetic
-    in fp32, the gradients in the inputs' dtypes.  Only out-of-place
-    tensor operations, so ``torch.func.vmap`` maps it like any
-    function."""
+def fused_ce_backward(x, table, labels, lse, dnll, *, chunk: int,
+                      dlse=None):
+    """(dx, dtable) of Σ dnll ⊙ nll (+ Σ dlse ⊙ lse, where ``dlse`` is
+    given), in plain PyTorch, for the grouped layout of :func:`_forward`.
+    The logits are recomputed ``chunk`` tokens at a time (the (T, V)
+    matrix never exists whole); arithmetic in fp32, the gradients in the
+    inputs' dtypes.  Only out-of-place tensor operations, so
+    ``torch.func.vmap`` maps it like any function."""
     tf = table.float()
     vocab = torch.arange(table.shape[-2], device=x.device)
     dx, dtable = [], None
@@ -235,7 +237,10 @@ def fused_ce_backward(x, table, labels, lse, dnll, *, chunk: int):
         logits = xc @ tf.transpose(-1, -2)
         p = torch.exp(logits - lse[..., t0:t0 + chunk, None])
         gold = vocab == labels[..., t0:t0 + chunk, None]
-        p = torch.where(gold, p - 1.0, p) * dnll[..., t0:t0 + chunk, None]
+        q = torch.where(gold, p - 1.0, p) * dnll[..., t0:t0 + chunk, None]
+        # a zero logsumexp cotangent adds exact zeros: the plain loss's
+        # gradient is unchanged bit for bit
+        p = q if dlse is None else q + p * dlse[..., t0:t0 + chunk, None]
         dx.append(p @ tf)
         part = p.transpose(-1, -2) @ xc
         dtable = part if dtable is None else dtable + part
@@ -290,10 +295,10 @@ class FusedCE(torch.autograd.Function):
 
     @staticmethod
     @first_order
-    def backward(ctx, dnll, _dlse):
+    def backward(ctx, dnll, dlse):
         x, table, labels, lse = ctx.saved_tensors
         return (*fused_ce_backward(x, table, labels, lse, dnll,
-                                   chunk=BACKWARD_CHUNK), None)
+                                   chunk=BACKWARD_CHUNK, dlse=dlse), None)
 
     @staticmethod
     def jvp(ctx, dx, dtable, _dlabels):
@@ -324,6 +329,16 @@ def fused_ce_nll(x: torch.Tensor, table: torch.Tensor,
     _check(x, table, labels)
     nll, _ = FusedCE.apply(x[None], table[None], labels[None])
     return nll[0]
+
+
+def fused_ce_nll_lse(x: torch.Tensor, table: torch.Tensor,
+                     labels: torch.Tensor):
+    """``(nll, lse)`` ``(T,)`` fp32: the per-token NLL and the logsumexp
+    over the table's rows, both differentiable (a vocabulary split over
+    ranks combines the ranks' logsumexps)."""
+    _check(x, table, labels)
+    nll, lse = FusedCE.apply(x[None], table[None], labels[None])
+    return nll[0], lse[0]
 
 
 def fused_ce(x: torch.Tensor, table: torch.Tensor,

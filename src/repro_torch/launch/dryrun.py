@@ -2,8 +2,8 @@
 step on ``meta`` tensors (port of ``repro.launch.dryrun``).
 
 The JAX dry-run lowers and compiles each pair for a 256- or 512-chip
-v5e mesh and reads XLA's HLO.  The port has no mesh yet (ROADMAP queue
-1 item 11): each pair is the plan's step on one card, traced on
+v5e mesh and reads XLA's HLO.  The port's dry-run has no mesh yet
+(ROADMAP queue 1 item 11.2): each pair is the plan's step on one card, traced on
 ``meta`` tensors (:func:`repro_torch.launch.steps.lower_for`), so
 nothing is allocated and every pair traces at full width, kimi-k2's
 1 T parameters included, on a CPU as on the card.
@@ -63,7 +63,7 @@ def run_one(arch: str, shape_name: str, opt: bool, out_dir: Path) -> dict:
     if ok and opt and shape.kind == "decode":
         # the JAX --opt of a decode shape is flash-decoding's
         # cache_seq_shard, a sharding of the cache over the mesh
-        ok, reason = False, "cache_seq_shard: ROADMAP queue 1 item 11"
+        ok, reason = False, "cache_seq_shard: ROADMAP queue 1 item 11.2"
     if not ok:
         rec = {"name": name, "status": "skipped", "reason": reason}
         (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=2))
@@ -131,7 +131,7 @@ def main(argv=None) -> int:
 
     if args.multi_pod or args.both_meshes:
         raise todo("the multi-pod dry-run (--multi-pod, --both-meshes)",
-                   "queue 1 item 11")
+                   "queue 1 item 11.2")
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 

@@ -9,8 +9,9 @@ hypothesis→change→measure iteration is a single command (port of
       [--trigger gain_lookahead] [--microbatches 2]
 
 The sharding knobs (``--multi-pod``, ``--inner-batch``, ``--seq-shard``,
-``--cache-seq-shard``, ``--fsdp on``) belong to the mesh (ROADMAP queue 1
-item 11) and raise.
+``--cache-seq-shard``) belong to serving and the dry-run over a mesh
+(ROADMAP queue 1 item 11.2) and raise; ``--fsdp on`` plans ZeRO-3, which
+on one card shards nothing.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ def main(argv=None):
     from repro_torch.utils.todo import todo
 
     if args.multi_pod:
-        raise todo("the multi-pod mesh (--multi-pod)", "queue 1 item 11")
+        raise todo("the multi-pod mesh (--multi-pod)", "queue 1 item 11.2")
     cfg = get_config(args.arch)
     shape = SHAPES[args.shape]
     fsdp = None if args.fsdp is None else args.fsdp == "on"

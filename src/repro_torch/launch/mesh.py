@@ -10,6 +10,12 @@ the group itself.  The sharding rules (:mod:`repro_torch.sharding.
 rules`) read only the names and the shape, so a descriptor with no
 group (``make_production_mesh``, or a test's) serves them as well.
 
+A mesh of more than one rank carries a process group for every set of
+its axes (:meth:`Mesh.group_of`): on a (data, model) mesh the ranks of
+one row share a "model" group, those of one column a "data" group, and
+both axes together are the whole world.  The groups are created in one
+order on every rank, as ``dist.new_group`` requires.
+
 The backend is chosen explicitly (:func:`choose_backend`): ``nccl``
 where every rank has a card of its own, ``gloo`` otherwise, including
 for CUDA tensors on a one-card machine, where the ranks share the card.
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import multiprocessing as mp
 import os
 import pickle
@@ -52,7 +59,10 @@ class Mesh:
     ``cpu_group`` is the group for CPU copies (the gathers of
     :func:`repro_torch.sharding.agent_shard.gather_agents`): the same
     group under gloo, a gloo group beside an ``nccl`` one.
-    ``collectives`` logs every collective issued through its methods."""
+    ``axis_groups`` maps a tuple of axis names (in the mesh's order) to
+    this rank's group over those axes (:meth:`group_of`).
+    ``collectives`` logs every collective issued through its methods,
+    with the axes it ran over."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
@@ -63,6 +73,8 @@ class Mesh:
     device: Optional[torch.device] = None
     collectives: CollectiveLog = dataclasses.field(
         default_factory=CollectiveLog)
+    axis_groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -85,13 +97,75 @@ class Mesh:
             r = r * s + c
         return r
 
-    def all_reduce(self, x: torch.Tensor, tag: str) -> torch.Tensor:
-        """Sum ``x`` (contiguous, reduced in place) over the group; the
-        call is logged under ``tag``."""
+    def _axes(self, axes) -> Tuple[str, ...]:
+        """``axes`` (None: all of them) as a tuple in the mesh's order."""
+        if axes is None:
+            return self.axis_names
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown:
+            raise ValueError(f"mesh {self.axis_names!r} has no axis "
+                             f"{unknown[0]!r}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def axes_size(self, axes) -> int:
+        """The number of ranks in a group over ``axes``."""
+        n = 1
+        for a in self._axes(axes):
+            n *= self.shape[a]
+        return n
+
+    def axes_index(self, axes) -> int:
+        """This rank's index within its group over ``axes`` (row-major
+        over them, in the mesh's order)."""
+        r = 0
+        for a in self._axes(axes):
+            i = self.axis_names.index(a)
+            r = r * self.axis_sizes[i] + self.coords[i]
+        return r
+
+    def group_of(self, axes):
+        """This rank's process group over ``axes`` (a name or a tuple;
+        None: the whole mesh); None on a descriptor or a one-rank mesh."""
+        axes = self._axes(axes)
+        if self.group is None:
+            return None
+        if axes == self.axis_names:
+            return self.group
+        if axes not in self.axis_groups:
+            raise ValueError(f"mesh {self.axis_names!r} was built without "
+                             f"a group over {axes!r}")
+        return self.axis_groups[axes]
+
+    def all_reduce(self, x: torch.Tensor, tag: str, axes=None,
+                   op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` (contiguous, in place) over the group of
+        ``axes`` (default: the whole mesh) with ``op`` ("sum" or
+        "max"); logged under ``tag`` and the axes.  A group of one rank
+        issues nothing."""
+        axes = self._axes(axes)
+        n = self.axes_size(axes)
+        if n == 1 or self.group is None:
+            return x
         collective_call(self.collectives, "all-reduce",
-                        x.numel() * x.element_size(), self.size, tag)
-        dist.all_reduce(x, group=self.group)
+                        x.numel() * x.element_size(), n, tag, axes)
+        dist.all_reduce(x, op=_OPS[op], group=self.group_of(axes))
         return x
+
+    def all_gather(self, x: torch.Tensor, tag: str, axes=None
+                   ) -> List[torch.Tensor]:
+        """Every rank's ``x`` over the group of ``axes``, in the group's
+        rank order (an ``all_gather``: for nccl, or gloo on the CPU)."""
+        axes = self._axes(axes)
+        n = self.axes_size(axes)
+        if n == 1 or self.group is None:
+            return [x]
+        x = x.contiguous()
+        collective_call(self.collectives, "all-gather",
+                        x.numel() * x.element_size(), n, tag, axes)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self.group_of(axes))
+        return parts
 
     def all_gather_cpu(self, x: torch.Tensor, tag: str) -> torch.Tensor:
         """Every rank's ``x`` (a CPU tensor of one shape on every rank)
@@ -116,6 +190,42 @@ class Mesh:
         dist.barrier(group=self.cpu_group)
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _axis_subsets(names: Tuple[str, ...]):
+    """Every proper non-empty subset of ``names``, in a fixed order."""
+    for k in range(1, len(names)):
+        yield from itertools.combinations(names, k)
+
+
+def _axis_groups(names: Tuple[str, ...], sizes: Tuple[int, ...],
+                 coords: Tuple[int, ...], backend: Optional[str]) -> dict:
+    """This rank's group over every proper subset of the axes.  Every
+    rank creates every group of every subset, in the same order."""
+    out = {}
+    for axes in _axis_subsets(names):
+        idx = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in idx]
+        mine = tuple(coords[i] for i in rest)
+        for fixed in itertools.product(*(range(sizes[i]) for i in rest)):
+            ranks = []
+            for free in itertools.product(*(range(sizes[i]) for i in idx)):
+                c = [0] * len(names)
+                for i, v in zip(rest, fixed):
+                    c[i] = v
+                for i, v in zip(idx, free):
+                    c[i] = v
+                r = 0
+                for ci, si in zip(c, sizes):
+                    r = r * si + ci
+                ranks.append(r)
+            group = dist.new_group(ranks, backend=backend)
+            if fixed == mine:
+                out[axes] = group
+    return out
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The JAX package's TPU v5e pod meshes as descriptors: (16, 16)
     over ("data", "model"), or (2, 16, 16) over ("pod", "data",
@@ -132,16 +242,28 @@ def _world() -> Tuple[int, int]:
     return 1, 0
 
 
-def make_host_mesh(model: int = 1) -> Mesh:
+def make_host_mesh(model: int = 1, *,
+                   device: Optional[DeviceLike] = None) -> Mesh:
     """A ("data", "model") mesh over the running ranks (one rank when no
-    process group is running): ``world // model`` by ``model``."""
+    process group is running): ``world // model`` by ``model``, rank
+    ``r`` at (r // model, r % model).  With more than one rank it
+    carries the group of every set of axes (:meth:`Mesh.group_of`), so
+    every rank must call it, in the same order as its other
+    collectives.  ``device`` is this rank's device (recorded on the
+    mesh; nothing moves)."""
     n, rank = _world()
     if n % model:
         raise ValueError(f"{n} ranks do not split into model={model}")
-    group = dist.group.WORLD if n > 1 else None
-    return Mesh(("data", "model"), (n // model, model),
-                (rank // model, rank % model), group, group,
-                dist.get_backend() if n > 1 else None)
+    dev = None if device is None else torch.device(device)
+    names, sizes = ("data", "model"), (n // model, model)
+    coords = (rank // model, rank % model)
+    if n == 1:
+        return Mesh(names, sizes, coords, device=dev)
+    backend = dist.get_backend()
+    group = dist.group.WORLD
+    cpu_group = dist.new_group(backend="gloo") if backend == "nccl" else group
+    return Mesh(names, sizes, coords, group, cpu_group, backend, dev,
+                axis_groups=_axis_groups(names, sizes, coords, backend))
 
 
 def choose_backend(world: int, device: DeviceLike) -> str:
@@ -191,14 +313,16 @@ def _rank_device(device: DeviceLike, rank: int, backend: str):
 
 
 def _rank_main(fn, rank: int, world: int, backend: str, init_file: str,
-               device: str, timeout_s: float, args: tuple, results) -> None:
+               device: str, timeout_s: float, args: tuple, results,
+               model: Optional[int] = None) -> None:
     # an exception ends the process with a nonzero code, its traceback on
     # the inherited stderr: the parent then kills the other ranks
     dev = _rank_device(device, rank, backend)
     dist.init_process_group(
         backend, init_method=f"file://{init_file}", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
-    mesh = make_fleet_mesh(world, backend=backend, device=dev)
+    mesh = (make_fleet_mesh(world, backend=backend, device=dev)
+            if model is None else make_host_mesh(model, device=dev))
     # by value: torch's queue pickler would pass tensors as shared memory
     # handles, which die with the rank
     results.put((rank, pickle.dumps(fn(mesh, *args))))
@@ -207,9 +331,11 @@ def _rank_main(fn, rank: int, world: int, backend: str, init_file: str,
 
 def spawn(fn: Callable, world: int, *, timeout_s: float,
           backend: Optional[str] = None, device: DeviceLike = "cuda",
-          args: Sequence = ()) -> List[Any]:
+          args: Sequence = (), model: Optional[int] = None) -> List[Any]:
     """Run ``fn(mesh, *args)`` on ``world`` fresh ranks; returns their
-    results in rank order.
+    results in rank order.  ``mesh`` is the 1-D fleet mesh
+    (:func:`make_fleet_mesh`), or with ``model`` the ("data", "model")
+    host mesh of :func:`make_host_mesh`.
 
     ``fn`` and ``args`` are pickled (``fn`` by import path), and so is
     each result (by value: tensors come back as copies).
@@ -230,7 +356,7 @@ def spawn(fn: Callable, world: int, *, timeout_s: float,
         procs = [ctx.Process(
             target=_rank_main, daemon=True,
             args=(fn, r, world, backend, os.path.join(tmp, "rendezvous"),
-                  str(device), timeout_s, tuple(args), results))
+                  str(device), timeout_s, tuple(args), results, model))
             for r in range(world)]
         deadline = time.monotonic() + timeout_s
         try:

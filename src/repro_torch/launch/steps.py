@@ -1,36 +1,51 @@
-"""Step construction: the train, prefill and serve steps of an LM on one
-card (port of ``repro.launch.steps``).
+"""Step construction: the train, prefill and serve steps of an LM, on
+one card or on one rank of a (data, model) mesh (port of
+``repro.launch.steps``).
 
 * ``plan_run`` fixes the run: the model config, the workload shape, the
-  number of agents (the paper's m) and the :class:`TrainConfig`.  Its
-  memory knobs are the JAX package's: ``remat`` checkpoints every block
-  of the model (its backward recomputes the block's activations),
-  ``attn_q_block`` bounds the score tile of non-causal attention (the
-  causal kernel forms none), and ``microbatches`` sums each agent's loss
-  over that many equal slices of its batch.  Its sharding knobs
-  (``fsdp``, ``seq_shard``, ``inner_batch_shard``, ``cache_seq_shard``)
-  belong to the mesh (ROADMAP queue 1 item 11) and raise.
+  agents (the paper's m: the product of the agent axes' sizes, the data
+  axes, or a multiple of it), the sharding rules and the
+  :class:`TrainConfig`.  Its memory knobs are the JAX package's:
+  ``remat`` checkpoints every block of the model (its backward
+  recomputes the block's activations), ``attn_q_block`` bounds the
+  score tile of non-causal attention (the causal kernel forms none),
+  ``microbatches`` sums each agent's loss over that many equal slices
+  of its batch, and ``fsdp`` (ZeRO-3, on by default above
+  ``FSDP_PARAM_THRESHOLD`` parameters) shards the parameters' ``embed``
+  dim over the data axes.  ``seq_shard``, ``inner_batch_shard`` and
+  ``cache_seq_shard`` belong to serving over a mesh (ROADMAP queue 1
+  item 11.2) and raise.  With no mesh the plan is the JAX package's on a
+  one-device (1, 1) mesh: the rules resolve and shard nothing.
 * ``build_train_step`` wires the model's loss into the event-triggered
-  train step (:func:`repro_torch.core.api.make_triggered_train_step`).
+  train step (:func:`repro_torch.core.api.make_triggered_train_step`);
+  on a mesh it is the rank's step (:class:`MeshTrainStep`), with the
+  state's and the batch's shardings (JAX returns them beside the jitted
+  step).  ``fleet_shard=True`` swaps in the fleet-sharded step's
+  two-level gateway reduce.
 * ``build_prefill_step`` / ``build_serve_step`` cover prefill (the full
   sequence's forward) and the decode shapes (one token against a
-  ``seq_len`` cache, written in place).  They return the step with its
-  parameters and inputs: drawn from seed 0 on a real device, the
-  abstract stand-ins on ``meta``.
+  ``seq_len`` cache, written in place), on one card.  They return the
+  step with its parameters and inputs: drawn from seed 0 on a real
+  device, the abstract stand-ins on ``meta``.
 * ``lower_for`` is the dry-run's counterpart of ``jit(...).lower``: the
   plan's step with its ``meta`` state and inputs, traced on demand for
   its cost (:mod:`repro_torch.analysis.cost`) and memory.
 
-On one card there is no mesh: no sharding rules, no FSDP gather hooks
-and no fleet-sharded step, and the agent count is the caller's (default
-1, the size of the JAX CLI's data axis on one device).  Every agent's
-gradient and lookahead probe run batched on the card, through the
+On a mesh the agents live on the data axes and the model ranks of one
+data coordinate hold the same agents; tensor parallelism over "model"
+splits the dense family's heads, kv heads, ``ff`` columns and
+vocabulary (the divisibility guard replicates what does not divide);
+the parameters and optimizer state at rest are each rank's blocks
+(:mod:`repro_torch.sharding.placement`).  Every agent's gradient and
+lookahead probe run batched on the rank's device, through the
 ``swa_attention`` and ``fused_ce`` kernels.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -41,48 +56,84 @@ from repro_torch.configs.base import (
     TrainConfig,
     TriggerConfig,
 )
-from repro_torch.core.api import init_train_state, make_triggered_train_step
-from repro_torch.models import build, input_specs, long_context_variant
+from repro_torch.core.api import (
+    StepOptions,
+    init_train_state,
+    make_triggered_train_step,
+)
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import (
+    build,
+    input_axes,
+    input_specs,
+    long_context_variant,
+)
 from repro_torch.models.transformer import dtype_of
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.sharding.rules import resolve_rules, tree_shardings
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import todo
+
+FSDP_PARAM_THRESHOLD = 20e9
 
 
 @dataclass(frozen=True)
 class RunPlan:
     cfg: ModelConfig
     shape: InputShape
+    fsdp: bool
+    agent_axes: Tuple[str, ...]
     num_agents: int
     train_cfg: TrainConfig
+    rules: dict
+    seq_shard: bool = False
 
 
 def plan_run(
     cfg: ModelConfig,
     shape: InputShape,
+    mesh=None,
     *,
-    num_agents: int = 1,
+    num_agents: Optional[int] = None,
     comm: Optional[object] = None,
     trigger: Optional[TriggerConfig] = None,
     optimizer: str = "sgd",
     lr: float = 1e-2,
-    remat: bool = False,
-    attn_q_block: Optional[int] = None,
-    microbatches: int = 1,
     fsdp: Optional[bool] = None,
     seq_shard: bool = False,
+    remat: bool = False,
+    attn_q_block: Optional[int] = None,
     inner_batch_shard: bool = False,
     cache_seq_shard: bool = False,
+    microbatches: int = 1,
 ) -> RunPlan:
-    for knob, on in (("fsdp", fsdp), ("seq_shard", seq_shard),
+    """The JAX package's plan on ``mesh`` (None: one device).
+
+    ``num_agents`` defaults to the product of the agent axes' sizes, as
+    JAX's; a multiple of it runs that many agents, as many on each data
+    coordinate."""
+    for knob, on in (("seq_shard", seq_shard),
                      ("inner_batch_shard", inner_batch_shard),
                      ("cache_seq_shard", cache_seq_shard)):
         if on:
-            raise todo(f"plan_run({knob}=True)", "queue 1 item 11")
+            raise todo(f"plan_run({knob}=True)", "queue 1 item 11.2")
+    mesh = mesh if mesh is not None else Mesh(("data", "model"), (1, 1))
     if shape.name == "long_500k":
         cfg = long_context_variant(cfg)
     if remat or attn_q_block:
         cfg = cfg.replace(remat=remat, attn_q_block=attn_q_block)
+    if fsdp is None:
+        fsdp = cfg.param_count() > FSDP_PARAM_THRESHOLD
+    # agents always live on the data axes (each data slice computes its
+    # own agents' gradients); FSDP additionally shards the parameters'
+    # embed dim over the same axes
+    multipod = "pod" in mesh.axis_names
+    agent_axes: Tuple[str, ...] = ("pod", "data") if multipod else ("data",)
+    slices = int(math.prod(mesh.shape[a] for a in agent_axes))
+    num_agents = slices if num_agents is None else int(num_agents)
+    if num_agents % slices:
+        raise ValueError(f"{num_agents} agents do not split over the "
+                         f"{slices} slices of the agent axes {agent_axes}")
     trigger = trigger or TriggerConfig(kind="gain_lookahead", lam=0.0)
     if comm is not None and not isinstance(comm, str):
         from repro_torch.comm import CommPolicy
@@ -99,18 +150,81 @@ def plan_run(
         trigger=trigger,
         comm=comm,
     )
-    return RunPlan(cfg=cfg, shape=shape, num_agents=num_agents,
-                   train_cfg=train_cfg)
+    rules = resolve_rules(mesh, fsdp=fsdp, agent_axes=agent_axes)
+    return RunPlan(cfg=cfg, shape=shape, fsdp=fsdp, agent_axes=agent_axes,
+                   num_agents=num_agents, train_cfg=train_cfg, rules=rules,
+                   seq_shard=seq_shard)
+
+
+class MeshTrainStep:
+    """A rank's ``step(state, batch, scale=None, chan_scale=None) ->
+    (state, metrics)`` on a mesh, with the layouts the caller needs:
+
+    * ``state_shardings`` — the :class:`~repro_torch.sharding.rules.
+      NamedSharding` tree of the state at rest (``shard_tree(global
+      state, state_shardings)`` places a global state on the mesh;
+      ``gather_tree`` assembles it);
+    * ``batch_shardings`` — the batch's (its agent axis over the data
+      axes; the step also takes the global batch and keeps its rows);
+    * ``placement`` — :class:`~repro_torch.sharding.placement.Placement`.
+    """
+
+    def __init__(self, step, placement, state_shardings, batch_shardings):
+        self.step, self.placement = step, placement
+        self.state_shardings = state_shardings
+        self.batch_shardings = batch_shardings
+
+    def __call__(self, state, batch, scale=None, chan_scale=None):
+        return self.step(state, batch, scale, chan_scale)
 
 
 def build_train_step(plan: RunPlan, *, compute_dtype: str,
-                     device: DeviceLike = "cuda"):
+                     device: DeviceLike = "cuda", mesh=None,
+                     fleet_shard: bool = False, agent_metrics: bool = False):
     """``train_step(state, batch) -> (state, metrics)`` for the plan's
-    model at ``compute_dtype`` on ``device``."""
-    model = build(plan.cfg.replace(compute_dtype=compute_dtype))
-    optimizer = opt_lib.from_config(plan.train_cfg)
-    return make_triggered_train_step(model.loss_fn, optimizer,
-                                     plan.train_cfg, device=device)
+    model at ``compute_dtype`` on ``device``; on a ``mesh`` of more than
+    one rank, this rank's :class:`MeshTrainStep`.
+
+    Tensor parallelism (a "model" axis larger than 1) is ported for the
+    dense family; the other families run on a data-only mesh (with
+    ``fsdp`` or without), and a model axis with them raises.
+    ``fleet_shard=True`` runs the fleet-sharded step
+    (:func:`repro_torch.sharding.agent_shard.make_sharded_train_step`):
+    the gateways are the data coordinates.  ``agent_metrics`` adds the
+    per-agent vectors (``StepOptions.agent_metrics``): the fleet's, or
+    under ``fleet_shard`` the rank's gateway's."""
+    cfg = plan.cfg.replace(compute_dtype=compute_dtype)
+    model = build(cfg)
+    if mesh is None or mesh.size == 1:
+        optimizer = opt_lib.from_config(plan.train_cfg)
+        return make_triggered_train_step(
+            model.loss_fn, optimizer, plan.train_cfg, device=device,
+            options=StepOptions(agent_metrics=agent_metrics))
+    from repro_torch.sharding.placement import Placement
+
+    dev = resolve_device(device)
+    if mesh.shape.get("model", 1) > 1 and cfg.arch_type != "dense":
+        raise todo(f"tensor parallelism for the {cfg.arch_type} family",
+                   "queue 1 item 11.2")
+    shapes, axes = model.init(abstract=True, dtype=dtype_of(compute_dtype))
+    tcfg = plan.train_cfg
+    placement = Placement(mesh, axes, shapes, plan.rules, tcfg.num_agents,
+                          grad_clip=tcfg.grad_clip)
+    # clipping runs on the global aggregate (Placement.grad_clip)
+    optimizer = opt_lib.from_config(dataclasses.replace(tcfg, grad_clip=0.0))
+    options = StepOptions(mesh=mesh if fleet_shard else None,
+                          rules=plan.rules if fleet_shard else None,
+                          agent_metrics=agent_metrics)
+    step = make_triggered_train_step(model.loss_fn, optimizer, tcfg,
+                                     device=dev, options=options,
+                                     placement=placement)
+    state = init_train_state(shapes, optimizer, tcfg, device="meta")
+    state_shardings = placement.state_shardings(state, tcfg.optimizer)
+    batch_shardings = tree_shardings(
+        input_axes(cfg, plan.shape, num_agents=tcfg.num_agents),
+        input_specs(cfg, plan.shape, num_agents=tcfg.num_agents),
+        plan.rules, mesh)
+    return MeshTrainStep(step, placement, state_shardings, batch_shardings)
 
 
 def _params(model, dtype: torch.dtype, device: torch.device):

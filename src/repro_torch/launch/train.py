@@ -16,7 +16,14 @@ The legacy ``--trigger/--lam/--mu/--period/--quantize/--topk/
 
 It runs on the card unless ``--device cpu`` is given; all ``--agents``
 run batched on the one device (default 1, the JAX CLI's data-axis size
-on one device).  Each step computes every agent's gradient and its
+on one device).  Under a process group's launcher (``torchrun``: its
+``WORLD_SIZE`` and ``RANK`` in the environment), the CLI joins the group
+(``nccl`` with a card per rank, else ``gloo``), builds
+``make_host_mesh()`` over it, as the JAX CLI builds its mesh over every
+local device, and runs each rank's share of the sharded step: an agent
+per rank by default (``--agents`` replicates them on every rank, as
+JAX's ``agent`` rule of None does), the parameters at rest as its
+blocks; rank 0 prints and writes the checkpoints (gathered).  Each step computes every agent's gradient and its
 lookahead probe through the ``fused_ce`` kernel and, in every causal
 self-attention, the ``swa_attention`` kernel.
 Weights come from ``--seed``; batches from one bigram stream on the
@@ -32,10 +39,13 @@ have drawn.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import get_config, list_archs, reduced
@@ -43,9 +53,11 @@ from repro_torch.configs.base import InputShape, TriggerConfig
 from repro_torch.core.api import init_train_state
 from repro_torch.data import synthetic as D
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import choose_backend, make_host_mesh
 from repro_torch.models import build
 from repro_torch.models.transformer import dtype_of
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.sharding.rules import gather_tree, shard_tree
 from repro_torch.utils.device import resolve_device
 
 
@@ -106,9 +118,30 @@ def _legacy_comm_spec(args) -> str:
     return str(from_train_config(legacy))
 
 
+def _join_group(device: str):
+    """Join the launcher's process group (``torchrun`` sets WORLD_SIZE,
+    RANK and the rendezvous address); this rank's device.  Nothing
+    without a launcher, or with one rank."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    dev = torch.device(device)
+    if world <= 1 or dist.is_initialized():
+        return resolve_device(device)
+    backend = choose_backend(world, dev)
+    if dev.type == "cuda":
+        resolve_device(device)
+        index = int(os.environ.get("LOCAL_RANK", "0")) if backend == "nccl" \
+            else (dev.index or 0)
+        torch.cuda.set_device(index)
+        dev = torch.device("cuda", index)
+    dist.init_process_group(backend, init_method="env://")
+    return dev
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = _join_group(args.device)
+    mesh = make_host_mesh(device=dev) if dist.is_initialized() else None
+    lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -126,13 +159,22 @@ def main(argv: Optional[List[str]] = None) -> None:
     shape = InputShape("train_cli", seq_len=args.seq, global_batch=args.batch,
                        kind="train")
     comm = args.comm or _legacy_comm_spec(args)
-    plan = S.plan_run(cfg, shape, num_agents=args.agents or 1, comm=comm,
-                      optimizer=args.optimizer, lr=args.lr,
-                      microbatches=args.microbatches)
-    print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
-          f"agents={plan.num_agents} comm={comm!r} device={dev}")
+    plan = S.plan_run(cfg, shape, mesh, comm=comm, optimizer=args.optimizer,
+                      lr=args.lr, microbatches=args.microbatches)
+    if args.agents:
+        plan = dataclasses.replace(
+            plan, num_agents=args.agents,
+            train_cfg=dataclasses.replace(plan.train_cfg,
+                                          num_agents=args.agents))
+        plan.rules["agent"] = None  # a custom agent count is replicated
+    where = f"device={dev}" + ("" if mesh is None
+                               else f" mesh={mesh.shape}")
+    if lead:
+        print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
+              f"agents={plan.num_agents} comm={comm!r} {where}")
 
-    step_fn = S.build_train_step(plan, compute_dtype=args.dtype, device=dev)
+    step_fn = S.build_train_step(plan, compute_dtype=args.dtype, device=dev,
+                                 mesh=mesh)
     model = build(plan.cfg.replace(compute_dtype=args.dtype))
     params, _ = model.init(torch.Generator(device=dev).manual_seed(args.seed),
                            dtype=dtype_of(args.dtype))
@@ -143,7 +185,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.resume and args.ckpt_dir and checkpointer.latest_step(args.ckpt_dir):
         state = checkpointer.restore(args.ckpt_dir, state)
         start = int(state.step)
-        print(f"resumed from step {start}")
+        if lead:
+            print(f"resumed from step {start}")
+    shardings = getattr(step_fn, "state_shardings", None)
+    if shardings is not None:
+        # every rank drew the same global state: keep this rank's blocks
+        state = shard_tree(state, shardings)
+
+    def save(step: int) -> None:
+        full = state if shardings is None else gather_tree(state, shardings)
+        if lead:
+            checkpointer.save(args.ckpt_dir, step, full)
+
     batches = D.batch_iterator(cfg, shape, num_agents=plan.num_agents,
                                seed=args.seed, device=dev, start=start)
 
@@ -154,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         state, m = step_fn(state, next(batches))
         tx_total = tx_total + m["num_tx"]
         bytes_total = bytes_total + m["wire_bytes"]
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             print(f"step {step:5d}  loss {float(m['loss']):.4f}  "
                   f"comm_rate {float(m['comm_rate']):.2f}  "
                   f"gain {float(m['mean_gain']):+.2e}  "
@@ -162,16 +215,21 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"({(time.time()-t0)/(step-start+1):.2f}s/step)",
                   flush=True)
         if args.ckpt_every and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            checkpointer.save(args.ckpt_dir, step + 1, state)
+            save(step + 1)
 
     total_rounds = (args.steps - start) * plan.num_agents
     tx, wire = float(tx_total), float(bytes_total)
-    print(f"\ndone: {args.steps - start} steps, transmissions {tx:.0f}/"
-          f"{total_rounds} ({100 * tx / max(total_rounds, 1):.1f}% of dense), "
-          f"effective wire {wire / 1e6:.2f} MB")
+    if lead:
+        print(f"\ndone: {args.steps - start} steps, transmissions "
+              f"{tx:.0f}/{total_rounds} ("
+              f"{100 * tx / max(total_rounds, 1):.1f}% of dense), "
+              f"effective wire {wire / 1e6:.2f} MB")
     if args.ckpt_dir:
-        checkpointer.save(args.ckpt_dir, args.steps, state)
-        print(f"checkpoint -> {args.ckpt_dir}")
+        save(args.steps)
+        if lead:
+            print(f"checkpoint -> {args.ckpt_dir}")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.sharding import collectives as C
 from repro_torch.utils.remat import checkpoint
-from repro_torch.utils.todo import not_ported
 
 BLOCKWISE_THRESHOLD = 8192
 Q_BLOCK = 1024
@@ -59,16 +59,52 @@ def build_attention(scope, cfg):
 
 
 def qkv(p, cfg, x, positions, *, rope: bool = True):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    """q (B,S,H,hd), k/v (B,S,KV,hd) of the normed activations x.
+
+    Over a model axis (weights that are this rank's block of the heads,
+    :mod:`repro_torch.sharding.collectives`), q, k and v are
+    column-parallel: this rank's query heads and the kv heads they read,
+    x's gradient summed over the ranks.  Where the kv heads are whole
+    here (the divisibility guard replicated them) and the query heads
+    split, every rank projects all kv heads, their gradient is summed
+    over the ranks (each rank's query heads see a part of it), and the
+    rank keeps the kv groups of its own query heads."""
+    h0 = C.shard_offset(p["wq"].shape[1], cfg.num_heads, "attention heads")
+    k0 = C.shard_offset(p["wk"].shape[1], cfg.num_kv_heads,
+                        "attention kv heads")
+    xq = x if h0 is None else C.copy_to_model(x, "tp_attn_in")
+    xkv = x if k0 is None else xq
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(x.dtype))
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        # a whole norm weight on split heads: its gradient is summed
+        qn = p["q_norm"] if h0 is None else C.copy_to_model(p["q_norm"])
+        kn = p["k_norm"] if k0 is None else C.copy_to_model(p["k_norm"])
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if h0 is not None and k0 is None:
+        k = _local_kv(C.copy_to_model(k, "tp_kv"), h0, q.shape[2], cfg)
+        v = _local_kv(C.copy_to_model(v, "tp_kv"), h0, q.shape[2], cfg)
     return q, k, v
+
+
+def _local_kv(k: torch.Tensor, h0: int, heads: int, cfg) -> torch.Tensor:
+    """The kv heads that query heads ``h0 … h0 + heads − 1`` read (query
+    head h reads kv head h // (H / KV)), in the kernel's GQA layout: the
+    rank's kv groups as a slice when its heads cover whole groups or lie
+    in one; else each query head's kv head (no config of the repository
+    splits a group across ranks that way)."""
+    rep = cfg.num_heads // cfg.num_kv_heads
+    g0, g1 = h0 // rep, (h0 + heads - 1) // rep + 1
+    if (h0 % rep == 0 and heads % rep == 0) or rep % heads == 0:
+        return k[:, :, g0:g1]
+    idx = torch.div(torch.arange(h0, h0 + heads, device=k.device), rep,
+                    rounding_mode="floor")
+    return k.index_select(2, idx)
 
 
 def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -185,6 +221,13 @@ def abstract_kv_cache(batch: int, cache_len: int, kv_heads: int,
                                        device="meta"))
 
 
+def kv_cache_axes() -> KVCache:
+    """The logical axes of a layer's cache (its tree for
+    :func:`repro_torch.sharding.rules.tree_shardings`)."""
+    kv = ("batch", "cache_seq", "kv_heads", None)
+    return KVCache(k=kv, v=kv, pos_ids=("cache_seq",))
+
+
 def decode_attend(p, cfg, x, cache: KVCache, pos):
     """One-token attention against the cache.
 
@@ -255,7 +298,3 @@ def prefill_into_cache(p, cfg, k, v, cache_len: int) -> KVCache:
             torch.full((pad,), -1, dtype=torch.int32, device=k.device)])
     return KVCache(k=k_c, v=v_c, pos_ids=pos_ids)
 
-
-__getattr__ = not_ported(__name__, {
-    "kv_cache_axes": "queue 1 item 11",
-})

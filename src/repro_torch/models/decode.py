@@ -49,6 +49,7 @@ from repro_torch.models.transformer import (
     positions_of,
     whisper_encode,
 )
+from repro_torch.sharding.constraint import constrain_params
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -59,8 +60,9 @@ def _effective_cache_len(cfg: ModelConfig, cache_len: int) -> int:
 
 
 def _stacked_kv_axes() -> A.KVCache:
-    kv = ("layer", "batch", "cache_seq", "kv_heads", None)
-    return A.KVCache(k=kv, v=kv, pos_ids=("layer", "cache_seq"))
+    base = A.kv_cache_axes()
+    return A.KVCache(k=("layer",) + base.k, v=("layer",) + base.v,
+                     pos_ids=("layer",) + base.pos_ids)
 
 
 def _stacked_kv(n: int, batch: int, C: int, cfg, dtype, device) -> A.KVCache:
@@ -215,8 +217,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
         x = _whisper_decode(cfg, params, cache, x, pos)
     else:
         for i in range(cfg.num_layers):
-            x, _ = _attn_block_decode(layer(params["blocks"], i), cfg, x,
-                                      layer(cache, i), pos)
+            # JAX decode.py's site; a no-op until serving over a mesh
+            x, _ = _attn_block_decode(
+                constrain_params(layer(params["blocks"], i), "blocks"), cfg,
+                x, layer(cache, i), pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(output_table(cfg, params), x), cache
 
@@ -253,7 +257,8 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     C = _effective_cache_len(cfg, cache_len)
     caches = []
     for i in range(cfg.num_layers):
-        lp = layer(params["blocks"], i)
+        # JAX decode.py's ZeRO-3 site; a no-op until serving over a mesh
+        lp = constrain_params(layer(params["blocks"], i), "blocks")
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         q, k, v = A.qkv(lp["attn"], cfg, hn, positions)
         o = A.attention(q, k, v, causal=True, window=cfg.swa_window)

@@ -105,8 +105,8 @@ def input_specs(
 
 
 def input_axes(cfg: ModelConfig, shape: InputShape, *, num_agents: int = 1):
-    """Logical-axis tree matching ``input_specs`` (for the mesh, ROADMAP
-    queue 1 item 11)."""
+    """Logical-axis tree matching ``input_specs`` (the mesh step's batch
+    shardings read it)."""
     if shape.kind in ("train", "prefill"):
         lead = ("agent", "inner_batch") if shape.kind == "train" else ("batch",)
         if cfg.arch_type == "audio":

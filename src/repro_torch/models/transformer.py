@@ -18,8 +18,18 @@
   positions ``dec_pos``); no RoPE in either.
 
 A Python loop over the layer axis replaces the JAX package's
-``lax.scan``; ``constrain_params`` (a sharding annotation) has no
-counterpart on one card.  With ``cfg.remat`` each block body is
+``lax.scan``.  ``constrain_params`` (:mod:`repro_torch.sharding.
+constraint`) runs where the JAX package calls it (each layer slice,
+inside the remat boundary; the output table) and, because the port has
+no partitioner to move the rest, on every other leaf the model reads
+(the embedding lookup, ``final_norm``, vlm's ``vision_proj``, zamba2's
+``shared_attn``, whisper's ``dec_pos`` and ``enc_norm``): with no hook
+installed it is a no-op.  On a (data, model) mesh the hook hands each
+site this rank's model block of the weights, and the dense family's
+layers run tensor-parallel by those blocks' shapes: attention
+column-parallel over the heads and row-parallel out, the SwiGLU over
+its ``ff`` columns, the embedding and the loss over the vocabulary
+(:mod:`repro_torch.sharding.collectives`).  With ``cfg.remat`` each block body is
 rematerialised in the backward
 (:func:`repro_torch.utils.remat.checkpoint`) at the JAX package's
 boundaries: a dense/moe/vlm decoder block, each Mamba2 layer of a
@@ -61,6 +71,8 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.param import Scope, init_pair
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.constraint import constrain_params
 from repro_torch.utils.remat import checkpoint
 from repro_torch.utils.tree import tree_map
 
@@ -120,7 +132,11 @@ def _self_attn(p, cfg, x, positions, *, causal=True, rope=True,
     win = cfg.swa_window if window == "cfg" else window
     o = A.attention(q, k, v, causal=causal, window=win,
                     q_block=cfg.attn_q_block)
-    return _attn_out(p["attn"], o)
+    out = _attn_out(p["attn"], o)
+    if p["attn"]["wo"].shape[0] != cfg.num_heads:
+        # row-parallel: this rank's heads' share of the projection
+        out = C.reduce_from_model(out, "tp_attn_out")
+    return out
 
 
 def _maybe_remat(cfg, fn):
@@ -133,7 +149,14 @@ def _ff(p, cfg, x, *, gelu: bool = False):
     h = rms_norm(x, p["ln_ff"], cfg.norm_eps)
     if cfg.moe is not None:
         return MOE.moe_layer(p["moe"], cfg, h)
-    return (gelu_mlp(p["mlp"], h) if gelu else swiglu(p["mlp"], h)), 0.0
+    if gelu:
+        return gelu_mlp(p["mlp"], h), 0.0
+    if C.shard_offset(p["mlp"]["w_gate"].shape[1], cfg.d_ff,
+                      "swiglu") is None:
+        return swiglu(p["mlp"], h), 0.0
+    # column-parallel gate/up, row-parallel down
+    out = swiglu(p["mlp"], C.copy_to_model(h, "tp_mlp_in"))
+    return C.reduce_from_model(out, "tp_mlp_out"), 0.0
 
 
 def _decoder_block(p, cfg, x, positions):
@@ -234,19 +257,50 @@ def _shared_block(shared, cfg, x, positions):
     return x + ff
 
 
-def forward_hidden(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor,
-                                                              float, int]:
+def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
+                 tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The embedding lookup; over a vocabulary split over the model
+    axis, each rank looks up the tokens its block holds (zeros for the
+    rest) and the ranks sum (one term is not zero: exact)."""
+    v0 = C.shard_offset(table.shape[0], cfg.vocab_size, "embedding")
+    if v0 is None:
+        return embed(table, tokens, dtype)
+    rel = tokens.long() - v0
+    inside = (rel >= 0) & (rel < table.shape[0])
+    rows = embed(table, torch.where(inside, rel, torch.zeros_like(rel)),
+                 dtype)
+    return C.reduce_from_model(
+        torch.where(inside[..., None], rows, torch.zeros_like(rows)),
+        "tp_embed")
+
+
+def _lookup_table(params, table):
+    """The embedding table for the lookup: ``table`` where the caller
+    holds it already (the tied output table: one constrained use, so a
+    mesh step gathers its gradient once), else a site of its own, which
+    the JAX package leaves to XLA."""
+    if table is not None:
+        return table
+    return constrain_params(params["embedding"], "embedding")
+
+
+def forward_hidden(cfg: ModelConfig, params, batch, table=None
+                   ) -> Tuple[torch.Tensor, float, int]:
     """Backbone only. Returns (final hidden (B,S,D), aux_loss, prefix_len):
     for vlm with ``patch_embeds`` the hidden states cover the patch
-    prefix too, and ``prefix_len`` is its length."""
+    prefix too, and ``prefix_len`` is its length.  ``table`` is the
+    tied embedding as the caller constrained it (None: the lookup
+    constrains its own)."""
     check_family(cfg)
     if cfg.arch_type == "audio":
-        return _whisper_hidden(cfg, params, batch) + (0,)
+        return _whisper_hidden(cfg, params, batch, table) + (0,)
     dtype = dtype_of(cfg.compute_dtype)
-    x = embed(params["embedding"], batch["tokens"], dtype)
+    x = embed_tokens(cfg, _lookup_table(params, table), batch["tokens"],
+                     dtype)
     prefix = 0
     if cfg.arch_type == "vlm" and "patch_embeds" in batch:
-        vp = params["vision_proj"]
+        # a site the JAX package leaves to XLA: the patch projection
+        vp = constrain_params(params["vision_proj"], "vision_proj")
         pe = (batch["patch_embeds"].to(dtype) @ vp["w"].to(dtype)
               + vp["b"].to(dtype))
         x = torch.cat([pe, x], dim=1)
@@ -254,14 +308,22 @@ def forward_hidden(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor,
     positions = positions_of(x)
     aux = 0.0
     if cfg.arch_type == "hybrid":
-        mamba = _maybe_remat(cfg, lambda lp, h: h + SSM.mamba2_forward(
-            lp["mamba"], cfg, rms_norm(h, lp["ln"], cfg.norm_eps)))
+        def mamba_block(lp, h):
+            lp = constrain_params(lp, "blocks")
+            return h + SSM.mamba2_forward(
+                lp["mamba"], cfg, rms_norm(h, lp["ln"], cfg.norm_eps))
+
+        mamba = _maybe_remat(cfg, mamba_block)
         for s, e in group_bounds(cfg.num_layers, cfg.shared_attn_every):
             for i in range(s, e):
                 x = mamba(layer(params["blocks"], i), x)
-            x = _shared_block(params["shared_attn"], cfg, x, positions)
+            # a site the JAX package leaves to XLA: the shared block
+            x = _shared_block(constrain_params(params["shared_attn"],
+                                               "shared_attn"),
+                              cfg, x, positions)
     elif cfg.arch_type == "ssm":
         def pair(lp, h):
+            lp = constrain_params(lp, "pairs")
             h = h + XL.mlstm_forward(lp["mlstm"], cfg,
                                      rms_norm(h, lp["ln_m"], cfg.norm_eps))
             h = h + XL.slstm_forward(lp["slstm"], cfg,
@@ -272,19 +334,23 @@ def forward_hidden(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor,
         for i in range(cfg.num_layers // 2):
             x = pair(layer(params["pairs"], i), x)
     else:
+        # the constraint INSIDE the remat boundary: the recompute in the
+        # backward takes its blocks of the weights again
         block = _maybe_remat(
-            cfg, lambda lp, h, pos: _decoder_block(lp, cfg, h, pos))
+            cfg, lambda lp, h, pos: _decoder_block(
+                constrain_params(lp, "blocks"), cfg, h, pos))
         for i in range(cfg.num_layers):
             x, al = block(layer(params["blocks"], i), x, positions)
             aux = aux + al
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, constrain_params(params["final_norm"], "final_norm"),
+                 cfg.norm_eps)  # a site the JAX package leaves to XLA
     return x, aux, prefix
 
 
 def output_table(cfg: ModelConfig, params):
     if cfg.tie_embeddings or cfg.is_encoder_decoder:
-        return params["embedding"]
-    return params["out_embed"]
+        return constrain_params(params["embedding"], "embedding")
+    return constrain_params(params["out_embed"], "out_embed")
 
 
 def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
@@ -321,6 +387,7 @@ def whisper_encode(cfg: ModelConfig, params, batch) -> torch.Tensor:
     pos_e = positions_of(enc)
 
     def enc_block(lp, h, pos):
+        lp = constrain_params(lp, "enc_blocks")
         hn = rms_norm(h, lp["ln_attn"], cfg.norm_eps)
         h = h + _self_attn(lp, cfg, hn, pos, causal=False, rope=False)
         ff, _ = _ff(lp, cfg, h, gelu=True)
@@ -329,15 +396,18 @@ def whisper_encode(cfg: ModelConfig, params, batch) -> torch.Tensor:
     enc_block = _maybe_remat(cfg, enc_block)
     for i in range(cfg.encoder_layers):
         enc = enc_block(layer(params["enc_blocks"], i), enc, pos_e)
-    return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(enc, constrain_params(params["enc_norm"], "enc_norm"),
+                    cfg.norm_eps)  # a site the JAX package leaves to XLA
 
 
-def _whisper_hidden(cfg, params, batch):
+def _whisper_hidden(cfg, params, batch, table=None):
     dtype = dtype_of(cfg.compute_dtype)
     enc = whisper_encode(cfg, params, batch)
     tokens = batch["tokens"]
-    x = embed(params["embedding"], tokens, dtype)
-    x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)[None]
+    # a site the JAX package leaves to XLA: dec_pos
+    x = embed_tokens(cfg, _lookup_table(params, table), tokens, dtype)
+    dec_pos = constrain_params(params["dec_pos"], "dec_pos")
+    x = x + dec_pos[:tokens.shape[1]].to(dtype)[None]
     pos_d = positions_of(x)
 
     # the encoder output comes into a decoder block twice, for the values
@@ -346,6 +416,7 @@ def _whisper_hidden(cfg, params, batch):
     # (the values' first), so the encoder's gradient is bitwise the
     # plain path's
     def dec_block(lp, h, enc_v, enc_k, pos):
+        lp = constrain_params(lp, "dec_blocks")
         hn = rms_norm(h, lp["ln_attn"], cfg.norm_eps)
         h = h + _self_attn(lp, cfg, hn, pos, causal=True, rope=False)
         hn = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
@@ -360,7 +431,8 @@ def _whisper_hidden(cfg, params, batch):
     dec_block = _maybe_remat(cfg, dec_block)
     for i in range(cfg.num_layers):
         x = dec_block(layer(params["dec_blocks"], i), x, enc, enc, pos_d)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, constrain_params(params["final_norm"], "final_norm"),
+                 cfg.norm_eps)  # a site the JAX package leaves to XLA
     return x, 0.0
 
 
@@ -370,16 +442,21 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     table: the full (B, S, V) logits never exist.  A vlm's patch prefix
     is cropped first.  A moe model adds ``router_aux_weight`` × the
     router load-balance loss."""
-    x, aux, prefix = forward_hidden(cfg, params, batch)
+    table = output_table(cfg, params)
+    tied = cfg.tie_embeddings or cfg.is_encoder_decoder
+    x, aux, prefix = forward_hidden(cfg, params, batch,
+                                    table if tied else None)
     if prefix:
         x = x[:, prefix:]
-    table = output_table(cfg, params)
     if x.dtype != table.dtype:
         # the kernel takes one dtype; widening is exact (the JAX loss
         # computes its logits in fp32 either way)
         x, table = x.float(), table.float()
-    nll = fused_ce_nll(x.reshape(-1, x.shape[-1]), table,
-                       batch["labels"].reshape(-1))
+    x2, labels = x.reshape(-1, x.shape[-1]), batch["labels"].reshape(-1)
+    if table.shape[0] == cfg.vocab_size:
+        nll = fused_ce_nll(x2, table, labels)
+    else:
+        nll = C.vocab_parallel_nll(x2, table, labels, cfg.vocab_size)
     mask = batch.get("loss_mask")
     if mask is None:
         ce = nll.mean()

@@ -1,12 +1,16 @@
 """Fleet sharding over ``torch.distributed`` (port of ``repro.sharding``)."""
 from repro_torch.sharding.rules import (  # noqa: F401
+    NamedSharding,
     PartitionSpec,
     agent_axis_names,
     agent_pspec,
     agent_shard_count,
     resolve_pspec,
     resolve_rules,
+    gather_tree,
+    shard_tree,
     tree_pspecs,
+    tree_shardings,
 )
 
 _LAZY = ("make_sharded_train_step", "sketch_native_params",
@@ -20,8 +24,4 @@ def __getattr__(name):
         from repro_torch.sharding import agent_shard
 
         return getattr(agent_shard, name)
-    if name == "tree_shardings":
-        from repro_torch.sharding import rules
-
-        return rules.tree_shardings
     raise AttributeError(name)

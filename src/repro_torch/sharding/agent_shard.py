@@ -120,13 +120,15 @@ def sketch_native_params(chains) -> Optional[tuple]:
 
 
 def _check_span(mesh: Mesh, axes) -> None:
-    """The gateways are the ranks (row-major): the agent axes must span
-    the mesh, in its order."""
+    """The gateways are the ranks' coordinates over the agent axes
+    (row-major): the agent axes, in the mesh's order, must span it but
+    for a "model" axis beside them, whose ranks hold one gateway's
+    agents together."""
+    rest = tuple(a for a in mesh.axis_names if a not in axes)
     if tuple(a for a in mesh.axis_names if a in axes) != tuple(axes) or (
-            agent_shard_count(mesh, {"agent": tuple(axes)}) != mesh.size):
+            rest not in ((), ("model",))):
         raise todo(f"a fleet sharded over {axes!r} of a mesh with axes "
-                   f"{mesh.axis_names!r} (replicas beside the gateways)",
-                   "queue 1 item 11")
+                   f"{mesh.axis_names!r}", "queue 1 item 11.2")
 
 
 class ShardedTrainStep:
@@ -138,8 +140,13 @@ class ShardedTrainStep:
 
     def __init__(self, *, mesh: Mesh, optimizer, cfg: TrainConfig, mach,
                  lo: int, hi: int, skp, agent_metrics: bool, churn,
-                 device: torch.device):
+                 device: torch.device, axes=None, placement=None):
         self.mesh, self.optimizer, self.mach = mesh, optimizer, mach
+        # the gateways: this rank's coordinate over the agent axes
+        self.axes = mesh.axis_names if axes is None else tuple(axes)
+        self.gateway = mesh.axes_index(self.axes)
+        self.gateways = mesh.axes_size(self.axes)
+        self.placement = placement
         self.num_agents = cfg.num_agents
         self.lo, self.hi = lo, hi
         self.skp = skp
@@ -218,6 +225,7 @@ class ShardedTrainStep:
         alphas, gains, sent, new_mem, new_ctrl = outs[:5]
         delivereds = outs[5] if use_net else alphas
         new_net = outs[6] if use_net else None
+        outs = None
         act = None
         if self.churn is not None:
             # inactive agents: zero weight and bytes, frozen slots
@@ -247,16 +255,25 @@ class ShardedTrainStep:
                 return (enc * delivereds.reshape(-1, 1, 1)).sum(0)
 
             parts = tree_map(partial, ef_add(grads, mem))
-        else:
+            payload = torch.cat([x.reshape(-1) for x in tree_leaves(parts)])
+            del parts
+        elif self.placement is None:
             def partial(s):
                 a = delivereds.reshape(
                     (-1,) + (1,) * (s.ndim - 1)).to(s.dtype)
                 return (s * a).sum(0)
 
             parts = tree_map(partial, sent)
-        payload = torch.cat([x.reshape(-1) for x in tree_leaves(parts)])
+            payload = torch.cat([x.reshape(-1) for x in tree_leaves(parts)])
+            del parts
+        else:
+            # an LM's payload (not under the frontier's vmap), leaf by leaf
+            leaves = tree_leaves(sent)
+            sent = None
+            payload = self.placement.partial_payload(leaves, delivereds)
 
-        ratios = self._ratios(params)
+        ratios = self._ratios(params if self.placement is None else
+                              self.placement.global_like(params))
         stale = net_lib.net_rows(new_net)[:, 0] if use_net else None
         cols = [losses, alphas, gains, alphas * ratios, delivereds]
         if use_net:
@@ -267,7 +284,7 @@ class ShardedTrainStep:
         sums = fold_sum(torch.stack(cols, 1))
         # the any_tx maximum: this gateway's in its own slot, so the sum
         # over gateways holds every gateway's, exactly
-        rank, size = self.mesh.rank, self.mesh.size
+        rank, size = self.gateway, self.gateways
         slots = torch.cat([sums.new_zeros(rank), alphas.max().reshape(1),
                            sums.new_zeros(size - rank - 1)])
         scalars = torch.cat([sums, slots])
@@ -289,14 +306,19 @@ class ShardedTrainStep:
         """Gateways -> center: one ``all_reduce`` of the payload partials
         and one of the packed scalars (a leading lane axis, where the
         frontier stacks its lanes, rides in the same two calls)."""
-        return (self.mesh.all_reduce(payload.contiguous(), "payload"),
-                self.mesh.all_reduce(scalars.contiguous(), "scalars"))
+        return (self.mesh.all_reduce(payload.contiguous(), "payload",
+                                     self.axes),
+                self.mesh.all_reduce(scalars.contiguous(), "scalars",
+                                     self.axes))
 
     def finish(self, state: TrainState, carry: dict, payload: torch.Tensor,
-               scalars: torch.Tensor):
+               scalars: torch.Tensor, shapes=None):
         """The center's update from the reduced sums, and the round's
-        metrics: ``(new state, metrics)``."""
+        metrics: ``(new state, metrics)``.  ``shapes`` is the global
+        parameter tree where ``state`` holds a rank's blocks (an LM
+        mesh's placement), which then takes its block of the update."""
         params, step = state.params, state.step
+        shapes = params if shapes is None else shapes
         m = self.num_agents
         use_net, churned = "net" in carry, "act" in carry
         names = ["loss", "tx", "gain", "priced", "dl"]
@@ -309,8 +331,8 @@ class ShardedTrainStep:
         any_tx = scalars[k:].max()
         den = torch.clamp(sums["dl"], min=1.0)
 
-        leaves = tree_leaves(params)
-        skeleton = tree_map(lambda _: None, params)
+        leaves = tree_leaves(shapes)
+        skeleton = tree_map(lambda _: None, shapes)
         agg, at = [], 0
         for p in leaves:
             if self.skp is not None:
@@ -324,11 +346,12 @@ class ShardedTrainStep:
                 at += p.numel()
                 agg.append(total.to(p.dtype) / den.to(p.dtype))
         agg = tree_unflatten(skeleton, agg)
-        updates, opt_state = self.optimizer.update(agg, state.opt_state,
-                                                   params, step)
+        updates, opt_state = self.optimizer.update(
+            agg if self.placement is None else self.placement.update_block(
+                agg), state.opt_state, params, step)
         new_params = tree_add_scaled(params, updates, 1.0)
 
-        sb = structural_bytes(params, per_agent=False)
+        sb = structural_bytes(shapes, per_agent=False)
         rate_den = torch.clamp(sums["act"], min=1.0) if churned else m
         loss = sums["loss_act"] if churned else sums["loss"]
         metrics = {
@@ -369,9 +392,20 @@ class ShardedTrainStep:
 
     def __call__(self, state: TrainState, batch, scale=None,
                  chan_scale=None):
-        payload, scalars, carry = self.local(state, batch, scale, chan_scale)
-        payload, scalars = self.reduce(payload, scalars)
-        return self.finish(state, carry, payload, scalars)
+        pl = self.placement
+        if pl is None:
+            payload, scalars, carry = self.local(state, batch, scale,
+                                                 chan_scale)
+            payload, scalars = self.reduce(payload, scalars)
+            return self.finish(state, carry, payload, scalars)
+        with pl.active():
+            # the round's parameter tree (an LM mesh)
+            full = state._replace(params=pl.gather_params(state.params))
+            payload, scalars, carry = self.local(full, batch, scale,
+                                                 chan_scale)
+            payload, scalars = self.reduce(payload, scalars)
+            return self.finish(state, carry, payload, scalars,
+                               shapes=pl.global_like(full.params))
 
 
 def make_sharded_train_step(
@@ -388,6 +422,7 @@ def make_sharded_train_step(
     agent_metrics: bool = False,
     churn=None,
     device: DeviceLike = "cuda",
+    placement=None,
 ):
     """Build this rank's fleet-sharded ``train_step(state, batch,
     scale=None, chan_scale=None) -> (state, metrics)``.
@@ -402,7 +437,11 @@ def make_sharded_train_step(
     ``rules`` defaults to ``resolve_rules(mesh)``; the agents shard over
     ``rules["agent"]``.  ``sketch_native`` needs a shardable mesh and a
     uniformly sketch-terminal fleet, and raises ``ValueError`` otherwise.
-    ``device`` is this rank's device (``mesh.device``)."""
+    ``device`` is this rank's device (``mesh.device``).  ``placement``
+    (an LM on a (data, model) mesh, :mod:`repro_torch.sharding.
+    placement`) makes the ranks' parameters their blocks: gathered for
+    the round, the update applied block by block; the ranks of one data
+    coordinate are one gateway."""
     if not isinstance(mesh, Mesh):
         raise TypeError(
             f"mesh must be a repro_torch.launch.mesh.Mesh (make_fleet_mesh"
@@ -440,7 +479,7 @@ def make_sharded_train_step(
         # about): the sharded program IS the hybrid step
         return make_triggered_train_step(
             loss_fn, optimizer, cfg, policy=policy, aux_loss_fn=aux_loss_fn,
-            oracle=oracle, device=dev,
+            oracle=oracle, device=dev, placement=placement,
             options=StepOptions(hetero_dispatch="hybrid", barriers=False,
                                 agent_metrics=agent_metrics, churn=churn))
     if mesh.group is None:
@@ -452,11 +491,12 @@ def make_sharded_train_step(
         raise ValueError(f"step built for {dev} on a mesh whose rank runs "
                          f"on {mesh.device}")
     _check_span(mesh, axes)
-    agents = gateway_agents(mesh, m)
+    agents = gateway_agents(mesh, m, axes)
     return ShardedTrainStep(
         mesh=mesh, optimizer=optimizer, cfg=cfg, mach=mach,
         lo=agents.start, hi=agents.stop, skp=skp,
-        agent_metrics=agent_metrics, churn=churn, device=dev)
+        agent_metrics=agent_metrics, churn=churn, device=dev, axes=axes,
+        placement=placement)
 
 
 # ----------------------------------------------------------------------
@@ -485,16 +525,25 @@ def gather_agents(tree, mesh: Mesh, *, axis: int = 0):
     per-agent tensors of all gateways concatenated along their agent
     axis ``axis`` (1 for a frontier's stacked state), everything else
     this rank's copy; all on the CPU.  Every rank must call it (an
-    ``all_gather`` over ``mesh.cpu_group``) and every rank gets the
-    result.  A one-rank mesh returns CPU copies."""
+    ``all_gather`` over ``mesh.cpu_group``, or over the agent axes' gloo
+    group beside a model axis) and every rank gets the result.  A
+    one-rank mesh returns CPU copies."""
     def cpu(x):
         return x.detach().cpu() if isinstance(x, torch.Tensor) else x
 
     if mesh.group is None or mesh.size == 1:
         return _map_agents(tree, cpu, cpu)
+    axes = agent_axis_names(mesh)
 
     def cat(x):
-        parts = mesh.all_gather_cpu(cpu(x), "gather").movedim(0, axis)
+        if axes == mesh.axis_names:
+            parts = mesh.all_gather_cpu(cpu(x), "gather")
+        elif mesh.backend == "gloo":
+            parts = torch.stack(mesh.all_gather(cpu(x), "gather", axes))
+        else:
+            raise todo("gather_agents beside a model axis under "
+                       f"{mesh.backend!r}", "queue 1 item 11.2")
+        parts = parts.movedim(0, axis)
         return parts.reshape(parts.shape[:axis] + (-1,)
                              + parts.shape[axis + 2:])
 
@@ -508,8 +557,9 @@ def scatter_agents(tree, mesh: Mesh, *, axis: int = 0,
     moved to ``device`` (default: the mesh's).  No communication."""
     dev = resolve_device(device if device is not None
                          else (mesh.device or "cpu"))
-    gateways = mesh.size if mesh.group is not None else 1
-    gateway = mesh.rank if mesh.group is not None else 0
+    axes = agent_axis_names(mesh)
+    gateways = mesh.axes_size(axes) if mesh.group is not None else 1
+    gateway = mesh.axes_index(axes) if mesh.group is not None else 0
 
     def cut(x):
         per = x.shape[axis] // gateways
@@ -519,9 +569,12 @@ def scatter_agents(tree, mesh: Mesh, *, axis: int = 0,
         x, torch.Tensor) else x)
 
 
-def gateway_agents(mesh: Mesh, num_agents: int) -> range:
-    """The global agent indices this rank serves."""
+def gateway_agents(mesh: Mesh, num_agents: int, axes=None) -> range:
+    """The global agent indices this rank serves (its gateway: its
+    coordinate over the agent ``axes``, default all of the mesh's)."""
     if mesh.group is None:
         return range(num_agents)
-    per = num_agents // mesh.size
-    return range(mesh.rank * per, (mesh.rank + 1) * per)
+    axes = mesh.axis_names if axes is None else axes
+    per = num_agents // mesh.axes_size(axes)
+    g = mesh.axes_index(axes)
+    return range(g * per, (g + 1) * per)

@@ -1,0 +1,201 @@
+"""Gather-at-use constraints for FSDP (ZeRO-3) parameters (port of
+``repro.sharding.constraint``).
+
+Model code calls ``constrain_params(subtree, key)`` on each layer slice
+it is about to use (and on the tables, the norms and the other
+top-level leaves it reads); the step builder installs a hook that puts
+every leaf of the subtree into its layout with the data axes removed:
+whole over the data axes, split over "model" as its tensor-parallel
+spec says.  Without a hook installed the call is a no-op, so pure model
+use (tests, examples, one card) is unaffected.
+
+The port has no partitioner, so the layout is a per-rank fact: on a
+rank, a leaf "in the data-free layout" is its block over the model
+axis.  The mesh train step hands the model its round tree in that
+layout (each rank's model blocks, gathered over data once a round where
+ZeRO-3 splits them), so the hook (:func:`make_gather_hook`) brings a
+leaf there from either of two layouts, told apart by shape:
+
+* the leaf at rest (split over data and model) — gathered over the data
+  axes (:func:`repro_torch.sharding.collectives.gather_from_data`);
+* already the model block — unchanged (JAX's constraint is idempotent).
+
+The whole-tree key "" (the per-agent gradient and the lookahead probe,
+which JAX pins to the data-free layout) takes each leaf of a per-agent
+tree (leading agent dims allowed) to its model block: a global leaf is
+sliced, a block kept.  The port keeps the per-agent gradient whole on
+every model rank all the same, because the comm epilogue (int8's scale,
+top-k's threshold, the sketch) reads whole leaves: the gradient with
+respect to the round's blocks is made whole by :func:`whole_over_model`
+(port-only), and the probe and the HVP's tangent take the gradient's
+blocks through "".
+
+Activations get the same treatment through ``constrain_act``; training
+installs no activation hook (the JAX package installs one for serving
+only), and the port's serving over a mesh is the next ROADMAP item.
+"""
+from __future__ import annotations
+
+import contextvars
+from typing import Callable, Optional
+
+_HOOK: contextvars.ContextVar[Optional[Callable]] = contextvars.ContextVar(
+    "fsdp_gather_hook", default=None
+)
+_ACT_HOOK: contextvars.ContextVar[Optional[Callable]] = contextvars.ContextVar(
+    "act_constraint_hook", default=None
+)
+
+from repro_torch.sharding.rules import DATA_AXES
+
+
+def set_act_hook(fn: Optional[Callable]):
+    """fn(x, logical_axes) -> constrained x (or None to clear)."""
+    return _ACT_HOOK.set(fn)
+
+
+def constrain_act(x, logical_axes):
+    """Pin an activation to the plan's sharding for ``logical_axes``.
+    No-op unless a hook is installed."""
+    fn = _ACT_HOOK.get()
+    return fn(x, logical_axes) if fn is not None else x
+
+
+def make_act_hook(mesh, rules):
+    """The activation hook of a serving plan: an activation whose
+    resolved spec replicates passes through; one that the spec splits
+    belongs to serving over a mesh and raises."""
+    from repro_torch.sharding.rules import resolve_pspec, spec_axes
+    from repro_torch.utils.todo import todo
+
+    def hook(x, logical_axes):
+        spec = resolve_pspec(x.shape, logical_axes, rules, mesh)
+        if spec_axes(spec):
+            raise todo(f"an activation split as {spec!r}", "queue 1 item 11.2")
+        return x
+
+    return hook
+
+
+def set_gather_hook(fn: Optional[Callable]):
+    """fn(params_subtree, key: str) -> constrained subtree (or None to
+    clear).  Returns the context token (``_HOOK.reset`` restores)."""
+    return _HOOK.set(fn)
+
+
+def reset_gather_hook(token) -> None:
+    _HOOK.reset(token)
+
+
+def constrain_params(subtree, key: str):
+    fn = _HOOK.get()
+    return fn(subtree, key) if fn is not None else subtree
+
+
+def whole_over_model(tree):
+    """A per-agent gradient tree taken with respect to the round's model
+    blocks, each leaf that the model axis splits made whole on every
+    model rank (its block zero-padded and summed over "model": one
+    collective per leaf, for every agent at once under ``vmap``).  A
+    no-op without a mesh hook or a model axis."""
+    fn = _HOOK.get()
+    whole = getattr(fn, "whole", None)
+    return tree if whole is None else whole(tree)
+
+
+def strip_data_axes(rules: dict) -> dict:
+    """The rule table with the data axes removed from every target."""
+    def strip(ax):
+        if ax is None:
+            return None
+        if isinstance(ax, str):
+            return None if ax in DATA_AXES else ax
+        kept = tuple(a for a in ax if a not in DATA_AXES)
+        return kept if kept else None
+
+    return {k: strip(v) for k, v in rules.items()}
+
+
+def make_gather_hook(mesh, axes_tree, rules, shapes_tree):
+    """Build the hook used by the step builders.
+
+    ``axes_tree`` is the model's logical-axes tree, ``rules`` the plan's
+    rule table and ``shapes_tree`` the global parameter tree (or its
+    ``meta`` stand-in), whose shapes tell the layouts apart.  A key ""
+    is the whole (per-agent) tree; a layer slice loses the leading
+    "layer" axis.  The hook's ``whole`` attribute is
+    :func:`whole_over_model`'s map."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (
+        NamedSharding,
+        map_axes,
+        resolve_pspec,
+        split_spec,
+    )
+
+    gather_rules = strip_data_axes(rules)
+    split_model = mesh.shape.get("model", 1) > 1
+
+    def model_of(axes, glob):
+        """The model-axis sharding of a leaf of global shape ``glob``
+        (None where every model rank holds it whole)."""
+        model = NamedSharding(mesh, resolve_pspec(glob, axes, gather_rules,
+                                                  mesh))
+        used = model.axes
+        return model if used and mesh.axes_size(used) > 1 else None
+
+    def one(axes, leaf, ref):
+        glob, axes = tuple(ref.shape), tuple(axes)
+        if len(axes) == leaf.ndim + 1 and axes[0] == "layer":
+            axes, glob = axes[1:], glob[1:]
+        model = model_of(axes, glob)
+        block = glob if model is None else model.shard_shape(glob)
+        shape = tuple(leaf.shape)
+        if shape == block:
+            return leaf
+        spec_r = resolve_pspec(glob, axes, rules, mesh)
+        rest = NamedSharding(mesh, split_spec(spec_r)[0])
+        if shape != rest.shard_shape(block):
+            raise ValueError(
+                f"gather hook: a leaf of shape {shape} is neither the "
+                f"model block {block} nor the block at rest "
+                f"{NamedSharding(mesh, spec_r).shard_shape(glob)}")
+        return C.gather_from_data(leaf, rest.slices(block), block,
+                                  C.Where(mesh, rest.axes, "fsdp_gather"))
+
+    def trailing(leaf, glob):
+        return tuple(leaf.shape[leaf.ndim - len(glob):])
+
+    def to_block(axes, leaf, ref):
+        glob = tuple(ref.shape)
+        model = model_of(tuple(axes), glob)
+        if model is None or trailing(leaf, glob) == model.shard_shape(glob):
+            return leaf
+        if trailing(leaf, glob) != glob:
+            raise ValueError(f"gather hook: a per-agent leaf of shape "
+                             f"{tuple(leaf.shape)} ends in neither {glob} "
+                             f"nor its model block")
+        return leaf[(Ellipsis,) + model.slices(glob)]
+
+    def to_whole(axes, leaf, ref):
+        glob = tuple(ref.shape)
+        model = model_of(tuple(axes), glob)
+        if model is None:
+            return leaf
+        return C.gather_from_data(leaf, model.slices(glob), glob,
+                                  C.Where(mesh, model.axes, "tp_grad"))
+
+    def hook(subtree, key: str):
+        if not key:
+            if not split_model:
+                return subtree
+            return map_axes(to_block, axes_tree, subtree, shapes_tree)
+        ax_sub, sh_sub = axes_tree, shapes_tree
+        for part in key.split("."):
+            ax_sub, sh_sub = ax_sub[part], sh_sub[part]
+        return map_axes(one, ax_sub, subtree, sh_sub)
+
+    hook.whole = (lambda tree: map_axes(to_whole, axes_tree, tree,
+                                        shapes_tree)
+                  if split_model else tree)
+    return hook

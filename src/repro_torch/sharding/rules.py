@@ -13,15 +13,26 @@ those two).
 
 The fleet-sharded step reads the ``agent`` rule: :func:`agent_pspec`
 says whether the fleet's agent axis shards, and warns LOUDLY where it
-replicates.  Laying parameters out over a mesh (``tree_shardings``)
-belongs to the LM half of the multi-device port.
+replicates.
+
+:func:`tree_shardings` lays a tree out over a mesh: each leaf's
+:class:`NamedSharding` gives its block's shape
+(:meth:`NamedSharding.shard_shape`, as JAX's), this rank's block of a
+global tensor (:meth:`NamedSharding.local`, by the rank's mesh
+coordinates, as JAX places ``addressable_shards``) and the global tensor
+from every rank's block (:meth:`NamedSharding.gather`, a collective over
+the spec's axes).  :func:`shard_tree` and :func:`gather_tree` do the
+same for whole trees: a global state (``repro_torch.convert`` turns a
+JAX state into one) is placed on the mesh with ``shard_tree``.
 """
 from __future__ import annotations
 
 import warnings
 from typing import Dict, Optional, Sequence, Tuple, Union
 
-from repro_torch.utils.todo import not_ported
+import torch
+
+from repro_torch.utils.tree import tree_map
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -164,22 +175,190 @@ def agent_pspec(mesh, num_agents: int,
     return spec
 
 
+def is_axes_leaf(x) -> bool:
+    """A logical-axes leaf: a tuple of names and Nones (JAX's
+    ``repro.models.param.is_axes_leaf``)."""
+    return isinstance(x, tuple) and all(
+        isinstance(a, (str, type(None))) for a in x)
+
+
+def map_axes(fn, axes_tree, *rest):
+    """``fn(axes_leaf, *leaves)`` over an axes tree and trees of its
+    structure (dicts in sorted-key order, tuples and NamedTuples)."""
+    if is_axes_leaf(axes_tree):
+        return fn(axes_tree, *rest)
+    if isinstance(axes_tree, dict):
+        return {k: map_axes(fn, axes_tree[k], *(r[k] for r in rest))
+                for k in sorted(axes_tree)}
+    parts = [map_axes(fn, *xs) for xs in zip(axes_tree, *rest)]
+    if hasattr(axes_tree, "_fields"):
+        return type(axes_tree)(*parts)
+    return type(axes_tree)(parts)
+
+
+def _shape_of(x) -> Tuple[int, ...]:
+    return tuple(x.shape if hasattr(x, "shape") else x)
+
+
 def tree_pspecs(axes_tree, shapes_tree, rules, mesh):
     """Map matching (logical axes, shapes) trees to a PartitionSpec tree.
     An axes leaf is a tuple of names and Nones; a shape leaf a tensor,
     anything with ``.shape``, or a shape tuple."""
-    def walk(axes, shapes):
-        if isinstance(axes, tuple) and all(
-                isinstance(a, (str, type(None))) for a in axes):
-            shape = shapes.shape if hasattr(shapes, "shape") else shapes
-            return resolve_pspec(tuple(shape), axes, rules, mesh)
-        if isinstance(axes, dict):
-            return {k: walk(axes[k], shapes[k]) for k in sorted(axes)}
-        return type(axes)(walk(a, s) for a, s in zip(axes, shapes))
-
-    return walk(axes_tree, shapes_tree)
+    return map_axes(lambda a, s: resolve_pspec(_shape_of(s), a, rules, mesh),
+                    axes_tree, shapes_tree)
 
 
-__getattr__ = not_ported(__name__, {
-    "tree_shardings": "queue 1 item 11",
-})
+DATA_AXES = ("pod", "data")
+
+
+def split_spec(spec: PartitionSpec) -> Tuple[PartitionSpec, PartitionSpec]:
+    """``(data part, the rest)`` of a spec: its entries over the data
+    axes ("pod", "data": ZeRO-3's ``embed``), and its others (the
+    tensor-parallel dims over "model"), each with None elsewhere."""
+    def over_data(e):
+        names = (e,) if isinstance(e, str) else tuple(e or ())
+        return bool(set(names) & set(DATA_AXES))
+
+    return (PartitionSpec(*(e if over_data(e) else None for e in spec)),
+            PartitionSpec(*(None if over_data(e) else e for e in spec)))
+
+
+def spec_axes(spec: PartitionSpec) -> Tuple[str, ...]:
+    """Every mesh axis a spec shards over, in the spec's order."""
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+class NamedSharding:
+    """A PartitionSpec on a mesh (the port's ``jax.sharding.
+    NamedSharding``): which block of a global tensor each rank holds.
+
+    Dimension ``i`` of the spec's entry ``axes`` is cut into
+    ``prod(mesh.shape[a] for a in axes)`` equal blocks; a rank holds the
+    block whose index is its coordinate over ``axes``, row-major in the
+    entry's order.  Every axis the spec leaves out replicates."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({dict(self.mesh.shape)}, {self.spec!r})"
+
+    def _entries(self, ndim: int):
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        return [() if e is None else ((e,) if isinstance(e, str)
+                                      else tuple(e)) for e in spec]
+
+    def _count(self, axes) -> int:
+        n = 1
+        for a in axes:
+            n *= int(self.mesh.shape[a])
+        return n
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of one rank's block (``NamedSharding.shard_shape``)."""
+        out = []
+        for dim, axes in zip(global_shape, self._entries(len(global_shape))):
+            n = self._count(axes)
+            if dim % n:
+                raise ValueError(f"dimension {dim} does not split over "
+                                 f"{axes!r} ({n} ways)")
+            out.append(dim // n)
+        return tuple(out)
+
+    def _block_index(self, axes) -> int:
+        i = 0
+        for a in axes:
+            k = self.mesh.axis_names.index(a)
+            i = i * self.mesh.axis_sizes[k] + self.mesh.coords[k]
+        return i
+
+    def slices(self, global_shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's block of a tensor of ``global_shape``."""
+        out = []
+        block = self.shard_shape(global_shape)
+        for per, axes in zip(block, self._entries(len(global_shape))):
+            i = self._block_index(axes)
+            out.append(slice(i * per, (i + 1) * per))
+        return tuple(out)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the global ``x`` (a contiguous copy; no
+        communication)."""
+        if not spec_axes(self.spec):
+            return x
+        return x[self.slices(x.shape)].contiguous()
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the block varies over, in the mesh's order."""
+        used = spec_axes(self.spec)
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+    def gather(self, x_local: torch.Tensor, tag: str = "gather"
+               ) -> torch.Tensor:
+        """The global tensor from every rank's block: a collective over
+        the group of the spec's axes, which every rank of the mesh calls.
+
+        An ``all_gather`` where the backend runs one on ``x_local``'s
+        device (nccl, or gloo on the CPU); else (gloo on CUDA tensors,
+        which it reduces only in ``all_reduce`` and ``broadcast``) the
+        sum of a zero-filled global buffer that holds this rank's block,
+        exact because every other term is zero."""
+        axes = self.axes
+        if not axes or self.mesh.axes_size(axes) == 1:
+            return x_local
+        shape = tuple(d * self._count(a) for d, a in zip(
+            x_local.shape, self._entries(x_local.ndim)))
+        if self.mesh.backend != "nccl" and x_local.device.type != "cpu":
+            out = x_local.new_zeros(shape)
+            out[self.slices(shape)] = x_local
+            return self.mesh.all_reduce(out, tag, axes)
+        parts = self.mesh.all_gather(x_local, tag, axes)
+        out = x_local.new_empty(shape)
+        sizes = [self.mesh.shape[a] for a in axes]
+        for j, part in enumerate(parts):
+            # the j-th rank of the group, row-major over ``axes``
+            coords, r = {}, j
+            for a, n in zip(reversed(axes), reversed(sizes)):
+                coords[a] = r % n
+                r //= n
+            peer = NamedSharding(_AtCoords(self.mesh, coords), self.spec)
+            out[peer.slices(shape)] = part
+        return out
+
+
+class _AtCoords:
+    """A mesh seen from other coordinates on some of its axes."""
+
+    def __init__(self, mesh, coords: Dict[str, int]):
+        self.axis_names, self.axis_sizes = mesh.axis_names, mesh.axis_sizes
+        self.shape = mesh.shape
+        self.coords = tuple(coords.get(a, c) for a, c in
+                            zip(mesh.axis_names, mesh.coords))
+
+
+def tree_shardings(axes_tree, shapes_tree, rules, mesh):
+    """The :class:`NamedSharding` tree of matching (axes, shapes) trees
+    (JAX's ``tree_shardings``)."""
+    specs = tree_pspecs(axes_tree, shapes_tree, rules, mesh)
+    return map_axes(lambda a, p: NamedSharding(mesh, p), axes_tree, specs)
+
+
+def shard_tree(tree, shardings):
+    """This rank's block of every leaf of a global tree (``shardings`` a
+    tree of its structure whose leaves are :class:`NamedSharding` or
+    None, which keeps the leaf)."""
+    return tree_map(lambda sh, x: x if sh is None or x is None
+                    else sh.local(x), shardings, tree)
+
+
+def gather_tree(tree, shardings, tag: str = "gather"):
+    """The global tree from every rank's blocks (a collective per
+    sharded leaf, which every rank calls in the same order)."""
+    return tree_map(lambda sh, x: x if sh is None or x is None
+                    else sh.gather(x, tag), shardings, tree)

@@ -168,9 +168,20 @@ def test_tree_pspecs_match_jax():
         rules.resolve_rules(tmesh), tmesh)
     assert tuple(got["a"]) == tuple(want["a"]) == ("model",)
     assert tuple(got["nested"]["b"]) == tuple(want["nested"]["b"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        rules.tree_shardings(axes, shapes, rules.resolve_rules(tmesh),
-                             tmesh)
+    # tree_shardings: JAX's spec and block shape (NamedSharding over an
+    # AbstractMesh of the single pod's shape)
+    from jax.sharding import AbstractMesh
+    from jax.sharding import NamedSharding as JNamedSharding
+
+    amesh = AbstractMesh(tmesh.axis_sizes, tmesh.axis_names)
+    sh = rules.tree_shardings(axes, shapes, rules.resolve_rules(tmesh),
+                              tmesh)
+    for got_sh, spec, shape in ((sh["a"], want["a"], shapes["a"]),
+                                (sh["nested"]["b"], want["nested"]["b"],
+                                 shapes["nested"]["b"])):
+        assert tuple(got_sh.spec) == tuple(spec)
+        assert got_sh.shard_shape(shape) == JNamedSharding(
+            amesh, spec).shard_shape(shape)
 
 
 def test_meshes():

@@ -1,0 +1,161 @@
+"""Rank programs for tests/test_torch_mesh_lm.py.
+
+Each function runs on one gloo rank that ``repro_torch.launch.mesh.spawn``
+starts on the CPU (``fn(mesh, *args)``, the mesh a (data, model) host
+mesh), imports nothing of JAX, and returns numpy copies of the gathered
+(global) trees, so that the test process can hold them against the JAX
+package.  Inputs arrive as numpy arrays drawn by the test from JAX's
+keys: the global parameters and the global batches.
+"""
+import torch
+
+from repro_torch import convert
+from repro_torch.analysis.cost import MemoryTracker
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import InputShape
+from repro_torch.kernels.fused_ce import ops as ce_ops
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.sharding.agent_shard import gather_agents
+from repro_torch.sharding.rules import gather_tree, shard_tree
+from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+
+_MESHES = {}
+
+
+_COUNTED = []
+
+
+def _count_plain_calls():
+    """Count the kernels' plain versions' calls as their launches (on the
+    CPU the wrappers run them in the kernels' place), so that a rank's
+    launches per step can be read; once per rank process."""
+    if _COUNTED:
+        return
+    for module, name, counter in (
+            (swa_ops, "swa_attention_ref", swa_ops.swa_attention),
+            (ce_ops, "fused_ce_lse_ref", ce_ops.fused_ce)):
+        plain = getattr(module, name)
+
+        def call(*args, plain=plain, counter=counter, **kwargs):
+            counter.launches += 1
+            return plain(*args, **kwargs)
+
+        setattr(module, name, call)
+    _COUNTED.append(True)
+
+
+def _mesh(base, model):
+    """The (world / model, model) host mesh, made once per shape in a
+    rank (every rank makes them in the same order)."""
+    if model not in _MESHES:
+        _MESHES[model] = make_host_mesh(model, device="cpu")
+    return _MESHES[model]
+
+
+def _np_tree(tree):
+    return {"/".join(str(p) for p in path): x.detach().cpu().numpy()
+            for path, x in tree_flatten_with_path(tree)}
+
+
+def _rest_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def train_run(base, job):
+    """``job``: arch, cfg overrides, the model axis's size, policy, fsdp,
+    fleet_shard, lr and remat; the global batches and, per step, the
+    global state it starts from (numpy trees: the JAX step's states, so
+    that the gaps do not compound).  Returns per step the fleet's
+    metrics, the gathered parameters and EF memory, the collectives by
+    tag and by axis and the kernel launches; and this rank's bytes of
+    parameters and optimizer state at rest."""
+    _count_plain_calls()
+    mesh = _mesh(base, job["model"])
+    cfg = reduced(get_config(job.get("arch", "smollm-135m"))).replace(
+        **job.get("cfg", {}))
+    batches = job["batches"]
+    m, per, seq = batches[0]["labels"].shape
+    shape = InputShape("mesh", seq, m * per, "train")
+    plan = S.plan_run(cfg, shape, mesh, num_agents=m, comm=job["policy"],
+                      lr=job["lr"], fsdp=job["fsdp"],
+                      remat=job.get("remat", False))
+    step = S.build_train_step(plan, compute_dtype="float32", device="cpu",
+                              mesh=mesh, fleet_shard=job["fleet_shard"],
+                              agent_metrics=True)
+    shardings = step.state_shardings
+    out = {"steps": [], "rank": mesh.rank}
+    for k, b in enumerate(batches):
+        start = convert.to_torch(job["states"][k], "cpu")
+        state = shard_tree(start._replace(step=k), shardings)
+        if k == 0:
+            out["param_bytes"] = _rest_bytes(state.params)
+            out["global_param_bytes"] = _rest_bytes(start.params)
+        mesh.collectives.reset()
+        swa0, ce0 = swa_ops.swa_attention.launches, ce_ops.fused_ce.launches
+        with MemoryTracker() as tracker:
+            state, met = step(state, convert.to_torch(b, "cpu"))
+        rec = {"peak_bytes": tracker.peak_bytes,
+               "by_tag": mesh.collectives.by_tag(),
+               "by_axis": mesh.collectives.by_axis(),
+               "launches": (swa_ops.swa_attention.launches - swa0,
+                            ce_ops.fused_ce.launches - ce0)}
+        if job["fleet_shard"]:
+            # the sharded step's per-agent vectors are its gateway's
+            met = gather_agents(met, mesh)
+        rec["metrics"] = {k: v.detach().cpu().numpy() for k, v in met.items()}
+        rec["params"] = _np_tree(gather_tree(state.params, shardings.params))
+        if state.ef_memory is not None:
+            rec["ef"] = _np_tree(gather_tree(state.ef_memory,
+                                             shardings.ef_memory))
+        out["steps"].append(rec)
+    return out
+
+
+def gather_methods(base, model):
+    """Every rank's block of seeded global tensors under several specs,
+    gathered back by ``NamedSharding.gather`` (on these CPU tensors
+    gloo's ``all_gather``); per spec, whether it gives the global tensor
+    and the collective kinds it logged."""
+    from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+
+    mesh = _mesh(base, model)
+    x = torch.randn(8, 4, 12, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for spec in (PartitionSpec("data", "model"),
+                 PartitionSpec(None, "model"), PartitionSpec(("data",)),
+                 PartitionSpec(None, None, ("data", "model")),
+                 PartitionSpec()):
+        sh = NamedSharding(mesh, spec)
+        block = sh.local(x)
+        mesh.collectives.reset()
+        same = torch.equal(sh.gather(block), x)
+        out[repr(spec)] = (same, sorted(mesh.collectives.stats()))
+    return out
+
+
+def run_jobs(base, jobs):
+    """``{name: (function name, args)}``: each job's result, in one
+    spawn (each spawn pays the ranks' start-up)."""
+    torch.set_num_threads(1)  # four ranks share the test's cores
+    return {name: globals()[fn](base, *args) for name, (fn, args) in
+            jobs.items()}
+
+
+def fail_on_rank(base, bad):
+    if base.rank == bad:
+        raise ValueError(f"rank {bad} fails on purpose")
+    return base.rank
+
+
+def mismatched_collectives(base, _):
+    """Rank 0 issues one more all_reduce than the others: the others
+    wait in their barrier until the process group times out."""
+    mesh = _mesh(base, 2)
+    x = torch.ones(4)
+    if mesh.rank == 0:
+        mesh.all_reduce(x, "odd", ("model",))
+    mesh.barrier()
+    return float(x.sum())
+

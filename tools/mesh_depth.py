@@ -1,0 +1,69 @@
+"""Run chip_smoke.py's [mesh] phase alone at a chosen llama3.2-3b depth,
+after the [ce] check of the vocabulary block a [mesh] rank launches on.
+
+    python3 tools/mesh_depth.py 4 2
+
+tries each depth in turn (the layers of MESH_RUNS["llama"]) until one
+passes, printing the phase's lines, and writes the passing phase's record
+to chiprun_out/mesh_<layers>.json.  Needs one card; the four gloo ranks
+share it as in chip_smoke.py.
+"""
+import json
+import os
+import sys
+import time
+import traceback
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "src"))
+import chip_smoke as cs  # noqa: E402
+
+if "MESH_LAYERS" in os.environ:
+    # read again by every spawned rank, which re-imports this module
+    cs.MESH_RUNS["llama"]["layers"] = int(os.environ["MESH_LAYERS"])
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("mesh_depth: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.fused_ce import ops as ce_ops
+    from repro_torch.kernels.fused_ce import ref as ce_ref
+    from repro_torch.kernels.gain_reduce import ops as gr_ops
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    card = cs.nvidia_smi()
+    print("[card]", card, torch.__version__, torch.version.cuda, flush=True)
+    cs.phase_build(gr_ops, swa_ops, ce_ops)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    print(json.dumps(cs._ce_mesh_block(torch, ce_ops, ce_ref, gen)))
+    torch.cuda.empty_cache()
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    for layers in sys.argv[1:]:
+        os.environ["MESH_LAYERS"] = layers
+        cs.MESH_RUNS["llama"]["layers"] = int(layers)
+        t0 = time.perf_counter()
+        try:
+            rec = cs.phase_mesh(torch, card)
+        except Exception:
+            traceback.print_exc()
+            print(f"[depth] llama at {layers} layers failed after "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            continue
+        print(f"[depth] llama at {layers} layers passed in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        (out / f"mesh_{layers}.json").write_text(
+            json.dumps(rec, default=str, indent=1))
+        return 0
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
