@@ -113,7 +113,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               and restore ms (median of 5), the sessions' build ms, and
               rounds/s with and without checkpoints.
    kill     — ``faults.kill_and_resume`` on the card with CI's numbers
-              (the adaptive mix, 600 rounds, SIGKILL at round 200, a
+              at half the rounds
+              (the adaptive mix, 300 rounds, SIGKILL at round 100, a
               checkpoint every 50, a log every 20) through ``python -m
               repro_torch.launch.serve --fleet``: the lineage's checks
               (restart recorded, round target reached, counters monotone,
@@ -132,7 +133,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               starts on the backend ``choose_backend`` picks (gloo with
               one card: the ranks share it), each serving its 16 agents
               through ``build_linreg_fleet_session(mesh=)``: (a)
-              ``TIERED_M64_QUADRATIC`` for 200 rounds, each rank
+              ``TIERED_M64_QUADRATIC`` for 100 rounds (200 until [mesh]
+              needed the time), each rank
               launching ``gain_reduce`` once per round and the payload
               ``all_reduce`` running once per round; (b)
               ``TIERED_M64_ADAPTIVE_LOSSY`` for 240 rounds, its
@@ -160,20 +162,51 @@ Phases (any failure exits nonzero; no result line is printed then):
               ``int8+ef``, sgd, fp32, 2 agents × 2 × 1024 tokens, weights
               from seed 0): llama3.2-3b at full width (every head, kv
               head, ff column and vocab row split over model) cut to 2
-              layers, 3 steps with fsdp off and 3 with fsdp on; then
-              smollm-135m at full depth (its 9/3 heads whole, ff and
-              vocab split), fsdp on, 2 steps, and 1 step with
-              ``fleet_shard=True``.  Rank 0 first runs the single-process
-              step of each on the card; every job is held to it (first
-              step's parameters per element, int8 one-level exemptions
-              counted; decisions equal and loss, gain and |g| within
-              1e-4 every step; the last step's parameters in L2), and
-              each rank launches ``swa_attention`` 2 × layers times and
+              layers, 2 steps with fsdp off and 2 with fsdp on (3 and 3
+              until [mesh serve] needed the time); then smollm-135m at
+              full depth (its 9/3 heads whole, ff and vocab split), fsdp
+              on, 1 step (2 until then), and 1 step with
+              ``fleet_shard=True``; then per-agent policies on smollm at
+              full depth, m = 4 (two agents on each data slice) × 1 ×
+              1024 tokens, 2 steps each: the four-tier tuple (``always``,
+              ``gain_lookahead(lam=0.01)|fp16``, ``…|int8+ef``,
+              ``…|topk(0.05)|int8+ef``) with fsdp on, and
+              ``gain_lookahead(lam=0.01)|int8+ef @ delay(max_lag=2)``.
+              Rank 0 first runs the single-process step of each on the
+              card; every job is held to it (first step's parameters per
+              element, a rounding step where an agent's input lies at a
+              midpoint of its wire format counted; decisions and
+              deliveries equal and loss, gain and |g| within 1e-4 every
+              step; the last step's parameters in L2; after the first
+              step the EF memory, the controller and channel rows and the
+              delay line's payloads of every agent, gathered leaf by
+              leaf, within 1e-4 of each agent's max|g|), and each rank
+              launches ``swa_attention`` 2 × layers times and
               ``fused_ce`` twice a step, as the single-process step.
               Prints per rank the ms per step beside the single-process
               step's, the collectives per step by kind and mesh axes
               with their operand and wire bytes, the peak memory and the
               bytes held at rest.
+   mesh serve — prefill and decode over the same (data 2, model 2) mesh
+              of 4 gloo ranks, in [mesh]'s spawn after its jobs
+              (``build_prefill_step(mesh=...,
+              cache_len=...)``, ``build_serve_step(mesh=...)``):
+              llama3.2-3b at full width and full depth (28 layers), fp32,
+              weights from seed 0, each rank drawing only its blocks; B 4
+              × 1024 prompt tokens (2 requests on each data slice), then
+              16 decode steps teacher-forced on the single-process greedy
+              tokens, under both cache layouts (``decode_heads``: the
+              rank's kv heads; ``cache_seq_shard``: its slice of the 1040
+              positions, flash-decoding).  Rank 0 first runs the
+              single-process prefill and greedy decode on the card; the
+              prefill's logits and each step's are held to it within
+              1e-4 + 1e-4·|ref| ([lm]'s card-against-CPU tolerance), and
+              the greedy tokens equal but where the reference's top two
+              lie within that tolerance (counted).  28 ``swa_attention``
+              launches per prefill per rank, none per decode step.
+              Prints ms per prefill and per decode step beside the
+              single-process ones, the collectives of a prefill and of a
+              decode step by tag, and each rank's peak.
 4. swa      — holds ``swa_attention`` against its plain version on the
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes
               (with the moe, hybrid and vlm families', and hd 32), one
@@ -217,13 +250,14 @@ Phases (any failure exits nonzero; no result line is printed then):
    train    — trains smollm-135m at full width and depth (fp32, weights
               from seed 0) through the training CLI's `build_train_step`: m = 4
               agents, global batch 8 × 1024 tokens, ``gain_lookahead(lam=
-              0.01)|int8+ef``, sgd lr 0.05; 3 warm-up and 10 timed steps.
+              0.01)|int8+ef``, sgd lr 0.05; 3 warm-up and 6 timed steps.
               Each step launches ``fused_ce`` twice (the agents' losses,
               the lookahead probe) and ``swa_attention`` 60 times (30
               layers, twice); ms per step, tokens/s, the losses, num_tx,
               peak memory; every loss finite and the loss on the first
-              batch lower after the 13 steps.  Then one step at 2 layers
-              and full width on the card and on the CPU: loss and
+              batch lower after the 9 steps.  Then one step at 2 layers
+              and full width on the card and on the CPU (64 tokens an
+              agent): loss and
               grad_norm within 1e-4 relative, params within 1e-4 of each
               leaf's largest value, the same decisions; the peak memory
               may exceed the earlier runs' 36.75 GB by at most 1 %.
@@ -243,7 +277,7 @@ Phases (any failure exits nonzero; no result line is printed then):
    train quadratic — the same model, shape and batches gated by
               ``gain_quadratic(lam=0.01)|int8+ef``: each agent's gain from
               a Hessian-vector product, forward over reverse through both
-              kernels; 1 warm-up and 3 timed steps, 2 ``fused_ce`` and 60
+              kernels; 1 warm-up and 2 timed steps, 2 ``fused_ce`` and 60
               ``swa_attention`` launches per step, finite gains, ms per
               step and peak memory; one 2-layer step against the CPU as
               above, the mean gain within 1e-4 too.
@@ -287,15 +321,17 @@ Phases (any failure exits nonzero; no result line is printed then):
               greedy tokens equal.
    moe train — mixtral-8x7b at full width, 1 layer, through the training
               CLI's step: m = 2, global batch 2 × 1024, the [train]
-              policy; 1 warm-up and 3 timed steps, 2 ``fused_ce`` and 2
+              policy; 1 warm-up and 2 timed steps (3 until PR 26's
+              [mesh] needed the time), 2 ``fused_ce`` and 2
               ``swa_attention`` launches per step, finite losses and
               router aux, ms per step, tokens/s, peak memory; the last
               step run twice from one state bitwise equal (per-leaf
               checksums); one step with d_ff_expert narrowed to 1024 on
               the card and the CPU under [train]'s rules.
-   hybrid   — zamba2-1.2b at full width cut to 12 of its 38 Mamba2
-              layers (2 sites of the shared attention block; [mesh]'s
-              time came out of this replay), fp32, seed 0:
+   hybrid   — zamba2-1.2b at full width cut to 6 of its 38 Mamba2
+              layers (1 site of the shared attention block; [mesh]'s
+              and [mesh serve]'s time came out of this replay), fp32,
+              seed 0:
               batch 4, a 256-token prompt replayed through decode, 32
               tokens; no kernel launch in prefill or decode; prefill ms,
               decode ms per step, tokens/s, peak memory; decode against
@@ -307,10 +343,13 @@ Phases (any failure exits nonzero; no result line is printed then):
               ``swa_attention`` (7 sites, loss and probe) and 2
               ``fused_ce`` launches per step, ms per step, peak memory;
               then cut to 12 layers (2 sites) without remat: 4 and 2
-              launches per step, ms, peak memory (the profile's step); a
+              launches per step, ms, peak memory (the profile's step);
+              1 warm-up and 2 timed steps each (3 until [mesh] needed
+              the time); a
               2-layer step on the card and the CPU.
-   xlstm    — xlstm-350m at full width cut to 6 of its 12 mLSTM/sLSTM
-              pairs ([mesh]'s time came out of this replay), fp32, seed
+   xlstm    — xlstm-350m at full width cut to 3 of its 12 mLSTM/sLSTM
+              pairs ([mesh]'s and [mesh serve]'s time came out of this
+              replay), fp32, seed
               0: batch 4, a 256-token prompt replayed through
               decode, 32 tokens; no kernel launch; decode bitwise a fresh
               replay; the chunkwise forward over 2 × 1024 tokens (4 mLSTM
@@ -320,7 +359,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               rounding with the position); 2 layers on the card and the
               CPU.
    xlstm train — xlstm-350m at full width cut to 2 layers (1 pair; 4
-              until [mesh] needed the time),
+              until [mesh] needed the time), 1 warm-up and 2 timed steps
+              (3 until [mesh serve] needed the time),
               m = 2, global batch 2 × 512 (2 mLSTM chunks): 2 ``fused_ce``
               and no ``swa_attention`` launch per step, the last step run
               twice from one state bitwise equal; a 2-layer step on the
@@ -380,19 +420,20 @@ Phases (any failure exits nonzero; no result line is printed then):
               parts, at the bf16 rate) and the fp32 CUDA cores' (67
               TFLOP/s), each with the kernel's share of it.  Only the
               path's bound goes into the ``kernels`` record.
-   ce times — the same for ``fused_ce`` at (8192, 576, 49152), (4096,
+   ce times — the same for ``fused_ce`` (each call's median of 10,
+              not 100, since [mesh serve]) at (8192, 576, 49152), (4096,
               3072, 128256) and the moe and hybrid train losses' (2048,
               4096, 32000) and (1024, 2048, 32000), fp32 and bf16, beside its plain version,
               ``F.cross_entropy(x @ table.T, labels, reduction="none")``
               and both bounds (``bf16-mma``: flops at the bf16 rate).
-8. profile  — 20 more fleet rounds under torch.profiler (device ops,
+8. profile  — 10 more fleet rounds under torch.profiler (device ops,
               busy time and idle share per round, top kernels and host
-              operators); then 20 rounds each of [slice], [fleet adaptive]
-              and [fleet lossy] in traces that must hold exactly 20 times
+              operators); then 10 rounds each of [slice], [fleet adaptive]
+              and [fleet lossy] in traces that must hold exactly 10 times
               one round's records (taken again when short, as
               ``device_ms`` does): device ops, busy time, idle share;
-              then 20 rounds of [frontier quadratic] the same way; then
-              one prefill and 16 decode steps of LM run
+              then 10 rounds of [frontier quadratic] the same way; then
+              one prefill and 8 decode steps of LM run
               (a): the kernel's share of the prefill's device time and
               the device's idle share in decode; then one train step:
               device time by kernel, device ops and idle share; then one
@@ -449,8 +490,9 @@ ADAPTIVE_TAIL = 50
 # over 512 trials; the CPU holds the first 8 trials on the same batches
 SIM_LAMS = (0.0, 0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0)
 SIM_TRIALS, SIM_CHECK_TRIALS = 512, 8
-# sweeps in the [profile] phase's trace of the [sim] sweep
-SIM_PROFILED_SWEEPS = 2
+# sweeps in the [profile] phase's trace of the [sim] sweep (2 until
+# PR 26's [mesh] and [mesh serve] needed the time)
+SIM_PROFILED_SWEEPS = 1
 # card vs CPU: 40 rounds of fp32 sums in other orders, free-running
 SIM_TOL = 1e-4
 ROUNDS = 200
@@ -463,7 +505,8 @@ TOL_LOSSY = 0.15    # benchmarks/lossy_channels.py:57
 TOL_BUDGET = 0.15   # benchmarks/async_rounds.py:68
 CHURN_WINDOW = (55, 65)   # around round 60, where the late agents join
 RANDOM_COUNTERS = 1 << 20
-PROFILED_ROUNDS = 20
+# fleet rounds in each [profile] trace (20 until [mesh] needed the time)
+PROFILED_ROUNDS = 10
 # the switch and unroll dispatch paths at m = 64: rounds held to hybrid's
 DISPATCH_ROUNDS = 4
 # one step of two paths from the same state (ROADMAP's parity contract)
@@ -472,6 +515,10 @@ STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
 # second fleet size (the m = 64 tiers, 16 times over), the sketch-native
 # model widths, and the spawn's time limit
 SHARD_GATEWAYS = 4
+# rounds of the sharded quadratic fleet (ROUNDS until [mesh] needed the
+# time; the lossy fleet keeps NET_ROUNDS: its budgets are judged on the
+# last NET_TAIL)
+SHARD_ROUNDS = 100
 SHARD_BIG_M = 1024
 SKETCH_BIG_N, SKETCH_SMALL_N, SKETCH_ROUNDS = 4096, 6, 3
 SKETCH_SMALL = "gain_lookahead(lam=0.5)|sketch(rows=5,cols=16,seed=3)+ef"
@@ -534,7 +581,7 @@ LM_CHECK = dict(batch=2, prompt=256, gen=16)
 # card vs CPU and decode vs prefill, fp32 logits: 30 layers of fp32 sums
 # in other orders; bf16 or TF32 arithmetic would miss it by 10-100x
 LM_LOGIT_TOL = 1e-4
-LM_PROFILED_STEPS = 16
+LM_PROFILED_STEPS = 8
 
 # fused_ce shapes (T, D, V): token counts from a decode batch to the train
 # step's 8 × 1024, widths of smollm-135m (576) and llama3.2-3b (3072) and
@@ -543,6 +590,9 @@ LM_PROFILED_STEPS = 16
 CE_T = (64, 1000, 8192)
 CE_D = (64, 576, 3072)
 CE_V = (7, 1000, 49152, 50257, 128256)
+# [ce times]' calls per median (TIMED_RUNS until [mesh serve] needed
+# the time, then 25; each call there takes 0.6–68 ms)
+CE_TIMED_RUNS = 10
 CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256),
             # mixtral's and zamba2's train losses (m = 2 agents' tokens)
             (2048, 4096, 32000), (1024, 2048, 32000),
@@ -571,7 +621,8 @@ CE_GRAD_TOL = 1e-5
 CE_GRAD_SHAPE = (1000, 576, 49152)
 
 # the train slice: smollm-135m at full width and depth, fp32
-TRAIN = dict(agents=4, batch=8, seq=1024, warmup=3, timed=10, lr=0.05,
+# (10 timed steps until [mesh] needed the time)
+TRAIN = dict(agents=4, batch=8, seq=1024, warmup=3, timed=6, lr=0.05,
              comm="gain_lookahead(lam=0.01)|int8+ef")
 # the gradient-only path's peak memory in the earlier runs of this phase
 # (NVIDIA H100 80GB HBM3, 700 W): the forward-mode rules of the LM
@@ -579,10 +630,12 @@ TRAIN = dict(agents=4, batch=8, seq=1024, warmup=3, timed=10, lr=0.05,
 TRAIN_PEAK_GB, TRAIN_PEAK_SLACK = 36.75, 0.01
 # the same slice gated by eq. (28): each agent's gain from a
 # Hessian-vector product (forward over reverse through both kernels)
-TRAIN_QUAD = dict(TRAIN, warmup=1, timed=3,
+TRAIN_QUAD = dict(TRAIN, warmup=1, timed=2,
                   comm="gain_quadratic(lam=0.01)|int8+ef")
-# card vs CPU: one step of the same model cut to 2 layers, full width
-TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=128)
+# card vs CPU: one step of the same model cut to 2 layers, full width,
+# on each batch's first 64 positions (128 until [mesh] needed the time:
+# the families' CPU steps are most of their phases)
+TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=64)
 # swa_attention launches per causal self-attention site in one step
 # ([remat], [microbatch]: per slice): the agents' losses and the probe
 # (lookahead) or the HVP's forward (quadratic); under remat the backward
@@ -591,13 +644,15 @@ TRAIN_CHECK = dict(layers=2, agents=2, per_agent=1, seq=128)
 REMAT_SWA_PER_LAYER = {("lookahead", False): 2, ("lookahead", True): 3,
                        ("quadratic", False): 2, ("quadratic", True): 5}
 # timed calls of each [remat]/[microbatch] variant, after one warm-up
-KNOB_TIMED = 2
+# (2 until [mesh] needed the time)
+KNOB_TIMED = 1
 # durable serving: each half of the [durable] lineage, its checkpoint
 # period; [kill] drives the faults CLI with CI's kill-and-resume numbers
-# (.github/workflows/ci.yml:185-200); [telemetry] serves in thread mode
+# (.github/workflows/ci.yml:185-200) at half the rounds (600 and a kill
+# at 200 until [mesh] needed the time); [telemetry] serves in thread mode
 # with a stalled round and a crashed metro agent
 DURABLE_ROUNDS, DURABLE_EVERY, DURABLE_TIMED = 100, 50, 5
-KILL = dict(mix="tiered_m64_adaptive", rounds=600, kill_round=200,
+KILL = dict(mix="tiered_m64_adaptive", rounds=300, kill_round=100,
             ckpt_every=50, log_every=20)
 TELEMETRY = dict(watchdog=0.5, stall_round=40, rounds=200,
                  crash_start=60, crash_rounds=80)
@@ -626,25 +681,25 @@ MOE_CHECK = dict(layers=1, batch=2, prompt=64, gen=8)
 # 2 (the gradients, EF memories and lookahead probes are 6 trees of the
 # 6.85 GB parameters), global batch 2 × 1024; its card-vs-CPU step narrows
 # the experts (d_ff_expert only) so that the CPU step stays short
-MOE_TRAIN = dict(layers=1, agents=2, batch=2, seq=1024, warmup=1, timed=3)
+MOE_TRAIN = dict(layers=1, agents=2, batch=2, seq=1024, warmup=1, timed=2)
 MOE_TRAIN_CHECK_FF = 1024
 # router probabilities within this (relative) of each other are a
 # near-tie that a last-bit gap between card and CPU may flip
 ROUTE_TIE = 1e-5
 # the hybrid family: zamba2-1.2b at full width (38 Mamba2 layers, 7
 # sites of the shared attention block; 1.17 B parameters in the init)
-# served by replay cut to 12 layers (2 sites: the replay is host-bound,
-# ~45 ms a token at 38, and [mesh] needed the time), its card-vs-CPU
-# check at 6 (1 site: at 19 layers the CPU took 22.8 s); trained at full
+# served by replay cut to 6 layers (1 site: the replay is host-bound,
+# ~45 ms a token at 38; 12 until [mesh serve] needed the time), as its
+# card-vs-CPU check (at 19 layers the CPU took 22.8 s); trained at full
 # width cut to 12 layers (2
 # sites), global batch 2 × 512 (the SSD keeps (m, L, L, h) decay tiles of
 # 33.6 MB per chunk and layer for the backward); its card-vs-CPU step at
 # 2 layers (1 site)
 HYBRID_ARCH = "zamba2-1.2b"
-HYBRID_SERVE = dict(layers=12, batch=4, prompt=256, gen=32)
+HYBRID_SERVE = dict(layers=6, batch=4, prompt=256, gen=32)
 HYBRID_CHECK = dict(layers=6, batch=2, prompt=64, gen=8)
 HYBRID_TRAIN = dict(layers=12, agents=2, batch=2, seq=512, warmup=1,
-                    timed=3)
+                    timed=2)
 # ... and at all 38 layers (7 sites) with remat: each Mamba2 layer keeps
 # only its input for the backward, so the parameter state (weights, 2
 # gradients, 2 EF memories, 2 probes: ~7 × 4.7 GB) is what fills the card
@@ -659,9 +714,9 @@ HYBRID_TRAIN_CHECK_LAYERS = 2
 # same run
 HYBRID_SENS_FACTOR = 4
 # the ssm family: xlstm-350m at full width (12 mLSTM/sLSTM pairs, d
-# 1024, 4 heads, vocab 50304) served by replay cut to 12 layers (6
-# pairs: the replay of 2 × 1024 positions is host-bound, and [mesh]
-# needed the time); its chunkwise
+# 1024, 4 heads, vocab 50304) served by replay cut to 6 layers (3
+# pairs: the replay of 2 × 1024 positions is host-bound, and [mesh] and
+# [mesh serve] needed the time); its chunkwise
 # forward over XLSTM_FORWARD_S tokens (4 mLSTM chunks of 256) against the
 # replay's logits at every position; trained at full width cut to 2
 # layers (1 pair: every sLSTM position is a host iteration of ~20 ops
@@ -669,10 +724,11 @@ HYBRID_SENS_FACTOR = 4
 # needed the time), global batch 2 ×
 # 512 (2 mLSTM chunks); card vs CPU at 2 layers (1 pair)
 XLSTM_ARCH = "xlstm-350m"
-XLSTM_SERVE = dict(layers=12, batch=4, prompt=256, gen=32)
+XLSTM_SERVE = dict(layers=6, batch=4, prompt=256, gen=32)
 XLSTM_FORWARD = dict(batch=2, seq=1024)
 XLSTM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
-XLSTM_TRAIN = dict(layers=2, agents=2, batch=2, seq=512, warmup=1, timed=3)
+# 2 timed steps (3 until [mesh serve] needed the time)
+XLSTM_TRAIN = dict(layers=2, agents=2, batch=2, seq=512, warmup=1, timed=2)
 # [profile] xlstm decode: steps after a short replayed prompt (a profile
 # of a whole train step, ~100 k device ops, costs ~2 minutes of trace
 # processing)
@@ -687,7 +743,7 @@ XLSTM_PROFILED_PROMPT, XLSTM_PROFILED_STEPS = 16, 8
 WHISPER_ARCH = "whisper-medium"
 WHISPER_SERVE = dict(batch=4, frames=1500, gen=32, q_blocks=(500, 512))
 WHISPER_CHECK = dict(layers=1, batch=2, frames=300, gen=8)
-WHISPER_TRAIN = dict(agents=2, batch=2, seq=1500, warmup=1, timed=3)
+WHISPER_TRAIN = dict(agents=2, batch=2, seq=1500, warmup=1, timed=2)
 # ... and with remat and the encoder's score tiles in 3 query blocks of
 # 500 frames (each checkpointed)
 WHISPER_TRAIN_REMAT = dict(remat=True, attn_q_block=500)
@@ -702,7 +758,7 @@ WHISPER_ENC_TOL = 1e-4
 VLM_ARCH = "phi-3-vision-4.2b"
 VLM_SERVE = dict(batch=4, prompt=512, gen=32)
 VLM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
-VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=3)
+VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=2)
 # an m = 2 step's parameter-sized trees: weights, 2 gradients, 2 EF
 # memories, 2 lookahead probes
 VLM_STATE_TREES = 7
@@ -721,22 +777,44 @@ VLM_STATE_TREES = 7
 # dispatch's epilogue holds the gradient, g + ef, the payload and the
 # residual of every leaf at once (the homogeneous step's goes leaf by
 # leaf), and at llama's width the four ranks ran out of the card there
-# (16.1 GB a rank).  The jobs: (run, fsdp, fleet_shard, steps), each
-# from seed 0.
+# (16.1 GB a rank).  The per-agent jobs run m = 4 agents of 1 × 1024
+# tokens, so a rank holds the same 2048 tokens as the smollm job's.
+# llama's jobs take 2 steps each (3 until [mesh serve] needed the time:
+# the second step's parameters are held in L2, fsdp on's blocks to fsdp
+# off's, and its time is the steady step's) and the smollm job 1 (2
+# until then).  The jobs: (run, fsdp, fleet_shard, steps, policy),
+# each from seed 0.
 MESH_WORLD, MESH_MODEL = 4, 2
-MESH_TIMEOUT_S = 600
+MESH_TIMEOUT_S = 900
 MESH_COMM = "gain_lookahead(lam=0.01)|int8+ef"
+MESH_LA = "gain_lookahead(lam=0.01)"
+MESH_TIERS = ("always", MESH_LA + "|fp16", MESH_LA + "|int8+ef",
+              MESH_LA + "|topk(0.05)|int8+ef")
+MESH_DELAY = MESH_COMM + " @ delay(max_lag=2)"
 MESH_LR = 0.05
 MESH_RUNS = {
     "llama": dict(arch="llama3.2-3b", layers=2, agents=2, per_agent=2,
-                  seq=1024, steps=3),
+                  seq=1024, steps=2),
     "smollm": dict(arch="smollm-135m", layers=30, agents=2, per_agent=2,
-                   seq=1024, steps=2),
+                   seq=1024, steps=1),
+    "smollm_m4": dict(arch="smollm-135m", layers=30, agents=4, per_agent=1,
+                      seq=1024, steps=2),
 }
-MESH_JOBS = {"fsdp_off": ("llama", False, False, 3),
-             "fsdp_on": ("llama", True, False, 3),
-             "smollm": ("smollm", True, False, 2),
-             "fleet_shard": ("smollm", True, True, 1)}
+MESH_JOBS = {"fsdp_off": ("llama", False, False, 2, MESH_COMM),
+             "fsdp_on": ("llama", True, False, 2, MESH_COMM),
+             "smollm": ("smollm", True, False, 1, MESH_COMM),
+             "fleet_shard": ("smollm", True, True, 1, MESH_COMM),
+             "tiers": ("smollm_m4", True, False, 2, MESH_TIERS),
+             "delay": ("smollm_m4", False, False, 2, MESH_DELAY)}
+
+# [mesh serve]: llama3.2-3b at full width and depth on the same 4 ranks,
+# fp32.  A rank's blocks are 6.42 of the model's 12.85 GB (every head, kv
+# head, ff column and vocab row split over model 2); four ranks and rank
+# 0's single-process copy, run first and freed before the ranks build,
+# never hold more than ~26 GB of weights at once.  The cache holds the
+# prompt and the generated tokens: 1040 slots, which model 2 divides.
+MESH_SERVE = dict(arch="llama3.2-3b", batch=4, prompt=1024, gen=16)
+MESH_SERVE_LAYOUTS = ("decode_heads", "cache_seq_shard")
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -2518,7 +2596,7 @@ def _shard_rank(mesh) -> dict:
         "rank": mesh.rank, "backend": mesh.backend, "world": mesh.size,
         "device": str(mesh.device),
         "quadratic": _shard_serve(torch, gr_ops, mesh, TIERED_M64_QUADRATIC,
-                                  ROUNDS),
+                                  SHARD_ROUNDS),
         "lossy": _shard_serve(torch, gr_ops, mesh, TIERED_M64_ADAPTIVE_LOSSY,
                               NET_ROUNDS),
         "bytes": _shard_bytes(torch, mesh),
@@ -2587,7 +2665,8 @@ def phase_shard(torch, card: str, rates: dict) -> dict:
               "rank_devices": [r["device"] for r in ranks],
               "spawn_s": spawn_s}
     for key, net, rounds, unsharded in (
-            ("quadratic", TIERED_M64_QUADRATIC, ROUNDS, rates["slice"]),
+            ("quadratic", TIERED_M64_QUADRATIC, SHARD_ROUNDS,
+             rates["slice"]),
             ("lossy", TIERED_M64_ADAPTIVE_LOSSY, NET_ROUNDS,
              rates["fleet_lossy"])):
         runs = [r[key] for r in ranks]
@@ -2768,13 +2847,71 @@ def _cpu_tree(tree):
     return {p: x.detach().cpu() for p, x in tree_flatten_with_path(tree)}
 
 
-def _mesh_reference(torch, ce_ops, swa_ops, name: str, dev) -> dict:
-    """The single-process step (no mesh) of run ``name`` on the card from
-    seed 0: its per-step metrics and ms, the parameters after the first
-    and the last step and the agents' gradients at the start (for the
-    int8 exemptions), all on the CPU; launches per step."""
-    from repro_torch.comm.bank import batch_prologue
+def _mesh_key(run: str, comm) -> str:
+    """A single-process reference's key: the run and its policy."""
+    return run if comm == MESH_COMM else f"{run}:{_comm_name(comm)}"
+
+
+def _comm_name(comm) -> str:
+    return "tiers" if isinstance(comm, tuple) else (
+        "delay" if comm == MESH_DELAY else str(comm))
+
+
+def _mesh_plan(cfg, run: dict, comm, mesh=None, fsdp=None):
     from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as S
+
+    shape = InputShape("mesh", run["seq"], run["agents"] * run["per_agent"],
+                       "train")
+    return S.plan_run(cfg, shape, mesh, num_agents=run["agents"],
+                      comm=comm, lr=MESH_LR, fsdp=fsdp)
+
+
+def _policy_ties(torch, comm, agents: int, grads: dict) -> tuple:
+    """Per leaf of the agents' first-step gradients (EF memory 0, so
+    ``g + ef`` is g; ``(agents, *shape)`` on the card): the step of each
+    agent's wire format where an entry lies within TRAIN_TOL · its
+    max|g| of a rounding midpoint (``CompressorChain.rounding_ties``) or
+    of a leading ``topk`` stage's threshold (the k-th largest |g|: kept
+    or not, the entry is sent as its wire value or as 0, so the step is
+    |g| and the chain's rounding spacing), else 0, on the CPU; and each
+    agent's max|g| per leaf.  Two computations of g within that gap may
+    send such entries, and only those, one step apart."""
+    from repro_torch.comm.policy import CommPolicy
+
+    specs = comm if isinstance(comm, tuple) else (comm,) * agents
+    chains = [CommPolicy.parse(p).chain() for p in specs]
+    ties, amax = {}, {}
+    for path, g in grads.items():
+        top = g.abs().amax(dim=tuple(range(1, g.ndim)))
+        out = torch.zeros_like(g)
+        for i, chain in enumerate(chains):
+            if not chain.stages:
+                continue
+            gi, tol = g[i:i + 1], TRAIN_TOL * top[i]
+            step = chain.rounding_ties(gi, tol)
+            first = chain.stages[0].spec
+            if first.name == "topk":
+                flat = gi.abs().reshape(1, -1)
+                k = max(1, int(float(first.arg("frac")) * flat.shape[1]))
+                thr = torch.topk(flat, k, dim=1).values[:, -1]
+                kept = ((gi.abs() - thr).abs() <= tol)
+                step = torch.where(kept, torch.maximum(
+                    step, gi.abs() + chain.spacing(gi)), step)
+            out[i:i + 1] = step
+        ties[path], amax[path] = out.cpu(), top.cpu()
+    return ties, amax
+
+
+def _mesh_reference(torch, ce_ops, swa_ops, name: str, comm, dev) -> dict:
+    """The single-process step (no mesh) of run ``name`` under ``comm`` on
+    the card from seed 0: its per-step metrics (with the per-agent
+    vectors) and ms, the parameters after the first and the last step,
+    and the agents' first-step gradients (for the int8 exemptions) or,
+    for the per-agent jobs, each agent's rounding ties and max|g| and the
+    per-agent slots after the first step, all on the CPU; launches per
+    step."""
+    from repro_torch.comm.bank import batch_prologue
     from repro_torch.core.api import init_train_state
     from repro_torch.launch import steps as S
     from repro_torch.models import build
@@ -2783,17 +2920,20 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, dev) -> dict:
     cfg, run = _mesh_cfg(name)
     batches = _mesh_batches(torch, cfg, run["agents"], run["per_agent"],
                             run["seq"], run["steps"], dev)
-    shape = InputShape("mesh", run["seq"], run["agents"] * run["per_agent"],
-                       "train")
-    plan = S.plan_run(cfg, shape, num_agents=run["agents"],
-                      comm=MESH_COMM, lr=MESH_LR)
-    step = S.build_train_step(plan, compute_dtype="float32", device=dev)
+    plan = _mesh_plan(cfg, run, comm)
+    step = S.build_train_step(plan, compute_dtype="float32", device=dev,
+                              agent_metrics=True)
     model = build(plan.cfg)
     opt = opt_lib.from_config(plan.train_cfg)
     state = init_train_state(_mesh_params(torch, model, dev), opt,
                              plan.train_cfg, device=dev)
     _, grads = batch_prologue(model.loss_fn)(state.params, batches[0])
-    out = {"grads": _cpu_tree(grads), "steps": []}
+    out = {"steps": []}
+    if comm == MESH_COMM:
+        out["grads"] = _cpu_tree(grads)
+    else:
+        out["ties"], out["amax"] = _policy_ties(
+            torch, comm, run["agents"], _flat_tree(grads))
     del grads
     torch.cuda.empty_cache()
     for k, b in enumerate(batches):
@@ -2802,8 +2942,8 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, dev) -> dict:
         t0 = time.perf_counter()
         state, m = step(state, b)
         torch.cuda.synchronize()
-        print(f"[mesh] rank 0 single-process {name} step {k}: "
-              f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+        print(f"[mesh] rank 0 single-process {_mesh_key(name, comm)} step "
+              f"{k}: {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
         out["steps"].append({
             "ms": (time.perf_counter() - t0) * 1e3,
             "metrics": {key: v.cpu() for key, v in m.items()},
@@ -2811,6 +2951,10 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, dev) -> dict:
                          ce_ops.fused_ce.launches - ce0)})
         if k == 0:
             out["first"] = _cpu_tree(state.params)
+            if comm != MESH_COMM:
+                out["slots"] = {slot: _cpu_tree(getattr(state, slot))
+                                for slot in _SLOTS
+                                if getattr(state, slot) is not None}
     out["last"] = _cpu_tree(state.params)
     del state, step, batches, model
     gc.collect()
@@ -2818,19 +2962,90 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, dev) -> dict:
     return out
 
 
-def _mesh_job(torch, ce_ops, swa_ops, mesh, name: str, fsdp: bool,
-              fleet_shard: bool, steps: int, keep: bool = False,
-              against=None) -> dict:
-    """``steps`` steps of run ``name`` on ``mesh`` from seed 0: per step
-    the launches, the collectives by kind and axis, the ms; the bytes at
-    rest and this rank's peak; with ``keep`` the rank's blocks at rest
-    after the first and the last step (CPU); and either, on rank 0, the
-    gathered
-    parameters then, or, with ``against`` (another job's result on this
-    rank, its blocks a superset of these), the largest gap of this
-    rank's blocks from that job's over every rank (one small
-    ``all_reduce``: no gather)."""
-    from repro_torch.configs.base import InputShape
+_SLOTS = ("ef_memory", "ctrl_state", "net_state")
+
+
+def _flat_tree(tree):
+    """``{path: leaf}`` of a tree, each left on its device."""
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    return dict(tree_flatten_with_path(tree))
+
+
+def _hold_slots(torch, mesh, state, shardings, ref) -> dict:
+    """After the first step of a per-agent job: every leaf of the EF
+    memory, the controller rows and the channel slot (a delay line's
+    metadata and payloads) gathered over the agent axes one at a time (a
+    collective every rank calls) and, on rank 0, held to the
+    single-process step's (``ref``): rows and metadata within TRAIN_TOL
+    (relative, 1e-6 absolute), EF memory and payloads within TRAIN_TOL of
+    the agent's max|g| on that leaf, plus one step of its wire format
+    where its g lies at a rounding midpoint.  Returns, on rank 0, the
+    largest gap over that scale away from such midpoints and the
+    elements that needed a step."""
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    worst, stepped, leaves = 0.0, 0, 0
+    for slot in _SLOTS:
+        local = getattr(state, slot)
+        if local is None:
+            continue
+        sh = dict(tree_flatten_with_path(getattr(shardings, slot)))
+        for path, x in tree_flatten_with_path(local):
+            full = sh[path].gather(x)
+            if mesh.rank == 0:
+                # on the card, a leaf at a time
+                got = full.float()
+                want = ref["slots"][slot][path].to(got.device).float()
+                leaf = path[2:] if slot == "net_state" else path
+                if leaf in ref["amax"] and want.ndim > 1:
+                    # EF memory (A, *shape) or a line's payloads
+                    # (A, depth, *shape)
+                    lead = want.ndim - ref["ties"][leaf].ndim + 1
+                    view = (-1,) + (1,) * (want.ndim - 1)
+                    scale = ref["amax"][leaf].to(got.device).reshape(view)
+                    ties = ref["ties"][leaf].to(got.device)
+                    if lead == 2:
+                        ties = ties[:, None]
+                    diff = (got - want).abs()
+                    tol = 1e-6 + TRAIN_TOL * scale
+                    bad = diff > tol + ties
+                    if bool(bad.any()):
+                        where = bad.nonzero()[0].tolist()
+                        raise AssertionError(
+                            f"mesh {slot} {'/'.join(map(str, path))}: "
+                            f"{(diff / scale).max().item():.3e} of the "
+                            f"agent's max|g| (first at {where}: "
+                            f"{got[tuple(where)].item():.6g} vs "
+                            f"{want[tuple(where)].item():.6g})")
+                    stepped += int((diff > tol).sum())
+                    worst = max(worst, (diff * (ties == 0) / scale)
+                                .max().item())
+                else:
+                    diff = (got - want).abs()
+                    if not bool((diff <= 1e-6 + TRAIN_TOL * want.abs())
+                                .all()):
+                        raise AssertionError(
+                            f"mesh {slot} {'/'.join(map(str, path))}: "
+                            f"max diff {diff.max().item():.3e}")
+                leaves += 1
+                del got, want
+            del full
+    return {"worst": worst, "stepped": stepped, "leaves": leaves}
+
+
+def _mesh_job(torch, ce_ops, swa_ops, mesh, job: str, keep: bool = False,
+              against=None, ref=None) -> dict:
+    """The steps of MESH_JOBS[``job``] on ``mesh`` from seed 0: per step
+    the launches, the collectives by kind and axis, the ms and the
+    fleet's metrics; the bytes at rest and this rank's peak; with
+    ``keep`` the rank's blocks at rest after the first and the last step
+    (CPU); and either, on rank 0, the gathered parameters then, or, with
+    ``against`` (another job's result on this rank, its blocks a
+    superset of these), the largest gap of this rank's blocks from that
+    job's over every rank (one small ``all_reduce``: no gather).  A
+    per-agent job holds its per-agent slots after the first step to
+    ``ref`` (rank 0's single-process reference; ``_hold_slots``)."""
     from repro_torch.core.api import init_train_state
     from repro_torch.launch import steps as S
     from repro_torch.models import build
@@ -2843,16 +3058,15 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, name: str, fsdp: bool,
     )
     from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
 
+    name, fsdp, fleet_shard, steps, comm = MESH_JOBS[job]
     dev = mesh.device
     cfg, run = _mesh_cfg(name)
     batches = _mesh_batches(torch, cfg, run["agents"], run["per_agent"],
                             run["seq"], steps, dev)
-    shape = InputShape("mesh", run["seq"], run["agents"] * run["per_agent"],
-                       "train")
-    plan = S.plan_run(cfg, shape, mesh, num_agents=run["agents"],
-                      comm=MESH_COMM, lr=MESH_LR, fsdp=fsdp)
+    plan = _mesh_plan(cfg, run, comm, mesh, fsdp)
     step = S.build_train_step(plan, compute_dtype="float32", device=dev,
-                              mesh=mesh, fleet_shard=fleet_shard)
+                              mesh=mesh, fleet_shard=fleet_shard,
+                              agent_metrics=comm != MESH_COMM)
     model = build(plan.cfg)
     opt = opt_lib.from_config(plan.train_cfg)
     state = shard_tree(init_train_state(_mesh_params(torch, model, dev), opt,
@@ -2876,12 +3090,16 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, name: str, fsdp: bool,
             "launches": (swa_ops.swa_attention.launches - swa0,
                          ce_ops.fused_ce.launches - ce0),
             "collectives": mesh.collectives.by_axis(),
+            "by_tag": mesh.collectives.by_tag(),
             "metrics": {key: v.cpu() for key, v in m.items()}})
         if mesh.rank == 0:
-            print(f"[mesh] rank 0 {name} fsdp {fsdp} fleet_shard "
-                  f"{fleet_shard} step {k}: {out['steps'][-1]['ms']:.1f} ms, "
+            print(f"[mesh] rank 0 {job} step {k}: "
+                  f"{out['steps'][-1]['ms']:.1f} ms, "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak",
                   flush=True)
+        if k == 0 and comm != MESH_COMM:
+            out["slots"] = _hold_slots(torch, mesh, state,
+                                       step.state_shardings, ref)
         if k not in (0, steps - 1):
             continue
         key = "first" if k == 0 else "last"
@@ -2913,9 +3131,10 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, name: str, fsdp: bool,
 
 
 def _mesh_rank(mesh) -> dict:
-    """Everything [mesh] runs on one rank of the (data 2, model 2) mesh
-    (a process of its own: ``spawn`` starts it).  Rank 0 first runs the
-    single-process reference of each run while the others wait."""
+    """Everything [mesh] and [mesh serve] run on one rank of the (data 2,
+    model 2) mesh (a process of its own: ``spawn`` starts it).  Rank 0
+    first runs the single-process reference of each run and policy while
+    the others wait; the serving part follows the training jobs."""
     import torch
 
     from repro_torch.kernels.fused_ce import ops as ce_ops
@@ -2925,57 +3144,113 @@ def _mesh_rank(mesh) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": mesh.rank, "coords": mesh.coords,
            "backend": mesh.backend, "device": str(mesh.device), "jobs": {}}
+    t0 = time.perf_counter()
     if mesh.rank == 0:
-        out["reference"] = {name: _mesh_reference(torch, ce_ops, swa_ops,
-                                                  name, mesh.device)
-                            for name in MESH_RUNS}
+        refs = {_mesh_key(run, comm): (run, comm)
+                for run, _, _, _, comm in MESH_JOBS.values()}
+        out["reference"] = {key: _mesh_reference(torch, ce_ops, swa_ops, run,
+                                                 comm, mesh.device)
+                            for key, (run, comm) in refs.items()}
     mesh.barrier()
-    for job, (name, fsdp, fleet, steps) in MESH_JOBS.items():
+    _mesh_clock(mesh, "the single-process references", t0)
+    for job, (name, _, _, _, comm) in MESH_JOBS.items():
+        t0 = time.perf_counter()
         # fsdp on is held, rank by rank, to fsdp off's blocks (which are
         # held to the single-process step): its blocks are theirs split
         # further over data, so no gather is needed
+        ref = (out["reference"][_mesh_key(name, comm)] if mesh.rank == 0
+               else None)
         out["jobs"][job] = _mesh_job(
-            torch, ce_ops, swa_ops, mesh, name, fsdp, fleet, steps,
-            keep=job == "fsdp_off",
-            against=out["jobs"]["fsdp_off"] if job == "fsdp_on" else None)
+            torch, ce_ops, swa_ops, mesh, job, keep=job == "fsdp_off",
+            against=out["jobs"]["fsdp_off"] if job == "fsdp_on" else None,
+            ref=ref)
         mesh.barrier()
+        _mesh_clock(mesh, f"job {job}", t0)
+    t0 = time.perf_counter()
     if mesh.rank == 0:
         out["held"] = _mesh_hold(torch, out)
+        _mesh_clock(mesh, "the holds", t0)
     for rec in out["jobs"].values():
         for key in ("first", "last", "blocks_first", "blocks_last"):
             rec.pop(key, None)
     if mesh.rank == 0:
         for rec in out["reference"].values():
-            for key in ("first", "last", "grads"):
-                rec.pop(key)
+            for key in ("first", "last", "grads", "ties", "amax", "slots"):
+                rec.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    # [mesh serve] on the same ranks (one spawn: each rank's start-up is
+    # paid once)
+    t0 = time.perf_counter()
+    out["serve"] = _mesh_serve_rank(mesh)
+    out["serve"]["seconds"] = time.perf_counter() - t0
     return out
+
+
+def _mesh_clock(mesh, what: str, t0: float) -> None:
+    """Rank 0's wall-clock seconds of a stage of the spawn (where the
+    spawn's time goes beside its steps)."""
+    if mesh.rank == 0:
+        print(f"[mesh] rank 0 {what} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def _mesh_params_ties(torch, got: dict, want: dict, ties: dict,
+                      weight: float, what: str):
+    """Hold a per-agent job's first-step parameters to the single-process
+    step's: every element within TRAIN_TOL of its leaf's largest value,
+    plus lr · (the delivered agents' rounding steps) / ``weight`` where
+    an agent's g lies at a midpoint of its wire format (``ties``,
+    ``(agents, *shape)``).  Returns (the largest gap elsewhere over its
+    leaf's max, the elements that needed a step)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    worst, stepped = 0.0, 0
+    for path, w in want.items():
+        w = w.to(dev)
+        scale = w.abs().max().item()
+        diff = (got[path].to(dev) - w).abs()
+        allowed = MESH_LR * ties[path].to(dev).sum(0) / max(weight, 1.0)
+        if not bool((diff <= TRAIN_TOL * scale + allowed).all()):
+            raise AssertionError(f"{what}: params {path} differ by "
+                                 f"{diff.max().item() / scale:.3e} of "
+                                 f"their largest value")
+        stepped += int((diff > TRAIN_TOL * scale).sum())
+        worst = max(worst, (diff * (allowed == 0)).max().item() / scale)
+    return worst, stepped
 
 
 def _mesh_hold(torch, out) -> dict:
     """Rank 0's checks: each job's gathered parameters after its first
     step against the single-process step's from the same state
     (``_params_within``: TRAIN_TOL of each leaf's largest value, one
-    int8 level where a gradient lies at a rounding boundary), after the
-    last step within TRAIN_TOL in each leaf's relative L2 norm; decisions
-    equal every step, loss, mean gain and grad_norm within TRAIN_TOL.
-    A job held to another rank by rank (``vs_first``/``vs_last``) within
-    TRAIN_TOL of each leaf's largest value."""
+    int8 level where a gradient lies at a rounding boundary; a per-agent
+    job's each agent's wire format's step, ``_mesh_params_ties``), after
+    the last step within TRAIN_TOL in each leaf's relative L2 norm;
+    decisions (and a per-agent job's each agent's decision and
+    delivery) equal every step, loss, mean gain and grad_norm within
+    TRAIN_TOL.  A job held to another rank by rank
+    (``vs_first``/``vs_last``) within TRAIN_TOL of each leaf's largest
+    value."""
     held = {}
-    for job, (name, fsdp, fleet, steps) in MESH_JOBS.items():
-        ref, got = out["reference"][name], out["jobs"][job]
+    for job, (name, fsdp, fleet, steps, comm) in MESH_JOBS.items():
+        ref = out["reference"][_mesh_key(name, comm)]
+        got = out["jobs"][job]
         agents = MESH_RUNS[name]["agents"]
         for k, (g, r) in enumerate(zip(got["steps"], ref["steps"])):
             gm, rm = g["metrics"], r["metrics"]
-            if not torch.equal(gm["num_tx"], rm["num_tx"]):
-                raise AssertionError(f"mesh {job} step {k}: num_tx "
-                                     f"{gm['num_tx']} vs {rm['num_tx']}")
+            for key in ("num_tx", "agent_tx", "agent_delivered"):
+                if key in gm and not torch.equal(gm[key], rm[key]):
+                    raise AssertionError(f"mesh {job} step {k}: {key} "
+                                         f"{gm[key]} vs {rm[key]}")
             for key in ("loss", "mean_gain", "grad_norm"):
                 a, b = float(gm[key]), float(rm[key])
                 if not abs(a - b) <= TRAIN_TOL * abs(b):
                     raise AssertionError(f"mesh {job} step {k}: {key} {a} "
                                          f"vs {b}")
         if "vs_first" in got:
-            (gap0, same0), (gap1, same1) = got["vs_first"], got["vs_last"]
+            (gap0, same0) = got["vs_first"]
+            (gap1, same1) = got.get("vs_last", got["vs_first"])
             if not max(gap0, gap1) <= TRAIN_TOL:
                 raise AssertionError(f"mesh {job}: blocks {gap0:.3e} / "
                                      f"{gap1:.3e} from fsdp_off's")
@@ -2983,12 +3258,19 @@ def _mesh_hold(torch, out) -> dict:
                          "bitwise_fsdp_off": same0 and same1}
             continue
         dev = torch.device("cuda", torch.cuda.current_device())
-        on = {p: x.to(dev) for p, x in got["first"].items()}
-        worst, tied = _params_within(
-            torch, on, {p: x.to(dev) for p, x in ref["first"].items()},
-            {p: x.to(dev) for p, x in ref["grads"].items()}, agents,
-            f"mesh {job} step 0")
-        del on
+        if comm == MESH_COMM:
+            on = {p: x.to(dev) for p, x in got["first"].items()}
+            worst, tied = _params_within(
+                torch, on, {p: x.to(dev) for p, x in ref["first"].items()},
+                {p: x.to(dev) for p, x in ref["grads"].items()}, agents,
+                f"mesh {job} step 0")
+            del on
+        else:
+            m0 = ref["steps"][0]["metrics"]
+            weight = float(m0.get("agent_delivered", m0["agent_tx"]).sum())
+            worst, tied = _mesh_params_ties(
+                torch, got["first"], ref["first"], ref["ties"], weight,
+                f"mesh {job} step 0")
         last = 0.0
         if steps > 1:
             for p, x in got["last"].items():
@@ -2999,40 +3281,32 @@ def _mesh_hold(torch, out) -> dict:
                                      f"steps {last:.3e} apart in L2")
         held[job] = {"first_step_worst": worst, "int8_one_level": tied,
                      "last_step_rel_l2": last}
+        if "slots" in got:
+            held[job]["slots"] = got["slots"]
         torch.cuda.empty_cache()
     return held
 
 
-def phase_mesh(torch, card: str) -> dict:
-    """The [mesh] phase (the module docstring's): one spawn of MESH_WORLD
-    gloo ranks sharing the card runs every job; rank 0 holds them to the
-    single-process step; the parent checks the counts and prints."""
+def phase_mesh(torch, card: str) -> tuple:
+    """The [mesh] and [mesh serve] phases (the module docstring's): one
+    spawn of MESH_WORLD gloo ranks sharing the card runs every job, then
+    the serving; rank 0 holds them to the single-process steps; the
+    parent checks the counts and prints.  Returns both records."""
     from repro_torch.launch.mesh import choose_backend, spawn
 
     backend = choose_backend(MESH_WORLD, "cuda")
-    # the ranks share the card: this process keeps none of its cache,
-    # and theirs grows in segments (less of the card held unused)
-    gc.collect()
-    torch.cuda.empty_cache()
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
-    try:
+    with _shared_card(torch):
         ranks = spawn(_mesh_rank, MESH_WORLD, timeout_s=MESH_TIMEOUT_S,
                       backend=backend, device="cuda", model=MESH_MODEL)
-    finally:
-        if alloc is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     record = {"backend": backend, "world": MESH_WORLD, "spawn_s": spawn_s,
               "coords": [r["coords"] for r in ranks],
               "held": r0["held"], "jobs": {}}
-    for job, (name, fsdp, fleet, steps) in MESH_JOBS.items():
+    for job, (name, fsdp, fleet, steps, comm) in MESH_JOBS.items():
         cfg, run = _mesh_cfg(name)
-        ref = r0["reference"][name]
+        ref = r0["reference"][_mesh_key(name, comm)]
         layers = cfg.num_layers
         for r in ranks:
             for k, s in enumerate(r["jobs"][job]["steps"]):
@@ -3047,29 +3321,38 @@ def phase_mesh(torch, card: str) -> dict:
         rest = [r["jobs"][job]["rest_bytes"] for r in ranks]
         ms = [[s["ms"] for s in r["jobs"][job]["steps"]] for r in ranks]
         coll = r0["jobs"][job]["steps"][-1]["collectives"]
+        tags = r0["jobs"][job]["steps"][-1]["by_tag"]
         ref_ms = [s["ms"] for s in ref["steps"][:steps]]
         row = {"arch": run["arch"], "layers": layers, "fsdp": fsdp,
                "fleet_shard": fleet, "steps": steps,
+               "policy": list(comm) if isinstance(comm, tuple) else comm,
+               "agents": run["agents"],
                "ms_per_step_ranks": ms, "ms_per_step_single": ref_ms,
                "peak_gb_ranks": peaks, "peak_gb_sum": sum(peaks),
                "rest_bytes_ranks": rest,
                "launches_per_step": list(r0["jobs"][job]["steps"][0][
                    "launches"]),
                "collectives_per_step_rank0": coll,
+               "collectives_by_tag_rank0": tags,
                "loss": [float(s["metrics"]["loss"])
                         for s in r0["jobs"][job]["steps"]]}
         record["jobs"][job] = row
         kinds = ", ".join(f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.1f}"
                           f" MB, wire {v['wire_bytes'] / 1e6:.1f} MB)"
                           for k, v in sorted(coll.items()))
+        by_tag = ", ".join(f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.1f}"
+                           f" MB)" for k, v in sorted(tags.items()))
         print(f"[mesh] {job}: {run['arch']} {layers} layers, (data 2, model "
-              f"2), fsdp {fsdp}, fleet_shard {fleet}, {steps} steps: ms per "
-              f"step rank 0 {[round(x, 1) for x in ms[0]]} vs single-process "
+              f"2), m = {run['agents']}, {_comm_name(comm)}, fsdp {fsdp}, "
+              f"fleet_shard {fleet}, {steps} steps: ms per step per rank "
+              f"{[[round(x, 1) for x in r] for r in ms]} vs single-process "
               f"{[round(x, 1) for x in ref_ms]}; launches per step per rank "
               f"(swa_attention, fused_ce) {row['launches_per_step']}; peak "
               f"GB per rank {[round(p, 2) for p in peaks]} (sum "
               f"{sum(peaks):.2f}); bytes at rest per rank {rest}")
         print(f"[mesh] {job} collectives per step on rank 0: {kinds}")
+        print(f"[mesh] {job} collectives per step on rank 0 by tag: "
+              f"{by_tag}")
         h = r0["held"][job]
         if "vs_fsdp_off_first" in h:
             print(f"[mesh] {job} vs the single-process step: decisions "
@@ -3079,12 +3362,322 @@ def phase_mesh(torch, card: str) -> dict:
                   f"{h['vs_fsdp_off_last']:.2e} of fsdp_off's (bitwise "
                   f"equal: {h['bitwise_fsdp_off']})")
             continue
+        slots = ""
+        if "slots" in h:
+            sl = h["slots"]
+            slots = (f"; the per-agent slots' {sl['leaves']} leaves after "
+                     f"the first step within {sl['worst']:.2e} of each "
+                     f"agent's max|g| ({sl['stepped']} elements a rounding "
+                     f"step apart)")
         print(f"[mesh] {job} vs the single-process step: decisions equal, "
               f"loss/gain/|g| within {TRAIN_TOL}; first step's params "
               f"within {h['first_step_worst']:.2e} of each leaf's max apart "
-              f"from {h['int8_one_level']} elements one int8 level apart; "
-              f"after {steps} steps {h['last_step_rel_l2']:.2e} in L2")
-    print(f"[mesh] spawn {spawn_s:.1f} s")
+              f"from {h['int8_one_level']} elements a rounding step apart; "
+              f"after {steps} steps {h['last_step_rel_l2']:.2e} in L2"
+              f"{slots}")
+    serve_s = max(r["serve"]["seconds"] for r in ranks)
+    print(f"[mesh] spawn {spawn_s:.1f} s, of which [mesh serve] "
+          f"{serve_s:.1f}")
+    return record, _mesh_serve_record([r["serve"] for r in ranks],
+                                      backend, serve_s)
+
+
+class _shared_card:
+    """The context of a spawn whose ranks share the card: this process
+    keeps none of its cache, and theirs grows in segments (less of the
+    card held unused)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        self.alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        return self
+
+    def __exit__(self, *exc):
+        if self.alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = self.alloc
+
+
+# ----------------------------------------------------------------------
+# [mesh serve]: prefill and decode over the (data, model) mesh
+# ----------------------------------------------------------------------
+
+def _serve_plans(mesh=None, cache_seq_shard: bool = False):
+    """[mesh serve]'s prefill and decode plans (on ``mesh``, or one card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as S
+
+    run = MESH_SERVE
+    cfg = get_config(run["arch"])
+    slots = run["prompt"] + run["gen"]
+    return (S.plan_run(cfg, InputShape("serve", run["prompt"], run["batch"],
+                                       "prefill"), mesh,
+                       cache_seq_shard=cache_seq_shard),
+            S.plan_run(cfg, InputShape("serve", slots, run["batch"],
+                                       "decode"), mesh,
+                       cache_seq_shard=cache_seq_shard), slots)
+
+
+def _serve_reference(torch, swa_ops, dev) -> dict:
+    """The single-process prefill of MESH_SERVE's prompts (seed 0's
+    weights and batch, ``build_prefill_step``) and its greedy decode on
+    the card: the prefill's logits and each step's (CPU), the greedy
+    tokens ``(B, gen)``, ms and launches, the peak."""
+    from repro_torch.launch import steps as S
+
+    plan_p, plan_d, slots = _serve_plans()
+    torch.cuda.reset_peak_memory_stats()
+    pstep, params, batch = S.build_prefill_step(
+        plan_p, compute_dtype="float32", device=dev, cache_len=slots)
+    dstep, _, _ = S.build_serve_step(plan_d, compute_dtype="float32",
+                                     device=dev, init_params=False)
+    swa0 = swa_ops.swa_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pstep(params, batch)
+    torch.cuda.synchronize()
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+           "prefill_launches": swa_ops.swa_attention.launches - swa0,
+           "prefill": logits.cpu(), "steps": [], "step_ms": [],
+           "step_launches": []}
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    del logits
+    toks = []
+    for t in range(MESH_SERVE["gen"]):
+        toks.append(tok)
+        swa0 = swa_ops.swa_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = dstep(params, cache, tok, torch.tensor(
+            MESH_SERVE["prompt"] + t, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_launches"].append(swa_ops.swa_attention.launches - swa0)
+        out["steps"].append(lg[:, 0].cpu())
+        tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+    out["tokens"] = torch.cat(toks, 1).cpu()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[mesh serve] rank 0 single-process prefill "
+          f"{out['prefill_ms']:.1f} ms, decode "
+          f"{statistics.median(out['step_ms']):.1f} ms a step (median), "
+          f"peak {out['peak_gb']:.2f} GB", flush=True)
+    del params, cache, batch, pstep, dstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _logit_gap(torch, got, want, what: str) -> float:
+    """[lm]'s card-against-CPU tolerance, LM_LOGIT_TOL + LM_LOGIT_TOL ·
+    |ref|: the largest gap, raising beyond it (on the card, a request at
+    a time)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.to(dev), w.to(dev)
+        gap = (g - w).abs()
+        if not bool((gap <= LM_LOGIT_TOL + LM_LOGIT_TOL * w.abs()).all()):
+            raise AssertionError(f"mesh serve {what}: logits differ by "
+                                 f"{gap.max().item():.3e}")
+        worst = max(worst, gap.max().item())
+    return worst
+
+
+def _greedy_ties(torch, ref_logits, tokens, what: str) -> int:
+    """The greedy ``tokens`` ``(B,)`` of a mesh step against the
+    single-process step's ``ref_logits`` ``(B, V)``: equal to their
+    argmax, or apart where the reference's top two lie within
+    LM_LOGIT_TOL · (2 + |top|) of each other (counted)."""
+    want = ref_logits.argmax(-1)
+    odd = (tokens != want).nonzero().flatten().tolist()
+    for i in odd:
+        top2 = ref_logits[i].topk(2).values
+        if not (top2[0] - top2[1]).abs() <= LM_LOGIT_TOL * (
+                2 + top2[0].abs()):
+            raise AssertionError(f"mesh serve {what}: request {i}'s greedy "
+                                 f"token {int(tokens[i])} vs {int(want[i])}")
+    return len(odd)
+
+
+def _mesh_serve_rank(mesh) -> dict:
+    """Everything [mesh serve] runs on one rank: rank 0's single-process
+    reference first (the others wait), its greedy tokens to every rank,
+    then each cache layout: the rank builds its blocks (once), prefills,
+    decodes 16 steps teacher-forced on the reference's tokens; rank 0
+    holds the whole batch's logits (gathered on the CPU) to the
+    reference."""
+    import torch
+
+    from repro_torch.launch import steps as S
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    run = MESH_SERVE
+    ref = _serve_reference(torch, swa_ops, dev) if mesh.rank == 0 else None
+    tokens = (ref["tokens"].to(torch.int64) if ref is not None else
+              torch.zeros((run["batch"], run["gen"]), dtype=torch.int64))
+    mesh.all_reduce(tokens, "tokens", mesh.axis_names)
+    tokens = tokens.to(torch.int32).to(dev)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "layouts": {}}
+    if ref is not None:
+        out["reference"] = {k: ref[k] for k in (
+            "prefill_ms", "step_ms", "prefill_launches", "step_launches",
+            "peak_gb")}
+    params = None
+    for layout in MESH_SERVE_LAYOUTS:
+        cs = layout == "cache_seq_shard"
+        plan_p, plan_d, slots = _serve_plans(mesh, cs)
+        torch.cuda.reset_peak_memory_stats()
+        # the layouts split the weights alike: one draw serves both
+        pstep, drawn, batch = S.build_prefill_step(
+            plan_p, compute_dtype="float32", device=dev, mesh=mesh,
+            cache_len=slots, init_params=params is None)
+        params = drawn if params is None else params
+        dstep, _, _ = S.build_serve_step(plan_d, compute_dtype="float32",
+                                         device=dev, mesh=mesh,
+                                         init_params=False)
+        rec = {"rest_bytes": sum(x.nbytes for x in
+                                 _flat_tree(params).values()),
+               "step_ms": [], "step_launches": [], "logits_gap": [],
+               "greedy_apart": 0}
+        mesh.barrier()
+        mesh.collectives.reset()
+        swa0 = swa_ops.swa_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pstep(params, batch)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_launches"] = swa_ops.swa_attention.launches - swa0
+        rec["prefill_collectives"] = mesh.collectives.by_tag()
+        rec["cache_block"] = list(cache.k.shape)
+        full = pstep.logits_sharding.gather(logits.cpu())
+        del logits
+        if ref is not None:
+            rec["prefill_gap"] = _logit_gap(torch, full, ref["prefill"],
+                                            f"{layout} prefill")
+            rec["greedy_apart"] += _greedy_ties(
+                torch, ref["prefill"][:, -1], full[:, -1].argmax(-1),
+                f"{layout} prefill")
+        del full
+        for t in range(run["gen"]):
+            mesh.collectives.reset()
+            swa0 = swa_ops.swa_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = dstep(params, cache, tokens[:, t:t + 1], torch.tensor(
+                run["prompt"] + t, dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["step_launches"].append(swa_ops.swa_attention.launches
+                                        - swa0)
+            rec["step_collectives"] = mesh.collectives.by_tag()
+            full = dstep.logits_sharding.gather(lg[:, 0].cpu())
+            if ref is not None:
+                rec["logits_gap"].append(_logit_gap(
+                    torch, full, ref["steps"][t], f"{layout} step {t}"))
+                rec["greedy_apart"] += _greedy_ties(
+                    torch, ref["steps"][t], full.argmax(-1),
+                    f"{layout} step {t}")
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["layouts"][layout] = rec
+        if mesh.rank == 0:
+            print(f"[mesh serve] rank 0 {layout}: prefill "
+                  f"{rec['prefill_ms']:.1f} ms, decode "
+                  f"{statistics.median(rec['step_ms']):.1f} ms a step, peak "
+                  f"{rec['peak_gb']:.2f} GB", flush=True)
+        del drawn, cache, batch, pstep, dstep
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve_record(ranks: list, backend: str, seconds: float) -> dict:
+    """[mesh serve]'s checks of the ranks' results (the launches) and its
+    lines and record."""
+    from repro_torch.configs import get_config
+
+    layers = get_config(MESH_SERVE["arch"]).num_layers
+    ref = ranks[0]["reference"]
+    record = {"backend": backend, "world": MESH_WORLD, "seconds": seconds,
+              "arch": MESH_SERVE["arch"], "layers": layers,
+              "run": dict(MESH_SERVE), "reference": ref, "layouts": {}}
+    if ref["prefill_launches"] != layers or any(ref["step_launches"]):
+        raise AssertionError(f"mesh serve single-process launches "
+                             f"{ref['prefill_launches']} / "
+                             f"{ref['step_launches']}")
+    for layout in MESH_SERVE_LAYOUTS:
+        recs = [r["layouts"][layout] for r in ranks]
+        for r, rec in zip(ranks, recs):
+            if rec["prefill_launches"] != layers or any(
+                    rec["step_launches"]):
+                raise AssertionError(
+                    f"mesh serve {layout} rank {r['rank']}: swa_attention "
+                    f"launches {rec['prefill_launches']} per prefill, "
+                    f"{rec['step_launches']} per decode step (want "
+                    f"{layers}, 0)")
+        r0 = recs[0]
+        row = {"prefill_ms_ranks": [x["prefill_ms"] for x in recs],
+               "prefill_ms_single": ref["prefill_ms"],
+               "step_ms_median_ranks": [statistics.median(x["step_ms"])
+                                        for x in recs],
+               "step_ms_median_single": statistics.median(ref["step_ms"]),
+               "step_ms_rank0": r0["step_ms"],
+               "peak_gb_ranks": [x["peak_gb"] for x in recs],
+               "rest_bytes_ranks": [x["rest_bytes"] for x in recs],
+               "cache_block_rank0": r0["cache_block"],
+               "launches_prefill": r0["prefill_launches"],
+               "launches_step": r0["step_launches"][0],
+               "prefill_collectives_rank0": r0["prefill_collectives"],
+               "step_collectives_rank0": r0["step_collectives"],
+               "prefill_max_abs_gap": r0["prefill_gap"],
+               "step_max_abs_gap": max(r0["logits_gap"]),
+               "greedy_apart": r0["greedy_apart"]}
+        record["layouts"][layout] = row
+
+        def tags(c):
+            return ", ".join(
+                f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.2f} MB)"
+                for k, v in sorted(c.items()))
+
+        print(f"[mesh serve] {layout}: {MESH_SERVE['arch']} {layers} layers "
+              f"fp32 on (data 2, model 2), B {MESH_SERVE['batch']} × "
+              f"{MESH_SERVE['prompt']} then {MESH_SERVE['gen']} tokens: ms "
+              f"per prefill per rank "
+              f"{[round(x, 1) for x in row['prefill_ms_ranks']]} vs "
+              f"single-process {ref['prefill_ms']:.1f}; ms per decode step "
+              f"(median) per rank "
+              f"{[round(x, 1) for x in row['step_ms_median_ranks']]} vs "
+              f"single-process {row['step_ms_median_single']:.1f}; peak GB "
+              f"per rank {[round(x, 2) for x in row['peak_gb_ranks']]} "
+              f"(single-process {ref['peak_gb']:.2f}); weights at rest per "
+              f"rank {[round(x / 1e9, 2) for x in row['rest_bytes_ranks']]}"
+              f" GB; rank 0's cache block {r0['cache_block']}")
+        print(f"[mesh serve] {layout}: launches per rank (swa_attention) "
+              f"{layers} per prefill, 0 per decode step, as single-process; "
+              f"logits within {LM_LOGIT_TOL} + {LM_LOGIT_TOL}·|ref| of the "
+              f"single-process step (prefill max |gap| "
+              f"{row['prefill_max_abs_gap']:.3e}, decode "
+              f"{row['step_max_abs_gap']:.3e}); greedy tokens equal but "
+              f"{row['greedy_apart']} at a top-two tie")
+        print(f"[mesh serve] {layout} collectives per prefill on rank 0: "
+              f"{tags(r0['prefill_collectives'])}")
+        print(f"[mesh serve] {layout} collectives per decode step on rank "
+              f"0: {tags(r0['step_collectives'])}")
+    print(f"[mesh serve] {seconds:.1f} s on the ranks")
     return record
 
 
@@ -6497,7 +7090,7 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
                    "bytes": nbytes, **bounds, "library_max_abs_err": lib_err}
             before = ce_ops.fused_ce.launches
             for key, fn in fns.items():
-                row[f"{key}ms"] = time_ms(fn)
+                row[f"{key}ms"] = time_ms(fn, CE_TIMED_RUNS)
             for key, fn in fns.items():
                 # one launch runs the vocab-split partials, then the combine
                 row[f"{key}device_ms"] = device_ms(
@@ -6696,7 +7289,7 @@ def main() -> int:
         "slice": record["slice"]["rounds_per_s"],
         "fleet_lossy": record["fleet_lossy"]["rounds_per_s"],
         "frontier_quadratic": record["frontier_quadratic"]["rounds_per_s"]})
-    record["mesh"] = phase_mesh(torch, card)
+    record["mesh"], record["mesh_serve"] = phase_mesh(torch, card)
     record["durable"] = phase_durable(torch, gr_ops)
     record["kill"] = phase_kill(torch)
     record["telemetry"] = phase_telemetry(torch)
@@ -6870,6 +7463,10 @@ def main() -> int:
         "launches_mesh_per_rank_step": {
             job: row["launches_per_step"][0]
             for job, row in record["mesh"]["jobs"].items()},
+        "launches_mesh_serve_per_rank": {
+            layout: {"prefill": row["launches_prefill"],
+                     "decode_step": row["launches_step"]}
+            for layout, row in record["mesh_serve"]["layouts"].items()},
         "mesh_local_heads": {k: r[k] for r in record["swa_times"]
                              if r["shape"] == list(SWA_SERVED[-1][:5])
                              and r["dtype"] == "float32"

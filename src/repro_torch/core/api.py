@@ -75,16 +75,21 @@ a state on another device is an error, not a silent copy.
 
 ``placement`` (a :class:`~repro_torch.sharding.placement.Placement`,
 which :func:`repro_torch.launch.steps.build_train_step` makes for an LM
-on a (data, model) mesh) runs the homogeneous step on one rank of the
-mesh, as the JAX package's step runs under ``jit`` with its agent axis
-sharded over data: the rank's parameters and optimizer state at rest are
-its blocks, gathered over the data axes at the start of the round (the
-model reads its tensor-parallel blocks, and each agent's gradient is
-made whole over "model" after the backward); its agents are its data
-coordinate's; the masked mean's sums and the
-agents' metric vectors are reduced over the agent axes; and the rank
-applies its block of the update.  The per-agent metric vectors are the
-fleet's.
+on a (data, model) mesh) runs the step on one rank of the mesh, as the
+JAX package's step runs under ``jit`` with its agent axis sharded over
+data: the rank's parameters and optimizer state at rest are its blocks,
+gathered over the data axes at the start of the round (the model reads
+its tensor-parallel blocks, and each agent's gradient is made whole over
+"model" after the backward); its agents are its data coordinate's, and
+so are the rows of its per-agent slots (EF memory, controller rows, a
+channel's rows and a delay or retransmit line); the masked mean's sums
+and the agents' metric vectors are reduced over the agent axes; and the
+rank applies its block of the update.  Per-agent policies run every
+dispatch path over the rank's agents, each agent's policy the one its
+global index names, so a data slice may run policies that another does
+not: every collective inside an epilogue (the probe's forward) runs
+over "model" alone, among the ranks that hold the same agents.  The
+per-agent metric vectors are the fleet's.
 """
 from __future__ import annotations
 
@@ -118,7 +123,6 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregation import masked_mean
 from repro_torch.net import channels as net_lib
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_with_path,
@@ -429,9 +433,9 @@ def make_triggered_train_step(
         # bank: the payload line's epilogue lives in one place
         hetero = (resolved,) * cfg.num_agents
     dispatch = opts.hetero_dispatch
-    if placement is not None and hetero is not None:
-        raise todo("per-agent policies (or a delay line) on an LM mesh "
-                   "without fleet_shard=True", "queue 1 item 11.2")
+    # the global indices of the agents whose rows the step holds: every
+    # agent, or on a mesh rank its data coordinate's
+    mine = range(cfg.num_agents) if placement is None else placement.agents
     prologue = batch_prologue(loss_fn, aux_loss_fn)
     per_agent_grad = agent_prologue(loss_fn, aux_loss_fn)
 
@@ -450,7 +454,7 @@ def make_triggered_train_step(
         needs_ef, needs_ctrl, needs_net = (mach.needs_ef, mach.needs_ctrl,
                                            mach.needs_net)
         chains = mach.chains
-        hybrid_run = hybrid_dispatch(mach, range(cfg.num_agents), dev)
+        hybrid_run = hybrid_dispatch(mach, mine, dev)
         branches = _branches(bank)
         # the unrolled loop's stages, agent by agent (built once per
         # distinct policy: the bank's own)
@@ -458,10 +462,8 @@ def make_triggered_train_step(
                    bank.adaptive_flags[b], bank.channels[b])
                   for b in bank.agent_index]
     if opts.churn is not None:
-        rows = (range(cfg.num_agents) if placement is None
-                else placement.agents)
-        joins = torch.tensor([opts.churn[i][0] for i in rows], device=dev)
-        leaves = torch.tensor([opts.churn[i][1] for i in rows], device=dev)
+        joins = torch.tensor([opts.churn[i][0] for i in mine], device=dev)
+        leaves = torch.tensor([opts.churn[i][1] for i in mine], device=dev)
 
     def check_device(state: TrainState):
         for leaf in tree_leaves(state.params):
@@ -501,11 +503,12 @@ def make_triggered_train_step(
         net = state.net_state if use_net else None
         epilogues = branches[use_ef, use_ctrl, use_net]
         losses, outs = [], []
-        for i, b in enumerate(bank.agent_index):
-            # agent i alone: its own gradient, then its policy's branch
-            # on a block of one (no precursor: the trigger computes it,
-            # and its channel keys)
-            rows = slice(i, i + 1)
+        for j, i in enumerate(mine):
+            # agent i (row j) alone: its own gradient, then its policy's
+            # branch on a block of one (no precursor: the trigger
+            # computes it, and its channel keys)
+            b = bank.agent_index[i]
+            rows = slice(j, j + 1)
             agent_batch = _take(batch, rows)
             loss, g = per_agent_grad(params, agent_batch)
             losses.append(loss)
@@ -536,8 +539,9 @@ def make_triggered_train_step(
         # block of one agent
         params, step = state.params, state.step
         per, ctrl_rows, net_rows_out = [], [], []
-        for i, (trig_i, chain_i, ef_i, ad_i, chan_i) in enumerate(stages):
-            rows = slice(i, i + 1)
+        for j, i in enumerate(mine):
+            trig_i, chain_i, ef_i, ad_i, chan_i = stages[i]
+            rows = slice(j, j + 1)
             agent_batch = _take(batch, rows)
             main, g = per_agent_grad(params, agent_batch)
             use_chan = use_net and chan_i is not None

@@ -62,8 +62,10 @@ def run_one(arch: str, shape_name: str, opt: bool, out_dir: Path) -> dict:
     ok, reason = runs_shape(cfg, shape)
     if ok and opt and shape.kind == "decode":
         # the JAX --opt of a decode shape is flash-decoding's
-        # cache_seq_shard, a sharding of the cache over the mesh
-        ok, reason = False, "cache_seq_shard: ROADMAP queue 1 item 11.2"
+        # cache_seq_shard, a sharding of the cache over the mesh's model
+        # axis: the one-card dry-run has no mesh to split it over
+        ok, reason = False, ("cache_seq_shard needs a mesh: ROADMAP queue 1 "
+                             "item 11.2.5")
     if not ok:
         rec = {"name": name, "status": "skipped", "reason": reason}
         (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=2))

@@ -12,10 +12,12 @@ one card or on one rank of a (data, model) mesh (port of
   ``microbatches`` sums each agent's loss over that many equal slices
   of its batch, and ``fsdp`` (ZeRO-3, on by default above
   ``FSDP_PARAM_THRESHOLD`` parameters) shards the parameters' ``embed``
-  dim over the data axes.  ``seq_shard``, ``inner_batch_shard`` and
-  ``cache_seq_shard`` belong to serving over a mesh (ROADMAP queue 1
-  item 11.2) and raise.  With no mesh the plan is the JAX package's on a
-  one-device (1, 1) mesh: the rules resolve and shard nothing.
+  dim over the data axes.  ``cache_seq_shard`` moves the KV cache's
+  positions onto "model" (flash-decoding: the decode attention's heads
+  give it up).  ``seq_shard`` and ``inner_batch_shard`` are not ported
+  yet and raise (ROADMAP queue 1 item 11.2).  With no mesh the plan is
+  the JAX package's on a one-device (1, 1) mesh: the rules resolve and
+  shard nothing.
 * ``build_train_step`` wires the model's loss into the event-triggered
   train step (:func:`repro_torch.core.api.make_triggered_train_step`);
   on a mesh it is the rank's step (:class:`MeshTrainStep`), with the
@@ -23,10 +25,13 @@ one card or on one rank of a (data, model) mesh (port of
   step).  ``fleet_shard=True`` swaps in the fleet-sharded step's
   two-level gateway reduce.
 * ``build_prefill_step`` / ``build_serve_step`` cover prefill (the full
-  sequence's forward) and the decode shapes (one token against a
-  ``seq_len`` cache, written in place), on one card.  They return the
-  step with its parameters and inputs: drawn from seed 0 on a real
-  device, the abstract stand-ins on ``meta``.
+  sequence's forward; with ``cache_len`` also the cache that decode
+  reads) and the decode shapes (one token against a ``seq_len`` cache,
+  written in place).  They return the step with its parameters and
+  inputs: drawn from seed 0 on a real device, the abstract stand-ins on
+  ``meta``.  On a mesh each is the rank's :class:`MeshServeStep`, with
+  its parameters' blocks (each rank draws the whole model leaf by leaf
+  and keeps its blocks) and its rows of the inputs.
 * ``lower_for`` is the dry-run's counterpart of ``jit(...).lower``: the
   plan's step with its ``meta`` state and inputs, traced on demand for
   its cost (:mod:`repro_torch.analysis.cost`) and memory.
@@ -42,6 +47,7 @@ lookahead probe run batched on the rank's device, through the
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -70,9 +76,14 @@ from repro_torch.models import (
 )
 from repro_torch.models.transformer import dtype_of
 from repro_torch.optim import optimizers as opt_lib
-from repro_torch.sharding.rules import resolve_rules, tree_shardings
+from repro_torch.sharding.rules import (
+    resolve_rules,
+    shard_tree,
+    tree_shardings,
+)
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import todo
+from repro_torch.utils.tree import tree_flatten_with_path, tree_map
 
 FSDP_PARAM_THRESHOLD = 20e9
 
@@ -113,8 +124,7 @@ def plan_run(
     JAX's; a multiple of it runs that many agents, as many on each data
     coordinate."""
     for knob, on in (("seq_shard", seq_shard),
-                     ("inner_batch_shard", inner_batch_shard),
-                     ("cache_seq_shard", cache_seq_shard)):
+                     ("inner_batch_shard", inner_batch_shard)):
         if on:
             raise todo(f"plan_run({knob}=True)", "queue 1 item 11.2")
     mesh = mesh if mesh is not None else Mesh(("data", "model"), (1, 1))
@@ -150,10 +160,19 @@ def plan_run(
         trigger=trigger,
         comm=comm,
     )
-    rules = resolve_rules(mesh, fsdp=fsdp, agent_axes=agent_axes)
+    rules = resolve_rules(mesh, fsdp=fsdp, agent_axes=agent_axes,
+                          cache_seq_shard=cache_seq_shard)
     return RunPlan(cfg=cfg, shape=shape, fsdp=fsdp, agent_axes=agent_axes,
                    num_agents=num_agents, train_cfg=train_cfg, rules=rules,
                    seq_shard=seq_shard)
+
+
+def _check_tensor_parallel(cfg: ModelConfig, mesh) -> None:
+    """Tensor parallelism is ported for the dense family: a model axis
+    with another family raises."""
+    if mesh.shape.get("model", 1) > 1 and cfg.arch_type != "dense":
+        raise todo(f"tensor parallelism for the {cfg.arch_type} family",
+                   "queue 1 item 11.2")
 
 
 class MeshTrainStep:
@@ -179,11 +198,35 @@ class MeshTrainStep:
 
 
 def build_train_step(plan: RunPlan, *, compute_dtype: str,
+                     param_dtype: Optional[str] = None,
                      device: DeviceLike = "cuda", mesh=None,
-                     fleet_shard: bool = False, agent_metrics: bool = False):
+                     fleet_shard: bool = False, agent_metrics: bool = False,
+                     hetero_dispatch: str = "hybrid"):
     """``train_step(state, batch) -> (state, metrics)`` for the plan's
     model at ``compute_dtype`` on ``device``; on a ``mesh`` of more than
     one rank, this rank's :class:`MeshTrainStep`.
+
+    ``param_dtype`` (default: ``compute_dtype``) is the dtype the state
+    holds the parameters at, as the JAX package's: the model casts each
+    weight to the compute dtype where it reads it, so each agent's
+    gradient, its EF memory, a delay line's payloads and the update are
+    at the parameters' dtype.  The caller builds the state at that dtype
+    (``init_train_state`` keeps the parameters' dtype), and the step
+    raises a ``TypeError`` on a state whose parameters are at another,
+    on one card and on the mesh; on a mesh the state's shardings and the
+    gather hook are laid out at that dtype.
+
+    The plan's ``comm`` may be a per-agent tuple (``plan_run(comm=...)``
+    takes a sequence of policies or spec strings), with adaptive
+    triggers, lossy channels and delay or retransmit lines: the state
+    that :func:`repro_torch.core.api.init_train_state` builds from
+    ``plan.train_cfg`` carries the controller rows ``(m, CTRL_WIDTH)``
+    and the channel slot, and on a mesh ``state_shardings`` lays every
+    per-agent slot over the data axes (JAX's ``agent_pspec``), so each
+    data slice holds its own agents' rows.  ``hetero_dispatch`` picks the
+    heterogeneous path (``StepOptions.hetero_dispatch``: ``"hybrid"``,
+    the JAX package's, ``"switch"`` or ``"unroll"``), on one card and on
+    the mesh.
 
     Tensor parallelism (a "model" axis larger than 1) is ported for the
     dense family; the other families run on a data-only mesh (with
@@ -195,18 +238,18 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     under ``fleet_shard`` the rank's gateway's."""
     cfg = plan.cfg.replace(compute_dtype=compute_dtype)
     model = build(cfg)
+    pdt = dtype_of(param_dtype or compute_dtype)
     if mesh is None or mesh.size == 1:
         optimizer = opt_lib.from_config(plan.train_cfg)
-        return make_triggered_train_step(
+        return _held_at(pdt, make_triggered_train_step(
             model.loss_fn, optimizer, plan.train_cfg, device=device,
-            options=StepOptions(agent_metrics=agent_metrics))
+            options=StepOptions(agent_metrics=agent_metrics,
+                                hetero_dispatch=hetero_dispatch)))
     from repro_torch.sharding.placement import Placement
 
     dev = resolve_device(device)
-    if mesh.shape.get("model", 1) > 1 and cfg.arch_type != "dense":
-        raise todo(f"tensor parallelism for the {cfg.arch_type} family",
-                   "queue 1 item 11.2")
-    shapes, axes = model.init(abstract=True, dtype=dtype_of(compute_dtype))
+    _check_tensor_parallel(cfg, mesh)
+    shapes, axes = model.init(abstract=True, dtype=pdt)
     tcfg = plan.train_cfg
     placement = Placement(mesh, axes, shapes, plan.rules, tcfg.num_agents,
                           grad_clip=tcfg.grad_clip)
@@ -214,7 +257,8 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     optimizer = opt_lib.from_config(dataclasses.replace(tcfg, grad_clip=0.0))
     options = StepOptions(mesh=mesh if fleet_shard else None,
                           rules=plan.rules if fleet_shard else None,
-                          agent_metrics=agent_metrics)
+                          agent_metrics=agent_metrics,
+                          hetero_dispatch=hetero_dispatch)
     step = make_triggered_train_step(model.loss_fn, optimizer, tcfg,
                                      device=dev, options=options,
                                      placement=placement)
@@ -224,7 +268,22 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
         input_axes(cfg, plan.shape, num_agents=tcfg.num_agents),
         input_specs(cfg, plan.shape, num_agents=tcfg.num_agents),
         plan.rules, mesh)
-    return MeshTrainStep(step, placement, state_shardings, batch_shardings)
+    return MeshTrainStep(_held_at(pdt, step), placement, state_shardings,
+                         batch_shardings)
+
+
+def _held_at(dtype: torch.dtype, step):
+    """``step`` that first checks the state's parameters are at
+    ``dtype``."""
+    def held(state, batch, *args, **kwargs):
+        for path, x in tree_flatten_with_path(state.params):
+            if x.dtype != dtype:
+                raise TypeError(
+                    f"parameter {'/'.join(map(str, path))} is {x.dtype}; "
+                    f"the step holds the parameters at {dtype}")
+        return step(state, batch, *args, **kwargs)
+
+    return held
 
 
 def _params(model, dtype: torch.dtype, device: torch.device):
@@ -252,45 +311,205 @@ def _materialize(specs: dict, cfg: ModelConfig, device: torch.device,
     return out
 
 
+class MeshServeStep:
+    """A rank's prefill or serve step on a mesh, with the layouts the
+    caller needs (the JAX package returns its specs beside the jitted
+    step):
+
+    * ``param_shardings`` — the parameters' (the step takes the rank's
+      blocks at rest: ``shard_tree(global params, param_shardings)``);
+    * ``batch_shardings`` — the inputs': the prefill batch's, or the
+      serve step's ``{"cache", "tokens", "pos"}``;
+    * ``cache_shardings`` — the KV cache's (:func:`~repro_torch.models.
+      attention.kv_cache_axes` through the plan's rules: its kv heads over
+      "model", or with ``cache_seq_shard`` its positions); None for a
+      prefill step without a cache;
+    * ``logits_sharding`` — the logits': this rank's rows of the batch
+      (the batch's data coordinate), the whole vocabulary on every model
+      rank (``logits_sharding.gather`` assembles the whole batch's).
+
+    A call takes the batch or the tokens (its argument ``rows_arg`` after
+    the parameters) whole or as the rank's rows (it keeps its rows), and
+    the cache as the rank's block.  :meth:`active`
+    is the context the call runs in: the model axis, the activation hook
+    and, with ``fsdp``, the gather hook; any model call inside it runs
+    on the rank's blocks.  Under ``fsdp`` the JAX package installs no
+    gather hook for serving and lets XLA move what a use needs; here each
+    data-split block is gathered over the data axes at its use (the
+    model's ``constrain_params`` sites), which is
+    the same math as the whole weight."""
+
+    def __init__(self, fn, rows_arg: int, mesh, plan: RunPlan, axes,
+                 shapes, *, batch_axes, batch_specs,
+                 cache_len: Optional[int] = None, cache_axes=None,
+                 cache_specs=None):
+        from repro_torch.sharding import collectives as C
+        from repro_torch.sharding.constraint import (
+            make_act_hook,
+            make_gather_hook,
+        )
+        from repro_torch.sharding.rules import NamedSharding, resolve_pspec
+
+        self.fn, self.rows_arg, self.mesh = fn, rows_arg, mesh
+        rules = plan.rules
+        self.param_shardings = tree_shardings(axes, shapes, rules, mesh)
+        self.batch_shardings = tree_shardings(batch_axes, batch_specs, rules,
+                                              mesh)
+        self.cache_shardings = (None if cache_axes is None else
+                                tree_shardings(cache_axes, cache_specs,
+                                               rules, mesh))
+        self.logits_sharding = NamedSharding(mesh, resolve_pspec(
+            (plan.shape.global_batch,), ("batch",), rules, mesh))
+        self._batch = plan.shape.global_batch
+        self._gather = (make_gather_hook(mesh, axes, rules, shapes)
+                        if plan.fsdp else None)
+        self._act = make_act_hook(mesh, rules, cache_len=cache_len)
+        n = mesh.shape.get("model", 1)
+        self._axis = C.ModelAxis(mesh) if n > 1 else None
+
+    @contextlib.contextmanager
+    def active(self):
+        from repro_torch.sharding import collectives as C
+        from repro_torch.sharding.constraint import (
+            reset_act_hook,
+            reset_gather_hook,
+            set_act_hook,
+            set_gather_hook,
+        )
+
+        g, a = set_gather_hook(self._gather), set_act_hook(self._act)
+        try:
+            with C.tensor_parallel(self._axis):
+                yield self
+        finally:
+            reset_act_hook(a)
+            reset_gather_hook(g)
+
+    def rows(self, tree):
+        """This rank's rows of a tree of per-request leaves (whole, or
+        already the rank's rows)."""
+        rows = self.logits_sharding
+
+        def cut(x):
+            return rows.local(x) if x.shape[0] == self._batch else x
+
+        return tree_map(cut, tree)
+
+    def __call__(self, params, *args):
+        args = list(args)
+        args[self.rows_arg] = self.rows(args[self.rows_arg])
+        with self.active():
+            return self.fn(params, *args)
+
+
+def _rank_params(model, shardings, dtype: torch.dtype,
+                 device: torch.device):
+    """This rank's blocks of the model's parameters drawn from seed 0 on
+    ``device``: the whole model's draws, each leaf cut to its block as
+    it is drawn, so the rank holds its blocks and one whole leaf."""
+    if device.type == "meta":
+        return _meta_blocks(shardings, model.init(abstract=True,
+                                                  dtype=dtype)[0])
+    by_path = dict(tree_flatten_with_path(shardings))
+
+    def place(path, leaf):
+        sh = by_path[path]
+        return leaf if not sh.axes else sh.local(leaf).clone()
+
+    return model.init(torch.Generator(device=device).manual_seed(0),
+                      dtype=dtype, place=place)[0]
+
+
+def _meta_blocks(shardings, tree):
+    """``meta`` stand-ins of this rank's block of every leaf."""
+    return tree_map(lambda sh, x: torch.empty(
+        sh.shard_shape(x.shape), dtype=x.dtype, device="meta"),
+        shardings, tree)
+
+
 def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
-                       device: DeviceLike = "cuda"):
+                       device: DeviceLike = "cuda", mesh=None,
+                       cache_len: Optional[int] = None,
+                       init_params: bool = True):
     """Full-sequence forward (inference prefill).  Returns ``(step,
     params, batch)`` with ``step(params, batch) -> logits``: the
     parameters at ``compute_dtype`` and the batch of ``input_specs``,
-    drawn from seed 0 on ``device``, or their ``meta`` stand-ins."""
+    drawn from seed 0 on ``device``, or their ``meta`` stand-ins.  With
+    ``cache_len`` the step is the model's ``prefill``: ``step(params,
+    batch) -> (logits, cache)``, the cache of ``cache_len`` slots that
+    the serve step continues from.  ``init_params=False`` draws no
+    parameters (None in their place: the caller holds them).
+
+    On a ``mesh`` of more than one rank the step is the rank's
+    :class:`MeshServeStep`, the parameters its blocks and the batch its
+    rows; the logits are its rows' over the whole vocabulary, and the
+    cache its block (``step.cache_shardings``)."""
     cfg = plan.cfg.replace(compute_dtype=compute_dtype)
     model = build(cfg)
     dev = resolve_device(device)
-    params = _params(model, dtype_of(compute_dtype), dev)
-    batch = input_specs(cfg, plan.shape)
-    if dev.type != "meta":
-        gen = torch.Generator(device=dev).manual_seed(0)
-        batch = _materialize(batch, cfg, dev, gen)
+    dtype = dtype_of(compute_dtype)
+    specs = input_specs(cfg, plan.shape)
+    gen = None if dev.type == "meta" else torch.Generator(
+        device=dev).manual_seed(0)
 
-    def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch)
-        return logits
+    if cache_len is None:
+        def prefill_step(params, batch):
+            logits, _ = model.forward(params, batch)
+            return logits
+    else:
+        def prefill_step(params, batch):
+            return model.prefill(params, batch, cache_len)
 
-    return prefill_step, params, batch
+    if mesh is None or mesh.size == 1:
+        params = _params(model, dtype, dev) if init_params else None
+        batch = specs if gen is None else _materialize(specs, cfg, dev, gen)
+        return prefill_step, params, batch
+    _check_tensor_parallel(cfg, mesh)
+    shapes, axes = model.init(abstract=True, dtype=dtype)
+    cache_kw = {}
+    if cache_len is not None:
+        cache, cache_axes = model.init_cache(plan.shape.global_batch,
+                                             cache_len, device="meta",
+                                             dtype=dtype)
+        cache_kw = dict(cache_len=cache.k.shape[2], cache_axes=cache_axes,
+                        cache_specs=cache)
+    step = MeshServeStep(prefill_step, 0, mesh, plan, axes, shapes,
+                         batch_axes=input_axes(cfg, plan.shape),
+                         batch_specs=specs, **cache_kw)
+    params = (_rank_params(model, step.param_shardings, dtype, dev)
+              if init_params else None)
+    batch = (_meta_blocks(step.batch_shardings, specs) if gen is None
+             else step.rows(_materialize(specs, cfg, dev, gen)))
+    return step, params, batch
 
 
 def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
-                     device: DeviceLike = "cuda"):
+                     device: DeviceLike = "cuda", mesh=None,
+                     init_params: bool = True):
     """One-token decode against a ``seq_len`` cache (decode shapes).
     Returns ``(step, params, (cache, tokens, pos))`` with ``step(params,
     cache, tokens, pos) -> (logits, cache)``, the cache written in place
     (the JAX package donates it): on ``device`` a zero cache (the
     model's ``init_cache``), tokens drawn from seed 0 and the 0-d int32
-    position ``seq_len − 1``; on ``meta`` the stand-ins."""
+    position ``seq_len − 1``; on ``meta`` the stand-ins.
+    ``init_params=False`` draws no parameters (None in their place).
+
+    On a ``mesh`` of more than one rank the step is the rank's
+    :class:`MeshServeStep`: it takes the parameters' blocks, the cache's
+    block (``step.cache_shardings``) and the tokens (whole or the rank's
+    rows), and returns its rows' logits over the whole vocabulary and
+    its cache block; the returned parameters, cache and tokens are the
+    rank's."""
     cfg = plan.cfg.replace(compute_dtype=compute_dtype)
     model = build(cfg)
     dev = resolve_device(device)
-    params = _params(model, dtype_of(compute_dtype), dev)
-    inputs = input_specs(cfg, plan.shape)
+    dtype = dtype_of(compute_dtype)
+    specs = input_specs(cfg, plan.shape)
+    inputs = specs
     if dev.type != "meta":
         gen = torch.Generator(device=dev).manual_seed(0)
         inputs = dict(
-            _materialize({"tokens": inputs["tokens"]}, cfg, dev, gen),
+            _materialize({"tokens": specs["tokens"]}, cfg, dev, gen),
             cache=model.init_cache(plan.shape.global_batch,
                                    plan.shape.seq_len, device=dev)[0],
             pos=torch.tensor(plan.shape.seq_len - 1, dtype=torch.int32,
@@ -299,8 +518,23 @@ def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     def serve_step(params, cache, tokens, pos):
         return model.decode_step(params, cache, tokens, pos)
 
-    return serve_step, params, (inputs["cache"], inputs["tokens"],
-                                inputs["pos"])
+    if mesh is None or mesh.size == 1:
+        return serve_step, (_params(model, dtype, dev) if init_params
+                            else None), (
+            inputs["cache"], inputs["tokens"], inputs["pos"])
+    _check_tensor_parallel(cfg, mesh)
+    shapes, axes = model.init(abstract=True, dtype=dtype)
+    in_axes = input_axes(cfg, plan.shape)
+    step = MeshServeStep(serve_step, 1, mesh, plan, axes, shapes,
+                         batch_axes=in_axes, batch_specs=specs,
+                         cache_len=specs["cache"].k.shape[2],
+                         cache_axes=in_axes["cache"],
+                         cache_specs=specs["cache"])
+    local = (_meta_blocks(step.batch_shardings, specs) if dev.type == "meta"
+             else shard_tree(inputs, step.batch_shardings))
+    params = (_rank_params(model, step.param_shardings, dtype, dev)
+              if init_params else None)
+    return step, params, (local["cache"], local["tokens"], local["pos"])
 
 
 @dataclass

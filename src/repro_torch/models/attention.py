@@ -35,6 +35,7 @@ import torch
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.constraint import cache_positions, constrain_act
 from repro_torch.utils.remat import checkpoint
 
 BLOCKWISE_THRESHOLD = 8192
@@ -58,7 +59,7 @@ def build_attention(scope, cfg):
         scope.param("k_norm", (hd,), (None,), init="ones")
 
 
-def qkv(p, cfg, x, positions, *, rope: bool = True):
+def qkv(p, cfg, x, positions, *, rope: bool = True, local_kv: bool = True):
     """q (B,S,H,hd), k/v (B,S,KV,hd) of the normed activations x.
 
     Over a model axis (weights that are this rank's block of the heads,
@@ -68,7 +69,9 @@ def qkv(p, cfg, x, positions, *, rope: bool = True):
     here (the divisibility guard replicated them) and the query heads
     split, every rank projects all kv heads, their gradient is summed
     over the ranks (each rank's query heads see a part of it), and the
-    rank keeps the kv groups of its own query heads."""
+    rank keeps the kv groups of its own query heads (``local_kv=False``
+    keeps every kv head: what a cache stores, :func:`heads_kv` then
+    gives the attention its groups)."""
     h0 = C.shard_offset(p["wq"].shape[1], cfg.num_heads, "attention heads")
     k0 = C.shard_offset(p["wk"].shape[1], cfg.num_kv_heads,
                         "attention kv heads")
@@ -86,10 +89,21 @@ def qkv(p, cfg, x, positions, *, rope: bool = True):
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if h0 is not None and k0 is None:
-        k = _local_kv(C.copy_to_model(k, "tp_kv"), h0, q.shape[2], cfg)
-        v = _local_kv(C.copy_to_model(v, "tp_kv"), h0, q.shape[2], cfg)
+    if local_kv:
+        k, v = heads_kv(q, k, v, cfg)
     return q, k, v
+
+
+def heads_kv(q, k, v, cfg):
+    """The kv heads that the query heads ``q`` read: ``k``/``v`` as they
+    are, or where every kv head is here and the query heads are this
+    rank's block, the rank's kv groups (their gradient summed over the
+    model axis)."""
+    h0 = C.shard_offset(q.shape[2], cfg.num_heads, "attention heads")
+    if h0 is None or k.shape[2] != cfg.num_kv_heads:
+        return k, v
+    return (_local_kv(C.copy_to_model(k, "tp_kv"), h0, q.shape[2], cfg),
+            _local_kv(C.copy_to_model(v, "tp_kv"), h0, q.shape[2], cfg))
 
 
 def _local_kv(k: torch.Tensor, h0: int, heads: int, cfg) -> torch.Tensor:
@@ -241,48 +255,139 @@ def decode_attend(p, cfg, x, cache: KVCache, pos):
     on the host: its slot is computed and written on the device
     (``index_copy_``), so the step traces on ``meta`` and writes the
     same values as an int ``pos``.
+
+    On a rank of a serving mesh (:mod:`repro_torch.sharding.constraint`'s
+    activation hook) the cache is the rank's block and its layout decides
+    the attention's, as JAX pins it (``qg``, ``k``, ``v`` to
+    ``("batch", None, "decode_heads", …)`` and ``("batch", "cache_seq",
+    "decode_heads", None)``):
+
+    * the cache holds the rank's kv heads (or every kv head, where the
+      model axis does not divide them), and the rank attends with its
+      own query heads: no collective;
+    * the cache holds the rank's slice of the positions (flash-decoding,
+      ``cache_seq_shard``): q, k_new and v_new are made whole over
+      "model", the new slot is written only by the rank that owns it,
+      each rank attends over its positions with every head, the partial
+      softmax statistics (max, then the sum beside the weighted values)
+      are combined over "model", and the rank keeps its heads for the
+      row-parallel output projection (``out`` holds them).
     """
     b = x.shape[0]
-    C = cache.k.shape[1]
+    c_loc, kv_loc = cache.k.shape[1], cache.k.shape[2]
+    c0, slots = cache_positions(c_loc)
+    split = c_loc != slots
     traced = torch.is_tensor(pos)
     positions = (pos.to(torch.int64).expand(b, 1) if traced else
                  torch.full((b, 1), pos, dtype=torch.int64, device=x.device))
-    q, k_new, v_new = qkv(p, cfg, x, positions, rope=True)
+    q, k_new, v_new = qkv(p, cfg, x, positions, rope=True, local_kv=False)
+    h, kv_heads, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    if split:
+        q = constrain_act(q, ("batch", None, None, None), (b, 1, h, hd))
+    kv_ax = ("batch", None, "kv_heads" if kv_loc != kv_heads else None, None)
+    k_new = constrain_act(k_new, kv_ax, (b, 1, kv_heads, hd))
+    v_new = constrain_act(v_new, kv_ax, (b, 1, kv_heads, hd))
     if cfg.swa_window is not None:
-        slot = pos % C  # ring buffer: cache holds only the window
+        slot = pos % slots  # ring buffer: cache holds only the window
     else:
-        slot = pos.clamp(max=C - 1) if traced else min(pos, C - 1)
+        slot = pos.clamp(max=slots - 1) if traced else min(pos, slots - 1)
     if traced:
-        slot = slot.reshape(1).to(torch.int64)
-        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
-        cache.pos_ids.index_copy_(0, slot, pos.reshape(1).to(torch.int32))
-    else:
-        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-        cache.pos_ids[slot] = pos
+        local = (slot - c0).reshape(1).to(torch.int64)
+        k_w, v_w = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+        p_w = pos.reshape(1).to(torch.int32)
+        if split:
+            # only the rank that owns the slot writes it: the others
+            # write back what the slot holds
+            own = (local >= 0) & (local < c_loc)
+            local = local.clamp(0, c_loc - 1)
+            k_w = torch.where(own.reshape(1, 1, 1, 1), k_w,
+                              cache.k.index_select(1, local))
+            v_w = torch.where(own.reshape(1, 1, 1, 1), v_w,
+                              cache.v.index_select(1, local))
+            p_w = torch.where(own, p_w, cache.pos_ids.index_select(0, local))
+        cache.k.index_copy_(1, local, k_w)
+        cache.v.index_copy_(1, local, v_w)
+        cache.pos_ids.index_copy_(0, local, p_w)
+    elif 0 <= slot - c0 < c_loc:
+        cache.k[:, slot - c0] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot - c0] = v_new[:, 0].to(cache.v.dtype)
+        cache.pos_ids[slot - c0] = pos
 
-    h = cfg.num_heads
-    kv_heads = cfg.num_kv_heads
-    rep = h // kv_heads
-    hd = cfg.head_dim_
-    # GQA-native grouped attention: the rep-expanded K/V never exist
-    qg = q.reshape(b, 1, kv_heads, rep, hd)
-    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, cache.k).float()
+    # GQA-native grouped attention: the rep-expanded K/V never exist;
+    # the query heads here read their kv groups of the cache
+    qg, kc, vc = _decode_groups(q, cache, cfg)
+    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, kc).float()
     scores = scores / math.sqrt(hd)
     pos_ids = cache.pos_ids
     valid = (pos_ids >= 0) & (pos_ids <= pos)
     if cfg.swa_window is not None:
         valid &= pos_ids > pos - cfg.swa_window
     scores = scores.masked_fill(~valid[None, None, None, None, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrqs,bsgd->bqgrd", w, cache.v).reshape(b, 1, h, hd)
-    return out, cache
+    heads = qg.shape[2] * qg.shape[3]
+    if not split:
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bgrqs,bsgd->bqgrd", w, vc).reshape(b, 1, heads,
+                                                                hd)
+        return out, cache
+    # the partial softmax over this rank's positions, combined over
+    # "model": the max, then the sum beside the weighted values
+    m = C.max_over_model(scores.amax(-1, keepdim=True), "decode_max")
+    e = torch.exp(scores - m)                       # (B, G, R, 1, C)
+    o = torch.einsum("bgrqs,bsgd->bqgrd", e.to(q.dtype), vc)
+    den = e.sum(-1)                                 # (B, G, R, 1)
+    both = C.reduce_from_model(
+        torch.cat([den.reshape(-1), o.reshape(-1).float()]), "decode_sum")
+    den = both[:den.numel()].reshape(den.shape).permute(0, 3, 1, 2)
+    o = both[den.numel():].reshape(o.shape) / den[..., None]
+    out = o.to(q.dtype).reshape(b, 1, heads, hd)
+    return constrain_act(out, ("batch", None, "heads", None),
+                         (b, 1, h, hd)), cache
+
+
+def _decode_groups(q, cache: KVCache, cfg):
+    """``qg`` (B,1,G,R,hd) and the cache's ``k``/``v`` (B,C,G,hd): the
+    query heads ``q`` (all of them, or this rank's block) in groups of
+    R that read one kv head each, and those kv heads of the cache (all
+    of them, or the rank's block)."""
+    b, _, h_loc, hd = q.shape
+    rep = cfg.num_heads // cfg.num_kv_heads
+    h0 = C.shard_offset(h_loc, cfg.num_heads, "decode heads") or 0
+    kv0 = C.shard_offset(cache.k.shape[2], cfg.num_kv_heads,
+                         "decode kv heads") or 0
+    g0 = h0 // rep - kv0
+    if h0 % rep == 0 and h_loc % rep == 0:
+        g1 = g0 + h_loc // rep
+        return (q.reshape(b, 1, h_loc // rep, rep, hd),
+                cache.k[:, :, g0:g1], cache.v[:, :, g0:g1])
+    if rep % h_loc == 0:
+        # the heads lie in one group
+        return (q.reshape(b, 1, 1, h_loc, hd), cache.k[:, :, g0:g0 + 1],
+                cache.v[:, :, g0:g0 + 1])
+    idx = torch.div(torch.arange(h0, h0 + h_loc, device=q.device), rep,
+                    rounding_mode="floor") - kv0
+    return (q.reshape(b, 1, h_loc, 1, hd), cache.k.index_select(2, idx),
+            cache.v.index_select(2, idx))
 
 
 def prefill_into_cache(p, cfg, k, v, cache_len: int) -> KVCache:
     """Build a cache from prefill K/V (B,S,KV,hd); keeps the last
-    ``cache_len`` positions (all of them when S ≤ cache_len)."""
+    ``cache_len`` positions (all of them when S ≤ cache_len).  On a rank
+    of a serving mesh (K/V of its kv heads, or of all of them) the cache
+    is put into the layout the plan's rules give the cache
+    (:func:`kv_cache_axes`): the rank's slice of the positions where
+    ``cache_seq`` holds "model" (its kv heads made whole), else its kv
+    heads."""
+    cache = _prefill_cache(k, v, cache_len)
+    b, _, _, hd = k.shape
+    whole = (b, cache_len, cfg.num_kv_heads, hd)
+    ax = kv_cache_axes()
+    return KVCache(k=constrain_act(cache.k, ax.k, whole),
+                   v=constrain_act(cache.v, ax.v, whole),
+                   pos_ids=constrain_act(cache.pos_ids, ax.pos_ids,
+                                         (cache_len,)))
+
+
+def _prefill_cache(k, v, cache_len: int) -> KVCache:
     b, s, kv, hd = k.shape
     if s >= cache_len:
         k_c, v_c = k[:, s - cache_len:], v[:, s - cache_len:]

@@ -36,19 +36,23 @@ from repro_torch.configs.whisper_medium import DECODER_LEN
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.layers import rms_norm, unembed
 from repro_torch.models.transformer import (
     _attn_out,
     _ff,
+    _lookup_table,
+    attn_proj,
     check_family,
     cross_kv,
     dtype_of,
+    embed_tokens,
     group_bounds,
     layer,
     output_table,
     positions_of,
     whisper_encode,
 )
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.constraint import constrain_params
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -136,7 +140,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 def _attn_block_decode(lp, cfg, x, cache_l, pos):
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     o, cache_l = A.decode_attend(lp["attn"], cfg, h, cache_l, pos)
-    x = x + _attn_out(lp["attn"], o)
+    x = x + attn_proj(lp["attn"], cfg, o)
     ff, _ = _ff(lp, cfg, x)
     return x + ff, cache_l
 
@@ -208,7 +212,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     input; see :func:`~repro_torch.models.attention.decode_attend`).
     Returns (logits (B,1,V) fp32, cache), the cache updated in place."""
     check_family(cfg)
-    x = embed(params["embedding"], tokens, dtype_of(cfg.compute_dtype))
+    x = embed_tokens(cfg, _lookup_table(params, None), tokens,
+                     dtype_of(cfg.compute_dtype))
     if cfg.arch_type == "hybrid":
         x = _hybrid_decode(cfg, params, cache, x, pos)
     elif cfg.arch_type == "ssm":
@@ -217,12 +222,21 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
         x = _whisper_decode(cfg, params, cache, x, pos)
     else:
         for i in range(cfg.num_layers):
-            # JAX decode.py's site; a no-op until serving over a mesh
+            # JAX decode.py's site: a mesh rank's data-split blocks are
+            # gathered here (ZeRO-3 serving)
             x, _ = _attn_block_decode(
                 constrain_params(layer(params["blocks"], i), "blocks"), cfg,
                 x, layer(cache, i), pos)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(output_table(cfg, params), x), cache
+    x = rms_norm(x, constrain_params(params["final_norm"], "final_norm"),
+                 cfg.norm_eps)
+    return _logits(cfg, params, x), cache
+
+
+def _logits(cfg: ModelConfig, params, x):
+    """fp32 logits of the whole vocabulary (made whole over a model axis
+    that splits it)."""
+    return C.gather_vocab(unembed(output_table(cfg, params), x),
+                          cfg.vocab_size)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):
@@ -251,21 +265,24 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
             logits, cache = decode_step(cfg, params, cache,
                                         tokens[:, t:t + 1], t)
         return logits, cache
-    x = embed(params["embedding"], batch["tokens"],
-              dtype_of(cfg.compute_dtype))
+    x = embed_tokens(cfg, _lookup_table(params, None), batch["tokens"],
+                     dtype_of(cfg.compute_dtype))
     positions = positions_of(x)
-    C = _effective_cache_len(cfg, cache_len)
+    slots = _effective_cache_len(cfg, cache_len)
     caches = []
     for i in range(cfg.num_layers):
-        # JAX decode.py's ZeRO-3 site; a no-op until serving over a mesh
+        # JAX decode.py's ZeRO-3 site: a mesh rank's data-split blocks
+        # are gathered here
         lp = constrain_params(layer(params["blocks"], i), "blocks")
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = A.qkv(lp["attn"], cfg, hn, positions)
-        o = A.attention(q, k, v, causal=True, window=cfg.swa_window)
-        x = x + _attn_out(lp["attn"], o)
+        q, k, v = A.qkv(lp["attn"], cfg, hn, positions, local_kv=False)
+        o = A.attention(q, *A.heads_kv(q, k, v, cfg), causal=True,
+                        window=cfg.swa_window)
+        x = x + attn_proj(lp["attn"], cfg, o)
         ff, _ = _ff(lp, cfg, x)
         x = x + ff
-        caches.append(A.prefill_into_cache(lp["attn"], cfg, k, v, C))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        caches.append(A.prefill_into_cache(lp["attn"], cfg, k, v, slots))
+    x = rms_norm(x, constrain_params(params["final_norm"], "final_norm"),
+                 cfg.norm_eps)
     cache = A.KVCache(*(torch.stack(leaves) for leaves in zip(*caches)))
-    return unembed(output_table(cfg, params), x), cache
+    return _logits(cfg, params, x), cache

@@ -67,9 +67,16 @@ def build_swiglu(scope, d_model: int, d_ff: int):
     scope.param("w_down", (d_ff, d_model), ("ff", "embed"))
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` at the two dtypes' promotion, as jnp's ``@`` computes it
+    (weights held at another dtype than the activations)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(x @ p["w_gate"])
-    return (gate * (x @ p["w_up"])) @ p["w_down"]
+    gate = F.silu(_matmul(x, p["w_gate"]))
+    return _matmul(gate * _matmul(x, p["w_up"]), p["w_down"])
 
 
 def build_gelu_mlp(scope, d_model: int, d_ff: int):
@@ -81,8 +88,8 @@ def build_gelu_mlp(scope, d_model: int, d_ff: int):
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """GELU in its tanh form, ``jax.nn.gelu``'s default."""
-    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    h = F.gelu(_matmul(x, p["w_in"]) + p["b_in"], approximate="tanh")
+    return _matmul(h, p["w_out"]) + p["b_out"]
 
 
 def build_embedding(scope, vocab: int, d_model: int, name: str = "embedding"):

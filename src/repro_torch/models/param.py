@@ -18,6 +18,11 @@ An abstract scope (``abstract=True``, no generator) builds every leaf
 as an empty tensor on the ``meta`` device instead: the same tree,
 names, shapes and dtypes, nothing allocated and nothing drawn (the JAX
 package's ``jax.ShapeDtypeStruct`` leaves, for the dry-run).
+
+``place(path, leaf) -> leaf`` (port-only) maps each leaf as soon as it
+is drawn, in draw order: a rank of a mesh keeps its block of every leaf
+and lets the whole one go, so the draws are the whole model's and the
+rank never holds more than its blocks and one whole leaf.
 """
 from __future__ import annotations
 
@@ -29,18 +34,22 @@ import torch
 
 class Scope:
     def __init__(self, gen: Optional[torch.Generator], dtype: torch.dtype,
-                 lead: Tuple[int, ...] = (), abstract: bool = False):
+                 lead: Tuple[int, ...] = (), abstract: bool = False,
+                 place: Optional[Callable] = None, path: Tuple[str, ...] = ()):
         if gen is None and not abstract:
             raise ValueError("a concrete init needs a torch.Generator")
         self._gen = gen
         self.dtype = dtype
         self.abstract = abstract
         self._lead = lead  # leading stacked axes (the layer axis)
+        self._place = place
+        self._path = path
         self.params: dict = {}
         self.axes: dict = {}
 
     def sub(self, name: str) -> "Scope":
-        child = Scope(self._gen, self.dtype, self._lead, self.abstract)
+        child = Scope(self._gen, self.dtype, self._lead, self.abstract,
+                      self._place, self._path + (name,))
         self.params[name] = child.params
         self.axes[name] = child.axes
         return child
@@ -74,6 +83,8 @@ class Scope:
                      ).to(self.dtype)
         else:
             raise ValueError(f"unknown init {init!r}")
+        if self._place is not None and not self.abstract:
+            value = self._place(self._path + (name,), value)
         self.params[name] = value
         self.axes[name] = ("layer",) * len(self._lead) + tuple(axes)
         return value
@@ -85,7 +96,7 @@ class Scope:
         leading ``(n, ...)`` axis with logical name ``"layer"``.  Each
         instance draws independently (``fan_in`` is the instance's)."""
         child = Scope(self._gen, self.dtype, self._lead + (n,),
-                      self.abstract)
+                      self.abstract, self._place, self._path + (name,))
         build_fn(child)
         self.params[name] = child.params
         self.axes[name] = child.axes
@@ -93,8 +104,9 @@ class Scope:
 
 
 def init_pair(gen: Optional[torch.Generator], dtype: torch.dtype,
-              build_fn: Callable, abstract: bool = False):
+              build_fn: Callable, abstract: bool = False,
+              place: Optional[Callable] = None):
     """Run ``build_fn(scope)`` and return ``(params, axes)`` trees."""
-    sc = Scope(gen, dtype, abstract=abstract)
+    sc = Scope(gen, dtype, abstract=abstract, place=place)
     build_fn(sc)
     return sc.params, sc.axes

@@ -47,7 +47,7 @@ per-agent ``vmap(grad)`` keeps one launch per call).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -126,17 +126,23 @@ def _attn_out(p, o):
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
 
 
+def attn_proj(p, cfg, o):
+    """The output projection of the heads ``o`` (B,S,H,hd): over a model
+    axis that splits the heads it is row-parallel, this rank's heads'
+    share summed over the ranks."""
+    out = _attn_out(p, o)
+    if p["wo"].shape[0] != cfg.num_heads:
+        out = C.reduce_from_model(out, "tp_attn_out")
+    return out
+
+
 def _self_attn(p, cfg, x, positions, *, causal=True, rope=True,
                window="cfg"):
     q, k, v = A.qkv(p["attn"], cfg, x, positions, rope=rope)
     win = cfg.swa_window if window == "cfg" else window
     o = A.attention(q, k, v, causal=causal, window=win,
                     q_block=cfg.attn_q_block)
-    out = _attn_out(p["attn"], o)
-    if p["attn"]["wo"].shape[0] != cfg.num_heads:
-        # row-parallel: this rank's heads' share of the projection
-        out = C.reduce_from_model(out, "tp_attn_out")
-    return out
+    return attn_proj(p["attn"], cfg, o)
 
 
 def _maybe_remat(cfg, fn):
@@ -171,12 +177,15 @@ def _decoder_block(p, cfg, x, positions):
 # ======================================================================
 
 def init(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
-         abstract: bool = False, dtype: Optional[torch.dtype] = None):
+         abstract: bool = False, dtype: Optional[torch.dtype] = None,
+         place: Optional[Callable] = None):
     """Returns (params, logical_axes), drawn from ``gen`` onto its
     device.  The tree, names, shapes and init distributions are the
     JAX package's; the draws are not.  ``abstract=True`` allocates
     nothing: every leaf is an empty ``meta`` tensor of its shape and
-    dtype (``gen`` is not read)."""
+    dtype (``gen`` is not read).  ``place(path, leaf)`` maps each leaf
+    as it is drawn (:class:`~repro_torch.models.param.Scope`: a mesh
+    rank's blocks)."""
     check_family(cfg)
     dtype = dtype or dtype_of(cfg.param_dtype)
 
@@ -226,7 +235,7 @@ def init(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
             sc.stacked("blocks", cfg.num_layers,
                        lambda s: _build_decoder_block(s, cfg))
 
-    return init_pair(gen, dtype, build, abstract)
+    return init_pair(gen, dtype, build, abstract, place)
 
 
 # ======================================================================
@@ -354,9 +363,11 @@ def output_table(cfg: ModelConfig, params):
 
 
 def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
-    """Returns (logits over token positions, aux_loss)."""
+    """Returns (logits over token positions, aux_loss); over a model axis
+    that splits the vocabulary, the whole vocabulary's on every rank."""
     x, aux, prefix = forward_hidden(cfg, params, batch)
-    logits = unembed(output_table(cfg, params), x)
+    logits = C.gather_vocab(unembed(output_table(cfg, params), x),
+                            cfg.vocab_size)
     if prefix:
         logits = logits[:, prefix:]
     return logits, aux

@@ -26,7 +26,9 @@ forward mode), so they run inside the train step's per-agent
 * :func:`vocab_parallel_nll` — the cross-entropy over a vocabulary split
   over the model axis: each rank runs the ``fused_ce`` kernel on its
   block of the table, and the ranks combine the logsumexps and the gold
-  logits.
+  logits;
+* :func:`gather_vocab` — a serving step's logits over the rank's block
+  of the vocabulary, made whole over the model axis.
 
 The model axis of the running step comes from :func:`tensor_parallel`,
 a context that the mesh step enters for the duration of a call; with no
@@ -212,6 +214,22 @@ def gather_from_data(x: torch.Tensor, index: Tuple[slice, ...],
     for s, n in reversed(list(zip(index, shape))):
         pad += [s.start, n - s.stop]
     return _AllReduce.apply(F.pad(x, pad), where)
+
+
+def gather_vocab(logits: torch.Tensor, vocab_size: int,
+                 tag: str = "tp_logits") -> torch.Tensor:
+    """Logits ``(..., V / tp)`` over this rank's block of a vocabulary
+    split over the model axis, made whole ``(..., V)`` on every model
+    rank (the zero-padded block summed: exact); ``logits`` itself where
+    the vocabulary is whole here."""
+    v0 = shard_offset(logits.shape[-1], vocab_size, "gather_vocab")
+    if v0 is None:
+        return logits
+    lead = tuple(logits.shape[:-1])
+    index = tuple(slice(0, n) for n in lead) + (
+        slice(v0, v0 + logits.shape[-1]),)
+    return gather_from_data(logits, index, lead + (vocab_size,),
+                            _need_axis("gather_vocab").where(tag))
 
 
 def vocab_parallel_nll(x: torch.Tensor, table: torch.Tensor,

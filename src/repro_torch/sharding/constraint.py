@@ -32,7 +32,17 @@ blocks through "".
 
 Activations get the same treatment through ``constrain_act``; training
 installs no activation hook (the JAX package installs one for serving
-only), and the port's serving over a mesh is the next ROADMAP item.
+only).  A serving step on a mesh installs :func:`make_act_hook`'s: the
+rank holds its rows of the batch, so the hook acts over "model" alone.
+It brings an activation that the caller hands it whole, or in the
+tensor-parallel layout the model produced (the rank's heads, kv heads,
+``ff`` columns), into the layout the plan's rules give each of its
+logical axes: a dim the rules split it slices to the rank's block (the
+rank's heads where ``decode_heads`` holds "model", the rank's slice of
+cache positions where ``cache_seq`` does), and a dim they leave whole
+that holds a model block it gathers (the flash-decoding layout's
+queries and new keys, made whole over "model").  The cache's layout
+decides the decode attention's (:func:`cache_positions`).
 """
 from __future__ import annotations
 
@@ -54,26 +64,91 @@ def set_act_hook(fn: Optional[Callable]):
     return _ACT_HOOK.set(fn)
 
 
-def constrain_act(x, logical_axes):
+def reset_act_hook(token) -> None:
+    _ACT_HOOK.reset(token)
+
+
+def constrain_act(x, logical_axes, whole=None):
     """Pin an activation to the plan's sharding for ``logical_axes``.
-    No-op unless a hook is installed."""
+    ``whole`` is its shape whole over "model" (default ``x.shape``: ``x``
+    is whole); each dim of ``x`` is that size or this rank's block of
+    it.  No-op unless a hook is installed."""
     fn = _ACT_HOOK.get()
-    return fn(x, logical_axes) if fn is not None else x
+    return fn(x, logical_axes, whole) if fn is not None else x
 
 
-def make_act_hook(mesh, rules):
-    """The activation hook of a serving plan: an activation whose
-    resolved spec replicates passes through; one that the spec splits
-    belongs to serving over a mesh and raises."""
-    from repro_torch.sharding.rules import resolve_pspec, spec_axes
-    from repro_torch.utils.todo import todo
+def cache_positions(local: int):
+    """``(offset, length)``: where this rank's ``local`` cache slots start
+    in the whole cache, and the whole cache's length (``(0, local)``
+    unless a serving hook splits the positions over "model")."""
+    fn = _ACT_HOOK.get()
+    positions = getattr(fn, "positions", None)
+    return (0, local) if positions is None else positions(local)
 
-    def hook(x, logical_axes):
-        spec = resolve_pspec(x.shape, logical_axes, rules, mesh)
-        if spec_axes(spec):
-            raise todo(f"an activation split as {spec!r}", "queue 1 item 11.2")
+
+def make_act_hook(mesh, rules, *, cache_len: Optional[int] = None):
+    """The activation hook of a serving plan on ``mesh`` (the module
+    doc).  ``cache_len`` is the whole KV cache's length (its slots), for
+    :func:`cache_positions`: the positions are split where the rules put
+    ``cache_seq`` on "model" and the model axis divides them.  A gather
+    is one ``all_reduce`` over "model" of the zero-padded block (tag
+    ``act_gather``)."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import NamedSharding, resolve_pspec
+
+    model_rules = strip_data_axes(rules)
+    n = mesh.shape.get("model", 1)
+    axis = C.ModelAxis(mesh) if n > 1 else None
+
+    def hook(x, logical_axes, whole=None):
+        whole = tuple(x.shape) if whole is None else tuple(whole)
+        if axis is None:
+            return x
+        target = NamedSharding(mesh, resolve_pspec(whole, logical_axes,
+                                                   model_rules, mesh))
+        block = target.shard_shape(whole)
+        have = tuple(x.shape)
+        # a dim the layout keeps whole that x holds a model block of is
+        # gathered first (every rank's block over the other dims is
+        # the same one), then what the layout splits is sliced
+        grow = [d for d in range(x.ndim) if have[d] != whole[d]
+                and have[d] * n == whole[d] and block[d] == whole[d]]
+        if len(grow) > 1:
+            raise ValueError(f"activation hook: {have} holds a model block "
+                             f"of {whole} in more than one dim")
+        if grow:
+            d = grow[0]
+            index = tuple(slice(axis.index * have[d],
+                                (axis.index + 1) * have[d]) if i == d
+                          else slice(0, have[i]) for i in range(x.ndim))
+            x = C.gather_from_data(
+                x, index, tuple(whole[i] if i == d else have[i]
+                                for i in range(x.ndim)),
+                axis.where("act_gather"))
+        cut = tuple(s if h == w != b else slice(None)
+                    for h, w, b, s in zip(x.shape, whole, block,
+                                          target.slices(whole)))
+        if any(s != slice(None) for s in cut):
+            x = x[cut]
+        if tuple(x.shape) != block:
+            raise ValueError(
+                f"activation hook: a tensor of shape {have} is neither "
+                f"whole ({whole}) nor a model block of it in each dim; the "
+                f"layout of {tuple(logical_axes)} is {block}")
         return x
 
+    split = (axis is not None and cache_len is not None and bool(
+        resolve_pspec((cache_len,), ("cache_seq",), model_rules, mesh)))
+
+    def positions(local: int):
+        if not split:
+            return 0, local
+        if local * n != cache_len:
+            raise ValueError(f"a cache of {local} slots is not 1/{n} of "
+                             f"the plan's {cache_len}")
+        return axis.index * local, cache_len
+
+    hook.positions = positions
     return hook
 
 

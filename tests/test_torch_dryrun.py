@@ -218,4 +218,4 @@ def test_clis_run_and_the_mesh_knobs_raise(tmp_path, capsys, monkeypatch):
         dryrun.main(["--all", "--multi-pod"])
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         S.plan_run(get_config("smollm-135m"), SHAPES["decode_32k"],
-                   cache_seq_shard=True)
+                   seq_shard=True)

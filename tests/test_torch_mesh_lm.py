@@ -584,6 +584,12 @@ def test_plan_run_mesh_matches_jax():
     assert S.plan_run(cfg, shape, num_agents=4).num_agents == 4
     with pytest.raises(ValueError, match="do not split"):
         S.plan_run(cfg, shape, Mesh(("data", "model"), (2, 2)), num_agents=3)
-    for knob in ("seq_shard", "inner_batch_shard", "cache_seq_shard"):
+    for knob in ("seq_shard", "inner_batch_shard"):
         with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
             S.plan_run(cfg, shape, **{knob: True})
+    # cache_seq_shard is ported: JAX's rules
+    tm = Mesh(("data", "model"), (2, 2))
+    got = S.plan_run(cfg, shape, tm, cache_seq_shard=True)
+    want = JS.plan_run(jcfg, jshape, FakeMesh((2, 2), ("data", "model")),
+                       cache_seq_shard=True)
+    assert got.rules == want.rules and got.rules["cache_seq"] == "model"

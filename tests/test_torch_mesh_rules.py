@@ -189,7 +189,9 @@ def test_constraint_hooks_without_a_mesh_are_no_ops():
     """No hook: ``constrain_params``/``constrain_act`` return their
     argument.  A hook on a one-rank mesh keeps every leaf; the whole-tree
     key "" (the per-agent gradient and probe) passes through; the
-    activation hook raises for a split spec (serving over a mesh)."""
+    activation hook passes a replicated activation and the batch's dim
+    (a serving rank holds its rows) through, and takes the rank's block
+    of a dim that it splits over "model"."""
     cfg = get_config("smollm-135m")
     params, axes = build(cfg).init(abstract=True)
     tree = {"a": torch.zeros(3)}
@@ -211,8 +213,11 @@ def test_constraint_hooks_without_a_mesh_are_no_ops():
     hook = constraint.make_act_hook(big, resolve_rules(big))
     x = torch.empty(32, 8, device="meta")
     assert hook(x, (None, None)) is x
-    with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
-        hook(x, ("batch", None))
+    assert hook(x, ("batch", None)) is x
+    rank = Mesh(("data", "model"), (2, 2), (0, 1))
+    y = torch.arange(8.0).reshape(2, 4)
+    split = constraint.make_act_hook(rank, resolve_rules(rank))
+    assert torch.equal(split(y, (None, "heads")), y[:, 2:])
     assert constraint.strip_data_axes(resolve_rules(
         Mesh(("pod", "data", "model"), (2, 2, 2)), fsdp=True))["embed"] is None
 

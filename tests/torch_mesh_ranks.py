@@ -1,4 +1,4 @@
-"""Rank programs for tests/test_torch_mesh_lm.py.
+"""Rank programs for tests/test_torch_mesh_{lm,hetero,serve}.py.
 
 Each function runs on one gloo rank that ``repro_torch.launch.mesh.spawn``
 starts on the CPU (``fn(mesh, *args)``, the mesh a (data, model) host
@@ -7,6 +7,7 @@ mesh), imports nothing of JAX, and returns numpy copies of the gathered
 package.  Inputs arrive as numpy arrays drawn by the test from JAX's
 keys: the global parameters and the global batches.
 """
+import numpy as np
 import torch
 
 from repro_torch import convert
@@ -19,7 +20,11 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.sharding.agent_shard import gather_agents
 from repro_torch.sharding.rules import gather_tree, shard_tree
-from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+from repro_torch.utils.tree import (
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_map,
+)
 
 _MESHES = {}
 
@@ -55,8 +60,12 @@ def _mesh(base, model):
 
 
 def _np_tree(tree):
-    return {"/".join(str(p) for p in path): x.detach().cpu().numpy()
-            for path, x in tree_flatten_with_path(tree)}
+    """``{"a/b/c": numpy copy of the leaf}``, bf16 leaves as fp32 (numpy
+    has none); a copy, so that a cache written in place later leaves it
+    as it was."""
+    return {"/".join(str(p) for p in path): np.array((
+        x.float() if x.dtype == torch.bfloat16 else x).detach().cpu())
+        for path, x in tree_flatten_with_path(tree)}
 
 
 def _rest_bytes(tree) -> int:
@@ -64,13 +73,16 @@ def _rest_bytes(tree) -> int:
 
 
 def train_run(base, job):
-    """``job``: arch, cfg overrides, the model axis's size, policy, fsdp,
-    fleet_shard, lr and remat; the global batches and, per step, the
-    global state it starts from (numpy trees: the JAX step's states, so
-    that the gaps do not compound).  Returns per step the fleet's
-    metrics, the gathered parameters and EF memory, the collectives by
-    tag and by axis and the kernel launches; and this rank's bytes of
-    parameters and optimizer state at rest."""
+    """``job``: arch, cfg overrides, the model axis's size, policy (a
+    spec or a per-agent tuple), fsdp, fleet_shard, lr, remat and, where
+    set, the heterogeneous dispatch path and the parameters' dtype; the
+    global batches and, per step, the global state it starts from (numpy
+    trees: the JAX step's states, so that the gaps do not compound).
+    Returns per step the fleet's metrics, the gathered parameters, EF
+    memory, controller rows and channel slot, this rank's own rows of
+    the last two, the collectives by tag and by axis and the kernel
+    launches; and this rank's bytes of parameters and optimizer state at
+    rest and its mesh coordinates."""
     _count_plain_calls()
     mesh = _mesh(base, job["model"])
     cfg = reduced(get_config(job.get("arch", "smollm-135m"))).replace(
@@ -81,13 +93,19 @@ def train_run(base, job):
     plan = S.plan_run(cfg, shape, mesh, num_agents=m, comm=job["policy"],
                       lr=job["lr"], fsdp=job["fsdp"],
                       remat=job.get("remat", False))
-    step = S.build_train_step(plan, compute_dtype="float32", device="cpu",
-                              mesh=mesh, fleet_shard=job["fleet_shard"],
-                              agent_metrics=True)
+    step = S.build_train_step(
+        plan, compute_dtype="float32", param_dtype=job.get("param_dtype"),
+        device="cpu", mesh=mesh, fleet_shard=job["fleet_shard"],
+        agent_metrics=True,
+        hetero_dispatch=job.get("dispatch", "hybrid"))
     shardings = step.state_shardings
-    out = {"steps": [], "rank": mesh.rank}
+    out = {"steps": [], "rank": mesh.rank, "coords": mesh.coords}
     for k, b in enumerate(batches):
         start = convert.to_torch(job["states"][k], "cpu")
+        if job.get("param_dtype"):
+            dt = getattr(torch, job["param_dtype"])
+            start = start._replace(params=tree_map(lambda x: x.to(dt),
+                                                   start.params))
         state = shard_tree(start._replace(step=k), shardings)
         if k == 0:
             out["param_bytes"] = _rest_bytes(state.params)
@@ -106,10 +124,66 @@ def train_run(base, job):
             met = gather_agents(met, mesh)
         rec["metrics"] = {k: v.detach().cpu().numpy() for k, v in met.items()}
         rec["params"] = _np_tree(gather_tree(state.params, shardings.params))
-        if state.ef_memory is not None:
-            rec["ef"] = _np_tree(gather_tree(state.ef_memory,
-                                             shardings.ef_memory))
+        for key, slot in (("ef", "ef_memory"), ("ctrl", "ctrl_state"),
+                          ("net", "net_state")):
+            local = getattr(state, slot)
+            if local is None:
+                continue
+            rec[key] = _np_tree(gather_tree(local, getattr(shardings, slot)))
+            if key != "ef":
+                rec[f"{key}_local"] = _np_tree(local)
         out["steps"].append(rec)
+    return out
+
+
+def serve_run(base, job):
+    """``job``: cfg overrides, fsdp, cache_seq_shard, the global
+    parameters (numpy), the prompt ``(B, S)`` and the teacher-forced
+    decode tokens ``(B, T)`` and the cache length.  Runs the mesh
+    prefill (with its cache) and T decode steps.  Returns the prefill's
+    and each decode step's logits (gathered over the batch's rows), the
+    gathered cache and this rank's cache block after the prefill and
+    after the last step, the collectives by tag of the prefill and of
+    the last decode step, the kernel launches of each and this rank's
+    coordinates."""
+    _count_plain_calls()
+    mesh = _mesh(base, 2)
+    cfg = reduced(get_config("smollm-135m")).replace(**job["cfg"])
+    prompt = torch.from_numpy(job["prompt"])
+    toks = torch.from_numpy(job["decode"])
+    b, s = prompt.shape
+    knobs = dict(fsdp=job["fsdp"], cache_seq_shard=job["cache_seq_shard"])
+    pstep, _, _ = S.build_prefill_step(
+        S.plan_run(cfg, InputShape("serve", s, b, "prefill"), mesh, **knobs),
+        compute_dtype="float32", device="cpu", mesh=mesh,
+        cache_len=job["cache_len"])
+    dstep, _, _ = S.build_serve_step(
+        S.plan_run(cfg, InputShape("serve", job["cache_len"], b, "decode"),
+                   mesh, **knobs),
+        compute_dtype="float32", device="cpu", mesh=mesh)
+    params = shard_tree(convert.to_torch(job["params"], "cpu"),
+                        pstep.param_shardings)
+    out = {"coords": mesh.coords, "logits": [], "launches": [],
+           "by_tag": []}
+
+    def run(fn, *args):
+        mesh.collectives.reset()
+        swa0 = swa_ops.swa_attention.launches
+        res = fn(*args)
+        out["launches"].append(swa_ops.swa_attention.launches - swa0)
+        out["by_tag"].append(mesh.collectives.by_tag())
+        return res
+
+    logits, cache = run(pstep, params, {"tokens": prompt})
+    out["cache_prefill"] = _np_tree(gather_tree(cache, dstep.cache_shardings))
+    out["block_prefill"] = _np_tree(cache)
+    out["logits"].append(pstep.logits_sharding.gather(logits).numpy())
+    for t in range(toks.shape[1]):
+        logits, cache = run(dstep, params, cache, toks[:, t:t + 1],
+                            torch.tensor(s + t, dtype=torch.int32))
+        out["logits"].append(dstep.logits_sharding.gather(logits).numpy())
+    out["cache"] = _np_tree(gather_tree(cache, dstep.cache_shardings))
+    out["block"] = _np_tree(cache)
     return out
 
 

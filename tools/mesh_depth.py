@@ -1,12 +1,13 @@
-"""Run chip_smoke.py's [mesh] phase alone at a chosen llama3.2-3b depth,
-after the [ce] check of the vocabulary block a [mesh] rank launches on.
+"""Run chip_smoke.py's [mesh] and [mesh serve] phases alone (their one
+spawn of 4 gloo ranks sharing the card), after the kernels' build and
+the [ce] check of the vocabulary block a [mesh] rank launches on.
 
+    python3 tools/mesh_depth.py          # llama3.2-3b at chip_smoke's depth
     python3 tools/mesh_depth.py 4 2
 
 tries each depth in turn (the layers of MESH_RUNS["llama"]) until one
-passes, printing the phase's lines, and writes the passing phase's record
-to chiprun_out/mesh_<layers>.json.  Needs one card; the four gloo ranks
-share it as in chip_smoke.py.
+passes, printing the phases' lines, and writes the passing run's records
+to chiprun_out/mesh_<layers>.json.  Needs one card.
 """
 import json
 import os
@@ -46,12 +47,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    for layers in sys.argv[1:]:
+    for layers in sys.argv[1:] or [str(cs.MESH_RUNS["llama"]["layers"])]:
         os.environ["MESH_LAYERS"] = layers
         cs.MESH_RUNS["llama"]["layers"] = int(layers)
         t0 = time.perf_counter()
         try:
-            rec = cs.phase_mesh(torch, card)
+            mesh, serve = cs.phase_mesh(torch, card)
         except Exception:
             traceback.print_exc()
             print(f"[depth] llama at {layers} layers failed after "
@@ -59,8 +60,8 @@ def main() -> int:
             continue
         print(f"[depth] llama at {layers} layers passed in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        (out / f"mesh_{layers}.json").write_text(
-            json.dumps(rec, default=str, indent=1))
+        (out / f"mesh_{layers}.json").write_text(json.dumps(
+            {"mesh": mesh, "mesh_serve": serve}, default=str, indent=1))
         return 0
     return 1
 
