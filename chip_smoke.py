@@ -66,7 +66,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               every round, fewer wire bytes than without churn, and the
               CPU check over rounds 0–10 and 55–65 (the joins at 60).
    dispatch — ``TIERED_M64_QUADRATIC`` and ``TIERED_M64_ADAPTIVE_LOSSY``
-              under the ``switch`` and ``unroll`` paths: 4 rounds, each
+              under the ``switch`` and ``unroll`` paths: 2 rounds (4
+              until [mesh]'s seq and inner jobs needed the time), each
               from the ``hybrid`` path's state before it, held to
               hybrid's round under ROADMAP's parity contract (decisions,
               deliveries and staleness exactly but at a gain on its
@@ -160,15 +161,21 @@ Phases (any failure exits nonzero; no result line is printed then):
    mesh     — the LM train step over a (data 2, model 2) mesh of 4 gloo
               ranks sharing the card (``build_train_step(mesh=...)``,
               ``int8+ef``, sgd, fp32, 2 agents × 2 × 1024 tokens, weights
-              from seed 0): llama3.2-3b at full width (every head, kv
-              head, ff column and vocab row split over model) cut to 2
-              layers, 2 steps with fsdp off and 2 with fsdp on (3 and 3
-              until [mesh serve] needed the time); then smollm-135m at
-              full depth (its 9/3 heads whole, ff and vocab split), fsdp
-              on, 1 step (2 until then), and 1 step with
-              ``fleet_shard=True``; then per-agent policies on smollm at
-              full depth, m = 4 (two agents on each data slice) × 1 ×
-              1024 tokens, 2 steps each: the four-tier tuple (``always``,
+              from seed 0; each agent's gradient, EF memory, payload
+              and aggregate the rank's model blocks): llama3.2-3b at
+              full width (every head, kv head, ff column and vocab row
+              split over model) cut to 4 layers, 2 steps with fsdp off,
+              2 with fsdp on, 2 with ``seq_shard`` (each model rank's
+              chunk of the sequence) and 1 with ``fleet_shard=True``;
+              then smollm-135m at full depth (its 9/3 heads whole, ff
+              and vocab split), fsdp on, 1 step, and 1 step with
+              ``inner_batch_shard`` (each model rank's row of an agent's
+              two, the weights gathered whole at use); then per-agent
+              policies on smollm at 15 of its 30 layers, m = 4 (two
+              agents on each data slice) × 1 × 1024 tokens, 1 step each
+              (30 layers and 2 steps until the seq and inner jobs needed
+              the time): the four-tier
+              tuple (``always``,
               ``gain_lookahead(lam=0.01)|fp16``, ``…|int8+ef``,
               ``…|topk(0.05)|int8+ef``) with fsdp on, and
               ``gain_lookahead(lam=0.01)|int8+ef @ delay(max_lag=2)``.
@@ -191,18 +198,20 @@ Phases (any failure exits nonzero; no result line is printed then):
               of 4 gloo ranks, in [mesh]'s spawn after its jobs
               (``build_prefill_step(mesh=...,
               cache_len=...)``, ``build_serve_step(mesh=...)``):
-              llama3.2-3b at full width and full depth (28 layers), fp32,
+              llama3.2-3b at full width cut to 14 of its 28 layers
+              (28 until [mesh]'s seq and inner jobs needed the time), fp32,
               weights from seed 0, each rank drawing only its blocks; B 4
               × 1024 prompt tokens (2 requests on each data slice), then
-              16 decode steps teacher-forced on the single-process greedy
+              8 decode steps (16 until the seq and inner jobs needed the
+              time) teacher-forced on the single-process greedy
               tokens, under both cache layouts (``decode_heads``: the
-              rank's kv heads; ``cache_seq_shard``: its slice of the 1040
+              rank's kv heads; ``cache_seq_shard``: its slice of the 1032
               positions, flash-decoding).  Rank 0 first runs the
               single-process prefill and greedy decode on the card; the
               prefill's logits and each step's are held to it within
               1e-4 + 1e-4·|ref| ([lm]'s card-against-CPU tolerance), and
               the greedy tokens equal but where the reference's top two
-              lie within that tolerance (counted).  28 ``swa_attention``
+              lie within that tolerance (counted).  14 ``swa_attention``
               launches per prefill per rank, none per decode step.
               Prints ms per prefill and per decode step beside the
               single-process ones, the collectives of a prefill and of a
@@ -426,13 +435,15 @@ Phases (any failure exits nonzero; no result line is printed then):
               4096, 32000) and (1024, 2048, 32000), fp32 and bf16, beside its plain version,
               ``F.cross_entropy(x @ table.T, labels, reduction="none")``
               and both bounds (``bf16-mma``: flops at the bf16 rate).
-8. profile  — 10 more fleet rounds under torch.profiler (device ops,
+8. profile  — 5 more fleet rounds under torch.profiler (device ops,
               busy time and idle share per round, top kernels and host
-              operators); then 10 rounds each of [slice], [fleet adaptive]
-              and [fleet lossy] in traces that must hold exactly 10 times
+              operators); then 5 rounds each of [slice], [fleet adaptive]
+              and [fleet lossy] in traces that must hold exactly 5 times
               one round's records (taken again when short, as
               ``device_ms`` does): device ops, busy time, idle share;
-              then 10 rounds of [frontier quadratic] the same way; then
+              then 5 rounds of [frontier quadratic] the same way (10
+              each until [mesh]'s seq and inner jobs needed the time);
+              then
               one prefill and 8 decode steps of LM run
               (a): the kernel's share of the prefill's device time and
               the device's idle share in decode; then one train step:
@@ -505,10 +516,12 @@ TOL_LOSSY = 0.15    # benchmarks/lossy_channels.py:57
 TOL_BUDGET = 0.15   # benchmarks/async_rounds.py:68
 CHURN_WINDOW = (55, 65)   # around round 60, where the late agents join
 RANDOM_COUNTERS = 1 << 20
-# fleet rounds in each [profile] trace (20 until [mesh] needed the time)
-PROFILED_ROUNDS = 10
+# fleet rounds in each [profile] trace (20 until [mesh] needed the time,
+# 10 until its seq and inner jobs did)
+PROFILED_ROUNDS = 5
 # the switch and unroll dispatch paths at m = 64: rounds held to hybrid's
-DISPATCH_ROUNDS = 4
+# (4 until [mesh]'s seq and inner jobs needed the time)
+DISPATCH_ROUNDS = 2
 # one step of two paths from the same state (ROADMAP's parity contract)
 STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
 # the fleet-sharded phases: gateway ranks, the O(#gateways) check's
@@ -554,6 +567,9 @@ SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096),
               # a [mesh] rank's llama3.2-3b heads at model 2 (24/8 → 12/4)
               (2, 1024, 12, 4, 128, 1024))
 SWA_CHECK = SWA_SERVED + (
+    # an inner_batch_shard [mesh] rank's smollm-135m: its row of each
+    # agent's 2, every head
+    (1, 1024, 9, 3, 64, 1024),
     (1, 2048, 24, 8, 128, 512),
     # whisper's decoder and phi-3-vision's patches + tokens in training
     (2, 448, 16, 16, 64, 448), (2, 1088, 32, 32, 96, 1088)) + tuple(
@@ -605,6 +621,9 @@ CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256),
 # tokens, d 3072, V 32064) checked only
 CE_TRAIN_LOSSES = {"moe": CE_TIMED[2], "hybrid": CE_TIMED[3],
                    "dense_mesh_block": CE_TIMED[4],
+                   # an inner_batch_shard [mesh] rank's smollm-135m loss:
+                   # its row of 1024 tokens at the whole vocabulary
+                   "dense_mesh_rows": (1024, 576, 49152),
                    "xlstm": (1024, 1024, 50304),
                    "whisper": (896, 1024, 51865),
                    "vlm": (1024, 3072, 32064)}
@@ -727,8 +746,9 @@ XLSTM_ARCH = "xlstm-350m"
 XLSTM_SERVE = dict(layers=6, batch=4, prompt=256, gen=32)
 XLSTM_FORWARD = dict(batch=2, seq=1024)
 XLSTM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
-# 2 timed steps (3 until [mesh serve] needed the time)
-XLSTM_TRAIN = dict(layers=2, agents=2, batch=2, seq=512, warmup=1, timed=2)
+# 1 timed step (3 until [mesh serve] needed the time, 2 until [mesh]'s
+# seq and inner jobs)
+XLSTM_TRAIN = dict(layers=2, agents=2, batch=2, seq=512, warmup=1, timed=1)
 # [profile] xlstm decode: steps after a short replayed prompt (a profile
 # of a whole train step, ~100 k device ops, costs ~2 minutes of trace
 # processing)
@@ -767,23 +787,24 @@ VLM_STATE_TREES = 7
 # [mesh]: MESH_WORLD gloo ranks share the card as a (data 2, model 2)
 # mesh.  llama3.2-3b at full width (d 3072, 24/8 heads of 128, d_ff 8192,
 # vocab 128256: every head, kv head, ff column and vocab row splits over
-# model 2) cut to 2 of its 28 layers, and smollm-135m at full depth (its
+# model 2) cut to 4 of its 28 layers, and smollm-135m at full depth (its
 # 9/3 heads stay whole, its ff and vocab split); 2 agents × 2 × 1024
-# tokens, fp32, sgd.  At 4 layers the four ranks run out of the card's
-# 80 GB at the end of the first step (19.96 GB peak on rank 0; a rank
-# holds its blocks at rest, the old and the new EF memory, the whole
-# gradient, the payload and the flat aggregate, each but the first a
-# whole parameter tree).  fleet_shard runs on smollm: the hybrid
-# dispatch's epilogue holds the gradient, g + ef, the payload and the
-# residual of every leaf at once (the homogeneous step's goes leaf by
-# leaf), and at llama's width the four ranks ran out of the card there
-# (16.1 GB a rank).  The per-agent jobs run m = 4 agents of 1 × 1024
-# tokens, so a rank holds the same 2048 tokens as the smollm job's.
-# llama's jobs take 2 steps each (3 until [mesh serve] needed the time:
-# the second step's parameters are held in L2, fsdp on's blocks to fsdp
-# off's, and its time is the steady step's) and the smollm job 1 (2
-# until then).  The jobs: (run, fsdp, fleet_shard, steps, policy),
-# each from seed 0.
+# tokens, fp32, sgd.  Each agent's gradient, its EF memory, the payload
+# and the aggregate are a rank's model blocks (until the block epilogue,
+# each was a whole parameter tree on every rank and llama ran out of the
+# card at 4 layers: 19.96 GB on rank 0).  The per-agent jobs run m = 4
+# agents of 1 × 1024 tokens, so a rank holds the same 2048 tokens as the
+# smollm job's, at 15 of smollm's 30 layers (30 until the seq and inner
+# jobs needed the time).  `seq` runs llama with seq_shard (each model rank's chunk
+# of the sequence), `inner` smollm with inner_batch_shard (each model
+# rank's row of each agent's 2: smollm's 9/3 heads do not split at
+# model 2, the case the knob is for), and fleet_shard runs on llama.
+# llama's jobs take 2 steps each (the second step's parameters are held
+# in L2, fsdp on's blocks to fsdp off's, and its time is the steady
+# step's; fleet_shard 1), the smollm jobs 1 (the per-agent ones 2 until
+# the seq and inner jobs needed the time).  The jobs: (run, fsdp,
+# fleet_shard, steps, policy), each from seed 0, with MESH_KNOBS' plan
+# knobs.
 MESH_WORLD, MESH_MODEL = 4, 2
 MESH_TIMEOUT_S = 900
 MESH_COMM = "gain_lookahead(lam=0.01)|int8+ef"
@@ -793,27 +814,38 @@ MESH_TIERS = ("always", MESH_LA + "|fp16", MESH_LA + "|int8+ef",
 MESH_DELAY = MESH_COMM + " @ delay(max_lag=2)"
 MESH_LR = 0.05
 MESH_RUNS = {
-    "llama": dict(arch="llama3.2-3b", layers=2, agents=2, per_agent=2,
+    "llama": dict(arch="llama3.2-3b", layers=4, agents=2, per_agent=2,
                   seq=1024, steps=2),
     "smollm": dict(arch="smollm-135m", layers=30, agents=2, per_agent=2,
                    seq=1024, steps=1),
-    "smollm_m4": dict(arch="smollm-135m", layers=30, agents=4, per_agent=1,
-                      seq=1024, steps=2),
+    "smollm_m4": dict(arch="smollm-135m", layers=15, agents=4, per_agent=1,
+                      seq=1024, steps=1),
 }
 MESH_JOBS = {"fsdp_off": ("llama", False, False, 2, MESH_COMM),
              "fsdp_on": ("llama", True, False, 2, MESH_COMM),
+             "seq": ("llama", False, False, 2, MESH_COMM),
+             "fleet_shard": ("llama", True, True, 1, MESH_COMM),
              "smollm": ("smollm", True, False, 1, MESH_COMM),
-             "fleet_shard": ("smollm", True, True, 1, MESH_COMM),
-             "tiers": ("smollm_m4", True, False, 2, MESH_TIERS),
-             "delay": ("smollm_m4", False, False, 2, MESH_DELAY)}
+             "inner": ("smollm", True, False, 1, MESH_COMM),
+             "tiers": ("smollm_m4", True, False, 1, MESH_TIERS),
+             "delay": ("smollm_m4", False, False, 1, MESH_DELAY)}
+MESH_KNOBS = {"seq": {"seq_shard": True}, "inner": {"inner_batch_shard": True}}
+# the jobs [mesh] runs (every job when empty), and whether rank 0 runs
+# the single-process references and holds the jobs to them: only
+# tools/mesh_depth.py's upward search changes these (a depth past the
+# one process's memory runs the ranks alone), and main() refuses to run
+# without the holds
+MESH_ONLY: tuple = ()
+MESH_HOLD = True
 
-# [mesh serve]: llama3.2-3b at full width and depth on the same 4 ranks,
-# fp32.  A rank's blocks are 6.42 of the model's 12.85 GB (every head, kv
-# head, ff column and vocab row split over model 2); four ranks and rank
-# 0's single-process copy, run first and freed before the ranks build,
-# never hold more than ~26 GB of weights at once.  The cache holds the
-# prompt and the generated tokens: 1040 slots, which model 2 divides.
-MESH_SERVE = dict(arch="llama3.2-3b", batch=4, prompt=1024, gen=16)
+# [mesh serve]: llama3.2-3b at full width on the same 4 ranks, fp32, cut
+# to 14 of its 28 layers and 8 decode steps (28 and 16 until [mesh]'s seq
+# and inner jobs needed the time).  A rank's blocks are half the model's
+# (every head, kv head, ff column and vocab row split over model 2).  The
+# cache holds the prompt and the generated tokens: 1032 slots, which
+# model 2 divides.
+MESH_SERVE = dict(arch="llama3.2-3b", layers=14, batch=4, prompt=1024,
+                  gen=8)
 MESH_SERVE_LAYOUTS = ("decode_heads", "cache_seq_shard")
 
 def nvidia_smi() -> str:
@@ -2857,14 +2889,14 @@ def _comm_name(comm) -> str:
         "delay" if comm == MESH_DELAY else str(comm))
 
 
-def _mesh_plan(cfg, run: dict, comm, mesh=None, fsdp=None):
+def _mesh_plan(cfg, run: dict, comm, mesh=None, fsdp=None, knobs=None):
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps as S
 
     shape = InputShape("mesh", run["seq"], run["agents"] * run["per_agent"],
                        "train")
     return S.plan_run(cfg, shape, mesh, num_agents=run["agents"],
-                      comm=comm, lr=MESH_LR, fsdp=fsdp)
+                      comm=comm, lr=MESH_LR, fsdp=fsdp, **(knobs or {}))
 
 
 def _policy_ties(torch, comm, agents: int, grads: dict) -> tuple:
@@ -3063,7 +3095,7 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, job: str, keep: bool = False,
     cfg, run = _mesh_cfg(name)
     batches = _mesh_batches(torch, cfg, run["agents"], run["per_agent"],
                             run["seq"], steps, dev)
-    plan = _mesh_plan(cfg, run, comm, mesh, fsdp)
+    plan = _mesh_plan(cfg, run, comm, mesh, fsdp, MESH_KNOBS.get(job))
     step = S.build_train_step(plan, compute_dtype="float32", device=dev,
                               mesh=mesh, fleet_shard=fleet_shard,
                               agent_metrics=comm != MESH_COMM)
@@ -3097,10 +3129,10 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, job: str, keep: bool = False,
                   f"{out['steps'][-1]['ms']:.1f} ms, "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak",
                   flush=True)
-        if k == 0 and comm != MESH_COMM:
+        if k == 0 and comm != MESH_COMM and MESH_HOLD:
             out["slots"] = _hold_slots(torch, mesh, state,
                                        step.state_shardings, ref)
-        if k not in (0, steps - 1):
+        if k not in (0, steps - 1) or not MESH_HOLD:
             continue
         key = "first" if k == 0 else "last"
         if keep:
@@ -3144,42 +3176,48 @@ def _mesh_rank(mesh) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": mesh.rank, "coords": mesh.coords,
            "backend": mesh.backend, "device": str(mesh.device), "jobs": {}}
+    jobs = [j for j in MESH_JOBS if not MESH_ONLY or j in MESH_ONLY]
     t0 = time.perf_counter()
-    if mesh.rank == 0:
-        refs = {_mesh_key(run, comm): (run, comm)
-                for run, _, _, _, comm in MESH_JOBS.values()}
+    if mesh.rank == 0 and MESH_HOLD:
+        refs = {_mesh_key(MESH_JOBS[j][0], MESH_JOBS[j][4]): (
+            MESH_JOBS[j][0], MESH_JOBS[j][4]) for j in jobs}
         out["reference"] = {key: _mesh_reference(torch, ce_ops, swa_ops, run,
                                                  comm, mesh.device)
                             for key, (run, comm) in refs.items()}
     mesh.barrier()
     _mesh_clock(mesh, "the single-process references", t0)
-    for job, (name, _, _, _, comm) in MESH_JOBS.items():
+    for job in jobs:
+        name, comm = MESH_JOBS[job][0], MESH_JOBS[job][4]
         t0 = time.perf_counter()
         # fsdp on is held, rank by rank, to fsdp off's blocks (which are
         # held to the single-process step): its blocks are theirs split
         # further over data, so no gather is needed
-        ref = (out["reference"][_mesh_key(name, comm)] if mesh.rank == 0
-               else None)
+        ref = (out["reference"][_mesh_key(name, comm)]
+               if mesh.rank == 0 and MESH_HOLD else None)
+        paired = MESH_HOLD and "fsdp_off" in jobs and "fsdp_on" in jobs
         out["jobs"][job] = _mesh_job(
-            torch, ce_ops, swa_ops, mesh, job, keep=job == "fsdp_off",
-            against=out["jobs"]["fsdp_off"] if job == "fsdp_on" else None,
-            ref=ref)
+            torch, ce_ops, swa_ops, mesh, job,
+            keep=paired and job == "fsdp_off",
+            against=out["jobs"]["fsdp_off"] if paired and job == "fsdp_on"
+            else None, ref=ref)
         mesh.barrier()
         _mesh_clock(mesh, f"job {job}", t0)
     t0 = time.perf_counter()
-    if mesh.rank == 0:
+    if mesh.rank == 0 and MESH_HOLD:
         out["held"] = _mesh_hold(torch, out)
         _mesh_clock(mesh, "the holds", t0)
     for rec in out["jobs"].values():
         for key in ("first", "last", "blocks_first", "blocks_last"):
             rec.pop(key, None)
-    if mesh.rank == 0:
+    if mesh.rank == 0 and MESH_HOLD:
         for rec in out["reference"].values():
             for key in ("first", "last", "grads", "ties", "amax", "slots"):
                 rec.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     mesh.barrier()
+    if MESH_ONLY:
+        return out
     # [mesh serve] on the same ranks (one spawn: each rank's start-up is
     # paid once)
     t0 = time.perf_counter()
@@ -3233,7 +3271,8 @@ def _mesh_hold(torch, out) -> dict:
     (``vs_first``/``vs_last``) within TRAIN_TOL of each leaf's largest
     value."""
     held = {}
-    for job, (name, fsdp, fleet, steps, comm) in MESH_JOBS.items():
+    for job in out["jobs"]:
+        name, fsdp, fleet, steps, comm = MESH_JOBS[job]
         ref = out["reference"][_mesh_key(name, comm)]
         got = out["jobs"][job]
         agents = MESH_RUNS[name]["agents"]
@@ -3303,28 +3342,33 @@ def phase_mesh(torch, card: str) -> tuple:
     r0 = ranks[0]
     record = {"backend": backend, "world": MESH_WORLD, "spawn_s": spawn_s,
               "coords": [r["coords"] for r in ranks],
-              "held": r0["held"], "jobs": {}}
-    for job, (name, fsdp, fleet, steps, comm) in MESH_JOBS.items():
+              "held": r0.get("held"), "jobs": {}}
+    for job in r0["jobs"]:
+        name, fsdp, fleet, steps, comm = MESH_JOBS[job]
         cfg, run = _mesh_cfg(name)
-        ref = r0["reference"][_mesh_key(name, comm)]
+        # without the holds (tools/mesh_depth.py's search) no
+        # single-process step ran: the ranks' launches are checked alone
+        ref = r0["reference"][_mesh_key(name, comm)] if MESH_HOLD else None
         layers = cfg.num_layers
         for r in ranks:
             for k, s in enumerate(r["jobs"][job]["steps"]):
-                if s["launches"] != (2 * layers, 2) or ref["steps"][k][
-                        "launches"] != (2 * layers, 2):
+                single = ref["steps"][k]["launches"] if ref else None
+                if s["launches"] != (2 * layers, 2) or single not in (
+                        None, (2 * layers, 2)):
                     raise AssertionError(
                         f"mesh {job} rank {r['rank']} step {k}: launches "
                         f"(swa_attention, fused_ce) {s['launches']}, "
-                        f"single-process {ref['steps'][k]['launches']} "
+                        f"single-process {single} "
                         f"(want {(2 * layers, 2)})")
         peaks = [r["jobs"][job]["peak_gb"] for r in ranks]
         rest = [r["jobs"][job]["rest_bytes"] for r in ranks]
         ms = [[s["ms"] for s in r["jobs"][job]["steps"]] for r in ranks]
         coll = r0["jobs"][job]["steps"][-1]["collectives"]
         tags = r0["jobs"][job]["steps"][-1]["by_tag"]
-        ref_ms = [s["ms"] for s in ref["steps"][:steps]]
+        ref_ms = [s["ms"] for s in ref["steps"][:steps]] if ref else None
         row = {"arch": run["arch"], "layers": layers, "fsdp": fsdp,
-               "fleet_shard": fleet, "steps": steps,
+               "fleet_shard": fleet, "knobs": MESH_KNOBS.get(job, {}),
+               "steps": steps,
                "policy": list(comm) if isinstance(comm, tuple) else comm,
                "agents": run["agents"],
                "ms_per_step_ranks": ms, "ms_per_step_single": ref_ms,
@@ -3342,17 +3386,21 @@ def phase_mesh(torch, card: str) -> tuple:
                           for k, v in sorted(coll.items()))
         by_tag = ", ".join(f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.1f}"
                            f" MB)" for k, v in sorted(tags.items()))
+        knobs = "".join(f", {k}" for k in MESH_KNOBS.get(job, {}))
         print(f"[mesh] {job}: {run['arch']} {layers} layers, (data 2, model "
               f"2), m = {run['agents']}, {_comm_name(comm)}, fsdp {fsdp}, "
-              f"fleet_shard {fleet}, {steps} steps: ms per step per rank "
+              f"fleet_shard {fleet}{knobs}, {steps} steps: ms per step per rank "
               f"{[[round(x, 1) for x in r] for r in ms]} vs single-process "
-              f"{[round(x, 1) for x in ref_ms]}; launches per step per rank "
+              f"{[round(x, 1) for x in ref_ms] if ref else 'not run'}; "
+              f"launches per step per rank "
               f"(swa_attention, fused_ce) {row['launches_per_step']}; peak "
               f"GB per rank {[round(p, 2) for p in peaks]} (sum "
               f"{sum(peaks):.2f}); bytes at rest per rank {rest}")
         print(f"[mesh] {job} collectives per step on rank 0: {kinds}")
         print(f"[mesh] {job} collectives per step on rank 0 by tag: "
               f"{by_tag}")
+        if not MESH_HOLD:
+            continue
         h = r0["held"][job]
         if "vs_fsdp_off_first" in h:
             print(f"[mesh] {job} vs the single-process step: decisions "
@@ -3375,6 +3423,9 @@ def phase_mesh(torch, card: str) -> tuple:
               f"from {h['int8_one_level']} elements a rounding step apart; "
               f"after {steps} steps {h['last_step_rel_l2']:.2e} in L2"
               f"{slots}")
+    if MESH_ONLY:
+        print(f"[mesh] spawn {spawn_s:.1f} s")
+        return record, None
     serve_s = max(r["serve"]["seconds"] for r in ranks)
     print(f"[mesh] spawn {spawn_s:.1f} s, of which [mesh serve] "
           f"{serve_s:.1f}")
@@ -3415,7 +3466,7 @@ def _serve_plans(mesh=None, cache_seq_shard: bool = False):
     from repro_torch.launch import steps as S
 
     run = MESH_SERVE
-    cfg = get_config(run["arch"])
+    cfg = get_config(run["arch"]).replace(num_layers=run["layers"])
     slots = run["prompt"] + run["gen"]
     return (S.plan_run(cfg, InputShape("serve", run["prompt"], run["batch"],
                                        "prefill"), mesh,
@@ -3610,7 +3661,7 @@ def _mesh_serve_record(ranks: list, backend: str, seconds: float) -> dict:
     lines and record."""
     from repro_torch.configs import get_config
 
-    layers = get_config(MESH_SERVE["arch"]).num_layers
+    layers = MESH_SERVE["layers"]
     ref = ranks[0]["reference"]
     record = {"backend": backend, "world": MESH_WORLD, "seconds": seconds,
               "arch": MESH_SERVE["arch"], "layers": layers,
@@ -7244,6 +7295,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card only", file=sys.stderr)
+        return 2
+    if MESH_ONLY or not MESH_HOLD:
+        print("chip_smoke: [mesh] runs every job, each held to the "
+              "single-process step", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from a "

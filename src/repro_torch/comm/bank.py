@@ -58,10 +58,13 @@ from repro_torch.comm.error_feedback import ef_add, ef_residual
 from repro_torch.comm.policy import CommPolicy
 from repro_torch.comm.triggers import TriggerFn
 from repro_torch.net import channels as net_lib
-from repro_torch.sharding.constraint import constrain_params, whole_over_model
+from repro_torch.sharding.constraint import constrain_params
 from repro_torch.utils.tree import tree_map
 
+# the uniform comm-epilogue signature; "AgentStage" is the JAX package's
+# pre-hybrid name for it, kept as an alias
 AgentEpilogue = Callable[..., tuple]
+AgentStage = AgentEpilogue
 
 
 def _grad_fn(loss_fn: Callable, aux_loss_fn: Optional[Callable]):
@@ -76,9 +79,9 @@ def _grad_fn(loss_fn: Callable, aux_loss_fn: Optional[Callable]):
         def grads_and_main(params, batch):
             grads, main = grad_fn(params, batch)
             # the JAX package pins each agent's gradient to the data-free
-            # layout here (repro.core.api); the port then makes it whole
-            # over the model axis (no-ops without a mesh hook)
-            return whole_over_model(constrain_params(grads, "")), main
+            # layout here (repro.core.api): on a mesh rank, its model
+            # blocks (a no-op without a mesh hook)
+            return constrain_params(grads, ""), main
 
         return grads_and_main
 
@@ -90,7 +93,7 @@ def _grad_fn(loss_fn: Callable, aux_loss_fn: Optional[Callable]):
 
     def grads_and_main(params, batch):
         grads, (_, main) = grad_fn(params, batch)
-        return whole_over_model(constrain_params(grads, "")), main
+        return constrain_params(grads, ""), main
 
     return grads_and_main
 

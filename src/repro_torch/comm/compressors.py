@@ -32,6 +32,22 @@ its ``spacing``, the distance between the two wire values around each
 entry; :meth:`CompressorChain.rounding_ties` uses it to find the entries
 that two computations of one gradient, a last place apart, may round
 one step apart.
+
+On a (data, model) mesh each agent's gradient reaches the compressors as
+this rank's model block of each leaf (:mod:`repro_torch.sharding.
+blocks`), and each stage gives the whole leaf's result on the block:
+int8's scale is the maximum over "model" of the blocks' ``max |x|``
+(bitwise the whole leaf's); top-k gathers each block's k largest
+``|x|`` over "model" and keeps what reaches the whole leaf's k-th (the
+same set); randk's salt sums the blocks' fp32 sums over "model" (which
+may round apart from the whole sum, and then salts another subset) and
+each rank keeps its block's part of the whole leaf's subset; the sketch
+encodes the block with its entries' hashes and sums the grids over
+"model" (count-sketch is linear), and decodes the block's entries; the
+casts are elementwise.  Two draws still span the whole leaf on every
+rank: randk's permutation (int64 over the leaf's entries, on the
+device) and the sketch's hash and sign tables (on the host; the device
+holds the block's columns).
 """
 from __future__ import annotations
 
@@ -44,14 +60,26 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.comm.registry import Registry, StageSpec
-from repro_torch.utils.tree import tree_map
+from repro_torch.sharding import blocks
 
 COMPRESSORS = Registry("compressor")
 
 
+def _over_model(x: torch.Tensor, blk, tag: str, op: str = "sum"
+                ) -> torch.Tensor:
+    """``x`` reduced over the model axis of the block ``blk``."""
+    from repro_torch.sharding.collectives import _AllReduce
+
+    return _AllReduce.apply(x, blk.where(tag, op))
+
+
 def _per_agent_amax(x: torch.Tensor) -> torch.Tensor:
-    """``max |x|`` over each agent's slice, shaped to broadcast."""
+    """``max |x|`` over each agent's slice (its whole leaf's, from a
+    model block), shaped to broadcast."""
     amax = x.abs().reshape(x.shape[0], -1).amax(1)
+    blk = blocks.current()
+    if blk is not None:
+        amax = _over_model(amax, blk, "int8_scale", "max")
     return amax.reshape((-1,) + (1,) * (x.ndim - 1))
 
 
@@ -94,13 +122,29 @@ def fake_quantize(x: torch.Tensor) -> torch.Tensor:
     return dequantize_int8(q, s, x.dtype)
 
 
+def _topk_mask(flat: torch.Tensor, frac: float) -> torch.Tensor:
+    """Each row's entries whose ``|x|`` reaches its k-th largest (of the
+    whole leaf, from a model block: each block's k largest gathered over
+    "model")."""
+    mag = flat.abs()
+    blk = blocks.current()
+    if blk is None:
+        k = max(1, int(frac * flat.shape[1]))
+        return mag >= torch.topk(mag, k, dim=1).values[:, -1:]
+    k = max(1, int(frac * blk.numel))
+    kl = min(k, flat.shape[1])
+    n, i = blk.axis.size, blk.axis.index
+    cand = mag.new_zeros((flat.shape[0], n * kl))
+    cand[:, i * kl:(i + 1) * kl] = torch.topk(mag, kl, dim=1).values
+    cand = _over_model(cand, blk, "topk_candidates")
+    return mag >= torch.topk(cand, k, dim=1).values[:, -1:]
+
+
 def topk_sparsify(x: torch.Tensor, frac: float):
     """Keep the top-``frac`` entries of |x| in each agent's slice, zero
     the rest.  Returns (sparse tensor, per-agent kept count)."""
     flat = x.reshape(x.shape[0], -1)
-    k = max(1, int(frac * flat.shape[1]))
-    thresh = torch.topk(flat.abs(), k, dim=1).values[:, -1:]
-    mask = flat.abs() >= thresh
+    mask = _topk_mask(flat, frac)
     return (flat * mask).reshape(x.shape).to(x.dtype), mask.sum(1)
 
 
@@ -236,13 +280,21 @@ def randk_sparsify(x: torch.Tensor, frac: float,
     """Keep a uniformly random ``frac`` of the entries of each agent's
     slice of ``x`` (Stich et al. 2018's rand-k family): the first ``k``
     of ``permutation(key_i, n)``.  ``key`` is one ``(2,)`` key for every
-    agent or ``(A, 2)``, one per agent."""
+    agent or ``(A, 2)``, one per agent.  On a model block, the block's
+    part of the whole leaf's subset."""
     flat = x.reshape(x.shape[0], -1)
-    n = flat.shape[1]
+    a, size = flat.shape
+    blk = blocks.current()
+    n = size if blk is None else blk.numel
     k = max(1, int(frac * n))
-    idx = prng.permutation(key, n)[..., :k].expand(flat.shape[0], k)
-    mask = torch.zeros(flat.shape, dtype=torch.bool,
-                       device=x.device).scatter(1, idx, True)
+    idx = prng.permutation(key, n)[..., :k].expand(a, k)
+    if blk is not None:
+        # the subset's entries in the block, at their place there; the
+        # others to a column past its end, which is dropped
+        local, inside = blk.local_of(idx)
+        idx = torch.where(inside, local, size)
+    mask = torch.zeros((a, size + 1), dtype=torch.bool,
+                       device=x.device).scatter(1, idx, True)[:, :size]
     return (flat * mask).reshape(x.shape).to(x.dtype)
 
 
@@ -266,8 +318,14 @@ def _f32_bits(s: torch.Tensor) -> torch.Tensor:
 def randk_salt(x: torch.Tensor) -> torch.Tensor:
     """Each agent's salt: the int32 bit pattern of the fp32 sum of its
     slice (ATen's summation order, which may round one ULP away from
-    XLA's and then salts a different subset)."""
-    return _f32_bits(x.reshape(x.shape[0], -1).float().sum(1))
+    XLA's and then salts a different subset).  On a model block, the
+    blocks' sums summed over "model", which may round apart from the
+    whole leaf's sum."""
+    s = x.reshape(x.shape[0], -1).float().sum(1)
+    blk = blocks.current()
+    if blk is not None:
+        s = _over_model(s, blk, "randk_salt")
+    return _f32_bits(s)
 
 
 @COMPRESSORS.register("randk", params=(("frac", 0.01), ("seed", 0)),
@@ -318,13 +376,41 @@ def sketch_encode(x: torch.Tensor, rows: int, cols: int,
                   seed: int) -> torch.Tensor:
     """Count-sketch's linear half: each agent's slice of ``x`` scattered
     into a ``(rows, cols)`` f32 counter grid, ``s_r(i)·x_i`` into bucket
-    ``h_r(i)``.  Returns ``(A, rows, cols)``."""
+    ``h_r(i)``.  Returns ``(A, rows, cols)``: of the whole leaf from a
+    model block (its entries' hashes, the grids summed over "model")."""
     flat = x.reshape(x.shape[0], -1).float()
     a, size = flat.shape
-    idx, sign = _device_tables(rows, cols, seed, size, x.device)
+    idx, sign = _block_tables(rows, cols, seed, size, x.device)
     contrib = sign[None] * flat[:, None, :]
     grid = torch.zeros((a, rows, cols), dtype=torch.float32, device=x.device)
-    return grid.scatter_add(2, idx.expand(a, rows, size), contrib)
+    grid = grid.scatter_add(2, idx.expand(a, rows, size), contrib)
+    blk = blocks.current()
+    return grid if blk is None else _over_model(grid, blk, "sketch_grid")
+
+
+def _block_tables(rows: int, cols: int, seed: int, size: int,
+                  device: torch.device):
+    """The hash and sign tables of a leaf of ``size`` entries, or of a
+    model block's entries in the whole leaf's tables."""
+    blk = blocks.current()
+    if blk is None:
+        return _device_tables(rows, cols, seed, size, device)
+    return _device_block_tables(rows, cols, seed, blk.whole, tuple(
+        s.indices(n) for s, n in zip(blk.index, blk.whole)), device)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_block_tables(rows: int, cols: int, seed: int, whole: tuple,
+                         index: tuple, device: torch.device):
+    """A model block's columns of its leaf's tables (the block of the
+    leaf of shape ``whole`` at ``index``, each dim's ``slice`` args),
+    cut on the host: the device holds the block's part only (the host
+    draws the whole leaf's, as the JAX package's stream gives them)."""
+    blk = blocks.LeafBlock(whole, tuple(slice(*i) for i in index), None)
+    idx, sign = _sketch_tables(rows, cols, seed, blk.numel)
+    at = blk.flat_index().numpy()
+    return (torch.from_numpy(idx[:, at].astype(np.int64)).to(device),
+            torch.from_numpy(sign[:, at]).to(device))
 
 
 def sketch_decode(sketch: torch.Tensor, shape, dtype, rows: int, cols: int,
@@ -337,7 +423,7 @@ def sketch_decode(sketch: torch.Tensor, shape, dtype, rows: int, cols: int,
     for d in shape:
         size *= int(d)
     a = sketch.shape[0]
-    idx, sign = _device_tables(rows, cols, seed, size, sketch.device)
+    idx, sign = _block_tables(rows, cols, seed, size, sketch.device)
     est = sign[None] * torch.gather(sketch, 2, idx.expand(a, rows, size))
     srt = torch.sort(est, dim=1).values
     mid = 0.5 * (rows - 1)
@@ -429,8 +515,9 @@ class CompressorChain:
         return out
 
     def compress_tree(self, tree):
-        """Fake-compress a gradient tree with a leading agent axis."""
-        return tree_map(self.compress, tree)
+        """Fake-compress a gradient tree with a leading agent axis (each
+        leaf under :func:`repro_torch.sharding.blocks.at_leaf`)."""
+        return blocks.map_leaves(self.compress, tree)
 
     def wire_format(self, dense_bits: float = 32.0) -> WireFormat:
         fmt = WireFormat(value_bits=dense_bits, dense_bits=dense_bits)

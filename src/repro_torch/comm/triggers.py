@@ -57,13 +57,12 @@ import numpy as np
 import torch
 
 from repro_torch.comm.registry import Registry, StageSpec
-from repro_torch.sharding.constraint import constrain_params, whole_over_model
+from repro_torch.sharding import blocks
+from repro_torch.sharding.constraint import constrain_params
 from repro_torch.utils.tree import (
     tree_add_scaled,
     tree_flatten_agents,
     tree_map,
-    tree_norm_sq,
-    tree_vdot,
 )
 
 
@@ -210,9 +209,29 @@ def _periodic(args, ctx):
 
 def _norm_sq(grads, use_kernel: bool) -> torch.Tensor:
     if use_kernel:
-        g = tree_flatten_agents(grads)
-        return _fused_gain_terms(g, g)[:, 0]
-    return tree_norm_sq(grads, per_agent=True)
+        return _tree_gain_terms(grads, grads)[:, 0]
+    return blocks.per_agent_vdot(grads, grads)
+
+
+def _tree_gain_terms(g, h) -> torch.Tensor:
+    """``(A, 2)`` rows ``[gᵀg, gᵀh]`` over two per-agent trees from the
+    ``gain_reduce`` kernel: one launch over every leaf, or on a mesh
+    rank's model blocks one over the blocks (its rows summed over
+    "model") and one over the leaves every model rank holds whole."""
+    axis = blocks.model_axis()
+    (gs, gw), (hs, hw) = blocks.split_leaves(g), blocks.split_leaves(h)
+    if axis is None or not gs:
+        return _fused_gain_terms(tree_flatten_agents(g),
+                                 tree_flatten_agents(h))
+    from repro_torch.sharding.collectives import _AllReduce
+
+    terms = _AllReduce.apply(_fused_gain_terms(tree_flatten_agents(gs),
+                                               tree_flatten_agents(hs)),
+                             axis.where("block_vdot"))
+    if gw:
+        terms = terms + _fused_gain_terms(tree_flatten_agents(gw),
+                                          tree_flatten_agents(hw))
+    return terms
 
 
 def _fused_gain_terms(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -290,17 +309,16 @@ def _gain_quadratic(args, ctx):
         return torch.func.jvp(grad_fn, (params,), (g,))[1]
 
     def prologue(params, grads, batch, losses):
-        # the tangent in the parameters' layout; H g made whole as the
-        # gradient is (no-ops without a mesh hook)
-        hg = whole_over_model(torch.func.vmap(hvp, in_dims=(None, 0, 0))(
-            params, constrain_params(grads, ""), batch))
+        # the tangent in the parameters' layout, and H g in the
+        # gradient's (a mesh rank's model blocks; no-ops without a hook)
+        hg = torch.func.vmap(hvp, in_dims=(None, 0, 0))(
+            params, constrain_params(grads, ""), batch)
         if use_kernel:
-            terms = _fused_gain_terms(tree_flatten_agents(grads),
-                                      tree_flatten_agents(hg))
+            terms = _tree_gain_terms(grads, hg)
             gsq, ghg = terms[:, 0], terms[:, 1]
         else:
-            gsq = tree_norm_sq(grads, per_agent=True)
-            ghg = tree_vdot(grads, hg, per_agent=True)
+            gsq = blocks.per_agent_vdot(grads, grads)
+            ghg = blocks.per_agent_vdot(grads, hg)
         return -eps * gsq + half_eps_sq * ghg
 
     return _gated(prologue, _lam_at(args), ("quadratic_gain", use_kernel))
@@ -427,10 +445,12 @@ def _budget_window(args, ctx):
         )
 
         # one transmission's wire bytes: ONE agent's dense payload × the
-        # policy's compression ratio (shapes and dtypes only)
-        cost = _f32(structural_bytes(grads, per_agent=True) * (
-            ratio_for(dense_bits(grads),
-                      entries=dense_entries(grads, per_agent=True))
+        # policy's compression ratio (shapes and dtypes only; the whole
+        # leaves' where the gradient is a mesh rank's model blocks)
+        sizes = blocks.global_like(grads)
+        cost = _f32(structural_bytes(sizes, per_agent=True) * (
+            ratio_for(dense_bits(sizes),
+                      entries=dense_entries(sizes, per_agent=True))
             if ratio_for is not None else 1.0))
         lam, meas, gmag = ctrl.unbind(-1)
         alpha, gain = _budget_decision(gain_of, params, grads, batch, losses,

@@ -79,12 +79,14 @@ on a (data, model) mesh) runs the step on one rank of the mesh, as the
 JAX package's step runs under ``jit`` with its agent axis sharded over
 data: the rank's parameters and optimizer state at rest are its blocks,
 gathered over the data axes at the start of the round (the model reads
-its tensor-parallel blocks, and each agent's gradient is made whole over
-"model" after the backward); its agents are its data coordinate's, and
-so are the rows of its per-agent slots (EF memory, controller rows, a
-channel's rows and a delay or retransmit line); the masked mean's sums
-and the agents' metric vectors are reduced over the agent axes; and the
-rank applies its block of the update.  Per-agent policies run every
+its tensor-parallel blocks, and each agent's gradient is this rank's
+model block of each leaf, as JAX pins it); its agents are its data
+coordinate's, and so are the rows of its per-agent slots (EF memory,
+controller rows, a channel's rows and a delay or retransmit line; the EF
+memory and the line's payloads in model blocks); the comm epilogue runs
+on the blocks (:mod:`repro_torch.sharding.blocks`); the masked mean's
+sums and the agents' metric vectors are reduced over the agent axes;
+and the rank applies its block of the update.  Per-agent policies run every
 dispatch path over the rank's agents, each agent's policy the one its
 global index names, so a data slice may run policies that another does
 not: every collective inside an epilogue (the probe's forward) runs
@@ -122,6 +124,7 @@ from repro_torch.comm.stats import (
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregation import masked_mean
 from repro_torch.net import channels as net_lib
+from repro_torch.sharding import blocks
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import (
     tree_add_scaled,
@@ -310,7 +313,8 @@ def _compress_leafwise(chain, skeleton, leaves: list, memory, alphas,
         leaves[i] = None
         g_eff = ef_add(g, None if mem is None else mem[path])
         del g
-        s = chain.compress_tree(g_eff)
+        with blocks.at_leaf(path):
+            s = chain.compress_tree(g_eff)
         sent.append(s)
         if mem is not None:
             resid.append(ef_residual(g_eff, s, alphas, delivered=delivered))
@@ -725,10 +729,13 @@ def make_triggered_train_step(
             losses, alphas, gains, delivereds = fleet[:4]
             stale_col = fleet[4] if use_net else None
             act = fleet[-1] if act is not None else None
-        # wire ratios against the gradients' native dtype width
-        db = dense_bits(sent)
-        sb = structural_bytes(sent, per_agent=True)
-        de = dense_entries(sent, per_agent=True)
+        # wire ratios against the gradients' native dtype width (of the
+        # whole leaves, where the payload is model blocks)
+        sizes = blocks.global_like(sent)
+        db = dense_bits(sizes)
+        sb = structural_bytes(sizes, per_agent=True)
+        de = dense_entries(sizes, per_agent=True)
+        del sizes
         # eq. (10) over what was DELIVERED (the decisions, when lossless)
         if placement is None:
             agg = masked_mean(sent, delivereds)
@@ -742,13 +749,17 @@ def make_triggered_train_step(
                 torch.clamp(delivereds.sum(), min=1.0))
         sent = None  # the payloads' memory is free for the update
         if placement is None:
+            agg_sq = sum((x.float() * x.float()).sum()
+                         for x in tree_leaves(agg))
             updates, opt_state = optimizer.update(agg, state.opt_state,
                                                   params, step)
             new_params = tree_add_scaled(params, updates, 1.0)
         else:
             # this rank's block of the update, on its block at rest
+            agg_sq = placement.sq_norm(agg)
             updates, opt_state = optimizer.update(
-                placement.update_block(agg), state.opt_state, at_rest, step)
+                placement.update_block(agg, agg_sq), state.opt_state,
+                at_rest, step)
             new_params = tree_add_scaled(at_rest, updates, 1.0)
         ratios = tuple(
             c.ratio_for(db, entries=de) if c else 1.0 for c in chains
@@ -757,9 +768,7 @@ def make_triggered_train_step(
             losses, alphas, gains, structural=sb, ratios=ratios,
             delivered=delivereds if use_net else None, staleness=stale_col,
             active=act)
-        metrics["grad_norm"] = torch.sqrt(sum(
-            (x.float() * x.float()).sum() for x in tree_leaves(agg)
-        ))
+        metrics["grad_norm"] = torch.sqrt(agg_sq)
         if agent_metrics:
             metrics["agent_tx"] = alphas
             # delivered bytes under a channel

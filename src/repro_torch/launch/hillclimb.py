@@ -8,10 +8,12 @@ hypothesis→change→measure iteration is a single command (port of
       --shape train_4k --remat --flash 512 [--optimizer sgd] \\
       [--trigger gain_lookahead] [--microbatches 2]
 
-The sharding knobs (``--multi-pod``, ``--inner-batch``, ``--seq-shard``,
-``--cache-seq-shard``) belong to serving and the dry-run over a mesh
-(ROADMAP queue 1 item 11.2) and raise; ``--fsdp on`` plans ZeRO-3, which
-on one card shards nothing.
+The traced step runs on one card, a (1, 1) mesh, where the JAX
+package's hillclimb runs on its production mesh: ``--inner-batch``,
+``--seq-shard`` and ``--cache-seq-shard`` plan their rules and, with no
+model axis to split, change nothing (as in JAX on a mesh whose model
+axis is 1), and ``--fsdp on`` plans ZeRO-3, which on one card shards
+nothing.  ``--multi-pod`` raises (ROADMAP queue 1 item 11.2).
 """
 from __future__ import annotations
 

@@ -14,10 +14,14 @@ one card or on one rank of a (data, model) mesh (port of
   ``FSDP_PARAM_THRESHOLD`` parameters) shards the parameters' ``embed``
   dim over the data axes.  ``cache_seq_shard`` moves the KV cache's
   positions onto "model" (flash-decoding: the decode attention's heads
-  give it up).  ``seq_shard`` and ``inner_batch_shard`` are not ported
-  yet and raise (ROADMAP queue 1 item 11.2).  With no mesh the plan is
-  the JAX package's on a one-device (1, 1) mesh: the rules resolve and
-  shard nothing.
+  give it up).  ``seq_shard`` puts the sequence on "model" (each model
+  rank holds its chunk: sequence parallelism in the dense transformer,
+  train and prefill) and ``inner_batch_shard`` each agent's batch rows
+  (each model rank computes on its rows with the weights gathered whole
+  at use: the model axis as data parallelism within an agent).  With no
+  mesh, or a model axis of 1, the plan is the JAX package's on a
+  one-device (1, 1) mesh: the rules resolve and shard nothing, and
+  every knob changes nothing.
 * ``build_train_step`` wires the model's loss into the event-triggered
   train step (:func:`repro_torch.core.api.make_triggered_train_step`);
   on a mesh it is the rank's step (:class:`MeshTrainStep`), with the
@@ -98,6 +102,7 @@ class RunPlan:
     train_cfg: TrainConfig
     rules: dict
     seq_shard: bool = False
+    inner_batch_shard: bool = False
 
 
 def plan_run(
@@ -123,10 +128,6 @@ def plan_run(
     ``num_agents`` defaults to the product of the agent axes' sizes, as
     JAX's; a multiple of it runs that many agents, as many on each data
     coordinate."""
-    for knob, on in (("seq_shard", seq_shard),
-                     ("inner_batch_shard", inner_batch_shard)):
-        if on:
-            raise todo(f"plan_run({knob}=True)", "queue 1 item 11.2")
     mesh = mesh if mesh is not None else Mesh(("data", "model"), (1, 1))
     if shape.name == "long_500k":
         cfg = long_context_variant(cfg)
@@ -161,10 +162,25 @@ def plan_run(
         comm=comm,
     )
     rules = resolve_rules(mesh, fsdp=fsdp, agent_axes=agent_axes,
+                          seq_shard=seq_shard,
+                          inner_batch_shard=inner_batch_shard,
                           cache_seq_shard=cache_seq_shard)
     return RunPlan(cfg=cfg, shape=shape, fsdp=fsdp, agent_axes=agent_axes,
                    num_agents=num_agents, train_cfg=train_cfg, rules=rules,
-                   seq_shard=seq_shard)
+                   seq_shard=seq_shard, inner_batch_shard=inner_batch_shard)
+
+
+def _tokens_split(batch_axes, batch_shardings):
+    """What of the tokens a mesh step's model ranks split, by the batch's
+    logical axes and layout: ``"seq"`` where the rules put the sequence
+    on "model" (``seq_shard``), ``"rows"`` where they put an agent's rows
+    there (``inner_batch_shard``), None where neither knob is on or its
+    dim does not divide."""
+    spec = tuple(batch_shardings["tokens"].spec)
+    if "model" not in spec:
+        return None
+    return ("seq" if batch_axes["tokens"][spec.index("model")] == "seq"
+            else "rows")
 
 
 def _check_tensor_parallel(cfg: ModelConfig, mesh) -> None:
@@ -251,9 +267,18 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     _check_tensor_parallel(cfg, mesh)
     shapes, axes = model.init(abstract=True, dtype=pdt)
     tcfg = plan.train_cfg
-    placement = Placement(mesh, axes, shapes, plan.rules, tcfg.num_agents,
-                          grad_clip=tcfg.grad_clip)
-    # clipping runs on the global aggregate (Placement.grad_clip)
+    batch_axes = input_axes(cfg, plan.shape, num_agents=tcfg.num_agents)
+    batch_specs = input_specs(cfg, plan.shape, num_agents=tcfg.num_agents)
+    batch_shardings = tree_shardings(batch_axes, batch_specs, plan.rules,
+                                     mesh)
+    placement = Placement(
+        mesh, axes, shapes, plan.rules, tcfg.num_agents,
+        grad_clip=tcfg.grad_clip,
+        split=_tokens_split(batch_axes, batch_shardings),
+        batch_shardings=batch_shardings,
+        batch_shapes={p: tuple(x.shape) for p, x in
+                      tree_flatten_with_path(batch_specs)})
+    # clipping runs on the whole aggregate (Placement.update_block)
     optimizer = opt_lib.from_config(dataclasses.replace(tcfg, grad_clip=0.0))
     options = StepOptions(mesh=mesh if fleet_shard else None,
                           rules=plan.rules if fleet_shard else None,
@@ -264,10 +289,6 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
                                      placement=placement)
     state = init_train_state(shapes, optimizer, tcfg, device="meta")
     state_shardings = placement.state_shardings(state, tcfg.optimizer)
-    batch_shardings = tree_shardings(
-        input_axes(cfg, plan.shape, num_agents=tcfg.num_agents),
-        input_specs(cfg, plan.shape, num_agents=tcfg.num_agents),
-        plan.rules, mesh)
     return MeshTrainStep(_held_at(pdt, step), placement, state_shardings,
                          batch_shardings)
 
@@ -361,11 +382,16 @@ class MeshServeStep:
         self.logits_sharding = NamedSharding(mesh, resolve_pspec(
             (plan.shape.global_batch,), ("batch",), rules, mesh))
         self._batch = plan.shape.global_batch
+        self._seq_len = plan.shape.seq_len
         self._gather = (make_gather_hook(mesh, axes, rules, shapes)
                         if plan.fsdp else None)
         self._act = make_act_hook(mesh, rules, cache_len=cache_len)
         n = mesh.shape.get("model", 1)
-        self._axis = C.ModelAxis(mesh) if n > 1 else None
+        # a prefill under seq_shard: each model rank's chunk of the
+        # sequence (the model's sequence parallelism)
+        self.split = (_tokens_split(batch_axes, self.batch_shardings)
+                      if "seq" in batch_axes.get("tokens", ()) else None)
+        self._axis = C.ModelAxis(mesh, split=self.split) if n > 1 else None
 
     @contextlib.contextmanager
     def active(self):
@@ -387,13 +413,27 @@ class MeshServeStep:
 
     def rows(self, tree):
         """This rank's rows of a tree of per-request leaves (whole, or
-        already the rank's rows)."""
+        already the rank's rows); under ``seq_shard`` also its chunk of a
+        prefill batch's sequence (a whole one is cut)."""
         rows = self.logits_sharding
 
         def cut(x):
             return rows.local(x) if x.shape[0] == self._batch else x
 
-        return tree_map(cut, tree)
+        tree = tree_map(cut, tree)
+        if self.split != "seq":
+            return tree
+        from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+
+        def chunk(sh, x):
+            spec = tuple(sh.spec)
+            whole = self._seq_len
+            if "model" not in spec or x.shape[spec.index("model")] != whole:
+                return x
+            return NamedSharding(self.mesh, PartitionSpec(*(
+                e if e == "model" else None for e in spec))).local(x)
+
+        return {k: chunk(self.batch_shardings[k], x) for k, x in tree.items()}
 
     def __call__(self, params, *args):
         args = list(args)
@@ -467,6 +507,10 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     _check_tensor_parallel(cfg, mesh)
     shapes, axes = model.init(abstract=True, dtype=dtype)
     cache_kw = {}
+    if cache_len is not None and plan.seq_shard and mesh.shape.get(
+            "model", 1) > 1:
+        raise todo("a prefill that fills a KV cache under seq_shard",
+                   "queue 1 item 11.2")
     if cache_len is not None:
         cache, cache_axes = model.init_cache(plan.shape.global_batch,
                                              cache_len, device="meta",

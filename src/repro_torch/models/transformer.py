@@ -129,15 +129,17 @@ def _attn_out(p, o):
 def attn_proj(p, cfg, o):
     """The output projection of the heads ``o`` (B,S,H,hd): over a model
     axis that splits the heads it is row-parallel, this rank's heads'
-    share summed over the ranks."""
-    out = _attn_out(p, o)
-    if p["wo"].shape[0] != cfg.num_heads:
-        out = C.reduce_from_model(out, "tp_attn_out")
-    return out
+    share summed over the ranks (under ``seq_shard`` reduce-scattered to
+    the rank's chunk; where the heads are whole there, the chunk)."""
+    return C.region_out(_attn_out(p, o), "attn_out",
+                        split=p["wo"].shape[0] != cfg.num_heads)
 
 
 def _self_attn(p, cfg, x, positions, *, causal=True, rope=True,
                window="cfg"):
+    # under seq_shard the chunk gathered over the sequence; the heads'
+    # split is qkv's (``positions`` are the whole sequence's)
+    x = C.region_in(x, "attn_in", split=False)
     q, k, v = A.qkv(p["attn"], cfg, x, positions, rope=rope)
     win = cfg.swa_window if window == "cfg" else window
     o = A.attention(q, k, v, causal=causal, window=win,
@@ -161,11 +163,16 @@ def _ff(p, cfg, x, *, gelu: bool = False):
                       "swiglu") is None:
         return swiglu(p["mlp"], h), 0.0
     # column-parallel gate/up, row-parallel down
-    out = swiglu(p["mlp"], C.copy_to_model(h, "tp_mlp_in"))
-    return C.reduce_from_model(out, "tp_mlp_out"), 0.0
+    out = swiglu(p["mlp"], C.region_in(h, "mlp_in"))
+    return C.region_out(out, "mlp_out"), 0.0
 
 
 def _decoder_block(p, cfg, x, positions):
+    """A decoder block.  Under ``seq_shard`` (Megatron's sequence
+    parallelism) ``x`` is this rank's chunk of the sequence: the norms
+    and the residual stream stay on the chunk, and the attention and a
+    split MLP gather it at their entry and reduce-scatter their output
+    back to it (:func:`~repro_torch.sharding.collectives.region_in`)."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     x = x + _self_attn(p, cfg, h, positions)
     ff, aux = _ff(p, cfg, x)
@@ -274,13 +281,15 @@ def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
     v0 = C.shard_offset(table.shape[0], cfg.vocab_size, "embedding")
     if v0 is None:
         return embed(table, tokens, dtype)
+    # under seq_shard every rank looks up the whole sequence in its
+    # block, and the sum is reduce-scattered to the chunks
+    tokens = C.gather_ids(tokens, "sp_tokens")
     rel = tokens.long() - v0
     inside = (rel >= 0) & (rel < table.shape[0])
     rows = embed(table, torch.where(inside, rel, torch.zeros_like(rel)),
                  dtype)
-    return C.reduce_from_model(
-        torch.where(inside[..., None], rows, torch.zeros_like(rows)),
-        "tp_embed")
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return C.region_out(rows, "embed")
 
 
 def _lookup_table(params, table):
@@ -314,7 +323,7 @@ def forward_hidden(cfg: ModelConfig, params, batch, table=None
               + vp["b"].to(dtype))
         x = torch.cat([pe, x], dim=1)
         prefix = pe.shape[1]
-    positions = positions_of(x)
+    positions = C.seq_positions(x)
     aux = 0.0
     if cfg.arch_type == "hybrid":
         def mamba_block(lp, h):
@@ -366,6 +375,7 @@ def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, float]:
     """Returns (logits over token positions, aux_loss); over a model axis
     that splits the vocabulary, the whole vocabulary's on every rank."""
     x, aux, prefix = forward_hidden(cfg, params, batch)
+    x = C.region_in(x, "logits_in", split=False)
     logits = C.gather_vocab(unembed(output_table(cfg, params), x),
                             cfg.vocab_size)
     if prefix:
@@ -463,13 +473,32 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
         # the kernel takes one dtype; widening is exact (the JAX loss
         # computes its logits in fp32 either way)
         x, table = x.float(), table.float()
-    x2, labels = x.reshape(-1, x.shape[-1]), batch["labels"].reshape(-1)
-    if table.shape[0] == cfg.vocab_size:
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    split = C.tokens_split()
+    vocab_split = table.shape[0] != cfg.vocab_size
+    if vocab_split:
+        # under seq_shard the chunk's hidden gathered over the sequence
+        # (its backward sums the vocabulary blocks' shares); the table
+        # stays split
+        x = C.region_in(x, "loss_in", split=False)
+        labels = C.gather_ids(labels, "sp_labels")
+        if mask is not None:
+            mask = C.gather_ids(mask, "sp_labels")
+    x2, labels = x.reshape(-1, x.shape[-1]), labels.reshape(-1)
+    if not vocab_split:
         nll = fused_ce_nll(x2, table, labels)
     else:
         nll = C.vocab_parallel_nll(x2, table, labels, cfg.vocab_size)
-    mask = batch.get("loss_mask")
-    if mask is None:
+    if split is not None and not vocab_split:
+        # this rank's tokens' NLL: the sums over the model ranks
+        if mask is None:
+            ce = C.reduce_from_model(nll.sum(), "loss_sum") / (
+                nll.numel() * C.model_size())
+        else:
+            mask = mask.reshape(-1).float()
+            ce = C.reduce_from_model((nll * mask).sum(), "loss_sum") / (
+                C.reduce_from_model(mask.sum(), "loss_sum").clamp(min=1.0))
+    elif mask is None:
         ce = nll.mean()
     else:
         mask = mask.reshape(-1).float()

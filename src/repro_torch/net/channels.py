@@ -368,13 +368,16 @@ def net_rows(net):
 def tx_cost(grads, chain) -> float:
     """One transmission's wire bytes: one agent's dense payload (the
     leaves carry a leading agent axis) × the chain's compression ratio;
-    a Python float, from shapes and dtypes only."""
+    a Python float, from shapes and dtypes only (of the whole leaves,
+    where ``grads`` holds a mesh rank's model blocks)."""
     from repro_torch.comm.stats import (
         dense_bits,
         dense_entries,
         structural_bytes,
     )
+    from repro_torch.sharding.blocks import global_like
 
+    grads = global_like(grads)
     cost = float(structural_bytes(grads, per_agent=True))
     if chain:
         cost *= chain.ratio_for(

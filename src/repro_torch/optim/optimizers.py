@@ -41,12 +41,15 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale ``grads`` so their global L2 norm is at most ``max_norm``."""
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """Scale ``grads`` so their global L2 norm is at most ``max_norm``
+    (``norm``: that norm where the caller has it, as for a tree whose
+    leaves are blocks of a larger one)."""
     if max_norm <= 0:
         return grads
-    norm = torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_leaves(grads)))
+    if norm is None:
+        norm = torch.sqrt(sum(g.float().square().sum()
+                              for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)
 

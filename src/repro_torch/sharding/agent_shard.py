@@ -90,6 +90,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.launch.mesh import Mesh
 from repro_torch.net import channels as net_lib
+from repro_torch.sharding import blocks
 from repro_torch.sharding.rules import (
     PartitionSpec,
     agent_axis_names,
@@ -101,6 +102,7 @@ from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import (
     tree_add_scaled,
+    tree_flatten_with_path,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -254,7 +256,7 @@ class ShardedTrainStep:
                 enc = sketch_encode(g, rows, cols, seed)
                 return (enc * delivereds.reshape(-1, 1, 1)).sum(0)
 
-            parts = tree_map(partial, ef_add(grads, mem))
+            parts = blocks.map_leaves(partial, ef_add(grads, mem))
             payload = torch.cat([x.reshape(-1) for x in tree_leaves(parts)])
             del parts
         elif self.placement is None:
@@ -272,8 +274,7 @@ class ShardedTrainStep:
             sent = None
             payload = self.placement.partial_payload(leaves, delivereds)
 
-        ratios = self._ratios(params if self.placement is None else
-                              self.placement.global_like(params))
+        ratios = self._ratios(blocks.global_like(params, lead=0))
         stale = net_lib.net_rows(new_net)[:, 0] if use_net else None
         cols = [losses, alphas, gains, alphas * ratios, delivereds]
         if use_net:
@@ -314,9 +315,11 @@ class ShardedTrainStep:
     def finish(self, state: TrainState, carry: dict, payload: torch.Tensor,
                scalars: torch.Tensor, shapes=None):
         """The center's update from the reduced sums, and the round's
-        metrics: ``(new state, metrics)``.  ``shapes`` is the global
-        parameter tree where ``state`` holds a rank's blocks (an LM
-        mesh's placement), which then takes its block of the update."""
+        metrics: ``(new state, metrics)``.  ``shapes`` is the round's
+        parameter tree (an LM mesh rank's model blocks, whose byte counts
+        read the whole leaves), where ``state`` holds the blocks at rest
+        (an LM mesh's placement, which then takes its block of the
+        update)."""
         params, step = state.params, state.step
         shapes = params if shapes is None else shapes
         m = self.num_agents
@@ -331,27 +334,35 @@ class ShardedTrainStep:
         any_tx = scalars[k:].max()
         den = torch.clamp(sums["dl"], min=1.0)
 
-        leaves = tree_leaves(shapes)
+        flat = tree_flatten_with_path(shapes)
         skeleton = tree_map(lambda _: None, shapes)
         agg, at = [], 0
-        for p in leaves:
+        for path, p in flat:
             if self.skp is not None:
                 rows, cols, seed = self.skp
                 grid = payload[at:at + rows * cols].reshape(1, rows, cols)
                 at += rows * cols
-                agg.append(sketch_decode(grid / den, p.shape, p.dtype, rows,
-                                         cols, seed)[0])
+                with blocks.at_leaf(path):
+                    agg.append(sketch_decode(grid / den, p.shape, p.dtype,
+                                             rows, cols, seed)[0])
             else:
                 total = payload[at:at + p.numel()].reshape(p.shape)
                 at += p.numel()
                 agg.append(total.to(p.dtype) / den.to(p.dtype))
         agg = tree_unflatten(skeleton, agg)
-        updates, opt_state = self.optimizer.update(
-            agg if self.placement is None else self.placement.update_block(
-                agg), state.opt_state, params, step)
+        if self.placement is None:
+            agg_sq = sum((x.float() * x.float()).sum()
+                         for x in tree_leaves(agg))
+            update = agg
+        else:
+            agg_sq = self.placement.sq_norm(agg)
+            update = self.placement.update_block(agg, agg_sq)
+        updates, opt_state = self.optimizer.update(update, state.opt_state,
+                                                   params, step)
         new_params = tree_add_scaled(params, updates, 1.0)
 
-        sb = structural_bytes(shapes, per_agent=False)
+        sb = structural_bytes(blocks.global_like(shapes, lead=0),
+                              per_agent=False)
         rate_den = torch.clamp(sums["act"], min=1.0) if churned else m
         loss = sums["loss_act"] if churned else sums["loss"]
         metrics = {
@@ -360,8 +371,7 @@ class ShardedTrainStep:
             "any_tx": any_tx,
             "num_tx": sums["tx"],
             "mean_gain": sums["gain"] / rate_den,
-            "grad_norm": torch.sqrt(sum(
-                (x.float() * x.float()).sum() for x in tree_leaves(agg))),
+            "grad_norm": torch.sqrt(agg_sq),
             "wire_bytes": (sb * sums["priced"]).float(),
         }
         if churned:
@@ -399,13 +409,14 @@ class ShardedTrainStep:
             payload, scalars = self.reduce(payload, scalars)
             return self.finish(state, carry, payload, scalars)
         with pl.active():
-            # the round's parameter tree (an LM mesh)
+            # the round's parameter tree (an LM mesh: this rank's model
+            # blocks), and the rank's part of the batch
             full = state._replace(params=pl.gather_params(state.params))
-            payload, scalars, carry = self.local(full, batch, scale,
-                                                 chan_scale)
+            payload, scalars, carry = self.local(
+                full, pl.local_rows(batch), scale, chan_scale)
             payload, scalars = self.reduce(payload, scalars)
             return self.finish(state, carry, payload, scalars,
-                               shapes=pl.global_like(full.params))
+                               shapes=full.params)
 
 
 def make_sharded_train_step(

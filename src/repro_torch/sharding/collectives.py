@@ -20,9 +20,20 @@ forward mode), so they run inside the train step's per-agent
 * :func:`gather_from_data` — the global (over the data axes) tensor from
   this rank's block: a zero-filled buffer holding the block, summed over
   the data group (exact, and the one collective gloo runs on CUDA
-  tensors); over the model axis, the same call makes a per-agent
-  gradient's blocks whole (:func:`repro_torch.sharding.constraint.
-  whole_over_model`);
+  tensors);
+* :func:`gather_seq` / :func:`scatter_seq` — sequence parallelism
+  (``seq_shard``): a chunk of the sequence made whole over the model axis
+  (the zero-padded chunk summed; its backward sums the cotangent over
+  the ranks and keeps the chunk: a reduce-scatter), and a row-parallel
+  partial sum reduced and cut to the rank's chunk (its backward the
+  gather); :func:`gather_ids` makes token ids, labels or a mask whole
+  over the sequence (no gradient); :func:`region_in` and
+  :func:`region_out` pick, at the entry to a region the model ranks
+  compute together and at its exit, tensor parallelism's collective or
+  sequence parallelism's;
+* :func:`gather_model` — a weight's model block made whole for a rank
+  that computes on its own tokens (``inner_batch_shard``): the gather,
+  whose backward sums the ranks' cotangents and keeps the block;
 * :func:`vocab_parallel_nll` — the cross-entropy over a vocabulary split
   over the model axis: each rank runs the ``fused_ce`` kernel on its
   block of the table, and the ranks combine the logsumexps and the gold
@@ -32,7 +43,13 @@ forward mode), so they run inside the train step's per-agent
 
 The model axis of the running step comes from :func:`tensor_parallel`,
 a context that the mesh step enters for the duration of a call; with no
-context every layer computes whole.
+context every layer computes whole.  The axis also says what of the
+tokens the model ranks split (:func:`tokens_split`): nothing (tensor
+parallelism: every model rank holds the same tokens), ``"seq"`` (each
+holds its chunk of the sequence) or ``"rows"`` (its rows of each
+agent's batch).  Gloo reduces CUDA tensors in ``all_reduce`` only, so
+every gather and reduce-scatter here is an ``all_reduce`` of a
+zero-filled buffer, or one followed by a slice.
 """
 from __future__ import annotations
 
@@ -59,11 +76,13 @@ class Where:
 
 @dataclass(frozen=True)
 class ModelAxis:
-    """The model axis of a running mesh step: its size and this rank's
-    index on it."""
+    """The model axis of a running mesh step: its size, this rank's
+    index on it, and what of the tokens it splits (``split``: None,
+    ``"seq"`` or ``"rows"``)."""
 
     mesh: object
     axes: Tuple[str, ...] = ("model",)
+    split: Optional[str] = None
 
     @property
     def size(self) -> int:
@@ -99,6 +118,19 @@ def _need_axis(what: str) -> ModelAxis:
             f"step is running (repro_torch.sharding.collectives."
             f"tensor_parallel)")
     return axis
+
+
+def tokens_split() -> Optional[str]:
+    """What of the tokens the running step's model ranks split: None
+    (no model axis, or tensor parallelism), ``"seq"`` or ``"rows"``."""
+    axis = _TP.get()
+    return None if axis is None or axis.size == 1 else axis.split
+
+
+def model_size() -> int:
+    """The running step's model axis's size (1 without one)."""
+    axis = _TP.get()
+    return 1 if axis is None else axis.size
 
 
 def shard_offset(local: int, whole: int, what: str) -> Optional[int]:
@@ -186,10 +218,14 @@ def reduce_from_model(x: torch.Tensor, tag: str = "tp_reduce") -> torch.Tensor:
 
 
 def copy_to_model(x: torch.Tensor, tag: str = "tp_copy") -> torch.Tensor:
-    """``x`` (its cotangent summed over the model axis); ``x`` itself
-    where no model axis runs."""
+    """``x``, which every model rank holds whole and uses for its part of
+    a split computation (its cotangent summed over the model axis);
+    ``x`` itself where no model axis runs, and where the model ranks
+    split the tokens: there ``x`` came from :func:`gather_seq`, whose
+    backward sums, or is a whole weight, which the gather hook sums at
+    its use."""
     axis = _TP.get()
-    if axis is None or axis.size == 1:
+    if axis is None or axis.size == 1 or axis.split is not None:
         return x
     return _CopyToModel.apply(x, axis.where(tag))
 
@@ -233,8 +269,7 @@ def gather_vocab(logits: torch.Tensor, vocab_size: int,
 
 
 def vocab_parallel_nll(x: torch.Tensor, table: torch.Tensor,
-                       labels: torch.Tensor, vocab_size: int
-                       ) -> torch.Tensor:
+                       labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Per-token NLL ``(T,)`` fp32 of x ``(T, D)`` against this rank's
     block ``table`` ``(V / tp, D)`` of a vocabulary of ``vocab_size``,
     split over the model axis.
@@ -246,7 +281,8 @@ def vocab_parallel_nll(x: torch.Tensor, table: torch.Tensor,
     exactly by the rank that holds the label's row (a row-wise dot, not
     lse_r − nll_r) and summed over the ranks (one term is not zero).
     Gradients: through the kernel's backward at the global softmax
-    (its logsumexp cotangent), and x's summed over the model axis."""
+    (its logsumexp cotangent), and x's summed over the model axis
+    (:func:`copy_to_model`)."""
     v0 = shard_offset(table.shape[0], vocab_size, "vocab_parallel_nll")
     if v0 is None:
         return fused_ce_nll_lse(x, table, labels)[0]
@@ -260,3 +296,114 @@ def vocab_parallel_nll(x: torch.Tensor, table: torch.Tensor,
     m = max_over_model(lse_r.detach(), "ce_max")
     lse = m + torch.log(reduce_from_model(torch.exp(lse_r - m), "ce_lse"))
     return lse - reduce_from_model(gold_r, "ce_gold")
+
+
+def _sum_both(x: torch.Tensor, where: Where) -> torch.Tensor:
+    """``x`` summed over ``where``'s axes, its cotangent summed over them
+    too (tag ``<tag>_grad``): the sum of terms that each rank's own
+    tokens use."""
+    back = Where(where.mesh, where.axes, where.tag + "_grad", where.op)
+    return _CopyToModel.apply(_AllReduce.apply(x, where), back)
+
+
+def _pad_dim(x: torch.Tensor, dim: int, before: int, after: int
+             ) -> torch.Tensor:
+    return F.pad(x, [0, 0] * (x.ndim - 1 - dim) + [before, after])
+
+
+def seq_chunk(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's chunk of a tensor whole along the sequence ``dim``."""
+    axis = _need_axis("seq_chunk")
+    s = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * s, s)
+
+
+def gather_seq(x: torch.Tensor, tag: str, dim: int = 1) -> torch.Tensor:
+    """This rank's chunk ``x`` of the sequence (along ``dim``) made whole
+    on every model rank: the chunk zero-padded and summed over "model"
+    (exact).  Its backward sums the cotangent over the ranks (each holds
+    the share of its heads, ``ff`` columns or vocabulary block) and
+    keeps the chunk: a reduce-scatter."""
+    axis = _need_axis("gather_seq")
+    s = x.shape[dim]
+    return _sum_both(_pad_dim(x, dim, axis.index * s,
+                              (axis.size - 1 - axis.index) * s),
+                     axis.where(tag))
+
+
+def scatter_seq(x: torch.Tensor, tag: str, dim: int = 1) -> torch.Tensor:
+    """This rank's chunk of ``x`` summed over "model": a row-parallel
+    output's reduce-scatter back to the sequence chunk.  Its backward
+    gathers the chunk's cotangent over the sequence."""
+    axis = _need_axis("scatter_seq")
+    return seq_chunk(_sum_both(x, axis.where(tag)), dim)
+
+
+def gather_ids(x: torch.Tensor, tag: str, dim: int = 1) -> torch.Tensor:
+    """Token ids, labels or a mask: under ``seq_shard`` this rank's chunk
+    of the sequence made whole (summed as fp32, exact below 2^24; no
+    gradient), else ``x``."""
+    if tokens_split() != "seq":
+        return x
+    axis = _TP.get()
+    s = x.shape[dim]
+    whole = _AllReduce.apply(_pad_dim(x.float(), dim, axis.index * s,
+                                      (axis.size - 1 - axis.index) * s),
+                             axis.where(tag))
+    return whole.to(x.dtype)
+
+
+def seq_positions(x: torch.Tensor) -> torch.Tensor:
+    """(B, S) absolute positions 0 … S−1 of the sequence of the
+    activation ``x``: under ``seq_shard`` the whole sequence whose chunk
+    ``x`` (B, S / tp, D) is."""
+    n = model_size() if tokens_split() == "seq" else 1
+    return torch.arange(x.shape[1] * n,
+                        device=x.device).expand(x.shape[0], -1)
+
+
+def region_in(x: torch.Tensor, tag: str, split: bool = True
+              ) -> torch.Tensor:
+    """The input ``x`` of a region that the model ranks compute together
+    (a layer's attention or MLP, the logits): under tensor parallelism,
+    where the region's weights are split over the ranks (``split``),
+    ``x`` with its cotangent summed over them (:func:`copy_to_model`,
+    tag ``tp_<tag>``), else ``x``; under ``seq_shard`` the rank's chunk
+    gathered over the sequence (:func:`gather_seq`, ``sp_<tag>``), which
+    a split region needs and attention, which mixes the tokens, needs
+    split or not; else ``x``."""
+    if tokens_split() == "seq":
+        return gather_seq(x, "sp_" + tag)
+    return copy_to_model(x, "tp_" + tag) if split else x
+
+
+def region_out(x: torch.Tensor, tag: str, split: bool = True
+               ) -> torch.Tensor:
+    """The output ``x`` of a region :func:`region_in` entered: where its
+    weights are split (``split``), each rank's partial sum, summed over
+    the model ranks (tensor parallelism: :func:`reduce_from_model`, tag
+    ``tp_<tag>``) or reduce-scattered back to the rank's chunk of the
+    sequence (``seq_shard``: :func:`scatter_seq`, ``sp_<tag>``); where
+    they are whole, ``x`` (each rank computed all of it), cut to the
+    rank's chunk under ``seq_shard``."""
+    if tokens_split() == "seq":
+        return scatter_seq(x, "sp_" + tag) if split else seq_chunk(x)
+    return reduce_from_model(x, "tp_" + tag) if split else x
+
+
+def gather_model(x: torch.Tensor, index: Tuple[slice, ...],
+                 shape: Tuple[int, ...], where: Where) -> torch.Tensor:
+    """A weight of ``shape`` whose block ``index`` is this rank's ``x``,
+    made whole on every rank of ``where``'s axes for a computation on
+    the rank's own tokens: the zero-filled buffer summed; its backward
+    sums the ranks' cotangents and keeps the block."""
+    pad = []
+    for s, n in reversed(list(zip(index, shape))):
+        pad += [s.start, n - s.stop]
+    return _sum_both(F.pad(x, pad), where)
+
+
+def copy_over(x: torch.Tensor, where: Where) -> torch.Tensor:
+    """``x`` itself, its cotangent summed over ``where``'s axes: a weight
+    that every rank holds whole and uses on its own tokens."""
+    return _CopyToModel.apply(x, where)

@@ -23,12 +23,20 @@ leaf there from either of two layouts, told apart by shape:
 The whole-tree key "" (the per-agent gradient and the lookahead probe,
 which JAX pins to the data-free layout) takes each leaf of a per-agent
 tree (leading agent dims allowed) to its model block: a global leaf is
-sliced, a block kept.  The port keeps the per-agent gradient whole on
-every model rank all the same, because the comm epilogue (int8's scale,
-top-k's threshold, the sketch) reads whole leaves: the gradient with
-respect to the round's blocks is made whole by :func:`whole_over_model`
-(port-only), and the probe and the HVP's tangent take the gradient's
-blocks through "".
+sliced, a block kept.  The gradient with respect to the round's blocks
+is that layout already, and the comm epilogue keeps it
+(:mod:`repro_torch.sharding.blocks`): no step makes a per-agent leaf
+whole.
+
+Where the model ranks split the tokens (``split``: ``seq_shard``'s
+chunks of the sequence, ``inner_batch_shard``'s rows of each agent's
+batch), each rank's use of a weight gives only its tokens' share of the
+gradient, so the hook sums it over "model": a leaf that every model
+rank holds whole is used as it is with its cotangent summed
+(:func:`repro_torch.sharding.collectives.copy_over`), and under
+``"rows"`` a leaf that "model" splits is gathered whole at its use, its
+cotangent summed over "model" and cut back to the block
+(:func:`~repro_torch.sharding.collectives.gather_model`).
 
 Activations get the same treatment through ``constrain_act``; training
 installs no activation hook (the JAX package installs one for serving
@@ -167,17 +175,6 @@ def constrain_params(subtree, key: str):
     return fn(subtree, key) if fn is not None else subtree
 
 
-def whole_over_model(tree):
-    """A per-agent gradient tree taken with respect to the round's model
-    blocks, each leaf that the model axis splits made whole on every
-    model rank (its block zero-padded and summed over "model": one
-    collective per leaf, for every agent at once under ``vmap``).  A
-    no-op without a mesh hook or a model axis."""
-    fn = _HOOK.get()
-    whole = getattr(fn, "whole", None)
-    return tree if whole is None else whole(tree)
-
-
 def strip_data_axes(rules: dict) -> dict:
     """The rule table with the data axes removed from every target."""
     def strip(ax):
@@ -191,15 +188,16 @@ def strip_data_axes(rules: dict) -> dict:
     return {k: strip(v) for k, v in rules.items()}
 
 
-def make_gather_hook(mesh, axes_tree, rules, shapes_tree):
+def make_gather_hook(mesh, axes_tree, rules, shapes_tree,
+                     split: Optional[str] = None):
     """Build the hook used by the step builders.
 
     ``axes_tree`` is the model's logical-axes tree, ``rules`` the plan's
     rule table and ``shapes_tree`` the global parameter tree (or its
     ``meta`` stand-in), whose shapes tell the layouts apart.  A key ""
     is the whole (per-agent) tree; a layer slice loses the leading
-    "layer" axis.  The hook's ``whole`` attribute is
-    :func:`whole_over_model`'s map."""
+    "layer" axis.  ``split`` is what of the tokens the model ranks split
+    (None, ``"seq"`` or ``"rows"``: the module doc)."""
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding.rules import (
         NamedSharding,
@@ -210,6 +208,7 @@ def make_gather_hook(mesh, axes_tree, rules, shapes_tree):
 
     gather_rules = strip_data_axes(rules)
     split_model = mesh.shape.get("model", 1) > 1
+    summed = split if split_model else None
 
     def model_of(axes, glob):
         """The model-axis sharding of a leaf of global shape ``glob``
@@ -226,17 +225,27 @@ def make_gather_hook(mesh, axes_tree, rules, shapes_tree):
         model = model_of(axes, glob)
         block = glob if model is None else model.shard_shape(glob)
         shape = tuple(leaf.shape)
-        if shape == block:
+        if shape != block:
+            spec_r = resolve_pspec(glob, axes, rules, mesh)
+            rest = NamedSharding(mesh, split_spec(spec_r)[0])
+            if shape != rest.shard_shape(block):
+                raise ValueError(
+                    f"gather hook: a leaf of shape {shape} is neither the "
+                    f"model block {block} nor the block at rest "
+                    f"{NamedSharding(mesh, spec_r).shard_shape(glob)}")
+            leaf = C.gather_from_data(leaf, rest.slices(block), block,
+                                      C.Where(mesh, rest.axes,
+                                              "fsdp_gather"))
+        if summed is None:
             return leaf
-        spec_r = resolve_pspec(glob, axes, rules, mesh)
-        rest = NamedSharding(mesh, split_spec(spec_r)[0])
-        if shape != rest.shard_shape(block):
-            raise ValueError(
-                f"gather hook: a leaf of shape {shape} is neither the "
-                f"model block {block} nor the block at rest "
-                f"{NamedSharding(mesh, spec_r).shard_shape(glob)}")
-        return C.gather_from_data(leaf, rest.slices(block), block,
-                                  C.Where(mesh, rest.axes, "fsdp_gather"))
+        if model is None:
+            # whole on every model rank, used on this rank's tokens
+            return C.copy_over(leaf, C.Where(mesh, ("model",),
+                                             f"{summed}_param_grad"))
+        if summed == "rows":
+            return C.gather_model(leaf, model.slices(glob), glob,
+                                  C.Where(mesh, ("model",), "rows_gather"))
+        return leaf
 
     def trailing(leaf, glob):
         return tuple(leaf.shape[leaf.ndim - len(glob):])
@@ -252,14 +261,6 @@ def make_gather_hook(mesh, axes_tree, rules, shapes_tree):
                              f"nor its model block")
         return leaf[(Ellipsis,) + model.slices(glob)]
 
-    def to_whole(axes, leaf, ref):
-        glob = tuple(ref.shape)
-        model = model_of(tuple(axes), glob)
-        if model is None:
-            return leaf
-        return C.gather_from_data(leaf, model.slices(glob), glob,
-                                  C.Where(mesh, model.axes, "tp_grad"))
-
     def hook(subtree, key: str):
         if not key:
             if not split_model:
@@ -270,7 +271,4 @@ def make_gather_hook(mesh, axes_tree, rules, shapes_tree):
             ax_sub, sh_sub = ax_sub[part], sh_sub[part]
         return map_axes(one, ax_sub, subtree, sh_sub)
 
-    hook.whole = (lambda tree: map_axes(to_whole, axes_tree, tree,
-                                        shapes_tree)
-                  if split_model else tree)
     return hook

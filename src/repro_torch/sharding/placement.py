@@ -9,23 +9,29 @@ ranks are separate programs, so the layout is explicit.  A
 * at rest, the rank holds its block of every parameter and optimizer
   leaf (``param_shardings``: ZeRO-3's ``embed`` over the data axes with
   ``fsdp``, the tensor-parallel dims over "model") and the per-agent
-  slots (EF memory, controller and channel rows) of its own agents (the
-  ``agent`` rule's axes: agents live on the data axes, and the model
-  ranks of one data coordinate hold the same agents);
+  slots of its own agents (the ``agent`` rule's axes: agents live on the
+  data axes, and the model ranks of one data coordinate hold the same
+  agents): the controller and channel rows whole, and the EF memory and
+  a delay line's payloads as the rank's model block of each leaf
+  (:meth:`state_shardings`);
 * in a step, :meth:`gather_params` gathers each ZeRO-3 leaf over the
   data axes once at the start of the round into this rank's
   tensor-parallel block (with ``fsdp`` off the round reads the blocks at
   rest, with no copy); the model reads those blocks (:meth:`active`
-  installs the gather hook of :mod:`repro_torch.sharding.constraint`
-  and the model axis of :mod:`repro_torch.sharding.collectives`), and
-  each agent's gradient with respect to them is made whole over "model"
-  once, right after the backward
-  (:func:`~repro_torch.sharding.constraint.whole_over_model`), so the
-  per-agent gradient, EF memory and payloads are global trees (the comm
-  epilogue reads whole leaves) while the probe is formed on the blocks;
-  the aggregate's sums and the agents' metric vectors are reduced over
-  the agent axes (:meth:`partial_payload`, :meth:`masked_mean`), and
-  each rank applies its own block of the update (:meth:`local`).
+  installs the gather hook of :mod:`repro_torch.sharding.constraint`,
+  the model axis of :mod:`repro_torch.sharding.collectives` with what of
+  the tokens the model ranks split, and the model blocks of
+  :mod:`repro_torch.sharding.blocks`), and each agent's gradient with
+  respect to them is this rank's model block of each leaf, as the JAX
+  package pins it (``constrain_params(g, "")``).  The comm epilogue runs
+  on those blocks: EF memory, payload, probe and HVP are blocks, and
+  what needs a whole leaf (int8's scale, top-k's threshold, the sketch,
+  the gains' sums, the byte counts) reads it through
+  :mod:`~repro_torch.sharding.blocks`; the aggregate's sums and the
+  agents' metric vectors are reduced over the agent axes
+  (:meth:`partial_payload`, :meth:`masked_mean`) on block-sized
+  buffers, and each rank applies its own block of the update
+  (:meth:`update_block`: with ``fsdp`` the block's data part).
 
 With ``fsdp`` the round's gathered blocks live for the step: the
 ZeRO-3 memory saving is the state at rest, not the step's peak.
@@ -38,21 +44,27 @@ from typing import Tuple
 import torch
 
 from repro_torch.optim.optimizers import clip_by_global_norm
+from repro_torch.sharding import blocks
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.constraint import (
     make_gather_hook,
     reset_gather_hook,
     set_gather_hook,
+    strip_data_axes,
 )
 from repro_torch.sharding.rules import (
     NamedSharding,
+    PartitionSpec,
     agent_axis_names,
     resolve_pspec,
-    shard_tree,
     split_spec,
     tree_shardings,
 )
-from repro_torch.utils.tree import tree_map, tree_unflatten
+from repro_torch.utils.tree import (
+    tree_flatten_with_path,
+    tree_map,
+    tree_unflatten,
+)
 
 
 class Placement:
@@ -60,20 +72,48 @@ class Placement:
 
     ``axes`` and ``shapes`` are the model's logical-axes tree and its
     global parameter tree (``meta`` tensors do); ``rules`` the plan's
-    rule table; ``num_agents`` the fleet's m."""
+    rule table; ``num_agents`` the fleet's m; ``split`` what of the
+    tokens the model ranks split (None, ``"seq"`` or ``"rows"``) and
+    ``batch_shardings`` the batch's layout and ``batch_shapes`` its
+    global shapes by leaf path (the step cuts the rank's part of a
+    global batch by them)."""
 
     def __init__(self, mesh, axes, shapes, rules: dict, num_agents: int,
-                 *, grad_clip: float = 0.0):
+                 *, grad_clip: float = 0.0, split=None,
+                 batch_shardings=None, batch_shapes=None):
         self.mesh, self.rules, self.num_agents = mesh, rules, num_agents
-        # clipping by the global norm runs on the global aggregate, before
-        # the rank takes its block (the step's optimizer clips nothing)
+        # clipping by the global norm runs on the aggregate's blocks (the
+        # step's optimizer clips nothing)
         self.grad_clip = grad_clip
-        self.shapes = shapes
+        # per batch leaf: its dims after the agent axis whole, and the
+        # model part of its layout (where "model" splits the tokens)
+        self._batch_cuts = None
+        if batch_shardings is not None:
+            self._batch_cuts = {}
+            for path, sh in tree_flatten_with_path(batch_shardings):
+                spec = tuple(sh.spec)[1:]
+                if "model" in spec:
+                    self._batch_cuts[path] = (
+                        tuple(batch_shapes[path][1:]),
+                        NamedSharding(mesh, PartitionSpec(None, *(
+                            e if e == "model" else None for e in spec))))
         self.param_shardings = tree_shardings(axes, shapes, rules, mesh)
-        self.hook = make_gather_hook(mesh, axes, rules, shapes)
+        self.hook = make_gather_hook(mesh, axes, rules, shapes, split)
         model = tuple(a for a in ("model",) if a in mesh.axis_names)
-        self.model_axis = (C.ModelAxis(mesh, model)
+        self.model_axis = (C.ModelAxis(mesh, model, split)
                            if model and mesh.axes_size(model) > 1 else None)
+        # each leaf's layout over "model" alone (the per-agent trees')
+        self.model_shardings = tree_shardings(
+            axes, shapes, strip_data_axes(rules), mesh)
+        self.layouts = None
+        if self.model_axis is not None:
+            specs = dict(tree_flatten_with_path(self.model_shardings))
+            self.layouts = {}
+            for path, ref in tree_flatten_with_path(shapes):
+                sh = specs[path]
+                self.layouts[path] = (blocks.LeafBlock(
+                    tuple(ref.shape), sh.slices(ref.shape), self.model_axis)
+                    if sh.axes else None)
         spec = resolve_pspec((num_agents,), ("agent",), rules, mesh)
         self.agent_axes: Tuple[str, ...] = tuple(
             a for a in mesh.axis_names
@@ -91,7 +131,8 @@ class Placement:
         """The gather hook and the model axis, for one step's call."""
         token = set_gather_hook(self.hook)
         try:
-            with C.tensor_parallel(self.model_axis):
+            with C.tensor_parallel(self.model_axis), \
+                    blocks.model_blocks(self.layouts):
                 yield self
         finally:
             reset_gather_hook(token)
@@ -106,40 +147,58 @@ class Placement:
             self.mesh, split_spec(sh.spec)[0]).gather(x, tag),
             self.param_shardings, params)
 
-    def global_like(self, params):
-        """``meta`` stand-ins of the global parameter tree in the dtypes
-        of ``params`` (the round's blocks): what a whole payload of the
-        tree is sized and priced by."""
-        return tree_map(lambda g, x: torch.empty(g.shape, dtype=x.dtype,
-                                                 device="meta"),
-                        self.shapes, params)
+    def sq_norm(self, tree) -> torch.Tensor:
+        """The squared L2 norm of the whole tree whose model blocks
+        ``tree`` holds (one ``all_reduce`` over "model" of the blocks'
+        part; the leaves every model rank holds whole counted once)."""
+        with blocks.model_blocks(self.layouts):
+            split, whole = blocks.split_leaves(tree)
+        total = sum((x.float() * x.float()).sum() for x in whole) if whole \
+            else None
+        if split:
+            part = sum((x.float() * x.float()).sum() for x in split)
+            part = self.mesh.all_reduce(part.reshape(1), "grad_norm",
+                                        ("model",))[0]
+            total = part if total is None else part + total
+        return total
 
-    def local(self, tree):
-        """This rank's block of a global parameter-shaped tree."""
-        return shard_tree(tree, self.param_shardings)
-
-    def update_block(self, agg):
-        """This rank's block of the aggregate the optimizer applies:
-        clipped by its global norm first where the config clips."""
+    def update_block(self, agg, norm_sq=None):
+        """This rank's block at rest of the aggregate (its model blocks)
+        that the optimizer applies: clipped by the whole tree's norm first
+        where the config clips (``norm_sq``, its square, when the caller
+        has it), then with ``fsdp`` each leaf's data part."""
         if self.grad_clip:
-            agg = clip_by_global_norm(agg, self.grad_clip)
-        return self.local(agg)
+            agg = clip_by_global_norm(agg, self.grad_clip, torch.sqrt(
+                self.sq_norm(agg) if norm_sq is None else norm_sq))
+        return tree_map(lambda sh, x: NamedSharding(
+            self.mesh, split_spec(sh.spec)[0]).local(x),
+            self.param_shardings, agg)
 
     def local_rows(self, tree):
-        """This rank's agents' rows of a per-agent tree (leaves with the
-        fleet's m rows, or already the rank's)."""
+        """This rank's part of a batch: its agents' rows (leaves with the
+        fleet's m rows, or already the rank's), then, where the model
+        ranks split the tokens, its rows or chunk of each agent's (a
+        leaf whole there is cut; the rank's part is kept)."""
         lo, hi, m = self.agents.start, self.agents.stop, self.num_agents
+        cuts = self._batch_cuts or {}
 
-        def cut(x):
+        def cut(path, x):
             if x.shape[0] == m:
-                return x[lo:hi]
-            if x.shape[0] == hi - lo:
+                x = x[lo:hi]
+            elif x.shape[0] != hi - lo:
+                raise ValueError(
+                    f"per-agent leaf with leading axis {x.shape[0]}: "
+                    f"expected the fleet's {m} agents or this rank's "
+                    f"{hi - lo}")
+            whole, model = cuts.get(path, (None, None))
+            if model is None or tuple(x.shape[1:]) != whole:
                 return x
-            raise ValueError(
-                f"per-agent leaf with leading axis {x.shape[0]}: expected "
-                f"the fleet's {m} agents or this rank's {hi - lo}")
+            return model.local(x)
 
-        return None if tree is None else tree_map(cut, tree)
+        if tree is None:
+            return None
+        return tree_unflatten(tree, [cut(p, x) for p, x in
+                                     tree_flatten_with_path(tree)])
 
     # -- reductions over the agent axes ---------------------------------
 
@@ -198,7 +257,10 @@ class Placement:
         """The :class:`NamedSharding` tree of a TrainState whose slots
         are ``state``'s (the step's state at rest: parameters and
         optimizer state by the parameters' shardings, the per-agent
-        slots by the agent axes; the host-int step None)."""
+        slots by the agent axes, and the EF memory ``(m, *leaf)`` and a
+        delay line's payloads ``(m, L, *leaf)`` also by each leaf's
+        model layout: the rank's model block of every agent's leaf; the
+        host-int step None)."""
         agent = self.agent_sharding
         params = self.param_shardings
         opt = {"sgd": (), "momentum": params}.get(optimizer_name)
@@ -212,7 +274,23 @@ class Placement:
         def per_agent(tree):
             return None if tree is None else tree_map(lambda _: agent, tree)
 
-        return type(state)(None, params, opt, per_agent(state.ef_memory),
-                           per_agent(state.ctrl_state),
-                           per_agent(state.net_state))
+        lead = tuple(agent.spec)[:1] or (None,)
+
+        def blocks_of(tree, depth: int):
+            # (agents, [line,] *leaf): the agents over the agent axes, the
+            # leaf by its model layout
+            return None if tree is None else tree_map(
+                lambda sh, _: NamedSharding(self.mesh, PartitionSpec(
+                    *lead, *(None,) * depth, *sh.spec)),
+                self.model_shardings, tree)
+
+        net = state.net_state
+        if isinstance(net, tuple) and isinstance(net[1], dict):
+            line = net[1]
+            net = (agent, {"meta": per_agent(line["meta"]),
+                           "buf": blocks_of(line["buf"], 1)})
+        else:
+            net = per_agent(net)
+        return type(state)(None, params, opt, blocks_of(state.ef_memory, 0),
+                           per_agent(state.ctrl_state), net)
 

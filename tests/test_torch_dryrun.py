@@ -216,6 +216,8 @@ def test_clis_run_and_the_mesh_knobs_raise(tmp_path, capsys, monkeypatch):
             / "smollm-135m_long_500k_t.json").exists()
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         dryrun.main(["--all", "--multi-pod"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        S.plan_run(get_config("smollm-135m"), SHAPES["decode_32k"],
-                   seq_shard=True)
+    # seq_shard plans on one card (JAX's rules, a no-op without a model
+    # axis); the multi-pod mesh still raises above
+    plan = S.plan_run(get_config("smollm-135m"), SHAPES["decode_32k"],
+                      seq_shard=True)
+    assert plan.seq_shard and plan.rules["seq"] == "model"

@@ -618,10 +618,12 @@ def test_rank_rows_are_jax_addressable_shards(runs):
 
 def test_state_shardings_lay_the_agent_slots_over_data():
     """``state_shardings`` gives the controller rows, the channel rows and
-    both halves of a delay line's pair JAX's ``agent_pspec`` (P("data")):
-    the two model ranks of a data slice hold its agents' rows, and the
-    data slices tile the fleet (the spawn's jobs round-trip them through
-    ``shard_tree`` and ``gather_tree``)."""
+    both halves of a delay line's pair JAX's ``agent_pspec`` (P("data"))
+    on their agent axis, and the line's payloads their leaf's model
+    layout after it (the rank's model blocks): the two model ranks of a
+    data slice hold its agents' rows, and the data slices tile the fleet
+    (the spawn's jobs round-trip them through ``shard_tree`` and
+    ``gather_tree``)."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build
     from repro_torch.sharding.placement import Placement
@@ -645,8 +647,12 @@ def test_state_shardings_lay_the_agent_slots_over_data():
             slots = [x for x in tree_flatten_with_path(
                 (sh.ctrl_state, sh.net_state)) if x[1] is not None]
             assert slots
+            model = dict(tree_flatten_with_path(pl.model_shardings))
             for path, s in slots:
-                assert isinstance(s, NamedSharding) and s.spec == ("data",), (
+                want = ("data",)
+                if "buf" in path:
+                    want = ("data", None) + tuple(model[path[3:]].spec)
+                assert isinstance(s, NamedSharding) and s.spec == want, (
                     path, s.spec)
                 leaf = dict(tree_flatten_with_path(
                     (state.ctrl_state, state.net_state)))[path]

@@ -474,14 +474,14 @@ def test_collective_log_and_blocks_at_rest(runs):
             "tp_attn_out": 2 * layers, "tp_mlp_out": 2 * layers,
             "tp_embed": 2, "ce_max": 2, "ce_lse": 2, "ce_gold": 2,
             # backward: the column-parallel inputs' gradients, the
-            # loss's input; then every split leaf's gradient made whole
-            # once (the 7 stacked weights and the tied table)
+            # loss's input; each agent's gradient stays the rank's model
+            # blocks (no gather over model)
             "tp_attn_in": layers, "tp_mlp_in": layers, "ce_copy": 1,
-            "tp_grad": 8,
-            # the round: the agents' vectors and the payload over data;
-            # with fsdp each leaf gathered over data (never over model;
-            # an all_gather on these CPU tensors)
-            "agent_vectors": 1, "payload": 1,
+            # the round: the agents' vectors and the payload over data,
+            # the aggregate's norm over model; with fsdp each leaf
+            # gathered over data (never over model; an all_gather on
+            # these CPU tensors)
+            "agent_vectors": 1, "payload": 1, "grad_norm": 1,
         }
         if fsdp:
             want["param_gather"] = leaves
@@ -491,26 +491,26 @@ def test_collective_log_and_blocks_at_rest(runs):
                         **({"all-gather@data": leaves} if fsdp else {}),
                         "all-reduce@model": sum(
                             v for k, v in want.items() if k.startswith(
-                                ("tp_", "ce_")))}, axes
-        # operand bytes: the payload is the whole fp32 tree, the widened
-        # gradients every split leaf's (the table once), the fsdp gather
+                                ("tp_", "ce_", "grad_norm")))}, axes
+        # operand bytes: the payload is the rank's model blocks in fp32
+        # (half of every split leaf, the norms whole), the fsdp gather
         # each rank's blocks at rest
         ops = {k: v["operand_bytes"]
                for k, v in r["steps"][0]["by_tag"].items()}
         glob = r["global_param_bytes"]
         norm_bytes = (2 * layers + 1) * 256 * 4
-        assert ops["payload"] == glob
-        assert ops["tp_grad"] == glob - norm_bytes
+        assert ops["payload"] == (glob - norm_bytes) // 2 + norm_bytes
         if fsdp:
             assert ops["param_gather"] == r["param_bytes"]
         # at rest: each rank's blocks, 1/4 (fsdp: data × model) or 1/2
         # (model only) of the split leaves; the step's memory tracker
-        # reports each rank's peak, above a whole parameter tree (each
-        # agent's gradient is whole)
+        # reports each rank's peak: 2.05 parameter trees at this size
+        # with each agent's gradient, EF memory and payload the rank's
+        # blocks (3.20 when they were whole trees)
         assert r["param_bytes"] < r["global_param_bytes"] / (
             3 if fsdp else 1.5)
         peaks = [x[name]["steps"][0]["peak_bytes"] for x in results]
-        assert min(peaks) > r["global_param_bytes"], peaks
+        assert max(peaks) < 2.5 * r["global_param_bytes"], peaks
 
 
 def test_named_sharding_gathers_by_both_methods(runs):
@@ -584,9 +584,16 @@ def test_plan_run_mesh_matches_jax():
     assert S.plan_run(cfg, shape, num_agents=4).num_agents == 4
     with pytest.raises(ValueError, match="do not split"):
         S.plan_run(cfg, shape, Mesh(("data", "model"), (2, 2)), num_agents=3)
+    # seq_shard and inner_batch_shard: JAX's rules on a mesh; with no
+    # mesh they plan and shard nothing
     for knob in ("seq_shard", "inner_batch_shard"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
-            S.plan_run(cfg, shape, **{knob: True})
+        got = S.plan_run(cfg, shape, Mesh(("data", "model"), (2, 2)),
+                         **{knob: True})
+        want = JS.plan_run(jcfg, jshape, FakeMesh((2, 2), ("data", "model")),
+                           **{knob: True})
+        assert got.rules == want.rules and getattr(got, knob)
+        one = S.plan_run(cfg, shape, **{knob: True})
+        assert getattr(one, knob) and one.num_agents == 1
     # cache_seq_shard is ported: JAX's rules
     tm = Mesh(("data", "model"), (2, 2))
     got = S.plan_run(cfg, shape, tm, cache_seq_shard=True)

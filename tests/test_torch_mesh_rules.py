@@ -143,11 +143,12 @@ def test_sharding_config_and_kv_cache_axes_match_jax():
 
 
 def test_gather_hook_moves_per_agent_trees_between_blocks_and_whole():
-    """On a (2, 2) mesh without a process group (its sums are the
-    identity, so the padding shows) at model index 1: the hook's ""
-    takes a global per-agent tree to this rank's model blocks and keeps
-    blocks; ``whole_over_model`` puts each block back at its place in a
-    zero-filled global leaf; a named site passes the blocks at rest
+    """On a (2, 2) mesh without a process group at model index 1: the
+    hook's "" takes a global per-agent tree to this rank's model blocks
+    and keeps blocks; the placement's layouts
+    (``repro_torch.sharding.blocks``, what the comm epilogue reads) cut
+    the same blocks and widen them back to the whole leaves' shapes
+    (``global_like``); a named site passes the blocks at rest
     through and refuses a global leaf."""
     cfg = reduced(get_config("smollm-135m"))
     params, axes = build(cfg).init(torch.Generator().manual_seed(0))
@@ -157,10 +158,15 @@ def test_gather_hook_moves_per_agent_trees_between_blocks_and_whole():
     g = tree_map(lambda x: torch.stack([x, 2 * x]), params)
     token = constraint.set_gather_hook(
         constraint.make_gather_hook(mesh, axes, rules, params))
+    from repro_torch.sharding import blocks as B
+    from repro_torch.sharding.placement import Placement
+
+    layouts = Placement(mesh, axes, params, rules, 2).layouts
     try:
         blocks = constraint.constrain_params(g, "")
-        whole = constraint.whole_over_model(blocks)
         kept = constraint.constrain_params(blocks, "")
+        with B.model_blocks(layouts):
+            whole = B.global_like(blocks)
         split = 0
         for (path, sh), (_, x), (_, b), (_, w), (_, k) in zip(
                 tree_flatten_with_path(shardings),
@@ -169,9 +175,9 @@ def test_gather_hook_moves_per_agent_trees_between_blocks_and_whole():
             index = (Ellipsis,) + sh.slices(x.shape[1:])
             assert torch.equal(b, x[index]), path
             assert k is b, path
-            want = torch.zeros_like(x)
-            want[index] = x[index]
-            assert torch.equal(w, want), path
+            cut = x if layouts[path] is None else layouts[path].cut(x)
+            assert torch.equal(cut, b), path
+            assert w.shape == x.shape and w.dtype == x.dtype, path
             split += b.shape != x.shape
         assert split == 8  # the 7 stacked weights and the table
         rest = shard_tree(params, shardings)

@@ -1,4 +1,5 @@
-"""Rank programs for tests/test_torch_mesh_{lm,hetero,serve}.py.
+"""Rank programs for tests/test_torch_mesh_{lm,hetero,serve,seq,
+epilogue}.py.
 
 Each function runs on one gloo rank that ``repro_torch.launch.mesh.spawn``
 starts on the CPU (``fn(mesh, *args)``, the mesh a (data, model) host
@@ -75,14 +76,16 @@ def _rest_bytes(tree) -> int:
 def train_run(base, job):
     """``job``: arch, cfg overrides, the model axis's size, policy (a
     spec or a per-agent tuple), fsdp, fleet_shard, lr, remat and, where
-    set, the heterogeneous dispatch path and the parameters' dtype; the
+    set, the heterogeneous dispatch path, the parameters' dtype and
+    ``plan_run``'s sharding knobs (``knobs``); the
     global batches and, per step, the global state it starts from (numpy
     trees: the JAX step's states, so that the gaps do not compound).
     Returns per step the fleet's metrics, the gathered parameters, EF
     memory, controller rows and channel slot, this rank's own rows of
     the last two, the collectives by tag and by axis and the kernel
-    launches; and this rank's bytes of parameters and optimizer state at
-    rest and its mesh coordinates."""
+    launches and this rank's bytes of EF memory at rest; and this rank's
+    bytes of parameters and optimizer state at rest and its mesh
+    coordinates."""
     _count_plain_calls()
     mesh = _mesh(base, job["model"])
     cfg = reduced(get_config(job.get("arch", "smollm-135m"))).replace(
@@ -92,7 +95,7 @@ def train_run(base, job):
     shape = InputShape("mesh", seq, m * per, "train")
     plan = S.plan_run(cfg, shape, mesh, num_agents=m, comm=job["policy"],
                       lr=job["lr"], fsdp=job["fsdp"],
-                      remat=job.get("remat", False))
+                      remat=job.get("remat", False), **job.get("knobs", {}))
     step = S.build_train_step(
         plan, compute_dtype="float32", param_dtype=job.get("param_dtype"),
         device="cpu", mesh=mesh, fleet_shard=job["fleet_shard"],
@@ -132,6 +135,8 @@ def train_run(base, job):
             rec[key] = _np_tree(gather_tree(local, getattr(shardings, slot)))
             if key != "ef":
                 rec[f"{key}_local"] = _np_tree(local)
+            else:
+                rec["ef_bytes"] = _rest_bytes(local)
         out["steps"].append(rec)
     return out
 
@@ -184,6 +189,113 @@ def serve_run(base, job):
         out["logits"].append(dstep.logits_sharding.gather(logits).numpy())
     out["cache"] = _np_tree(gather_tree(cache, dstep.cache_shardings))
     out["block"] = _np_tree(cache)
+    return out
+
+
+def prefill_run(base, job):
+    """``job``: cfg overrides, fsdp, the global parameters (numpy) and
+    the prompt ``(B, S)``.  Runs the ``seq_shard`` mesh prefill (no
+    cache).  Returns its logits gathered over the batch's rows, the
+    collectives by tag, the ``swa_attention`` launches, the step's
+    split and this rank's tokens' shape."""
+    _count_plain_calls()
+    mesh = _mesh(base, 2)
+    cfg = reduced(get_config("smollm-135m")).replace(**job["cfg"])
+    prompt = torch.from_numpy(job["prompt"])
+    b, s = prompt.shape
+    step, _, _ = S.build_prefill_step(
+        S.plan_run(cfg, InputShape("serve", s, b, "prefill"), mesh,
+                   fsdp=job["fsdp"], seq_shard=True),
+        compute_dtype="float32", device="cpu", mesh=mesh, init_params=False)
+    params = shard_tree(convert.to_torch(job["params"], "cpu"),
+                        step.param_shardings)
+    mesh.collectives.reset()
+    swa0 = swa_ops.swa_attention.launches
+    logits = step(params, {"tokens": prompt})
+    return {"logits": step.logits_sharding.gather(logits).numpy(),
+            "by_tag": mesh.collectives.by_tag(),
+            "launches": swa_ops.swa_attention.launches - swa0,
+            "split": step.split,
+            "tokens": list(step.rows({"tokens": prompt})["tokens"].shape)}
+
+
+def epilogue_forms(base, job):
+    """Each compressor chain of ``job["chains"]`` on every leaf of reduced
+    smollm-135m's per-agent gradients (2 agents, drawn from
+    ``job["seed"]``; integer-valued for the chains in ``job["integer"]``,
+    whose fp32 sums are then exact): this rank's model block under the
+    mesh step's context against the whole leaf's result cut to the
+    block.  Returns per chain the leaves, the split leaves, whether every
+    block is bitwise the whole leaf's, and the largest gap; for int8 also
+    whether ``quantize_int8``'s values and scale are; for a sketch the
+    largest grid gap, and over its fp32 bound (the bucket's Σ|s·x| times
+    2^-24 times the entries summed)."""
+    from repro_torch.comm.compressors import (
+        _device_tables,
+        quantize_int8,
+        sketch_encode,
+    )
+    from repro_torch.comm.policy import CommPolicy
+    from repro_torch.models import build
+    from repro_torch.sharding import blocks
+    from repro_torch.sharding.placement import Placement
+    from repro_torch.sharding.rules import resolve_rules
+
+    mesh = _mesh(base, 2)
+    cfg = reduced(get_config("smollm-135m"))
+    shapes, axes = build(cfg).init(abstract=True)
+    pl = Placement(mesh, axes, shapes, resolve_rules(mesh), 2)
+    out = {}
+    for spec in job["chains"]:
+        chain = CommPolicy.parse("always|" + spec).chain()
+        rng = np.random.default_rng(job["seed"])
+        rec = {"leaves": 0, "split": 0, "bitwise": True, "gap": 0.0,
+               "int8_bitwise": True, "sketch_over_bound": 0.0}
+        for path, ref in tree_flatten_with_path(shapes):
+            shape = (2,) + tuple(ref.shape)
+            if spec in job["integer"]:
+                g = rng.integers(-8, 9, size=shape).astype(np.float32)
+            else:
+                g = rng.standard_normal(shape).astype(np.float32)
+            g = torch.from_numpy(g)
+            blk = pl.layouts[path]
+            local = g if blk is None else blk.cut(g).contiguous()
+            whole = chain.compress(g)
+            with pl.active(), blocks.at_leaf(path):
+                got = chain.compress(local)
+                if spec == "int8":
+                    q, scale = quantize_int8(local)
+                if spec.startswith("sketch"):
+                    grid = sketch_encode(local, 5, 64, 0)
+            want = whole if blk is None else blk.cut(whole)
+            rec["leaves"] += 1
+            rec["split"] += blk is not None
+            rec["bitwise"] &= torch.equal(got, want)
+            rec["gap"] = max(rec["gap"], float((got - want).abs().max()))
+            if spec == "int8":
+                wq, ws = quantize_int8(g)
+                wq = wq if blk is None else blk.cut(wq)
+                rec["int8_bitwise"] &= torch.equal(q, wq) and torch.equal(
+                    scale, ws)
+            if spec.startswith("sketch"):
+                wgrid = sketch_encode(g, 5, 64, 0)
+                # each bucket's Σ|s·x| times its entries' count times
+                # 2^-24: what a reassociated fp32 sum may round apart by
+                n = g[0].numel()
+                idx, _ = _device_tables(5, 64, 0, n, g.device)
+                absum = torch.zeros((2, 5, 64)).scatter_add(
+                    2, idx.expand(2, 5, n),
+                    g.reshape(2, 1, n).abs().expand(2, 5, n))
+                count = torch.zeros((5, 64)).scatter_add(
+                    1, idx, torch.ones((5, n)))
+                bound = absum * count * 2.0 ** -24 + 1e-30
+                rec["sketch_grid_gap"] = max(
+                    rec.get("sketch_grid_gap", 0.0),
+                    float((grid - wgrid).abs().max()))
+                rec["sketch_over_bound"] = max(
+                    rec["sketch_over_bound"],
+                    float(((grid - wgrid).abs() / bound).max()))
+        out[spec] = rec
     return out
 
 

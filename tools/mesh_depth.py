@@ -7,7 +7,16 @@ the [ce] check of the vocabulary block a [mesh] rank launches on.
 
 tries each depth in turn (the layers of MESH_RUNS["llama"]) until one
 passes, printing the phases' lines, and writes the passing run's records
-to chiprun_out/mesh_<layers>.json.  Needs one card.
+to chiprun_out/mesh_<layers>.json.
+
+    python3 tools/mesh_depth.py --up 4 6 8 10
+
+searches upward instead: llama's fsdp_off job alone at each depth, on
+the 4 ranks with no single-process reference (which would not fit past
+a few layers) and no serving, until a depth fails; prints each depth's
+per-rank peaks and writes chiprun_out/mesh_depth.json with the deepest
+that passed.  ``--jobs fsdp_off,seq`` picks other llama jobs.  Needs one
+card.
 """
 import json
 import os
@@ -21,9 +30,13 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "src"))
 import chip_smoke as cs  # noqa: E402
 
+# read again by every spawned rank, which re-imports this module: the
+# depth, and for the upward search the jobs it runs with no holds
 if "MESH_LAYERS" in os.environ:
-    # read again by every spawned rank, which re-imports this module
     cs.MESH_RUNS["llama"]["layers"] = int(os.environ["MESH_LAYERS"])
+if "MESH_DEPTH_JOBS" in os.environ:
+    cs.MESH_ONLY = tuple(os.environ["MESH_DEPTH_JOBS"].split(","))
+    cs.MESH_HOLD = False
 
 
 def main() -> int:
@@ -47,7 +60,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    for layers in sys.argv[1:] or [str(cs.MESH_RUNS["llama"]["layers"])]:
+    args = sys.argv[1:]
+    if args and args[0] == "--up":
+        return search_up(torch, card, args[1:], out)
+    for layers in args or [str(cs.MESH_RUNS["llama"]["layers"])]:
         os.environ["MESH_LAYERS"] = layers
         cs.MESH_RUNS["llama"]["layers"] = int(layers)
         t0 = time.perf_counter()
@@ -64,6 +80,42 @@ def main() -> int:
             {"mesh": mesh, "mesh_serve": serve}, default=str, indent=1))
         return 0
     return 1
+
+
+def search_up(torch, card: str, args: list, out: Path) -> int:
+    """The upward search (the module doc): 0 when the first depth passed."""
+    jobs = "fsdp_off"
+    if args and args[0] == "--jobs":
+        jobs, args = args[1], args[2:]
+    # read again by every spawned rank
+    os.environ["MESH_DEPTH_JOBS"] = jobs
+    cs.MESH_ONLY, cs.MESH_HOLD = tuple(jobs.split(",")), False
+    rows = []
+    for layers in args:
+        os.environ["MESH_LAYERS"] = layers
+        cs.MESH_RUNS["llama"]["layers"] = int(layers)
+        t0 = time.perf_counter()
+        try:
+            mesh, _ = cs.phase_mesh(torch, card)
+        except Exception:
+            traceback.print_exc()
+            print(f"[depth] llama at {layers} layers failed after "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            break
+        peaks = {job: rec["peak_gb_ranks"] for job, rec in
+                 mesh["jobs"].items()}
+        rows.append({"layers": int(layers), "peak_gb_ranks": peaks,
+                     "seconds": time.perf_counter() - t0})
+        print(f"[depth] llama at {layers} layers passed in "
+              f"{time.perf_counter() - t0:.1f} s; peak GB per rank {peaks}",
+              flush=True)
+    deepest = rows[-1]["layers"] if rows else None
+    print(f"[depth] deepest llama3.2-3b [mesh] that fits on the 4 ranks "
+          f"({jobs}): {deepest} layers ({card})", flush=True)
+    (out / "mesh_depth.json").write_text(json.dumps(
+        {"card": card, "jobs": jobs, "passed": rows, "deepest": deepest},
+        indent=1))
+    return 0 if rows else 1
 
 
 if __name__ == "__main__":
