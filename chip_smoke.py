@@ -114,8 +114,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               and restore ms (median of 5), the sessions' build ms, and
               rounds/s with and without checkpoints.
    kill     — ``faults.kill_and_resume`` on the card with CI's numbers
-              at half the rounds
-              (the adaptive mix, 300 rounds, SIGKILL at round 100, a
+              at a third of the rounds
+              (the adaptive mix, 200 rounds, SIGKILL at round 100, a
               checkpoint every 50, a log every 20) through ``python -m
               repro_torch.launch.serve --fleet``: the lineage's checks
               (restart recorded, round target reached, counters monotone,
@@ -134,7 +134,8 @@ Phases (any failure exits nonzero; no result line is printed then):
               starts on the backend ``choose_backend`` picks (gloo with
               one card: the ranks share it), each serving its 16 agents
               through ``build_linreg_fleet_session(mesh=)``: (a)
-              ``TIERED_M64_QUADRATIC`` for 100 rounds (200 until [mesh]
+              ``TIERED_M64_QUADRATIC`` for 50 rounds (100 until [mesh]'s
+              moe, vlm and audio jobs needed the time, 200 until [mesh]
               needed the time), each rank
               launching ``gain_reduce`` once per round and the payload
               ``all_reduce`` running once per round; (b)
@@ -164,21 +165,36 @@ Phases (any failure exits nonzero; no result line is printed then):
               from seed 0; each agent's gradient, EF memory, payload
               and aggregate the rank's model blocks): llama3.2-3b at
               full width (every head, kv head, ff column and vocab row
-              split over model) cut to 4 layers, 2 steps with fsdp off,
-              2 with fsdp on, 2 with ``seq_shard`` (each model rank's
-              chunk of the sequence) and 1 with ``fleet_shard=True``;
-              then smollm-135m at full depth (its 9/3 heads whole, ff
+              split over model) cut to 2 layers (4 until the moe, vlm
+              and audio jobs needed the time), 2 steps with fsdp off,
+              1 with fsdp on, 1 with ``seq_shard`` (each model rank's
+              chunk of the sequence; 2 each until the moe, vlm and audio
+              jobs needed the time) and 1 with ``fleet_shard=True``;
+              then smollm-135m at 8 of its 30 layers (30 until the moe,
+              vlm and audio jobs needed the time; its 9/3 heads whole, ff
               and vocab split), fsdp on, 1 step, and 1 step with
               ``inner_batch_shard`` (each model rank's row of an agent's
               two, the weights gathered whole at use); then per-agent
-              policies on smollm at 15 of its 30 layers, m = 4 (two
+              policies on smollm at 4 of its 30 layers, m = 4 (two
               agents on each data slice) × 1 × 1024 tokens, 1 step each
-              (30 layers and 2 steps until the seq and inner jobs needed
-              the time): the four-tier
+              (2 steps until the seq and inner jobs needed the time, 15
+              layers until the moe, vlm and audio jobs did): the
+              four-tier
               tuple (``always``,
               ``gain_lookahead(lam=0.01)|fp16``, ``…|int8+ef``,
               ``…|topk(0.05)|int8+ef``) with fsdp on, and
-              ``gain_lookahead(lam=0.01)|int8+ef @ delay(max_lag=2)``.
+              ``gain_lookahead(lam=0.01)|int8+ef @ delay(max_lag=2)``;
+              then the other families, 1 step each: ``moe``,
+              mixtral-8x7b at full width cut to 1 layer on a second
+              mesh of the same ranks, (data 1, model 4), m = 1 × 2 ×
+              1024 (each rank 2 of the 8 experts; the router's logits
+              made whole before the top-2), its dropped (token, k) pairs
+              per layer recorded on every rank and in one process and
+              equal; ``vlm``, phi-3-vision cut to 4 layers, m = 2 × 1 ×
+              (576 patches + 512 tokens); ``audio``, whisper-medium cut
+              to 4 + 4 layers, m = 2 × 1 × (1500 frames, 448 tokens)
+              (the GELU MLPs and the cross-attention on the rank's
+              heads and ``ff`` columns, the table whole).
               Rank 0 first runs the single-process step of each on the
               card; every job is held to it (first step's parameters per
               element, a rounding step where an agent's input lies at a
@@ -198,21 +214,34 @@ Phases (any failure exits nonzero; no result line is printed then):
               of 4 gloo ranks, in [mesh]'s spawn after its jobs
               (``build_prefill_step(mesh=...,
               cache_len=...)``, ``build_serve_step(mesh=...)``):
-              llama3.2-3b at full width cut to 14 of its 28 layers
-              (28 until [mesh]'s seq and inner jobs needed the time), fp32,
+              llama3.2-3b at full width cut to 2 of its 28 layers
+              (28 until [mesh]'s seq and inner jobs needed the time, 14
+              until the moe, vlm and audio jobs did), fp32,
               weights from seed 0, each rank drawing only its blocks; B 4
               × 1024 prompt tokens (2 requests on each data slice), then
-              8 decode steps (16 until the seq and inner jobs needed the
-              time) teacher-forced on the single-process greedy
-              tokens, under both cache layouts (``decode_heads``: the
-              rank's kv heads; ``cache_seq_shard``: its slice of the 1032
-              positions, flash-decoding).  Rank 0 first runs the
+              4 decode steps (16 until the seq and inner jobs needed the
+              time, 8 until the moe, vlm and audio jobs did)
+              teacher-forced on the single-process greedy
+              tokens, the cache on the rank's kv heads (``decode_heads``),
+              then with the prefill under ``seq_shard`` (each model
+              rank's chunk of the prompt) filling the cache in either
+              layout (``decode_heads``; ``cache_seq_shard``: its slice
+              of the 1028 positions, flash-decoding; after a
+              tensor-parallel prefill too until PR 28's jobs needed the
+              time); mixtral-8x7b cut
+              to 2 layers, B 4 × 1024 then 4 steps, ``decode_heads``
+              (each rank 4 of the 8 experts, the batch's rows gathered
+              over data before routing); whisper-medium cut to 4 + 4
+              layers, one encode of 4 × 1500 frames (the cross K/V on
+              the rank's heads) then 4 decoder tokens from token 0.
+              Rank 0 first runs each run's
               single-process prefill and greedy decode on the card; the
               prefill's logits and each step's are held to it within
               1e-4 + 1e-4·|ref| ([lm]'s card-against-CPU tolerance), and
               the greedy tokens equal but where the reference's top two
-              lie within that tolerance (counted).  14 ``swa_attention``
-              launches per prefill per rank, none per decode step.
+              lie within that tolerance (counted).  One ``swa_attention``
+              launch per decoder layer per prefill per rank (whisper's
+              encode none), none per decode step.
               Prints ms per prefill and per decode step beside the
               single-process ones, the collectives of a prefill and of a
               decode step by tag, and each rank's peak.
@@ -220,7 +249,11 @@ Phases (any failure exits nonzero; no result line is printed then):
               card in fp32 (2e-5) and bf16 (3e-2): the served shapes
               (with the moe, hybrid and vlm families', and hd 32), one
               hd = 128 shape, whisper's and phi-3-vision's training
-              shapes, the JAX tests' S × W grid and the tensor-core
+              shapes, the [mesh] ranks' heads (llama's (2, 1024, 12, 4,
+              128), mixtral's at model 4 (2, 1024, 8, 2, 128) W 4096,
+              phi-3-vision's at model 2 (1, 1088, 16, 16, 96) and (2,
+              1088, 16, 16, 96), whisper's decoder (1, 448, 8, 8, 64)),
+              the JAX tests' S × W grid and the tensor-core
               tiles' edges (S = 1000 at hd = 128 and 96, S = 77 with W =
               5 at hd = 64 and 32); every head dim of the kernel (32, 64,
               96, 128) in both dtypes; hd 48, which has no instance,
@@ -234,7 +267,11 @@ Phases (any failure exits nonzero; no result line is printed then):
               slices is ONE launch, bitwise equal to a loop of three.
    ce       — holds ``fused_ce`` against its plain version on the card at
               every family's train loss's shape (moe, hybrid, xlstm,
-              whisper, vlm), the tensor-core
+              whisper, vlm) and every [mesh] rank's loss (llama's
+              vocabulary block (2048, 3072, 64128), mixtral's at model 4
+              (2048, 4096, 8000), phi-3-vision's at model 2 (512, 3072,
+              16032), whisper's whole table (448, 1024, 51865)), the
+              tensor-core
               tiles' edges (T, D, V) ∈ {(129, 100, 129),
               (1000, 100, 50257), (257, 200, 49153)} and over
               T ∈ {64, 1000, 8192}, D ∈ {64, 576, 3072}, V ∈ {7, 1000,
@@ -330,14 +367,16 @@ Phases (any failure exits nonzero; no result line is printed then):
               greedy tokens equal.
    moe train — mixtral-8x7b at full width, 1 layer, through the training
               CLI's step: m = 2, global batch 2 × 1024, the [train]
-              policy; 1 warm-up and 2 timed steps (3 until PR 26's
-              [mesh] needed the time), 2 ``fused_ce`` and 2
+              policy; 1 warm-up and 1 timed step (3 until PR 26's
+              [mesh] needed the time, 2 until PR 28's moe, vlm and audio
+              jobs did), 2 ``fused_ce`` and 2
               ``swa_attention`` launches per step, finite losses and
               router aux, ms per step, tokens/s, peak memory; the last
               step run twice from one state bitwise equal (per-leaf
               checksums); one step with d_ff_expert narrowed to 1024 on
               the card and the CPU under [train]'s rules.
-   hybrid   — zamba2-1.2b at full width cut to 6 of its 38 Mamba2
+   hybrid   — zamba2-1.2b at full width cut to 3 (6 until PR 28's
+              [mesh] jobs needed the time) of its 38 Mamba2
               layers (1 site of the shared attention block; [mesh]'s
               and [mesh serve]'s time came out of this replay), fp32,
               seed 0:
@@ -351,10 +390,11 @@ Phases (any failure exits nonzero; no result line is printed then):
               shared block not), m = 2, global batch 2 × 512: 14
               ``swa_attention`` (7 sites, loss and probe) and 2
               ``fused_ce`` launches per step, ms per step, peak memory;
-              then cut to 12 layers (2 sites) without remat: 4 and 2
+              then cut to 6 layers (1 site; 12 until PR 28's [mesh]
+              jobs needed the time) without remat: 2 and 2
               launches per step, ms, peak memory (the profile's step);
-              1 warm-up and 2 timed steps each (3 until [mesh] needed
-              the time); a
+              1 warm-up and 1 timed step each (3 until [mesh] needed
+              the time, 2 until its moe, vlm and audio jobs did); a
               2-layer step on the card and the CPU.
    xlstm    — xlstm-350m at full width cut to 3 of its 12 mLSTM/sLSTM
               pairs ([mesh]'s and [mesh serve]'s time came out of this
@@ -419,8 +459,11 @@ Phases (any failure exits nonzero; no result line is printed then):
               (smollm's two, mixtral's (4, 1024, 32, 8, 128) W 4096,
               zamba2's training (2, 512, 32, 32, 64) W = S,
               phi-3-vision's (4, 512, 32, 32, 96) and hd 32's (4, 1024,
-              4, 2, 32), W = S),
-              fp32 and bf16, beside its plain version,
+              4, 2, 32), W = S, and the [mesh] ranks' heads: mixtral's
+              (2, 1024, 8, 2, 128) W 4096, phi-3-vision's (1, 1088, 16,
+              16, 96) and llama's (2, 1024, 12, 4, 128)),
+              fp32, and bf16 at all but the moe and vlm ranks' heads,
+              beside its plain version,
               ``scaled_dot_product_attention`` with the same boolean mask
               and the GQA heads expanded (timed only, never on the path),
               and two bounds max(flops / peak, bytes / HBM rate): the
@@ -432,7 +475,11 @@ Phases (any failure exits nonzero; no result line is printed then):
    ce times — the same for ``fused_ce`` (each call's median of 10,
               not 100, since [mesh serve]) at (8192, 576, 49152), (4096,
               3072, 128256) and the moe and hybrid train losses' (2048,
-              4096, 32000) and (1024, 2048, 32000), fp32 and bf16, beside its plain version,
+              4096, 32000) and (1024, 2048, 32000), fp32 and bf16, and
+              the [mesh] ranks' losses (llama's (2048, 3072, 64128),
+              mixtral's (2048, 4096, 8000), phi-3-vision's (512, 3072,
+              16032), whisper's (448, 1024, 51865)) in fp32, beside its
+              plain version,
               ``F.cross_entropy(x @ table.T, labels, reduction="none")``
               and both bounds (``bf16-mma``: flops at the bf16 rate).
 8. profile  — 5 more fleet rounds under torch.profiler (device ops,
@@ -529,15 +576,15 @@ STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
 # model widths, and the spawn's time limit
 SHARD_GATEWAYS = 4
 # rounds of the sharded quadratic fleet (ROUNDS until [mesh] needed the
-# time; the lossy fleet keeps NET_ROUNDS: its budgets are judged on the
-# last NET_TAIL)
-SHARD_ROUNDS = 100
+# time, 100 until its moe, vlm and audio jobs did; the lossy fleet keeps
+# NET_ROUNDS: its budgets are judged on the last NET_TAIL)
+SHARD_ROUNDS = 50
 SHARD_BIG_M = 1024
 SKETCH_BIG_N, SKETCH_SMALL_N, SKETCH_ROUNDS = 4096, 6, 3
 SKETCH_SMALL = "gain_lookahead(lam=0.5)|sketch(rows=5,cols=16,seed=3)+ef"
 SKETCH_BIG = "always|sketch(rows=5,cols=64,seed=3)"
 SHARD_TIMEOUT_S = 300
-SHARD_PROBE_CALLS, SHARD_PROBE_ROUNDS = 100, 60
+SHARD_PROBE_CALLS, SHARD_PROBE_ROUNDS = 50, 30
 # the frontiers: benchmarks/tiered_m64.py:34-35's 16 λ scales,
 # benchmarks/lossy_channels.py:55-56's budget × severity grid and
 # benchmarks/async_rounds.py:65-71's budget × lag grid and drift
@@ -548,6 +595,9 @@ LOSSY_SEVERITIES = (0.0, 1.0)
 DRIFT_SCALES = (0.6, 1.0)
 DRIFT_LAG_SCALES = (0.5, 1.0)
 DRIFT_AMP, DRIFT_PERIOD = 2.0, 16
+# the drifting grid's rounds (NET_ROUNDS until PR 28's [mesh] jobs
+# needed the time; its tail loss is the last half's)
+DRIFT_ROUNDS = 120
 # the lanes each frontier holds to the plain step pinned at its scale
 FRONTIER_PLAIN_LANES = (0, 11)      # scales 0.0 and 4.0
 LOSSY_PLAIN_LANES = (1, 2)          # (0.6, 20 % loss), (1.0, lossless)
@@ -564,6 +614,11 @@ SWA_SERVED = ((4, 1024, 9, 3, 64, 1024), (1, 6000, 9, 3, 64, 4096),
               # phi-3-vision's served prefill (hd 96) and the reduced
               # smollm's hd 32 (--reduced --d-model 128) at run (a)'s length
               (4, 512, 32, 32, 96, 512), (4, 1024, 4, 2, 32, 1024),
+              # a [mesh] moe rank's mixtral heads at model 4 (32/8 → 8/2)
+              # over its agent's 2 × 1024 tokens, W 4096, and a vlm rank's
+              # phi-3-vision heads at model 2 (32/32 → 16/16) over its
+              # agent's 576 patches + 512 tokens
+              (2, 1024, 8, 2, 128, 4096), (1, 1088, 16, 16, 96, 1088),
               # a [mesh] rank's llama3.2-3b heads at model 2 (24/8 → 12/4)
               (2, 1024, 12, 4, 128, 1024))
 SWA_CHECK = SWA_SERVED + (
@@ -572,7 +627,10 @@ SWA_CHECK = SWA_SERVED + (
     (1, 1024, 9, 3, 64, 1024),
     (1, 2048, 24, 8, 128, 512),
     # whisper's decoder and phi-3-vision's patches + tokens in training
-    (2, 448, 16, 16, 64, 448), (2, 1088, 32, 32, 96, 1088)) + tuple(
+    (2, 448, 16, 16, 64, 448), (2, 1088, 32, 32, 96, 1088),
+    # an audio [mesh] rank's whisper decoder heads at model 2 (16 → 8),
+    # and phi-3-vision's at two rows
+    (1, 448, 8, 8, 64, 448), (2, 1088, 16, 16, 96, 1088)) + tuple(
     (2, s, 4, 2, 64, w) for s in (64, 200, 384) for w in (32, 128, 1 << 30))
 # the tensor-core tiles' edges: S not a multiple of the 64-row tiles with
 # hd = 128, 96 and 32 (fp32 and bf16) and a window shorter than a tile
@@ -614,7 +672,13 @@ CE_TIMED = ((8192, 576, 49152), (4096, 3072, 128256),
             (2048, 4096, 32000), (1024, 2048, 32000),
             # a [mesh] rank's llama3.2-3b loss: its agent's 2 × 1024
             # tokens against its half of the vocabulary (model 2)
-            (2048, 3072, 64128))
+            (2048, 3072, 64128),
+            # the moe, vlm and audio [mesh] ranks' losses: mixtral's 2 ×
+            # 1024 tokens against a quarter of its vocabulary (model 4),
+            # phi-3-vision's 512 text tokens against half of its, and
+            # whisper's 448 decoder tokens against its whole tied table
+            # (51865 rows: model 2 does not divide it)
+            (2048, 4096, 8000), (512, 3072, 16032), (448, 1024, 51865))
 # each family's train loss (T = the m = 2 agents' tokens): the moe and
 # hybrid ones timed above; xlstm's (2 × 512, d 1024, V 50304), whisper's
 # (2 × 448 decoder tokens, V 51865) and phi-3-vision's (2 × 512 text
@@ -626,7 +690,10 @@ CE_TRAIN_LOSSES = {"moe": CE_TIMED[2], "hybrid": CE_TIMED[3],
                    "dense_mesh_rows": (1024, 576, 49152),
                    "xlstm": (1024, 1024, 50304),
                    "whisper": (896, 1024, 51865),
-                   "vlm": (1024, 3072, 32064)}
+                   "vlm": (1024, 3072, 32064),
+                   "moe_mesh_block": CE_TIMED[5],
+                   "vlm_mesh_block": CE_TIMED[6],
+                   "audio_mesh": CE_TIMED[7]}
 # the tensor-core tiles' edges: T and V not multiples of the 128-row and
 # 128-entry tiles, and D not a multiple of the 32 (fp32) or 64 (bf16)
 # columns of a k-chunk (D = 100 in bf16 is also off the 16-byte copies)
@@ -667,11 +734,12 @@ REMAT_SWA_PER_LAYER = {("lookahead", False): 2, ("lookahead", True): 3,
 KNOB_TIMED = 1
 # durable serving: each half of the [durable] lineage, its checkpoint
 # period; [kill] drives the faults CLI with CI's kill-and-resume numbers
-# (.github/workflows/ci.yml:185-200) at half the rounds (600 and a kill
-# at 200 until [mesh] needed the time); [telemetry] serves in thread mode
+# (.github/workflows/ci.yml:185-200) at a third of the rounds, the kill
+# at round 100 (600 and a kill at 200 until [mesh] needed the time, 300
+# until its moe, vlm and audio jobs did); [telemetry] serves in thread mode
 # with a stalled round and a crashed metro agent
 DURABLE_ROUNDS, DURABLE_EVERY, DURABLE_TIMED = 100, 50, 5
-KILL = dict(mix="tiered_m64_adaptive", rounds=300, kill_round=100,
+KILL = dict(mix="tiered_m64_adaptive", rounds=200, kill_round=100,
             ckpt_every=50, log_every=20)
 TELEMETRY = dict(watchdog=0.5, stall_round=40, rounds=200,
                  crash_start=60, crash_rounds=80)
@@ -700,25 +768,26 @@ MOE_CHECK = dict(layers=1, batch=2, prompt=64, gen=8)
 # 2 (the gradients, EF memories and lookahead probes are 6 trees of the
 # 6.85 GB parameters), global batch 2 × 1024; its card-vs-CPU step narrows
 # the experts (d_ff_expert only) so that the CPU step stays short
-MOE_TRAIN = dict(layers=1, agents=2, batch=2, seq=1024, warmup=1, timed=2)
+MOE_TRAIN = dict(layers=1, agents=2, batch=2, seq=1024, warmup=1, timed=1)
 MOE_TRAIN_CHECK_FF = 1024
 # router probabilities within this (relative) of each other are a
 # near-tie that a last-bit gap between card and CPU may flip
 ROUTE_TIE = 1e-5
 # the hybrid family: zamba2-1.2b at full width (38 Mamba2 layers, 7
 # sites of the shared attention block; 1.17 B parameters in the init)
-# served by replay cut to 6 layers (1 site: the replay is host-bound,
+# served by replay cut to 3 layers (6 until PR 28's [mesh] jobs needed
+# the time; 1 site: the replay is host-bound,
 # ~45 ms a token at 38; 12 until [mesh serve] needed the time), as its
 # card-vs-CPU check (at 19 layers the CPU took 22.8 s); trained at full
-# width cut to 12 layers (2
-# sites), global batch 2 × 512 (the SSD keeps (m, L, L, h) decay tiles of
+# width cut to 6 layers (1 site; 12, 2 sites, until PR 28's [mesh] jobs
+# needed the time), global batch 2 × 512 (the SSD keeps (m, L, L, h) decay tiles of
 # 33.6 MB per chunk and layer for the backward); its card-vs-CPU step at
 # 2 layers (1 site)
 HYBRID_ARCH = "zamba2-1.2b"
-HYBRID_SERVE = dict(layers=6, batch=4, prompt=256, gen=32)
-HYBRID_CHECK = dict(layers=6, batch=2, prompt=64, gen=8)
-HYBRID_TRAIN = dict(layers=12, agents=2, batch=2, seq=512, warmup=1,
-                    timed=2)
+HYBRID_SERVE = dict(layers=3, batch=4, prompt=256, gen=32)
+HYBRID_CHECK = dict(layers=3, batch=2, prompt=64, gen=8)
+HYBRID_TRAIN = dict(layers=6, agents=2, batch=2, seq=512, warmup=1,
+                    timed=1)
 # ... and at all 38 layers (7 sites) with remat: each Mamba2 layer keeps
 # only its input for the backward, so the parameter state (weights, 2
 # gradients, 2 EF memories, 2 probes: ~7 × 4.7 GB) is what fills the card
@@ -733,7 +802,8 @@ HYBRID_TRAIN_CHECK_LAYERS = 2
 # same run
 HYBRID_SENS_FACTOR = 4
 # the ssm family: xlstm-350m at full width (12 mLSTM/sLSTM pairs, d
-# 1024, 4 heads, vocab 50304) served by replay cut to 6 layers (3
+# 1024, 4 heads, vocab 50304) served by replay cut to 4 layers (6 until
+# PR 28's [mesh] jobs needed the time; 2
 # pairs: the replay of 2 × 1024 positions is host-bound, and [mesh] and
 # [mesh serve] needed the time); its chunkwise
 # forward over XLSTM_FORWARD_S tokens (4 mLSTM chunks of 256) against the
@@ -743,7 +813,7 @@ HYBRID_SENS_FACTOR = 4
 # needed the time), global batch 2 ×
 # 512 (2 mLSTM chunks); card vs CPU at 2 layers (1 pair)
 XLSTM_ARCH = "xlstm-350m"
-XLSTM_SERVE = dict(layers=6, batch=4, prompt=256, gen=32)
+XLSTM_SERVE = dict(layers=4, batch=4, prompt=256, gen=32)
 XLSTM_FORWARD = dict(batch=2, seq=1024)
 XLSTM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
 # 1 timed step (3 until [mesh serve] needed the time, 2 until [mesh]'s
@@ -763,7 +833,7 @@ XLSTM_PROFILED_PROMPT, XLSTM_PROFILED_STEPS = 16, 8
 WHISPER_ARCH = "whisper-medium"
 WHISPER_SERVE = dict(batch=4, frames=1500, gen=32, q_blocks=(500, 512))
 WHISPER_CHECK = dict(layers=1, batch=2, frames=300, gen=8)
-WHISPER_TRAIN = dict(agents=2, batch=2, seq=1500, warmup=1, timed=2)
+WHISPER_TRAIN = dict(agents=2, batch=2, seq=1500, warmup=1, timed=1)
 # ... and with remat and the encoder's score tiles in 3 query blocks of
 # 500 frames (each checkpointed)
 WHISPER_TRAIN_REMAT = dict(remat=True, attn_q_block=500)
@@ -778,7 +848,7 @@ WHISPER_ENC_TOL = 1e-4
 VLM_ARCH = "phi-3-vision-4.2b"
 VLM_SERVE = dict(batch=4, prompt=512, gen=32)
 VLM_CHECK = dict(layers=2, batch=2, prompt=64, gen=8)
-VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=2)
+VLM_TRAIN = dict(layers=4, agents=2, batch=2, seq=512, warmup=1, timed=1)
 # an m = 2 step's parameter-sized trees: weights, 2 gradients, 2 EF
 # memories, 2 lookahead probes
 VLM_STATE_TREES = 7
@@ -787,24 +857,38 @@ VLM_STATE_TREES = 7
 # [mesh]: MESH_WORLD gloo ranks share the card as a (data 2, model 2)
 # mesh.  llama3.2-3b at full width (d 3072, 24/8 heads of 128, d_ff 8192,
 # vocab 128256: every head, kv head, ff column and vocab row splits over
-# model 2) cut to 4 of its 28 layers, and smollm-135m at full depth (its
-# 9/3 heads stay whole, its ff and vocab split); 2 agents × 2 × 1024
+# model 2) cut to 2 of its 28 layers (4 until the moe, vlm and audio
+# jobs needed the time), and smollm-135m at 8 of its 30
+# layers (30 until the moe, vlm and audio jobs needed the time; its 9/3
+# heads stay whole, its ff and vocab split); 2 agents × 2 × 1024
 # tokens, fp32, sgd.  Each agent's gradient, its EF memory, the payload
 # and the aggregate are a rank's model blocks (until the block epilogue,
 # each was a whole parameter tree on every rank and llama ran out of the
 # card at 4 layers: 19.96 GB on rank 0).  The per-agent jobs run m = 4
 # agents of 1 × 1024 tokens, so a rank holds the same 2048 tokens as the
-# smollm job's, at 15 of smollm's 30 layers (30 until the seq and inner
-# jobs needed the time).  `seq` runs llama with seq_shard (each model rank's chunk
+# smollm job's, at 4 of smollm's 30 layers (15 until the moe, vlm and
+# audio jobs needed the time).  `seq` runs llama with seq_shard (each model rank's chunk
 # of the sequence), `inner` smollm with inner_batch_shard (each model
 # rank's row of each agent's 2: smollm's 9/3 heads do not split at
 # model 2, the case the knob is for), and fleet_shard runs on llama.
-# llama's jobs take 2 steps each (the second step's parameters are held
-# in L2, fsdp on's blocks to fsdp off's, and its time is the steady
-# step's; fleet_shard 1), the smollm jobs 1 (the per-agent ones 2 until
-# the seq and inner jobs needed the time).  The jobs: (run, fsdp,
-# fleet_shard, steps, policy), each from seed 0, with MESH_KNOBS' plan
-# knobs.
+# fsdp_off takes 2 steps (the second reads the EF memory and the
+# optimizer state at rest as blocks; its parameters are held in L2 to
+# the single-process step's second, which the llama reference takes,
+# and its time is the steady step's), the other llama jobs 1 (fsdp_on
+# and seq 2 until the moe, vlm and audio jobs needed the time; fsdp_on
+# is held bitwise to fsdp_off's blocks after its step), the smollm jobs
+# 1 (the per-agent ones 2 until the seq and inner jobs needed the
+# time).  The other families: `moe` runs
+# mixtral-8x7b at full width cut to 1 layer (1.71 B parameters with its
+# two untied tables, 6.85 GB in fp32) on a second mesh of the same 4
+# ranks, (data 1, model 4) (MESH_RUNS' "model"): m = 1 agent of 2 × 1024
+# tokens, each rank 2 of the 8 experts (at (data 2, model 2) with m = 2 a
+# rank would hold 3.4 GB of blocks, ~29 GB a rank by the llama job's
+# ratio, ~117 GB on the card); `vlm` phi-3-vision cut to 4 layers (m = 2
+# × 1 × (576 patches + 512 tokens), [vlm train]'s rows); `audio`
+# whisper-medium cut to 4 + 4 layers (m = 2 × 1 × (1500 frames, 448
+# tokens)); one step each.  The jobs: (run, fsdp, fleet_shard, steps,
+# policy), each from seed 0, with MESH_KNOBS' plan knobs.
 MESH_WORLD, MESH_MODEL = 4, 2
 MESH_TIMEOUT_S = 900
 MESH_COMM = "gain_lookahead(lam=0.01)|int8+ef"
@@ -814,21 +898,30 @@ MESH_TIERS = ("always", MESH_LA + "|fp16", MESH_LA + "|int8+ef",
 MESH_DELAY = MESH_COMM + " @ delay(max_lag=2)"
 MESH_LR = 0.05
 MESH_RUNS = {
-    "llama": dict(arch="llama3.2-3b", layers=4, agents=2, per_agent=2,
+    "llama": dict(arch="llama3.2-3b", layers=2, agents=2, per_agent=2,
                   seq=1024, steps=2),
-    "smollm": dict(arch="smollm-135m", layers=30, agents=2, per_agent=2,
+    "smollm": dict(arch="smollm-135m", layers=8, agents=2, per_agent=2,
                    seq=1024, steps=1),
-    "smollm_m4": dict(arch="smollm-135m", layers=15, agents=4, per_agent=1,
+    "smollm_m4": dict(arch="smollm-135m", layers=4, agents=4, per_agent=1,
                       seq=1024, steps=1),
+    "mixtral": dict(arch="mixtral-8x7b", layers=1, agents=1, per_agent=2,
+                    seq=1024, steps=1, model=4),
+    "vlm": dict(arch="phi-3-vision-4.2b", layers=4, agents=2, per_agent=1,
+                seq=512, steps=1),
+    "audio": dict(arch="whisper-medium", layers=4, encoder_layers=4,
+                  agents=2, per_agent=1, seq=1500, steps=1),
 }
 MESH_JOBS = {"fsdp_off": ("llama", False, False, 2, MESH_COMM),
-             "fsdp_on": ("llama", True, False, 2, MESH_COMM),
-             "seq": ("llama", False, False, 2, MESH_COMM),
+             "fsdp_on": ("llama", True, False, 1, MESH_COMM),
+             "seq": ("llama", False, False, 1, MESH_COMM),
              "fleet_shard": ("llama", True, True, 1, MESH_COMM),
              "smollm": ("smollm", True, False, 1, MESH_COMM),
              "inner": ("smollm", True, False, 1, MESH_COMM),
              "tiers": ("smollm_m4", True, False, 1, MESH_TIERS),
-             "delay": ("smollm_m4", False, False, 1, MESH_DELAY)}
+             "delay": ("smollm_m4", False, False, 1, MESH_DELAY),
+             "moe": ("mixtral", False, False, 1, MESH_COMM),
+             "vlm": ("vlm", False, False, 1, MESH_COMM),
+             "audio": ("audio", False, False, 1, MESH_COMM)}
 MESH_KNOBS = {"seq": {"seq_shard": True}, "inner": {"inner_batch_shard": True}}
 # the jobs [mesh] runs (every job when empty), and whether rank 0 runs
 # the single-process references and holds the jobs to them: only
@@ -838,15 +931,32 @@ MESH_KNOBS = {"seq": {"seq_shard": True}, "inner": {"inner_batch_shard": True}}
 MESH_ONLY: tuple = ()
 MESH_HOLD = True
 
-# [mesh serve]: llama3.2-3b at full width on the same 4 ranks, fp32, cut
-# to 14 of its 28 layers and 8 decode steps (28 and 16 until [mesh]'s seq
-# and inner jobs needed the time).  A rank's blocks are half the model's
-# (every head, kv head, ff column and vocab row split over model 2).  The
-# cache holds the prompt and the generated tokens: 1032 slots, which
-# model 2 divides.
-MESH_SERVE = dict(arch="llama3.2-3b", layers=14, batch=4, prompt=1024,
-                  gen=8)
-MESH_SERVE_LAYOUTS = ("decode_heads", "cache_seq_shard")
+# [mesh serve]: on the same 4 ranks as (data 2, model 2), fp32, each run
+# held to its single-process prefill and greedy decode.  llama3.2-3b at
+# full width cut to 2 of its 28 layers and 4 decode steps (28 and 16
+# until [mesh]'s seq and inner jobs needed the time, 14 until the moe,
+# vlm and audio jobs did, and 8 steps), the cache on the kv heads, then its prefill
+# under seq_shard (each model rank's chunk of the prompt) filling the
+# cache that decode reads in both layouts ("seq_" layouts; the
+# tensor-parallel prefill into the positions' layout went for the moe,
+# vlm and audio jobs' time: each path still runs).  A rank's blocks
+# are half the model's (every head, kv head, ff column and vocab row
+# split over model 2).  The cache holds the prompt and the generated
+# tokens: 1028 slots, which model 2 divides.  mixtral-8x7b at full width
+# cut to 2 layers (each rank 4 of the 8 experts; the batch's rows
+# gathered over data before routing), B 4 × 1024 and 4 decode steps;
+# whisper-medium cut to 4 + 4 layers: one encode of 4 × 1500 frames
+# (its cross K/V on the rank's heads), then 4 decoder tokens from token
+# 0.
+MESH_SERVES = {
+    "llama": dict(arch="llama3.2-3b", layers=2, batch=4, prompt=1024, gen=4,
+                  layouts=("decode_heads", "seq_decode_heads",
+                           "seq_cache_seq_shard")),
+    "mixtral": dict(arch="mixtral-8x7b", layers=2, batch=4, prompt=1024,
+                    gen=4, layouts=("decode_heads",)),
+    "whisper": dict(arch="whisper-medium", layers=4, encoder_layers=4,
+                    batch=4, prompt=1500, gen=4, layouts=("decode_heads",)),
+}
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -2328,7 +2438,8 @@ def phase_frontier_drifting(torch) -> dict:
     """benchmarks/async_rounds.py's drifting target (amplitude DRIFT_AMP,
     period DRIFT_PERIOD: ``drifting_batch_fn``) under TIERED_M64_DELAYED,
     over DRIFT_SCALES × DRIFT_LAG_SCALES (λ scale × mean-lag scale),
-    NET_ROUNDS rounds: the frontier checks and every lane's tail loss."""
+    DRIFT_ROUNDS rounds: the frontier checks and every lane's tail loss
+    (the last half's)."""
     import numpy as np
 
     from repro_torch.configs.paper_linreg import TIERED_M64_DELAYED
@@ -2341,18 +2452,19 @@ def phase_frontier_drifting(torch) -> dict:
                                  period=DRIFT_PERIOD, seed=0)
     scales = [s for s in DRIFT_SCALES for _ in DRIFT_LAG_SCALES]
     chans = [c for _ in DRIFT_SCALES for c in DRIFT_LAG_SCALES]
-    run = _frontier_run(torch, net, scales, chans, batch_fn, NET_ROUNDS)
+    run = _frontier_run(torch, net, scales, chans, batch_fn, DRIFT_ROUNDS)
     checks = _frontier_checks(torch, "frontier drifting", net, run,
                               batch_fn, DRIFT_PLAIN_LANES)
-    tail = np.mean([m["loss"] for m in run["hist"][-NET_TAIL:]], 0).tolist()
+    tail = np.mean([m["loss"] for m in run["hist"][-DRIFT_ROUNDS // 2:]],
+                   0).tolist()
     record = {"lanes": [{"scale": s, "lag_scale": c, "tail_loss": t}
                         for s, c, t in zip(scales, chans, tail)],
-              "rounds": NET_ROUNDS, "rounds_per_s": run["rounds_per_s"],
+              "rounds": DRIFT_ROUNDS, "rounds_per_s": run["rounds_per_s"],
               "lane_rounds_per_s": run["rounds_per_s"] * len(scales),
               **checks}
     print(f"[frontier drifting] {net.name} on a drifting target (amp "
           f"{DRIFT_AMP}, period {DRIFT_PERIOD}): {len(scales)} lanes (λ "
-          f"scale x lag scale) x {NET_ROUNDS} rounds, "
+          f"scale x lag scale) x {DRIFT_ROUNDS} rounds, "
           f"{run['rounds_per_s']:.1f} rounds/s; tail loss " + ", ".join(
               f"({s}, {c}) {t:.4f}" for s, c, t in zip(scales, chans, tail))
           + f"; the lanes' draws equal in all {checks['common_draw_rounds']}"
@@ -2849,14 +2961,28 @@ def _mesh_batches(torch, cfg, agents: int, per: int, seq: int, steps: int,
     """``steps`` LM batches of uniform tokens (seeds 20, 21, ...; the
     labels are the tokens shifted by one) on ``dev``: every rank draws
     the same global batches.  (``lm_batch``'s bigram table would be
-    vocab² floats: 61 GiB at llama's 128256.)"""
+    vocab² floats: 61 GiB at llama's 128256.)  phi-3-vision's also hold
+    ``num_patches`` patch embeddings, whisper's ``seq`` frames and
+    min(seq, 448) decoder tokens, both 0.02·N(0, 1) as ``lm_batch``
+    draws them."""
+    from repro_torch.configs.whisper_medium import DECODER_LEN
+
     out = []
+    audio = cfg.is_encoder_decoder
     for k in range(steps):
         gen = torch.Generator(device=dev).manual_seed(20 + k)
-        toks = torch.randint(0, cfg.vocab_size, (agents, per, seq + 1),
+        n = min(seq, DECODER_LEN) if audio else seq
+        toks = torch.randint(0, cfg.vocab_size, (agents, per, n + 1),
                              generator=gen, device=dev, dtype=torch.int32)
-        out.append({"tokens": toks[..., :-1].contiguous(),
-                    "labels": toks[..., 1:].contiguous()})
+        batch = {"tokens": toks[..., :-1].contiguous(),
+                 "labels": toks[..., 1:].contiguous()}
+        if audio or cfg.num_patches:
+            key = "frame_embeds" if audio else "patch_embeds"
+            rows = seq if audio else cfg.num_patches
+            batch[key] = 0.02 * torch.randn(
+                (agents, per, rows, cfg.d_model), generator=gen,
+                device=dev)
+        out.append(batch)
     return out
 
 
@@ -2864,7 +2990,10 @@ def _mesh_cfg(name: str):
     from repro_torch.configs import get_config
 
     run = MESH_RUNS[name]
-    return get_config(run["arch"]).replace(num_layers=run["layers"]), run
+    cfg = get_config(run["arch"]).replace(num_layers=run["layers"])
+    if "encoder_layers" in run:
+        cfg = cfg.replace(encoder_layers=run["encoder_layers"])
+    return cfg, run
 
 
 def _mesh_params(torch, model, dev):
@@ -2961,6 +3090,9 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, comm, dev) -> dict:
                              plan.train_cfg, device=dev)
     _, grads = batch_prologue(model.loss_fn)(state.params, batches[0])
     out = {"steps": []}
+    if cfg.moe is not None:
+        out["drops"] = _moe_drops(torch, model, state.params, batches[0],
+                                  range(run["agents"]))
     if comm == MESH_COMM:
         out["grads"] = _cpu_tree(grads)
     else:
@@ -2987,7 +3119,8 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, comm, dev) -> dict:
                 out["slots"] = {slot: _cpu_tree(getattr(state, slot))
                                 for slot in _SLOTS
                                 if getattr(state, slot) is not None}
-    out["last"] = _cpu_tree(state.params)
+    out["last"] = (out["first"] if len(batches) == 1
+                   else _cpu_tree(state.params))
     del state, step, batches, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2995,6 +3128,27 @@ def _mesh_reference(torch, ce_ops, swa_ops, name: str, comm, dev) -> dict:
 
 
 _SLOTS = ("ef_memory", "ctrl_state", "net_state")
+
+
+def _moe_drops(torch, model, params, batch, agents, active=None) -> list:
+    """Per agent (``agents``: its indices in ``batch``), each moe layer's
+    (T, K) mask of the (token, k) pairs dropped past their expert's
+    capacity, on the CPU, from one forward of the agent's loss (called
+    directly: no ``torch.func`` transform, so the layers can record);
+    ``active`` is a mesh step's context (the rank's blocks and part of
+    the tokens; the routing sees the agent's whole token set)."""
+    import contextlib
+
+    from repro_torch.models import moe as MOE
+
+    out = []
+    for i in agents:
+        one = {k: v[i] for k, v in batch.items()}
+        with (active() if active else contextlib.nullcontext()), \
+                MOE.record_drops() as rec, torch.no_grad():
+            model.loss_fn(params, one)
+        out.append(list(rec))
+    return out
 
 
 def _flat_tree(tree):
@@ -3110,6 +3264,14 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, job: str, keep: bool = False,
     rest = sum(x.nbytes for x in tree_leaves((state.params,
                                                state.opt_state)))
     out = {"rest_bytes": rest, "steps": []}
+    if cfg.moe is not None:
+        # the rank's agents' drops from seed 0's weights, as the
+        # single-process reference records them
+        pl = step.placement
+        local = pl.local_rows(batches[0])
+        out["drops_agents"] = list(pl.agents)
+        out["drops"] = _moe_drops(torch, model, state.params, local,
+                                  range(len(pl.agents)), active=pl.active)
     for k, b in enumerate(batches):
         mesh.collectives.reset()
         ce0, swa0 = ce_ops.fused_ce.launches, swa_ops.swa_attention.launches
@@ -3138,7 +3300,8 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, job: str, keep: bool = False,
         if keep:
             out[f"blocks_{key}"] = _cpu_tree(state.params)
         if against is None:
-            full = gather_tree(state.params, shardings)
+            # each block sent once to rank 0's host
+            full = gather_tree(state.params, shardings, "hold", dst=0)
             if mesh.rank == 0:
                 out[key] = _cpu_tree(full)
             del full
@@ -3164,9 +3327,12 @@ def _mesh_job(torch, ce_ops, swa_ops, mesh, job: str, keep: bool = False,
 
 def _mesh_rank(mesh) -> dict:
     """Everything [mesh] and [mesh serve] run on one rank of the (data 2,
-    model 2) mesh (a process of its own: ``spawn`` starts it).  Rank 0
-    first runs the single-process reference of each run and policy while
-    the others wait; the serving part follows the training jobs."""
+    model 2) mesh (a process of its own: ``spawn`` starts it).  Before
+    the first job of each run and policy rank 0 runs its single-process
+    reference while the others wait, holds each job to it right after
+    the job, and drops it after the run's last job (the host holds one
+    run's parameter trees at a time); the serving part follows the
+    training jobs."""
     import torch
 
     from repro_torch.kernels.fused_ce import ops as ce_ops
@@ -3174,45 +3340,57 @@ def _mesh_rank(mesh) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+
     out = {"rank": mesh.rank, "coords": mesh.coords,
            "backend": mesh.backend, "device": str(mesh.device), "jobs": {}}
     jobs = [j for j in MESH_JOBS if not MESH_ONLY or j in MESH_ONLY]
-    t0 = time.perf_counter()
-    if mesh.rank == 0 and MESH_HOLD:
-        refs = {_mesh_key(MESH_JOBS[j][0], MESH_JOBS[j][4]): (
-            MESH_JOBS[j][0], MESH_JOBS[j][4]) for j in jobs}
-        out["reference"] = {key: _mesh_reference(torch, ce_ops, swa_ops, run,
-                                                 comm, mesh.device)
-                            for key, (run, comm) in refs.items()}
-    mesh.barrier()
-    _mesh_clock(mesh, "the single-process references", t0)
+    # every job's mesh: the spawn's, or another of the same ranks (every
+    # rank makes them in one order: their groups are collectives)
+    meshes = {MESH_MODEL: mesh}
     for job in jobs:
+        size = MESH_RUNS[MESH_JOBS[job][0]].get("model", MESH_MODEL)
+        if size not in meshes:
+            meshes[size] = make_host_mesh(size, device=mesh.device)
+    keys = [_mesh_key(MESH_JOBS[j][0], MESH_JOBS[j][4]) for j in jobs]
+    hold = mesh.rank == 0 and MESH_HOLD
+    if hold:
+        out["reference"], out["held"] = {}, {}
+    paired = MESH_HOLD and "fsdp_off" in jobs and "fsdp_on" in jobs
+    for i, job in enumerate(jobs):
         name, comm = MESH_JOBS[job][0], MESH_JOBS[job][4]
+        key = keys[i]
+        t0 = time.perf_counter()
+        if hold and key not in out["reference"]:
+            out["reference"][key] = _mesh_reference(
+                torch, ce_ops, swa_ops, name, comm, mesh.device)
+            _mesh_clock(mesh, f"the single-process {key}", t0)
+        mesh.barrier()
         t0 = time.perf_counter()
         # fsdp on is held, rank by rank, to fsdp off's blocks (which are
         # held to the single-process step): its blocks are theirs split
         # further over data, so no gather is needed
-        ref = (out["reference"][_mesh_key(name, comm)]
-               if mesh.rank == 0 and MESH_HOLD else None)
-        paired = MESH_HOLD and "fsdp_off" in jobs and "fsdp_on" in jobs
-        out["jobs"][job] = _mesh_job(
-            torch, ce_ops, swa_ops, mesh, job,
+        ref = out["reference"][key] if hold else None
+        job_mesh = meshes[MESH_RUNS[name].get("model", MESH_MODEL)]
+        got = out["jobs"][job] = _mesh_job(
+            torch, ce_ops, swa_ops, job_mesh, job,
             keep=paired and job == "fsdp_off",
             against=out["jobs"]["fsdp_off"] if paired and job == "fsdp_on"
             else None, ref=ref)
+        if hold:
+            out["held"][job] = _mesh_hold_job(torch, job, got, ref)
+        for k in ("first", "last"):
+            got.pop(k, None)
+        if job == "fsdp_on" or (job == "fsdp_off" and not paired):
+            for k in ("blocks_first", "blocks_last"):
+                out["jobs"]["fsdp_off"].pop(k, None)
+        if hold and key not in keys[i + 1:]:
+            for k in ("first", "last", "grads", "ties", "amax", "slots"):
+                ref.pop(k, None)
+        gc.collect()
+        torch.cuda.empty_cache()
         mesh.barrier()
         _mesh_clock(mesh, f"job {job}", t0)
-    t0 = time.perf_counter()
-    if mesh.rank == 0 and MESH_HOLD:
-        out["held"] = _mesh_hold(torch, out)
-        _mesh_clock(mesh, "the holds", t0)
-    for rec in out["jobs"].values():
-        for key in ("first", "last", "blocks_first", "blocks_last"):
-            rec.pop(key, None)
-    if mesh.rank == 0 and MESH_HOLD:
-        for rec in out["reference"].values():
-            for key in ("first", "last", "grads", "ties", "amax", "slots"):
-                rec.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     mesh.barrier()
@@ -3258,9 +3436,9 @@ def _mesh_params_ties(torch, got: dict, want: dict, ties: dict,
     return worst, stepped
 
 
-def _mesh_hold(torch, out) -> dict:
-    """Rank 0's checks: each job's gathered parameters after its first
-    step against the single-process step's from the same state
+def _mesh_hold_job(torch, job: str, got: dict, ref: dict) -> dict:
+    """Rank 0's checks of one job: its gathered parameters after its
+    first step against the single-process step's from the same state
     (``_params_within``: TRAIN_TOL of each leaf's largest value, one
     int8 level where a gradient lies at a rounding boundary; a per-agent
     job's each agent's wire format's step, ``_mesh_params_ties``), after
@@ -3270,60 +3448,90 @@ def _mesh_hold(torch, out) -> dict:
     TRAIN_TOL.  A job held to another rank by rank
     (``vs_first``/``vs_last``) within TRAIN_TOL of each leaf's largest
     value."""
-    held = {}
-    for job in out["jobs"]:
-        name, fsdp, fleet, steps, comm = MESH_JOBS[job]
-        ref = out["reference"][_mesh_key(name, comm)]
-        got = out["jobs"][job]
-        agents = MESH_RUNS[name]["agents"]
-        for k, (g, r) in enumerate(zip(got["steps"], ref["steps"])):
-            gm, rm = g["metrics"], r["metrics"]
-            for key in ("num_tx", "agent_tx", "agent_delivered"):
-                if key in gm and not torch.equal(gm[key], rm[key]):
-                    raise AssertionError(f"mesh {job} step {k}: {key} "
-                                         f"{gm[key]} vs {rm[key]}")
-            for key in ("loss", "mean_gain", "grad_norm"):
-                a, b = float(gm[key]), float(rm[key])
-                if not abs(a - b) <= TRAIN_TOL * abs(b):
-                    raise AssertionError(f"mesh {job} step {k}: {key} {a} "
-                                         f"vs {b}")
-        if "vs_first" in got:
-            (gap0, same0) = got["vs_first"]
-            (gap1, same1) = got.get("vs_last", got["vs_first"])
-            if not max(gap0, gap1) <= TRAIN_TOL:
-                raise AssertionError(f"mesh {job}: blocks {gap0:.3e} / "
-                                     f"{gap1:.3e} from fsdp_off's")
-            held[job] = {"vs_fsdp_off_first": gap0, "vs_fsdp_off_last": gap1,
-                         "bitwise_fsdp_off": same0 and same1}
-            continue
-        dev = torch.device("cuda", torch.cuda.current_device())
-        if comm == MESH_COMM:
-            on = {p: x.to(dev) for p, x in got["first"].items()}
-            worst, tied = _params_within(
-                torch, on, {p: x.to(dev) for p, x in ref["first"].items()},
-                {p: x.to(dev) for p, x in ref["grads"].items()}, agents,
-                f"mesh {job} step 0")
-            del on
-        else:
-            m0 = ref["steps"][0]["metrics"]
-            weight = float(m0.get("agent_delivered", m0["agent_tx"]).sum())
-            worst, tied = _mesh_params_ties(
-                torch, got["first"], ref["first"], ref["ties"], weight,
-                f"mesh {job} step 0")
-        last = 0.0
-        if steps > 1:
-            for p, x in got["last"].items():
-                w = ref["last"][p]
-                last = max(last, float((x - w).norm() / w.norm()))
-            if not last <= TRAIN_TOL:
-                raise AssertionError(f"mesh {job}: parameters after {steps} "
-                                     f"steps {last:.3e} apart in L2")
-        held[job] = {"first_step_worst": worst, "int8_one_level": tied,
-                     "last_step_rel_l2": last}
-        if "slots" in got:
-            held[job]["slots"] = got["slots"]
-        torch.cuda.empty_cache()
+    name, fsdp, fleet, steps, comm = MESH_JOBS[job]
+    agents = MESH_RUNS[name]["agents"]
+    for k, (g, r) in enumerate(zip(got["steps"], ref["steps"])):
+        gm, rm = g["metrics"], r["metrics"]
+        for key in ("num_tx", "agent_tx", "agent_delivered"):
+            if key in gm and not torch.equal(gm[key], rm[key]):
+                raise AssertionError(f"mesh {job} step {k}: {key} "
+                                     f"{gm[key]} vs {rm[key]}")
+        for key in ("loss", "mean_gain", "grad_norm"):
+            a, b = float(gm[key]), float(rm[key])
+            if not abs(a - b) <= TRAIN_TOL * abs(b):
+                raise AssertionError(f"mesh {job} step {k}: {key} {a} "
+                                     f"vs {b}")
+    if "vs_first" in got:
+        (gap0, same0) = got["vs_first"]
+        (gap1, same1) = got.get("vs_last", got["vs_first"])
+        if not max(gap0, gap1) <= TRAIN_TOL:
+            raise AssertionError(f"mesh {job}: blocks {gap0:.3e} / "
+                                 f"{gap1:.3e} from fsdp_off's")
+        return {"vs_fsdp_off_first": gap0, "vs_fsdp_off_last": gap1,
+                "bitwise_fsdp_off": same0 and same1}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if comm == MESH_COMM:
+        on = {p: x.to(dev) for p, x in got["first"].items()}
+        worst, tied = _params_within(
+            torch, on, {p: x.to(dev) for p, x in ref["first"].items()},
+            {p: x.to(dev) for p, x in ref["grads"].items()}, agents,
+            f"mesh {job} step 0")
+        del on
+    else:
+        m0 = ref["steps"][0]["metrics"]
+        weight = float(m0.get("agent_delivered", m0["agent_tx"]).sum())
+        worst, tied = _mesh_params_ties(
+            torch, got["first"], ref["first"], ref["ties"], weight,
+            f"mesh {job} step 0")
+    last = 0.0
+    if steps > 1:
+        for p, x in got["last"].items():
+            w = ref["last"][p]
+            last = max(last, float((x - w).norm() / w.norm()))
+        if not last <= TRAIN_TOL:
+            raise AssertionError(f"mesh {job}: parameters after {steps} "
+                                 f"steps {last:.3e} apart in L2")
+    held = {"first_step_worst": worst, "int8_one_level": tied,
+            "last_step_rel_l2": last}
+    if "slots" in got:
+        held["slots"] = got["slots"]
+    torch.cuda.empty_cache()
     return held
+
+
+def _mesh_drops(torch, ranks, job: str, ref) -> dict:
+    """A moe job's dropped pairs: every rank's masks (each routes its
+    agents' whole token sets) equal to rank 0's, and to the
+    single-process step's where it ran; the counts per agent and layer,
+    printed."""
+    r0 = ranks[0]["jobs"][job]
+    for r in ranks[1:]:
+        mine = r["jobs"][job]
+        for a, got in zip(mine["drops_agents"], mine["drops"]):
+            want = r0["drops"][r0["drops_agents"].index(a)] if (
+                a in r0["drops_agents"]) else None
+            if want is not None and not all(
+                    torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"mesh {job}: rank {r['rank']}'s "
+                                     f"dropped pairs of agent {a} differ "
+                                     f"from rank 0's")
+    counts = {a: [int(m.sum()) for m in d]
+              for a, d in zip(r0["drops_agents"], r0["drops"])}
+    single = None
+    if ref is not None:
+        single = {a: [int(m.sum()) for m in ref["drops"][a]]
+                  for a in r0["drops_agents"]}
+        for a, d in zip(r0["drops_agents"], r0["drops"]):
+            if len(d) != len(ref["drops"][a]) or not all(
+                    torch.equal(x, y) for x, y in zip(d, ref["drops"][a])):
+                raise AssertionError(f"mesh {job}: agent {a}'s dropped "
+                                     f"pairs differ from the single-process "
+                                     f"step's")
+    print(f"[mesh] {job} dropped (token, k) pairs per agent and layer: "
+          f"mesh {counts}, single-process "
+          f"{single if single is not None else 'not run'} (the same pairs "
+          f"on every rank{' and in one process' if single else ''})")
+    return {"mesh": counts, "single": single}
 
 
 def phase_mesh(torch, card: str) -> tuple:
@@ -3387,8 +3595,15 @@ def phase_mesh(torch, card: str) -> tuple:
         by_tag = ", ".join(f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.1f}"
                            f" MB)" for k, v in sorted(tags.items()))
         knobs = "".join(f", {k}" for k in MESH_KNOBS.get(job, {}))
-        print(f"[mesh] {job}: {run['arch']} {layers} layers, (data 2, model "
-              f"2), m = {run['agents']}, {_comm_name(comm)}, fsdp {fsdp}, "
+        model = run.get("model", MESH_MODEL)
+        depth = (f"{run['encoder_layers']} + {layers}"
+                 if "encoder_layers" in run else str(layers))
+        row["mesh"] = {"data": MESH_WORLD // model, "model": model}
+        if "drops" in r0["jobs"][job]:
+            row["drops"] = _mesh_drops(torch, ranks, job, ref)
+        print(f"[mesh] {job}: {run['arch']} {depth} layers, (data "
+              f"{MESH_WORLD // model}, model {model}), m = {run['agents']}, "
+              f"{_comm_name(comm)}, fsdp {fsdp}, "
               f"fleet_shard {fleet}{knobs}, {steps} steps: ms per step per rank "
               f"{[[round(x, 1) for x in r] for r in ms]} vs single-process "
               f"{[round(x, 1) for x in ref_ms] if ref else 'not run'}; "
@@ -3459,31 +3674,55 @@ class _shared_card:
 # [mesh serve]: prefill and decode over the (data, model) mesh
 # ----------------------------------------------------------------------
 
-def _serve_plans(mesh=None, cache_seq_shard: bool = False):
-    """[mesh serve]'s prefill and decode plans (on ``mesh``, or one card)."""
+def _serve_cfg(name: str):
     from repro_torch.configs import get_config
+
+    run = MESH_SERVES[name]
+    cfg = get_config(run["arch"]).replace(num_layers=run["layers"])
+    if "encoder_layers" in run:
+        cfg = cfg.replace(encoder_layers=run["encoder_layers"])
+    return cfg, run
+
+
+def _serve_plans(name: str, mesh=None, layout: str = "decode_heads"):
+    """[mesh serve] run ``name``'s prefill and decode plans (on ``mesh``,
+    or one card) in ``layout`` (a ``seq_`` prefix: the prefill under
+    ``seq_shard``), and the decode's cache length: the prompt and the
+    generated tokens' slots, or whisper's frames (its decoder's
+    self-attention slots are the architecture's 448)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps as S
 
-    run = MESH_SERVE
-    cfg = get_config(run["arch"]).replace(num_layers=run["layers"])
-    slots = run["prompt"] + run["gen"]
+    cfg, run = _serve_cfg(name)
+    cs = layout.endswith("cache_seq_shard")
+    slots = (run["prompt"] if cfg.is_encoder_decoder
+             else run["prompt"] + run["gen"])
     return (S.plan_run(cfg, InputShape("serve", run["prompt"], run["batch"],
                                        "prefill"), mesh,
-                       cache_seq_shard=cache_seq_shard),
+                       cache_seq_shard=cs,
+                       seq_shard=layout.startswith("seq_")),
             S.plan_run(cfg, InputShape("serve", slots, run["batch"],
                                        "decode"), mesh,
-                       cache_seq_shard=cache_seq_shard), slots)
+                       cache_seq_shard=cs), slots)
 
 
-def _serve_reference(torch, swa_ops, dev) -> dict:
-    """The single-process prefill of MESH_SERVE's prompts (seed 0's
+def _serve_position(name: str, t: int) -> int:
+    """Decode step ``t``'s position: after the prompt, or from 0 for
+    whisper (its prefill fills the cross-attention cache only)."""
+    cfg, run = _serve_cfg(name)
+    return t if cfg.is_encoder_decoder else run["prompt"] + t
+
+
+def _serve_reference(torch, swa_ops, dev, name: str) -> dict:
+    """The single-process prefill of run ``name``'s prompts (seed 0's
     weights and batch, ``build_prefill_step``) and its greedy decode on
-    the card: the prefill's logits and each step's (CPU), the greedy
-    tokens ``(B, gen)``, ms and launches, the peak."""
+    the card (whisper: from token 0 after the encode): the prefill's
+    logits (none for whisper) and each step's (CPU), the greedy tokens
+    ``(B, gen)``, ms and launches, the peak."""
     from repro_torch.launch import steps as S
 
-    plan_p, plan_d, slots = _serve_plans()
+    run = MESH_SERVES[name]
+    plan_p, plan_d, slots = _serve_plans(name)
     torch.cuda.reset_peak_memory_stats()
     pstep, params, batch = S.build_prefill_step(
         plan_p, compute_dtype="float32", device=dev, cache_len=slots)
@@ -3496,18 +3735,20 @@ def _serve_reference(torch, swa_ops, dev) -> dict:
     torch.cuda.synchronize()
     out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
            "prefill_launches": swa_ops.swa_attention.launches - swa0,
-           "prefill": logits.cpu(), "steps": [], "step_ms": [],
-           "step_launches": []}
-    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+           "prefill": None if logits is None else logits.cpu(),
+           "steps": [], "step_ms": [], "step_launches": []}
+    tok = (torch.zeros((run["batch"], 1), dtype=torch.int32, device=dev)
+           if logits is None else
+           logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
     del logits
     toks = []
-    for t in range(MESH_SERVE["gen"]):
+    for t in range(run["gen"]):
         toks.append(tok)
         swa0 = swa_ops.swa_attention.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, cache = dstep(params, cache, tok, torch.tensor(
-            MESH_SERVE["prompt"] + t, dtype=torch.int32, device=dev))
+            _serve_position(name, t), dtype=torch.int32, device=dev))
         torch.cuda.synchronize()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["step_launches"].append(swa_ops.swa_attention.launches - swa0)
@@ -3515,7 +3756,7 @@ def _serve_reference(torch, swa_ops, dev) -> dict:
         tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
     out["tokens"] = torch.cat(toks, 1).cpu()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[mesh serve] rank 0 single-process prefill "
+    print(f"[mesh serve] rank 0 single-process {name}: prefill "
           f"{out['prefill_ms']:.1f} ms, decode "
           f"{statistics.median(out['step_ms']):.1f} ms a step (median), "
           f"peak {out['peak_gb']:.2f} GB", flush=True)
@@ -3557,13 +3798,19 @@ def _greedy_ties(torch, ref_logits, tokens, what: str) -> int:
     return len(odd)
 
 
+def _cache_block(cache) -> list:
+    """The shape of a cache block's keys (whisper: the cross-attention's)."""
+    return list((cache["cross_k"] if isinstance(cache, dict) else cache.k)
+                .shape)
+
+
 def _mesh_serve_rank(mesh) -> dict:
-    """Everything [mesh serve] runs on one rank: rank 0's single-process
-    reference first (the others wait), its greedy tokens to every rank,
-    then each cache layout: the rank builds its blocks (once), prefills,
-    decodes 16 steps teacher-forced on the reference's tokens; rank 0
-    holds the whole batch's logits (gathered on the CPU) to the
-    reference."""
+    """Everything [mesh serve] runs on one rank, run by run: rank 0's
+    single-process reference first (the others wait), its greedy tokens
+    to every rank, then each layout: the rank builds its blocks (once a
+    run), prefills, decodes the run's steps teacher-forced on the
+    reference's tokens; rank 0 holds the whole batch's logits (gathered
+    on the CPU) to the reference."""
     import torch
 
     from repro_torch.launch import steps as S
@@ -3572,162 +3819,184 @@ def _mesh_serve_rank(mesh) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = mesh.device
-    run = MESH_SERVE
-    ref = _serve_reference(torch, swa_ops, dev) if mesh.rank == 0 else None
-    tokens = (ref["tokens"].to(torch.int64) if ref is not None else
-              torch.zeros((run["batch"], run["gen"]), dtype=torch.int64))
-    mesh.all_reduce(tokens, "tokens", mesh.axis_names)
-    tokens = tokens.to(torch.int32).to(dev)
-    out = {"rank": mesh.rank, "coords": mesh.coords, "layouts": {}}
-    if ref is not None:
-        out["reference"] = {k: ref[k] for k in (
-            "prefill_ms", "step_ms", "prefill_launches", "step_launches",
-            "peak_gb")}
-    params = None
-    for layout in MESH_SERVE_LAYOUTS:
-        cs = layout == "cache_seq_shard"
-        plan_p, plan_d, slots = _serve_plans(mesh, cs)
-        torch.cuda.reset_peak_memory_stats()
-        # the layouts split the weights alike: one draw serves both
-        pstep, drawn, batch = S.build_prefill_step(
-            plan_p, compute_dtype="float32", device=dev, mesh=mesh,
-            cache_len=slots, init_params=params is None)
-        params = drawn if params is None else params
-        dstep, _, _ = S.build_serve_step(plan_d, compute_dtype="float32",
-                                         device=dev, mesh=mesh,
-                                         init_params=False)
-        rec = {"rest_bytes": sum(x.nbytes for x in
-                                 _flat_tree(params).values()),
-               "step_ms": [], "step_launches": [], "logits_gap": [],
-               "greedy_apart": 0}
-        mesh.barrier()
-        mesh.collectives.reset()
-        swa0 = swa_ops.swa_attention.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = pstep(params, batch)
-        torch.cuda.synchronize()
-        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
-        rec["prefill_launches"] = swa_ops.swa_attention.launches - swa0
-        rec["prefill_collectives"] = mesh.collectives.by_tag()
-        rec["cache_block"] = list(cache.k.shape)
-        full = pstep.logits_sharding.gather(logits.cpu())
-        del logits
+    out = {"rank": mesh.rank, "coords": mesh.coords, "runs": {}}
+    for name, run in MESH_SERVES.items():
+        t_run = time.perf_counter()
+        ref = (_serve_reference(torch, swa_ops, dev, name)
+               if mesh.rank == 0 else None)
+        tokens = (ref["tokens"].to(torch.int64) if ref is not None else
+                  torch.zeros((run["batch"], run["gen"]), dtype=torch.int64))
+        mesh.all_reduce(tokens, "tokens", mesh.axis_names)
+        tokens = tokens.to(torch.int32).to(dev)
+        res = {"layouts": {}}
         if ref is not None:
-            rec["prefill_gap"] = _logit_gap(torch, full, ref["prefill"],
-                                            f"{layout} prefill")
-            rec["greedy_apart"] += _greedy_ties(
-                torch, ref["prefill"][:, -1], full[:, -1].argmax(-1),
-                f"{layout} prefill")
-        del full
-        for t in range(run["gen"]):
+            res["reference"] = {k: ref[k] for k in (
+                "prefill_ms", "step_ms", "prefill_launches",
+                "step_launches", "peak_gb")}
+        params = None
+        for layout in run["layouts"]:
+            plan_p, plan_d, slots = _serve_plans(name, mesh, layout)
+            torch.cuda.reset_peak_memory_stats()
+            # the layouts split the weights alike: one draw serves all
+            pstep, drawn, batch = S.build_prefill_step(
+                plan_p, compute_dtype="float32", device=dev, mesh=mesh,
+                cache_len=slots, init_params=params is None)
+            params = drawn if params is None else params
+            dstep, _, _ = S.build_serve_step(plan_d, compute_dtype="float32",
+                                             device=dev, mesh=mesh,
+                                             init_params=False)
+            rec = {"rest_bytes": sum(x.nbytes for x in
+                                     _flat_tree(params).values()),
+                   "step_ms": [], "step_launches": [], "logits_gap": [],
+                   "greedy_apart": 0}
+            mesh.barrier()
             mesh.collectives.reset()
             swa0 = swa_ops.swa_attention.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, cache = dstep(params, cache, tokens[:, t:t + 1], torch.tensor(
-                run["prompt"] + t, dtype=torch.int32, device=dev))
+            logits, cache = pstep(params, batch)
             torch.cuda.synchronize()
-            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            rec["step_launches"].append(swa_ops.swa_attention.launches
-                                        - swa0)
-            rec["step_collectives"] = mesh.collectives.by_tag()
-            full = dstep.logits_sharding.gather(lg[:, 0].cpu())
-            if ref is not None:
-                rec["logits_gap"].append(_logit_gap(
-                    torch, full, ref["steps"][t], f"{layout} step {t}"))
-                rec["greedy_apart"] += _greedy_ties(
-                    torch, ref["steps"][t], full.argmax(-1),
-                    f"{layout} step {t}")
-        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["layouts"][layout] = rec
-        if mesh.rank == 0:
-            print(f"[mesh serve] rank 0 {layout}: prefill "
-                  f"{rec['prefill_ms']:.1f} ms, decode "
-                  f"{statistics.median(rec['step_ms']):.1f} ms a step, peak "
-                  f"{rec['peak_gb']:.2f} GB", flush=True)
-        del drawn, cache, batch, pstep, dstep
+            rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["prefill_launches"] = swa_ops.swa_attention.launches - swa0
+            rec["prefill_collectives"] = mesh.collectives.by_tag()
+            rec["cache_block"] = _cache_block(cache)
+            rec["prefill_gap"] = None
+            if logits is not None:
+                full = pstep.logits_sharding.gather(logits.cpu())
+                del logits
+                if ref is not None:
+                    rec["prefill_gap"] = _logit_gap(
+                        torch, full, ref["prefill"], f"{name} {layout} "
+                        f"prefill")
+                    rec["greedy_apart"] += _greedy_ties(
+                        torch, ref["prefill"][:, -1], full[:, -1].argmax(-1),
+                        f"{name} {layout} prefill")
+                del full
+            for t in range(run["gen"]):
+                mesh.collectives.reset()
+                swa0 = swa_ops.swa_attention.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = dstep(params, cache, tokens[:, t:t + 1],
+                                  torch.tensor(_serve_position(name, t),
+                                               dtype=torch.int32,
+                                               device=dev))
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["step_launches"].append(swa_ops.swa_attention.launches
+                                            - swa0)
+                rec["step_collectives"] = mesh.collectives.by_tag()
+                full = dstep.logits_sharding.gather(lg[:, 0].cpu())
+                if ref is not None:
+                    rec["logits_gap"].append(_logit_gap(
+                        torch, full, ref["steps"][t],
+                        f"{name} {layout} step {t}"))
+                    rec["greedy_apart"] += _greedy_ties(
+                        torch, ref["steps"][t], full.argmax(-1),
+                        f"{name} {layout} step {t}")
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            res["layouts"][layout] = rec
+            if mesh.rank == 0:
+                print(f"[mesh serve] rank 0 {name} {layout}: prefill "
+                      f"{rec['prefill_ms']:.1f} ms, decode "
+                      f"{statistics.median(rec['step_ms']):.1f} ms a step, "
+                      f"peak {rec['peak_gb']:.2f} GB", flush=True)
+            del drawn, cache, batch, pstep, dstep
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh.barrier()
+        del params
         gc.collect()
         torch.cuda.empty_cache()
-        mesh.barrier()
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t_run
+        out["runs"][name] = res
     return out
 
 
 def _mesh_serve_record(ranks: list, backend: str, seconds: float) -> dict:
     """[mesh serve]'s checks of the ranks' results (the launches) and its
-    lines and record."""
-    from repro_torch.configs import get_config
-
-    layers = MESH_SERVE["layers"]
-    ref = ranks[0]["reference"]
+    lines and record, run by run."""
     record = {"backend": backend, "world": MESH_WORLD, "seconds": seconds,
-              "arch": MESH_SERVE["arch"], "layers": layers,
-              "run": dict(MESH_SERVE), "reference": ref, "layouts": {}}
-    if ref["prefill_launches"] != layers or any(ref["step_launches"]):
-        raise AssertionError(f"mesh serve single-process launches "
-                             f"{ref['prefill_launches']} / "
-                             f"{ref['step_launches']}")
-    for layout in MESH_SERVE_LAYOUTS:
-        recs = [r["layouts"][layout] for r in ranks]
-        for r, rec in zip(ranks, recs):
-            if rec["prefill_launches"] != layers or any(
-                    rec["step_launches"]):
-                raise AssertionError(
-                    f"mesh serve {layout} rank {r['rank']}: swa_attention "
-                    f"launches {rec['prefill_launches']} per prefill, "
-                    f"{rec['step_launches']} per decode step (want "
-                    f"{layers}, 0)")
-        r0 = recs[0]
-        row = {"prefill_ms_ranks": [x["prefill_ms"] for x in recs],
-               "prefill_ms_single": ref["prefill_ms"],
-               "step_ms_median_ranks": [statistics.median(x["step_ms"])
-                                        for x in recs],
-               "step_ms_median_single": statistics.median(ref["step_ms"]),
-               "step_ms_rank0": r0["step_ms"],
-               "peak_gb_ranks": [x["peak_gb"] for x in recs],
-               "rest_bytes_ranks": [x["rest_bytes"] for x in recs],
-               "cache_block_rank0": r0["cache_block"],
-               "launches_prefill": r0["prefill_launches"],
-               "launches_step": r0["step_launches"][0],
-               "prefill_collectives_rank0": r0["prefill_collectives"],
-               "step_collectives_rank0": r0["step_collectives"],
-               "prefill_max_abs_gap": r0["prefill_gap"],
-               "step_max_abs_gap": max(r0["logits_gap"]),
-               "greedy_apart": r0["greedy_apart"]}
-        record["layouts"][layout] = row
+              "runs": {}}
+    for name, run in MESH_SERVES.items():
+        cfg, _ = _serve_cfg(name)
+        # the causal self-attention's kernel once a decoder layer in a
+        # prefill (whisper's prefill only encodes: no causal attention)
+        layers = 0 if cfg.is_encoder_decoder else run["layers"]
+        ref = ranks[0]["runs"][name]["reference"]
+        rrec = {"arch": run["arch"], "layers": run["layers"],
+                "run": dict(run), "reference": ref, "layouts": {},
+                "seconds": ranks[0]["runs"][name]["seconds"]}
+        record["runs"][name] = rrec
+        if ref["prefill_launches"] != layers or any(ref["step_launches"]):
+            raise AssertionError(f"mesh serve {name} single-process "
+                                 f"launches {ref['prefill_launches']} / "
+                                 f"{ref['step_launches']}")
+        for layout in run["layouts"]:
+            recs = [r["runs"][name]["layouts"][layout] for r in ranks]
+            for r, rec in zip(ranks, recs):
+                if rec["prefill_launches"] != layers or any(
+                        rec["step_launches"]):
+                    raise AssertionError(
+                        f"mesh serve {name} {layout} rank {r['rank']}: "
+                        f"swa_attention launches {rec['prefill_launches']} "
+                        f"per prefill, {rec['step_launches']} per decode "
+                        f"step (want {layers}, 0)")
+            r0 = recs[0]
+            row = {"prefill_ms_ranks": [x["prefill_ms"] for x in recs],
+                   "prefill_ms_single": ref["prefill_ms"],
+                   "step_ms_median_ranks": [statistics.median(x["step_ms"])
+                                            for x in recs],
+                   "step_ms_median_single": statistics.median(
+                       ref["step_ms"]),
+                   "step_ms_rank0": r0["step_ms"],
+                   "peak_gb_ranks": [x["peak_gb"] for x in recs],
+                   "rest_bytes_ranks": [x["rest_bytes"] for x in recs],
+                   "cache_block_rank0": r0["cache_block"],
+                   "launches_prefill": r0["prefill_launches"],
+                   "launches_step": r0["step_launches"][0],
+                   "prefill_collectives_rank0": r0["prefill_collectives"],
+                   "step_collectives_rank0": r0["step_collectives"],
+                   "prefill_max_abs_gap": r0["prefill_gap"],
+                   "step_max_abs_gap": max(r0["logits_gap"]),
+                   "greedy_apart": r0["greedy_apart"]}
+            rrec["layouts"][layout] = row
 
-        def tags(c):
-            return ", ".join(
-                f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.2f} MB)"
-                for k, v in sorted(c.items()))
+            def tags(c):
+                return ", ".join(
+                    f"{k} {v['count']} ({v['operand_bytes'] / 1e6:.2f} MB)"
+                    for k, v in sorted(c.items()))
 
-        print(f"[mesh serve] {layout}: {MESH_SERVE['arch']} {layers} layers "
-              f"fp32 on (data 2, model 2), B {MESH_SERVE['batch']} × "
-              f"{MESH_SERVE['prompt']} then {MESH_SERVE['gen']} tokens: ms "
-              f"per prefill per rank "
-              f"{[round(x, 1) for x in row['prefill_ms_ranks']]} vs "
-              f"single-process {ref['prefill_ms']:.1f}; ms per decode step "
-              f"(median) per rank "
-              f"{[round(x, 1) for x in row['step_ms_median_ranks']]} vs "
-              f"single-process {row['step_ms_median_single']:.1f}; peak GB "
-              f"per rank {[round(x, 2) for x in row['peak_gb_ranks']]} "
-              f"(single-process {ref['peak_gb']:.2f}); weights at rest per "
-              f"rank {[round(x / 1e9, 2) for x in row['rest_bytes_ranks']]}"
-              f" GB; rank 0's cache block {r0['cache_block']}")
-        print(f"[mesh serve] {layout}: launches per rank (swa_attention) "
-              f"{layers} per prefill, 0 per decode step, as single-process; "
-              f"logits within {LM_LOGIT_TOL} + {LM_LOGIT_TOL}·|ref| of the "
-              f"single-process step (prefill max |gap| "
-              f"{row['prefill_max_abs_gap']:.3e}, decode "
-              f"{row['step_max_abs_gap']:.3e}); greedy tokens equal but "
-              f"{row['greedy_apart']} at a top-two tie")
-        print(f"[mesh serve] {layout} collectives per prefill on rank 0: "
-              f"{tags(r0['prefill_collectives'])}")
-        print(f"[mesh serve] {layout} collectives per decode step on rank "
-              f"0: {tags(r0['step_collectives'])}")
+            depth = (f"{run['encoder_layers']} + {run['layers']}"
+                     if "encoder_layers" in run else str(run["layers"]))
+            prompt = (f"{run['prompt']} frames" if cfg.is_encoder_decoder
+                      else f"{run['prompt']}")
+            gap = ("no prefill logits" if row["prefill_max_abs_gap"] is None
+                   else f"prefill max |gap| "
+                   f"{row['prefill_max_abs_gap']:.3e}")
+            print(f"[mesh serve] {name} {layout}: {run['arch']} {depth} "
+                  f"layers fp32 on (data 2, model 2), B {run['batch']} × "
+                  f"{prompt} then {run['gen']} tokens: ms per prefill per "
+                  f"rank {[round(x, 1) for x in row['prefill_ms_ranks']]} "
+                  f"vs single-process {ref['prefill_ms']:.1f}; ms per decode "
+                  f"step (median) per rank "
+                  f"{[round(x, 1) for x in row['step_ms_median_ranks']]} vs "
+                  f"single-process {row['step_ms_median_single']:.1f}; peak "
+                  f"GB per rank {[round(x, 2) for x in row['peak_gb_ranks']]}"
+                  f" (single-process {ref['peak_gb']:.2f}); weights at rest "
+                  f"per rank "
+                  f"{[round(x / 1e9, 2) for x in row['rest_bytes_ranks']]} "
+                  f"GB; rank 0's cache block {r0['cache_block']}")
+            print(f"[mesh serve] {name} {layout}: launches per rank "
+                  f"(swa_attention) {layers} per prefill, 0 per decode "
+                  f"step, as single-process; logits within {LM_LOGIT_TOL} + "
+                  f"{LM_LOGIT_TOL}·|ref| of the single-process step ({gap}, "
+                  f"decode {row['step_max_abs_gap']:.3e}); greedy tokens "
+                  f"equal but {row['greedy_apart']} at a top-two tie")
+            print(f"[mesh serve] {name} {layout} collectives per prefill on "
+                  f"rank 0: {tags(r0['prefill_collectives'])}")
+            print(f"[mesh serve] {name} {layout} collectives per decode step"
+                  f" on rank 0: {tags(r0['step_collectives'])}")
     print(f"[mesh serve] {seconds:.1f} s on the ranks")
     return record
 
@@ -4854,7 +5123,11 @@ def phase_swa_times(torch, swa_ops, swa_ref) -> list:
         pos = torch.arange(s, device="cuda")
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
                                                  > pos[:, None] - w)
-        for dtype in (torch.float32, torch.bfloat16):
+        # bf16 too at every served shape but the moe and vlm [mesh]
+        # ranks' heads (their jobs run in fp32)
+        dtypes = ((torch.float32,) if shape in SWA_SERVED[6:8]
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
             q, k, v = _swa_inputs(torch, gen, shape, dtype)
             qh = q.transpose(1, 2).contiguous()
             kh = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
@@ -7121,8 +7394,9 @@ def phase_ce_times(torch, ce_ops, ce_ref) -> list:
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for t, d, v in CE_TIMED:
-        # [mesh]'s vocabulary block runs in fp32 only
-        dtypes = ((torch.float32,) if (t, d, v) == CE_TIMED[4]
+        # bf16 too at every shape but [mesh]'s losses (their jobs run
+        # in fp32)
+        dtypes = ((torch.float32,) if (t, d, v) in CE_TIMED[4:]
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
             x, table, labels = _ce_inputs(torch, gen, t, d, v, dtype)
@@ -7519,9 +7793,10 @@ def main() -> int:
             job: row["launches_per_step"][0]
             for job, row in record["mesh"]["jobs"].items()},
         "launches_mesh_serve_per_rank": {
-            layout: {"prefill": row["launches_prefill"],
-                     "decode_step": row["launches_step"]}
-            for layout, row in record["mesh_serve"]["layouts"].items()},
+            f"{run} {layout}": {"prefill": row["launches_prefill"],
+                                "decode_step": row["launches_step"]}
+            for run, rec in record["mesh_serve"]["runs"].items()
+            for layout, row in rec["layouts"].items()},
         "mesh_local_heads": {k: r[k] for r in record["swa_times"]
                              if r["shape"] == list(SWA_SERVED[-1][:5])
                              and r["dtype"] == "float32"
@@ -7534,7 +7809,15 @@ def main() -> int:
             "shape", "window", "dtype", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms")}
             for r in record["swa_times"]
-            if r["shape"][4] in (32, 96) and r["dtype"] == "float32"},
+            if r["shape"] in (list(SWA_SERVED[4][:5]),
+                              list(SWA_SERVED[5][:5]))
+            and r["dtype"] == "float32"},
+        # the moe and vlm [mesh] ranks' heads
+        "mesh_family_heads": [{k: r[k] for k in (
+            "shape", "window", "dtype", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "device_ms")}
+            for r in record["swa_times"]
+            if r["shape"] in [list(x[:5]) for x in SWA_SERVED[6:8]]],
     })
     # fused_ce at the train step's token count, width and vocabulary
     ce_time = record["ce_times"][0]
@@ -7574,6 +7857,11 @@ def main() -> int:
                              for k in ("shape", "dtype", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "device_ms")},
+        # the moe, vlm and audio [mesh] ranks' losses
+        "mesh_family_losses": [{k: r[k] for k in (
+            "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms")} for r in record["ce_times"]
+            if r["shape"] in [list(x) for x in CE_TIMED[5:]]],
         "max_abs_err": ce_check["max_abs_err"],
         "ms": ce_time["ms"],
         "plain_ms": ce_time["plain_ms"],

@@ -151,7 +151,7 @@ def wire_bytes(kind: str, operand_bytes: float, group_size: int) -> float:
         return float(operand_bytes * (n - 1))
     if kind in ("reduce-scatter", "all-to-all"):
         return operand_bytes * (n - 1) / n
-    if kind == "collective-permute":
+    if kind in ("collective-permute", "gather"):
         return float(operand_bytes)
     raise ValueError(f"unknown collective kind {kind!r}")
 

@@ -177,6 +177,21 @@ class Mesh:
         dist.all_gather(parts, x, group=self.cpu_group)
         return torch.stack(parts)
 
+    def gather_cpu(self, x: torch.Tensor, dst: int, tag: str
+                   ) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``x`` (a CPU tensor of one shape on every rank)
+        on rank ``dst`` alone, in rank order, over ``cpu_group`` (each
+        copy crosses once); None on the other ranks."""
+        x = x.contiguous()
+        if self.group is None:
+            return [x]
+        collective_call(self.collectives, "gather",
+                        x.numel() * x.element_size(), self.size, tag)
+        parts = ([torch.empty_like(x) for _ in range(self.size)]
+                 if self.rank == dst else None)
+        dist.gather(x, parts, dst=dst, group=self.cpu_group)
+        return parts
+
     def all_gather_object(self, obj: Any, tag: str) -> List[Any]:
         """Every rank's picklable ``obj``, in rank order, over
         ``cpu_group`` (logged with the pickled size)."""

@@ -15,8 +15,11 @@ one card or on one rank of a (data, model) mesh (port of
   dim over the data axes.  ``cache_seq_shard`` moves the KV cache's
   positions onto "model" (flash-decoding: the decode attention's heads
   give it up).  ``seq_shard`` puts the sequence on "model" (each model
-  rank holds its chunk: sequence parallelism in the dense transformer,
-  train and prefill) and ``inner_batch_shard`` each agent's batch rows
+  rank holds its chunk: sequence parallelism in the dense, moe, vlm and
+  audio families, train and prefill, a prefill that fills a KV cache
+  too; a no-op where the whole sequence does not divide: whisper's
+  frames or tokens, the vlm's patches and tokens together) and
+  ``inner_batch_shard`` each agent's batch rows
   (each model rank computes on its rows with the weights gathered whole
   at use: the model axis as data parallelism within an agent).  With no
   mesh, or a model axis of 1, the plan is the JAX package's on a
@@ -42,8 +45,9 @@ one card or on one rank of a (data, model) mesh (port of
 
 On a mesh the agents live on the data axes and the model ranks of one
 data coordinate hold the same agents; tensor parallelism over "model"
-splits the dense family's heads, kv heads, ``ff`` columns and
-vocabulary (the divisibility guard replicates what does not divide);
+splits the heads, kv heads, ``ff`` columns, experts and vocabulary of
+the dense, moe, vlm and audio families (the divisibility guard
+replicates what does not divide; the hybrid and ssm families raise);
 the parameters and optimizer state at rest are each rank's blocks
 (:mod:`repro_torch.sharding.placement`).  Every agent's gradient and
 lookahead probe run batched on the rank's device, through the
@@ -81,6 +85,9 @@ from repro_torch.models import (
 from repro_torch.models.transformer import dtype_of
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.sharding.rules import (
+    NamedSharding,
+    PartitionSpec,
+    resolve_pspec,
     resolve_rules,
     shard_tree,
     tree_shardings,
@@ -170,23 +177,64 @@ def plan_run(
                    seq_shard=seq_shard, inner_batch_shard=inner_batch_shard)
 
 
-def _tokens_split(batch_axes, batch_shardings):
-    """What of the tokens a mesh step's model ranks split, by the batch's
-    logical axes and layout: ``"seq"`` where the rules put the sequence
-    on "model" (``seq_shard``), ``"rows"`` where they put an agent's rows
+def _tokens_split(batch_axes, batch_specs, batch_shardings, mesh):
+    """What of the tokens a mesh step's model ranks split, and the
+    batch's layout for it: ``"seq"`` where the rules put the sequence on
+    "model" (``seq_shard``), ``"rows"`` where they put an agent's rows
     there (``inner_batch_shard``), None where neither knob is on or its
-    dim does not divide."""
-    spec = tuple(batch_shardings["tokens"].spec)
-    if "model" not in spec:
-        return None
-    return ("seq" if batch_axes["tokens"][spec.index("model")] == "seq"
-            else "rows")
+    dim does not divide.
+
+    The sequence the model ranks chunk must divide as a whole: an
+    encoder-decoder's frames and its decoder tokens both (the port
+    chunks both or neither), the vlm's patch prefix and its tokens
+    together (P + S, :func:`repro_torch.models.transformer._prefixed`).
+    Where it does not, ``seq_shard`` is a no-op, as JAX's divisibility
+    guard makes it: every sequence of the batch stays whole on the model
+    ranks (JAX would still chunk a leaf that divides; the step computes
+    the same).  Returns ``(split, batch_shardings)``."""
+    def split_of(key):
+        spec = tuple(batch_shardings[key].spec)
+        if "model" not in spec:
+            return None
+        return ("seq" if batch_axes[key][spec.index("model")] == "seq"
+                else "rows")
+
+    keys = [k for k, sh in batch_shardings.items()
+            if isinstance(sh, NamedSharding)]
+    chunked = [k for k in keys if split_of(k) == "seq"]
+    if not chunked:
+        return split_of("tokens"), batch_shardings
+    n = mesh.shape["model"]
+
+    def length(key):
+        return batch_specs[key].shape[batch_axes[key].index("seq")]
+
+    seqs = [k for k in keys if "seq" in batch_axes[k]]
+    whole = [length(k) for k in seqs]
+    if "patch_embeds" in batch_specs:
+        whole.append(batch_specs["patch_embeds"].shape[-2] + length("tokens"))
+    if len(chunked) == len(seqs) and all(s % n == 0 for s in whole):
+        return "seq", batch_shardings
+    out = dict(batch_shardings)
+    for k in seqs:
+        spec = tuple(out[k].spec) + (None,) * (len(batch_axes[k])
+                                               - len(out[k].spec))
+        out[k] = NamedSharding(out[k].mesh, PartitionSpec(*(
+            None if a == "seq" else e
+            for a, e in zip(batch_axes[k], spec))))
+    return None, out
+
+
+# the families whose blocks run tensor-parallel over a "model" axis
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check_tensor_parallel(cfg: ModelConfig, mesh) -> None:
-    """Tensor parallelism is ported for the dense family: a model axis
-    with another family raises."""
-    if mesh.shape.get("model", 1) > 1 and cfg.arch_type != "dense":
+    """Tensor parallelism is ported for the dense, moe (its experts or
+    their ``ff`` columns), vlm and audio families: a model axis with the
+    hybrid or ssm family raises."""
+    if (mesh.shape.get("model", 1) > 1
+            and cfg.arch_type not in TENSOR_PARALLEL_FAMILIES):
         raise todo(f"tensor parallelism for the {cfg.arch_type} family",
                    "queue 1 item 11.2")
 
@@ -245,8 +293,11 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     the mesh.
 
     Tensor parallelism (a "model" axis larger than 1) is ported for the
-    dense family; the other families run on a data-only mesh (with
-    ``fsdp`` or without), and a model axis with them raises.
+    dense, moe (the expert axis, or each expert's ``ff`` where the guard
+    replicates it), vlm and audio families, with ``seq_shard`` and
+    ``inner_batch_shard``; the hybrid and ssm families run on a
+    data-only mesh (with ``fsdp`` or without), and a model axis with
+    them raises.
     ``fleet_shard=True`` runs the fleet-sharded step
     (:func:`repro_torch.sharding.agent_shard.make_sharded_train_step`):
     the gateways are the data coordinates.  ``agent_metrics`` adds the
@@ -269,12 +320,12 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     tcfg = plan.train_cfg
     batch_axes = input_axes(cfg, plan.shape, num_agents=tcfg.num_agents)
     batch_specs = input_specs(cfg, plan.shape, num_agents=tcfg.num_agents)
-    batch_shardings = tree_shardings(batch_axes, batch_specs, plan.rules,
-                                     mesh)
+    split, batch_shardings = _tokens_split(
+        batch_axes, batch_specs,
+        tree_shardings(batch_axes, batch_specs, plan.rules, mesh), mesh)
     placement = Placement(
         mesh, axes, shapes, plan.rules, tcfg.num_agents,
-        grad_clip=tcfg.grad_clip,
-        split=_tokens_split(batch_axes, batch_shardings),
+        grad_clip=tcfg.grad_clip, split=split,
         batch_shardings=batch_shardings,
         batch_shapes={p: tuple(x.shape) for p, x in
                       tree_flatten_with_path(batch_specs)})
@@ -363,13 +414,12 @@ class MeshServeStep:
     def __init__(self, fn, rows_arg: int, mesh, plan: RunPlan, axes,
                  shapes, *, batch_axes, batch_specs,
                  cache_len: Optional[int] = None, cache_axes=None,
-                 cache_specs=None):
+                 cache_specs=None, cross_len: Optional[int] = None):
         from repro_torch.sharding import collectives as C
         from repro_torch.sharding.constraint import (
             make_act_hook,
             make_gather_hook,
         )
-        from repro_torch.sharding.rules import NamedSharding, resolve_pspec
 
         self.fn, self.rows_arg, self.mesh = fn, rows_arg, mesh
         rules = plan.rules
@@ -382,15 +432,24 @@ class MeshServeStep:
         self.logits_sharding = NamedSharding(mesh, resolve_pspec(
             (plan.shape.global_batch,), ("batch",), rules, mesh))
         self._batch = plan.shape.global_batch
-        self._seq_len = plan.shape.seq_len
+        self._whole = {p[0]: tuple(x.shape) for p, x in
+                       tree_flatten_with_path(batch_specs) if len(p) == 1}
         self._gather = (make_gather_hook(mesh, axes, rules, shapes)
                         if plan.fsdp else None)
-        self._act = make_act_hook(mesh, rules, cache_len=cache_len)
+        self._act = make_act_hook(mesh, rules, cache_len=cache_len,
+                                  cross_len=cross_len)
+        # the batch's rows over the data axes: a moe layer routes the
+        # whole batch, as JAX's one global computation does
+        rows = self.logits_sharding
+        self._rows = (C.Where(mesh, rows.axes, "moe_rows")
+                      if rows.axes else None)
         n = mesh.shape.get("model", 1)
         # a prefill under seq_shard: each model rank's chunk of the
         # sequence (the model's sequence parallelism)
-        self.split = (_tokens_split(batch_axes, self.batch_shardings)
-                      if "seq" in batch_axes.get("tokens", ()) else None)
+        self.split = None
+        if "seq" in batch_axes.get("tokens", ()):
+            self.split, self.batch_shardings = _tokens_split(
+                batch_axes, batch_specs, self.batch_shardings, mesh)
         self._axis = C.ModelAxis(mesh, split=self.split) if n > 1 else None
 
     @contextlib.contextmanager
@@ -405,7 +464,7 @@ class MeshServeStep:
 
         g, a = set_gather_hook(self._gather), set_act_hook(self._act)
         try:
-            with C.tensor_parallel(self._axis):
+            with C.tensor_parallel(self._axis), C.batch_rows(self._rows):
                 yield self
         finally:
             reset_act_hook(a)
@@ -423,17 +482,19 @@ class MeshServeStep:
         tree = tree_map(cut, tree)
         if self.split != "seq":
             return tree
-        from repro_torch.sharding.rules import NamedSharding, PartitionSpec
 
-        def chunk(sh, x):
+        def chunk(key, sh, x):
             spec = tuple(sh.spec)
-            whole = self._seq_len
-            if "model" not in spec or x.shape[spec.index("model")] != whole:
+            if "model" not in spec:
+                return x
+            d = spec.index("model")
+            if x.shape[d] != self._whole[key][d]:
                 return x
             return NamedSharding(self.mesh, PartitionSpec(*(
                 e if e == "model" else None for e in spec))).local(x)
 
-        return {k: chunk(self.batch_shardings[k], x) for k, x in tree.items()}
+        return {k: chunk(k, self.batch_shardings[k], x)
+                for k, x in tree.items()}
 
     def __call__(self, params, *args):
         args = list(args)
@@ -454,7 +515,7 @@ def _rank_params(model, shardings, dtype: torch.dtype,
 
     def place(path, leaf):
         sh = by_path[path]
-        return leaf if not sh.axes else sh.local(leaf).clone()
+        return leaf if not sh.axes else sh.local(leaf)
 
     return model.init(torch.Generator(device=device).manual_seed(0),
                       dtype=dtype, place=place)[0]
@@ -483,7 +544,12 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     On a ``mesh`` of more than one rank the step is the rank's
     :class:`MeshServeStep`, the parameters its blocks and the batch its
     rows; the logits are its rows' over the whole vocabulary, and the
-    cache its block (``step.cache_shardings``)."""
+    cache its block (``step.cache_shardings``).  Under ``seq_shard``
+    each model rank runs its chunk of the prompt (with ``cache_len``
+    too: the cache holds every position of the rank's kv heads, or
+    under ``cache_seq_shard`` every head at its positions) and the
+    logits are the whole sequence's.  A moe model routes the whole
+    batch (its rows gathered over the data axes)."""
     cfg = plan.cfg.replace(compute_dtype=compute_dtype)
     model = build(cfg)
     dev = resolve_device(device)
@@ -507,15 +573,13 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     _check_tensor_parallel(cfg, mesh)
     shapes, axes = model.init(abstract=True, dtype=dtype)
     cache_kw = {}
-    if cache_len is not None and plan.seq_shard and mesh.shape.get(
-            "model", 1) > 1:
-        raise todo("a prefill that fills a KV cache under seq_shard",
-                   "queue 1 item 11.2")
     if cache_len is not None:
-        cache, cache_axes = model.init_cache(plan.shape.global_batch,
-                                             cache_len, device="meta",
-                                             dtype=dtype)
-        cache_kw = dict(cache_len=cache.k.shape[2], cache_axes=cache_axes,
+        # whisper's cross-attention cache holds the encoder's frames
+        cache, cache_axes = model.init_cache(
+            plan.shape.global_batch,
+            plan.shape.seq_len if cfg.is_encoder_decoder else cache_len,
+            device="meta", dtype=dtype)
+        cache_kw = dict(_cache_lens(cache), cache_axes=cache_axes,
                         cache_specs=cache)
     step = MeshServeStep(prefill_step, 0, mesh, plan, axes, shapes,
                          batch_axes=input_axes(cfg, plan.shape),
@@ -525,6 +589,15 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     batch = (_meta_blocks(step.batch_shardings, specs) if gen is None
              else step.rows(_materialize(specs, cfg, dev, gen)))
     return step, params, batch
+
+
+def _cache_lens(cache) -> dict:
+    """A serving mesh step's cache lengths: the KV cache's slots, and an
+    encoder-decoder's self-attention slots and cross-attention frames."""
+    if isinstance(cache, dict):
+        return dict(cache_len=cache["self"].k.shape[2],
+                    cross_len=cache["cross_k"].shape[2])
+    return dict(cache_len=cache.k.shape[2])
 
 
 def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
@@ -571,9 +644,9 @@ def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     in_axes = input_axes(cfg, plan.shape)
     step = MeshServeStep(serve_step, 1, mesh, plan, axes, shapes,
                          batch_axes=in_axes, batch_specs=specs,
-                         cache_len=specs["cache"].k.shape[2],
                          cache_axes=in_axes["cache"],
-                         cache_specs=specs["cache"])
+                         cache_specs=specs["cache"],
+                         **_cache_lens(specs["cache"]))
     local = (_meta_blocks(step.batch_shardings, specs) if dev.type == "meta"
              else shard_tree(inputs, step.batch_shardings))
     params = (_rank_params(model, step.param_shardings, dtype, dev)

@@ -313,22 +313,32 @@ def decode_attend(p, cfg, x, cache: KVCache, pos):
         cache.v[:, slot - c0] = v_new[:, 0].to(cache.v.dtype)
         cache.pos_ids[slot - c0] = pos
 
-    # GQA-native grouped attention: the rep-expanded K/V never exist;
-    # the query heads here read their kv groups of the cache
-    qg, kc, vc = _decode_groups(q, cache, cfg)
-    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, kc).float()
-    scores = scores / math.sqrt(hd)
     pos_ids = cache.pos_ids
     valid = (pos_ids >= 0) & (pos_ids <= pos)
     if cfg.swa_window is not None:
         valid &= pos_ids > pos - cfg.swa_window
+    return _attend_cached(q, cache.k, cache.v, valid, cfg, split), cache
+
+
+def _attend_cached(q, k, v, valid, cfg, split: bool):
+    """One token's queries ``q`` (B,1,H or this rank's heads,hd) over
+    cached keys and values (B,C,KV or the rank's kv heads,hd) at the
+    slots ``valid`` (C,) marks.  ``split``: the cache holds this rank's
+    slice of the positions and ``q`` every head; the partial softmax
+    statistics are combined over "model" and the output keeps the
+    rank's heads."""
+    b, hd = q.shape[0], cfg.head_dim_
+    # GQA-native grouped attention: the rep-expanded K/V never exist;
+    # the query heads here read their kv groups of the cache
+    qg, kc, vc = _decode_groups(q, k, v, cfg)
+    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, kc).float()
+    scores = scores / math.sqrt(hd)
     scores = scores.masked_fill(~valid[None, None, None, None, :], NEG_INF)
     heads = qg.shape[2] * qg.shape[3]
     if not split:
         w = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bgrqs,bsgd->bqgrd", w, vc).reshape(b, 1, heads,
-                                                                hd)
-        return out, cache
+        return torch.einsum("bgrqs,bsgd->bqgrd", w, vc).reshape(
+            b, 1, heads, hd)
     # the partial softmax over this rank's positions, combined over
     # "model": the max, then the sum beside the weighted values
     m = C.max_over_model(scores.amax(-1, keepdim=True), "decode_max")
@@ -341,32 +351,53 @@ def decode_attend(p, cfg, x, cache: KVCache, pos):
     o = both[den.numel():].reshape(o.shape) / den[..., None]
     out = o.to(q.dtype).reshape(b, 1, heads, hd)
     return constrain_act(out, ("batch", None, "heads", None),
-                         (b, 1, h, hd)), cache
+                         (b, 1, cfg.num_heads, hd))
 
 
-def _decode_groups(q, cache: KVCache, cfg):
-    """``qg`` (B,1,G,R,hd) and the cache's ``k``/``v`` (B,C,G,hd): the
+def cross_decode(p, cfg, x, k, v):
+    """One token's cross-attention (an encoder-decoder's): the normed
+    ``x`` (B,1,D) over the cached keys and values of the encoder frames
+    ``k``/``v`` (B,F,KV,hd).  Returns the heads (B,1,H,hd).  On a rank
+    of a serving mesh the cache's layout decides the attention's, as in
+    :func:`decode_attend`: the rank's kv heads and its query heads (no
+    collective), or its slice of the frames with every head (the
+    queries gathered over "model", the partial softmax combined, the
+    output the rank's heads)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    _, frames = cache_positions(k.shape[1], cross=True)
+    split = k.shape[1] != frames
+    if not split and q.shape[2] == cfg.num_heads:
+        return attend(q, k, v, causal=False)
+    if split:
+        q = constrain_act(q, ("batch", None, None, None),
+                          (q.shape[0], 1, cfg.num_heads, cfg.head_dim_))
+    valid = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+    return _attend_cached(q, k, v, valid, cfg, split)
+
+
+def _decode_groups(q, k, v, cfg):
+    """``qg`` (B,1,G,R,hd) and the cached ``k``/``v`` (B,C,G,hd): the
     query heads ``q`` (all of them, or this rank's block) in groups of
     R that read one kv head each, and those kv heads of the cache (all
     of them, or the rank's block)."""
     b, _, h_loc, hd = q.shape
     rep = cfg.num_heads // cfg.num_kv_heads
     h0 = C.shard_offset(h_loc, cfg.num_heads, "decode heads") or 0
-    kv0 = C.shard_offset(cache.k.shape[2], cfg.num_kv_heads,
+    kv0 = C.shard_offset(k.shape[2], cfg.num_kv_heads,
                          "decode kv heads") or 0
     g0 = h0 // rep - kv0
     if h0 % rep == 0 and h_loc % rep == 0:
         g1 = g0 + h_loc // rep
         return (q.reshape(b, 1, h_loc // rep, rep, hd),
-                cache.k[:, :, g0:g1], cache.v[:, :, g0:g1])
+                k[:, :, g0:g1], v[:, :, g0:g1])
     if rep % h_loc == 0:
         # the heads lie in one group
-        return (q.reshape(b, 1, 1, h_loc, hd), cache.k[:, :, g0:g0 + 1],
-                cache.v[:, :, g0:g0 + 1])
+        return (q.reshape(b, 1, 1, h_loc, hd), k[:, :, g0:g0 + 1],
+                v[:, :, g0:g0 + 1])
     idx = torch.div(torch.arange(h0, h0 + h_loc, device=q.device), rep,
                     rounding_mode="floor") - kv0
-    return (q.reshape(b, 1, h_loc, 1, hd), cache.k.index_select(2, idx),
-            cache.v.index_select(2, idx))
+    return (q.reshape(b, 1, h_loc, 1, hd), k.index_select(2, idx),
+            v.index_select(2, idx))
 
 
 def prefill_into_cache(p, cfg, k, v, cache_len: int) -> KVCache:

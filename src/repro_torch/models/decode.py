@@ -24,6 +24,14 @@ updates the cache in place (see
   plain: whisper serving launches no kernel.  As in the JAX package,
   decode's self-attention applies RoPE (``decode_attend``), which the
   decoder's training forward does not.
+
+On a rank of a serving mesh every attention runs on the rank's heads
+(or, with ``cache_seq_shard``, on its slice of the cache's positions or
+of whisper's frames: :func:`~repro_torch.models.attention.cross_decode`),
+and the cache is filled in the plan's layout.  Under ``seq_shard`` the
+prefill runs on each rank's chunk of the prompt: the chunk is gathered
+before each layer's projections, so the rank's K and V cover every
+position, which the cache takes; the logits are the whole sequence's.
 """
 from __future__ import annotations
 
@@ -38,7 +46,6 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.layers import rms_norm, unembed
 from repro_torch.models.transformer import (
-    _attn_out,
     _ff,
     _lookup_table,
     attn_proj,
@@ -49,11 +56,10 @@ from repro_torch.models.transformer import (
     group_bounds,
     layer,
     output_table,
-    positions_of,
     whisper_encode,
 )
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.constraint import constrain_params
+from repro_torch.sharding.constraint import constrain_act, constrain_params
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -184,22 +190,24 @@ def _xlstm_decode(cfg, params, cache, x):
 
 def _whisper_decode(cfg, params, cache, x, pos):
     dtype = x.dtype
+    dec_pos = constrain_params(params["dec_pos"], "dec_pos")
     if torch.is_tensor(pos):  # a traced position: no read to the host
-        row = params["dec_pos"].index_select(0, pos.reshape(1).long())[0]
+        row = dec_pos.index_select(0, pos.reshape(1).long())[0]
     else:
-        row = params["dec_pos"][pos]
+        row = dec_pos[pos]
     x = x + row.to(dtype)[None, None]
     for i in range(cfg.num_layers):
-        lp = layer(params["dec_blocks"], i)
+        # a mesh rank's data-split blocks are gathered here (ZeRO-3
+        # serving); the attentions run on the rank's heads
+        lp = constrain_params(layer(params["dec_blocks"], i), "dec_blocks")
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         o, _ = A.decode_attend(lp["attn"], cfg, hn, layer(cache["self"], i),
                                pos)
-        x = x + _attn_out(lp["attn"], o)
+        x = x + attn_proj(lp["attn"], cfg, o)
         hn = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", hn, lp["cross"]["wq"].to(dtype))
-        o = A.attend(q, cache["cross_k"][i], cache["cross_v"][i],
-                     causal=False)
-        x = x + _attn_out(lp["cross"], o)
+        o = A.cross_decode(lp["cross"], cfg, hn, cache["cross_k"][i],
+                           cache["cross_v"][i])
+        x = x + attn_proj(lp["cross"], cfg, o, "cross_out")
         ff, _ = _ff(lp, cfg, x, gelu=True)
         x = x + ff
     return x
@@ -248,14 +256,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     cache holds the encoder's frames), ``None``."""
     check_family(cfg)
     if cfg.arch_type == "audio":
-        enc = whisper_encode(cfg, params, batch)
-        cache, _ = init_cache(cfg, enc.shape[0], enc.shape[1],
-                              device=enc.device, dtype=enc.dtype)
-        for i in range(cfg.num_layers):
-            k, v = cross_kv(layer(params["dec_blocks"], i), enc)
-            cache["cross_k"][i].copy_(k)
-            cache["cross_v"][i].copy_(v)
-        return None, cache
+        return None, _whisper_prefill(cfg, params, batch)
     if cfg.arch_type in ("hybrid", "ssm"):
         tokens = batch["tokens"]
         cache, _ = init_cache(cfg, tokens.shape[0], cache_len,
@@ -267,7 +268,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
         return logits, cache
     x = embed_tokens(cfg, _lookup_table(params, None), batch["tokens"],
                      dtype_of(cfg.compute_dtype))
-    positions = positions_of(x)
+    positions = C.seq_positions(x)
     slots = _effective_cache_len(cfg, cache_len)
     caches = []
     for i in range(cfg.num_layers):
@@ -275,6 +276,9 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
         # are gathered here
         lp = constrain_params(layer(params["blocks"], i), "blocks")
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        # under seq_shard the rank's chunk gathered over the sequence:
+        # its heads' K and V cover every position, which the cache takes
+        hn = C.region_in(hn, "attn_in", split=False)
         q, k, v = A.qkv(lp["attn"], cfg, hn, positions, local_kv=False)
         o = A.attention(q, *A.heads_kv(q, k, v, cfg), causal=True,
                         window=cfg.swa_window)
@@ -285,4 +289,34 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     x = rms_norm(x, constrain_params(params["final_norm"], "final_norm"),
                  cfg.norm_eps)
     cache = A.KVCache(*(torch.stack(leaves) for leaves in zip(*caches)))
+    # under seq_shard the whole sequence's logits, as ``forward``'s
+    x = C.region_in(x, "logits_in", split=False)
     return _logits(cfg, params, x), cache
+
+
+def _whisper_prefill(cfg: ModelConfig, params, batch):
+    """Encode the frames once and fill every decoder layer's cross K/V;
+    the self-attention cache starts empty.  On a rank of a serving mesh
+    the cache is put into the plan's layout (:func:`~repro_torch.models.
+    attention.kv_cache_axes`): the rank's kv heads, or its slice of the
+    frames and the self cache's slots (``cache_seq_shard``); under
+    ``seq_shard`` the encoder runs on the rank's chunk of the frames,
+    gathered whole for the cross K/V."""
+    enc = whisper_encode(cfg, params, batch)
+    enc = C.region_in(enc, "enc_out", split=False)
+    b, frames = enc.shape[:2]
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    ax = ("batch", "cache_seq", "kv_heads", None)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = constrain_params(layer(params["dec_blocks"], i), "dec_blocks")
+        k, v = cross_kv(lp, enc)
+        ks.append(constrain_act(k, ax, (b, frames, kv, hd)))
+        vs.append(constrain_act(v, ax, (b, frames, kv, hd)))
+    self_kv = _stacked_kv(cfg.num_layers, b, DECODER_LEN, cfg, enc.dtype,
+                          enc.device)
+    axes = _stacked_kv_axes()
+    self_kv = A.KVCache(*(constrain_act(x, a, x.shape).contiguous()
+                          for x, a in zip(self_kv, axes)))
+    return {"self": self_kv, "cross_k": torch.stack(ks),
+            "cross_v": torch.stack(vs)}

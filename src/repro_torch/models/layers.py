@@ -86,10 +86,13 @@ def build_gelu_mlp(scope, d_model: int, d_ff: int):
     scope.param("b_out", (d_model,), ("embed",), init="zeros")
 
 
-def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+def gelu_mlp(p, x: torch.Tensor, out_bias: bool = True) -> torch.Tensor:
+    """GELU in its tanh form, ``jax.nn.gelu``'s default.  ``out_bias=
+    False`` leaves ``b_out`` out (a row-parallel rank's share, which the
+    caller sums before it adds the bias)."""
     h = F.gelu(_matmul(x, p["w_in"]) + p["b_in"], approximate="tanh")
-    return _matmul(h, p["w_out"]) + p["b_out"]
+    out = _matmul(h, p["w_out"])
+    return out + p["b_out"] if out_bias else out
 
 
 def build_embedding(scope, vocab: int, d_model: int, name: str = "embedding"):

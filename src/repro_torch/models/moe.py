@@ -25,13 +25,57 @@
 
 The router aux loss is the Switch load-balance loss
 ``E · Σ_e f_e · p̄_e / K``, returned beside the output.
+
+On a rank of a (data, model) mesh the layer reads its layout from its
+blocks' shapes, as the JAX package's rules lay them out
+(:mod:`repro_torch.sharding.collectives`):
+
+* the expert split (``expert`` on "model", where the expert count
+  divides it): the router's columns and the experts are the rank's.
+  The (T, E) logits are made whole before the softmax, every rank
+  routes every token the same way and builds the same slots, runs its
+  experts' rows of the buffer and combines only the pairs whose expert
+  it holds (the others at zero);
+* the ``ff`` split (the guard replicates ``expert``): every expert runs
+  column- and row-parallel over its ``ff`` columns, the router whole;
+* the shared experts are column- and row-parallel over ``ff``;
+* the partial outputs (routed and shared) are summed over "model" once
+  (tag ``moe_out``).
+
+Routing always sees the agent's whole token set, as JAX's one global
+computation does: a rank holding a chunk of the sequence
+(``seq_shard``) or a block of the rows (``inner_batch_shard``, or a
+serving batch's rows over the data axes) gathers the tokens first and
+hands back its own part after the combine, so the capacity and the
+dropped pairs are JAX's.  The aux loss comes from the whole
+probabilities and is the same on every rank.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import contextvars
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import collectives as C
+
+_DROPS: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "moe_drops", default=None)
+
+
+@contextlib.contextmanager
+def record_drops():
+    """Collect, per moe layer call in the body, the (T, K) bool mask of
+    the (token, k) pairs past their expert's capacity (on the CPU).  A
+    call under a ``torch.func`` transform cannot be recorded: call the
+    model's forward or loss directly."""
+    token = _DROPS.set([])
+    try:
+        yield _DROPS.get()
+    finally:
+        _DROPS.reset(token)
 
 
 def build_moe(scope, cfg):
@@ -60,7 +104,11 @@ def capacity(num_tokens: int, k: int, num_experts: int, factor: float) -> int:
 def route(p, cfg, xt: torch.Tensor):
     """xt (T, D) -> (probs (T, E) fp32, gates (T, K) renormalized,
     expert ids (T, K)), the top K in descending order of probability."""
-    logits = (xt @ p["router"].to(xt.dtype)).float()
+    return route_logits(cfg, (xt @ p["router"].to(xt.dtype)).float())
+
+
+def route_logits(cfg, logits: torch.Tensor):
+    """:func:`route` from the router's (T, E) fp32 logits."""
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, cfg.moe.experts_per_token, dim=-1)
     return probs, gates / gates.sum(-1, keepdim=True), experts
@@ -86,35 +134,107 @@ def dispatch_slots(experts: torch.Tensor, num_experts: int,
     return torch.empty_like(slot).scatter(0, order, slot)
 
 
+def _router_logits(p, cfg, xt, xst, e0):
+    """The (T, E) fp32 router logits: from the whole router, or where
+    its columns are the rank's (the expert split) from ``xst`` (the
+    tokens whose cotangent the model ranks sum, under tensor
+    parallelism), the rank's columns made whole over "model".  Under
+    tensor parallelism that gather's backward keeps the rank's block of
+    the whole cotangent (every rank's loss is the whole one); where the
+    ranks split the tokens it sums the ranks' shares first."""
+    if e0 is None:
+        return (xt @ p["router"].to(xt.dtype)).float()
+    part = xst @ p["router"].to(xst.dtype)
+    return C.gather_columns(part, e0, cfg.moe.num_experts,
+                            "moe_logits").float()
+
+
+def _whole_tokens(x: torch.Tensor) -> torch.Tensor:
+    """The agent's (a serving batch's) whole token set from this rank's
+    part: its chunk of the sequence gathered (``seq_shard``), its rows
+    of the agent's batch (``inner_batch_shard``) and a serving batch's
+    rows over the data axes; each gather's backward sums the ranks'
+    cotangents and keeps the part."""
+    split = C.tokens_split()
+    if split == "seq":
+        x = C.gather_seq(x, "sp_moe_in")
+    elif split == "rows":
+        x = C.gather_seq(x, "rows_moe_in", dim=0)
+    return C.gather_rows(x)
+
+
+def _own_part(y: torch.Tensor, partial: bool) -> torch.Tensor:
+    """This rank's part of an output over the whole token set: its rows
+    of a serving batch, then summed over "model" where ``partial`` (each
+    rank's share of split weights) and cut to the rank's chunk or rows
+    where the ranks split the tokens."""
+    y = C.own_rows(y)
+    split = C.tokens_split()
+    if split == "rows":
+        return C.seq_chunk(y, 0)
+    if split == "seq":
+        return C.scatter_seq(y, "sp_moe_out") if partial else C.seq_chunk(y)
+    return C.reduce_from_model(y, "tp_moe_out") if partial else y
+
+
 def moe_layer(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  On a mesh rank
+    (the module doc) ``x`` is the rank's part of the tokens and the
+    weights its blocks; the output is the rank's part."""
     moe = cfg.moe
-    b, s, d = x.shape
-    t = b * s
     e, k = moe.num_experts, moe.experts_per_token
+    e0 = C.shard_offset(p["w_gate"].shape[0], e, "moe experts")
+    f0 = C.shard_offset(p["w_gate"].shape[2], moe.d_ff_expert, "moe ff")
+    routed_split = e0 is not None or f0 is not None
+    shared_split = bool(moe.num_shared_experts) and C.shard_offset(
+        p["shared_w_gate"].shape[1],
+        moe.d_ff_expert * moe.num_shared_experts, "moe shared ff") is not None
+    tp = C.tokens_split() is None
+    xw = _whole_tokens(x)
+    # the input of the split weights: its cotangent summed over "model"
+    # under tensor parallelism (each rank's share of it)
+    xs = (C.copy_to_model(xw, "tp_moe_in")
+          if tp and (routed_split or shared_split) else xw)
+    b, s, d = xw.shape
+    t = b * s
     cap = capacity(t, k, e, moe.capacity_factor)
 
-    xt = x.reshape(t, d)
-    probs, gates, experts = route(p, cfg, xt)
+    xt, xst = xw.reshape(t, d), xs.reshape(t, d)
+    probs, gates, experts = route_logits(
+        cfg, _router_logits(p, cfg, xt, xst, e0))
 
     # ---- Switch load-balance aux loss --------------------------------
     hits = (experts[..., None] == torch.arange(e, device=x.device)).float()
     f_e = hits.sum(1).mean(0)  # fraction routed (counting top-k hits)
     p_e = probs.mean(0)
-    aux = e * torch.sum(f_e * p_e) / k
+    aux = C.whole_term(e * torch.sum(f_e * p_e) / k)
+    if tp and routed_split:
+        # each rank's pairs give a share of the gates' cotangent
+        gates = C.copy_to_model(gates, "tp_moe_gates")
 
     # ---- sort-based dispatch: (T·K) pairs -> (E·cap + trash, D) ------
     slot = dispatch_slots(experts, e, cap)
-    pairs = xt.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
-    buf = xt.new_zeros((e * cap + 1, d)).index_copy(0, slot, pairs)
-    buf = buf[:e * cap].reshape(e, cap, d)
+    rec = _DROPS.get()
+    if rec is not None:
+        rec.append((slot == e * cap).reshape(t, k).detach().cpu())
+    src = xst if routed_split else xt
+    e_loc = p["w_gate"].shape[0]
+    if e0 is not None:
+        # the rank's experts' rows of the buffer; every other pair goes
+        # to the trash row
+        slot = slot - e0 * cap
+        slot = torch.where((slot >= 0) & (slot < e_loc * cap), slot,
+                           torch.full_like(slot, e_loc * cap))
+    pairs = src.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
+    buf = src.new_zeros((e_loc * cap + 1, d)).index_copy(0, slot, pairs)
+    buf = buf[:e_loc * cap].reshape(e_loc, cap, d)
 
     # ---- expert compute (active flops only) --------------------------
     gate_h = F.silu(torch.einsum("ecd,edf->ecf", buf,
                                  p["w_gate"].to(buf.dtype)))
     up_h = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(buf.dtype))
     out_buf = torch.einsum("ecf,efd->ecd", gate_h * up_h,
-                           p["w_down"].to(buf.dtype)).reshape(e * cap, d)
+                           p["w_down"].to(buf.dtype)).reshape(e_loc * cap, d)
 
     # ---- combine: each pair's row (0 for a dropped pair), summed over k
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
@@ -122,9 +242,15 @@ def moe_layer(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     out = (gathered * gates.to(xt.dtype)[..., None]).sum(1)
 
     # ---- shared experts (dense path, kimi-k2) ------------------------
+    shared = None
     if moe.num_shared_experts:
-        g = F.silu(xt @ p["shared_w_gate"].to(xt.dtype))
-        out = out + (g * (xt @ p["shared_w_up"].to(xt.dtype))) @ p[
-            "shared_w_down"].to(xt.dtype)
-
-    return out.reshape(b, s, d), aux
+        xh = xst if shared_split else xt
+        g = F.silu(xh @ p["shared_w_gate"].to(xh.dtype))
+        shared = (g * (xh @ p["shared_w_up"].to(xh.dtype))) @ p[
+            "shared_w_down"].to(xh.dtype)
+    if shared is not None and shared_split == routed_split:
+        out, shared = out + shared, None
+    out = _own_part(out.reshape(b, s, d), routed_split)
+    if shared is not None:
+        out = out + _own_part(shared.reshape(b, s, d), shared_split)
+    return out, aux

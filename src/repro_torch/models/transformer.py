@@ -25,11 +25,18 @@ no partitioner to move the rest, on every other leaf the model reads
 (the embedding lookup, ``final_norm``, vlm's ``vision_proj``, zamba2's
 ``shared_attn``, whisper's ``dec_pos`` and ``enc_norm``): with no hook
 installed it is a no-op.  On a (data, model) mesh the hook hands each
-site this rank's model block of the weights, and the dense family's
-layers run tensor-parallel by those blocks' shapes: attention
-column-parallel over the heads and row-parallel out, the SwiGLU over
-its ``ff`` columns, the embedding and the loss over the vocabulary
-(:mod:`repro_torch.sharding.collectives`).  With ``cfg.remat`` each block body is
+site this rank's model block of the weights, and the dense, moe, vlm and
+audio families' layers run tensor-parallel by those blocks' shapes:
+attention column-parallel over the heads and row-parallel out (whisper's
+cross-attention too, over the encoder output made ready once a
+forward: :func:`decoder_memory`), the SwiGLU and the GELU MLP over their
+``ff`` columns (the GELU's ``b_out`` added once, after the sum), the
+experts over the expert axis or their ``ff``
+(:mod:`repro_torch.models.moe`), the embedding and the loss over the
+vocabulary (:mod:`repro_torch.sharding.collectives`).  Under
+``seq_shard`` whisper's encoder runs on each rank's chunk of the
+frames, and phi-3-vision's chunks are of the patch prefix and the
+tokens together (:func:`_prefixed`).  With ``cfg.remat`` each block body is
 rematerialised in the backward
 (:func:`repro_torch.utils.remat.checkpoint`) at the JAX package's
 boundaries: a dense/moe/vlm decoder block, each Mamba2 layer of a
@@ -126,12 +133,12 @@ def _attn_out(p, o):
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
 
 
-def attn_proj(p, cfg, o):
+def attn_proj(p, cfg, o, tag: str = "attn_out"):
     """The output projection of the heads ``o`` (B,S,H,hd): over a model
     axis that splits the heads it is row-parallel, this rank's heads'
     share summed over the ranks (under ``seq_shard`` reduce-scattered to
     the rank's chunk; where the heads are whole there, the chunk)."""
-    return C.region_out(_attn_out(p, o), "attn_out",
+    return C.region_out(_attn_out(p, o), tag,
                         split=p["wo"].shape[0] != cfg.num_heads)
 
 
@@ -158,7 +165,13 @@ def _ff(p, cfg, x, *, gelu: bool = False):
     if cfg.moe is not None:
         return MOE.moe_layer(p["moe"], cfg, h)
     if gelu:
-        return gelu_mlp(p["mlp"], h), 0.0
+        if C.shard_offset(p["mlp"]["w_in"].shape[1], cfg.d_ff,
+                          "gelu mlp") is None:
+            return gelu_mlp(p["mlp"], h), 0.0
+        # column-parallel w_in/b_in, row-parallel w_out; b_out added once,
+        # after the sum
+        out = gelu_mlp(p["mlp"], C.region_in(h, "mlp_in"), out_bias=False)
+        return C.region_out(out, "mlp_out") + p["mlp"]["b_out"], 0.0
     if C.shard_offset(p["mlp"]["w_gate"].shape[1], cfg.d_ff,
                       "swiglu") is None:
         return swiglu(p["mlp"], h), 0.0
@@ -249,11 +262,6 @@ def init(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
 # forward (train / prefill)
 # ======================================================================
 
-def positions_of(x: torch.Tensor) -> torch.Tensor:
-    """(B, S) absolute positions 0 … S−1 of a (B, S, D) activation."""
-    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-
-
 def group_bounds(n_layers: int, every: int):
     """The hybrid's layer groups ``[(start, end), ...]``: the shared
     attention block runs after each."""
@@ -317,12 +325,13 @@ def forward_hidden(cfg: ModelConfig, params, batch, table=None
                      dtype)
     prefix = 0
     if cfg.arch_type == "vlm" and "patch_embeds" in batch:
-        # a site the JAX package leaves to XLA: the patch projection
+        # a site the JAX package leaves to XLA: the patch projection,
+        # which every model rank computes whole
         vp = constrain_params(params["vision_proj"], "vision_proj")
         pe = (batch["patch_embeds"].to(dtype) @ vp["w"].to(dtype)
               + vp["b"].to(dtype))
-        x = torch.cat([pe, x], dim=1)
         prefix = pe.shape[1]
+        x = _prefixed(pe, x)
     positions = C.seq_positions(x)
     aux = 0.0
     if cfg.arch_type == "hybrid":
@@ -365,6 +374,35 @@ def forward_hidden(cfg: ModelConfig, params, batch, table=None
     return x, aux, prefix
 
 
+def _prefixed(pe: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The patch prefix ``pe`` (B, P, D) before the token embeddings
+    ``x``.  Under ``seq_shard`` the chunked sequence is the concatenated
+    P + S one: ``x`` (this rank's chunk of the S tokens) is gathered
+    whole, the prefix put before it, and the rank keeps its chunk of the
+    P + S positions (so every rank's residual stream has (P + S) / n of
+    them, and the positions run over the whole P + S sequence, as in the
+    unsharded model); the loss crops the prefix from the whole hidden
+    and cuts the rank's chunk of the S tokens again
+    (:func:`_crop_prefix`), the chunk its labels are.  The prefix's
+    gradient is each rank's chunk's share, summed over "model" by the
+    gather hook (``vision_proj`` is whole on every rank)."""
+    if C.tokens_split() != "seq":
+        return torch.cat([pe, x], dim=1)
+    # the model axis divides P + S: else the step chunks no sequence
+    # (launch/steps.py ``_tokens_split``)
+    whole = torch.cat([pe, C.gather_seq(x, "sp_prefix_in")], dim=1)
+    return C.seq_chunk(whole)
+
+
+def _crop_prefix(x: torch.Tensor, prefix: int) -> torch.Tensor:
+    """The hidden states of the tokens: the patch prefix cropped (under
+    ``seq_shard``, from the whole P + S sequence gathered over "model",
+    then cut to this rank's chunk of the tokens)."""
+    if C.tokens_split() != "seq":
+        return x[:, prefix:]
+    return C.seq_chunk(C.gather_seq(x, "sp_prefix_out")[:, prefix:])
+
+
 def output_table(cfg: ModelConfig, params):
     if cfg.tie_embeddings or cfg.is_encoder_decoder:
         return constrain_params(params["embedding"], "embedding")
@@ -400,12 +438,17 @@ def cross_kv(lp, enc: torch.Tensor, enc_v: Optional[torch.Tensor] = None):
 
 def whisper_encode(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """The encoder over the (stubbed) frame embeddings -> (B, S_enc, D):
-    sinusoidal positions, non-causal self-attention without RoPE."""
+    sinusoidal positions, non-causal self-attention without RoPE.  Under
+    ``seq_shard`` the frames are this rank's chunk (their positions the
+    chunk's rows of the whole table), and so is the output."""
     dtype = dtype_of(cfg.compute_dtype)
     frames = batch["frame_embeds"].to(dtype)
-    enc = frames + sinusoidal_positions(frames.shape[1], cfg.d_model, dtype,
-                                        frames.device)[None]
-    pos_e = positions_of(enc)
+    pos_e = C.seq_positions(frames)
+    table = sinusoidal_positions(pos_e.shape[1], cfg.d_model, dtype,
+                                 frames.device)
+    if pos_e.shape[1] != frames.shape[1]:
+        table = C.seq_chunk(table, 0)
+    enc = frames + table[None]
 
     def enc_block(lp, h, pos):
         lp = constrain_params(lp, "enc_blocks")
@@ -421,15 +464,53 @@ def whisper_encode(cfg: ModelConfig, params, batch) -> torch.Tensor:
                     cfg.norm_eps)  # a site the JAX package leaves to XLA
 
 
+def decoder_memory(cfg: ModelConfig, enc: torch.Tensor,
+                   kv_heads: int) -> torch.Tensor:
+    """The encoder output as every decoder layer's cross-attention reads
+    it, made ready once per forward (not once per layer): under
+    ``seq_shard`` this rank's chunk gathered whole over "model" (its
+    backward sums the ranks' cotangents and keeps the chunk); under
+    tensor parallelism over split cross-attention kv heads, ``enc`` with
+    its cotangent (each rank's heads' share) summed over "model"; else
+    ``enc``.  ``kv_heads``, the cross-attention's kv heads that this rank
+    count here (a model block of them, or all) tells the layout."""
+    if C.tokens_split() == "seq":
+        return C.gather_seq(enc, "sp_enc_out")
+    if C.shard_offset(kv_heads, cfg.num_kv_heads,
+                      "cross kv heads") is None:
+        return enc
+    return C.copy_to_model(enc, "tp_enc_out")
+
+
+def cross_attn(lp, cfg, hn, enc_v, enc_k, pos):
+    """A decoder layer's cross-attention of the normed ``hn`` (this
+    rank's chunk under ``seq_shard``, gathered over the sequence first)
+    to the encoder output (:func:`decoder_memory`'s, as keys ``enc_k``
+    and values ``enc_v``): the rank's heads, the output projection
+    row-parallel (tag ``cross_out``)."""
+    hn = C.region_in(hn, "cross_in", split=False)
+    q, _, _ = A.qkv(lp["cross"], cfg, hn, pos, rope=False, local_kv=False)
+    k, v = cross_kv(lp, enc_k, enc_v)
+    o = A.attention(q, *A.heads_kv(q, k, v, cfg), causal=False, window=None,
+                    q_block=cfg.attn_q_block)
+    return attn_proj(lp["cross"], cfg, o, "cross_out")
+
+
 def _whisper_hidden(cfg, params, batch, table=None):
     dtype = dtype_of(cfg.compute_dtype)
     enc = whisper_encode(cfg, params, batch)
     tokens = batch["tokens"]
     # a site the JAX package leaves to XLA: dec_pos
     x = embed_tokens(cfg, _lookup_table(params, table), tokens, dtype)
-    dec_pos = constrain_params(params["dec_pos"], "dec_pos")
-    x = x + dec_pos[:tokens.shape[1]].to(dtype)[None]
-    pos_d = positions_of(x)
+    pos_d = C.seq_positions(x)
+    dec_pos = constrain_params(params["dec_pos"], "dec_pos")[
+        :pos_d.shape[1]]
+    if pos_d.shape[1] != x.shape[1]:
+        dec_pos = C.seq_chunk(dec_pos, 0)
+    x = x + dec_pos.to(dtype)[None]
+    # the stacked weights at rest: their kv dim is the model block
+    enc = decoder_memory(cfg, enc,
+                         params["dec_blocks"]["cross"]["wk"].shape[2])
 
     # the encoder output comes into a decoder block twice, for the values
     # and then the keys: a checkpointed block then hands its two
@@ -441,11 +522,7 @@ def _whisper_hidden(cfg, params, batch, table=None):
         hn = rms_norm(h, lp["ln_attn"], cfg.norm_eps)
         h = h + _self_attn(lp, cfg, hn, pos, causal=True, rope=False)
         hn = rms_norm(h, lp["ln_cross"], cfg.norm_eps)
-        q, _, _ = A.qkv(lp["cross"], cfg, hn, pos, rope=False)
-        k, v = cross_kv(lp, enc_k, enc_v)
-        o = A.attention(q, k, v, causal=False, window=None,
-                        q_block=cfg.attn_q_block)
-        h = h + _attn_out(lp["cross"], o)
+        h = h + cross_attn(lp, cfg, hn, enc_v, enc_k, pos)
         ff, _ = _ff(lp, cfg, h, gelu=True)
         return h + ff
 
@@ -468,7 +545,7 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     x, aux, prefix = forward_hidden(cfg, params, batch,
                                     table if tied else None)
     if prefix:
-        x = x[:, prefix:]
+        x = _crop_prefix(x, prefix)
     if x.dtype != table.dtype:
         # the kernel takes one dtype; widening is exact (the JAX loss
         # computes its logits in fp32 either way)

@@ -39,7 +39,17 @@ forward mode), so they run inside the train step's per-agent
   block of the table, and the ranks combine the logsumexps and the gold
   logits;
 * :func:`gather_vocab` — a serving step's logits over the rank's block
-  of the vocabulary, made whole over the model axis.
+  of the vocabulary, made whole over the model axis;
+* :func:`gather_columns` — a moe router's logits over the rank's
+  experts made whole (its backward keeps the rank's block of the
+  cotangent, or where the ranks split the tokens sums their shares
+  first); :func:`whole_term` — a term every rank computes whole from
+  all of an agent's tokens (the router's aux loss) with 1/n of its
+  cotangent on each rank, so the split modes' sums count it once;
+* :func:`gather_rows` / :func:`own_rows` — a serving batch's rows made
+  whole over the data axes (:func:`batch_rows`: the moe router sees the
+  whole batch, as JAX's one global computation does) and the rank's
+  rows again.
 
 The model axis of the running step comes from :func:`tensor_parallel`,
 a context that the mesh step enters for the duration of a call; with no
@@ -407,3 +417,81 @@ def copy_over(x: torch.Tensor, where: Where) -> torch.Tensor:
     """``x`` itself, its cotangent summed over ``where``'s axes: a weight
     that every rank holds whole and uses on its own tokens."""
     return _CopyToModel.apply(x, where)
+
+
+def whole_term(x: torch.Tensor) -> torch.Tensor:
+    """A term that every model rank computes whole, from all of an
+    agent's tokens, while the ranks split the tokens (``seq_shard``,
+    ``inner_batch_shard``): its value, with 1/n of its cotangent on each
+    of the n ranks, so that the sum over "model" that the split modes
+    give every gradient counts it once (a moe layer's aux loss); ``x``
+    itself where the ranks split no tokens."""
+    if tokens_split() is None:
+        return x
+    share = x / model_size()
+    return x.detach() + (share - share.detach())
+
+
+_ROWS: contextvars.ContextVar[Optional[Where]] = contextvars.ContextVar(
+    "batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(where: Optional[Where]):
+    """Run the body with a serving batch's rows split over ``where``'s
+    axes (None: whole here): a layer that must see the whole batch (the
+    moe router's capacity and drops) gathers them
+    (:func:`gather_rows`)."""
+    token = _ROWS.set(where)
+    try:
+        yield where
+    finally:
+        _ROWS.reset(token)
+
+
+def _rows_split() -> bool:
+    """Whether the running serving step's batch rows are split."""
+    where = _ROWS.get()
+    return where is not None and where.mesh.axes_size(where.axes) > 1
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows ``x`` (dim 0) of a serving batch made whole over
+    the batch's axes (the zero-padded block summed: exact; a serving
+    step takes no gradient), else ``x``."""
+    if not _rows_split():
+        return x
+    where = _ROWS.get()
+    n, i = where.mesh.axes_size(where.axes), where.mesh.axes_index(
+        where.axes)
+    b = x.shape[0]
+    return _AllReduce.apply(_pad_dim(x, 0, i * b, (n - 1 - i) * b), where)
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a serving batch that :func:`gather_rows` made
+    whole, else ``x``."""
+    if not _rows_split():
+        return x
+    where = _ROWS.get()
+    n, i = where.mesh.axes_size(where.axes), where.mesh.axes_index(
+        where.axes)
+    b = x.shape[0] // n
+    return x.narrow(0, i * b, b)
+
+
+def gather_columns(x: torch.Tensor, offset: int, whole: int, tag: str
+                   ) -> torch.Tensor:
+    """``x`` ``(T, c)``, this rank's columns ``offset … offset + c − 1``
+    of a ``(T, whole)`` tensor, made whole over "model" (the zero-padded
+    block summed: exact).  Under tensor parallelism every rank's loss is
+    the whole one, and the backward keeps the rank's block of the
+    cotangent (tag ``tp_<tag>``); where the ranks split the tokens each
+    rank's cotangent is its share, and the backward sums them first
+    (``sp_<tag>``)."""
+    axis = _need_axis("gather_columns")
+    t, c = x.shape
+    index, shape = (slice(0, t), slice(offset, offset + c)), (t, whole)
+    if tokens_split() is None:
+        return gather_from_data(x, index, shape, axis.where("tp_" + tag))
+    return gather_model(x, index, shape, axis.where("sp_" + tag))

@@ -85,22 +85,26 @@ def constrain_act(x, logical_axes, whole=None):
     return fn(x, logical_axes, whole) if fn is not None else x
 
 
-def cache_positions(local: int):
+def cache_positions(local: int, cross: bool = False):
     """``(offset, length)``: where this rank's ``local`` cache slots start
     in the whole cache, and the whole cache's length (``(0, local)``
-    unless a serving hook splits the positions over "model")."""
+    unless a serving hook splits the positions over "model").
+    ``cross``: the slots of an encoder-decoder's cross-attention cache
+    (the encoder frames), else of the self-attention cache."""
     fn = _ACT_HOOK.get()
     positions = getattr(fn, "positions", None)
-    return (0, local) if positions is None else positions(local)
+    return (0, local) if positions is None else positions(local, cross)
 
 
-def make_act_hook(mesh, rules, *, cache_len: Optional[int] = None):
+def make_act_hook(mesh, rules, *, cache_len: Optional[int] = None,
+                  cross_len: Optional[int] = None):
     """The activation hook of a serving plan on ``mesh`` (the module
-    doc).  ``cache_len`` is the whole KV cache's length (its slots), for
-    :func:`cache_positions`: the positions are split where the rules put
-    ``cache_seq`` on "model" and the model axis divides them.  A gather
-    is one ``all_reduce`` over "model" of the zero-padded block (tag
-    ``act_gather``)."""
+    doc).  ``cache_len`` is the whole KV cache's length (its slots) and
+    ``cross_len`` an encoder-decoder's cross-attention cache's (its
+    frames), for :func:`cache_positions`: the positions are split where
+    the rules put ``cache_seq`` on "model" and the model axis divides
+    them.  A gather is one ``all_reduce`` over "model" of the
+    zero-padded block (tag ``act_gather``)."""
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding.rules import NamedSharding, resolve_pspec
 
@@ -145,16 +149,20 @@ def make_act_hook(mesh, rules, *, cache_len: Optional[int] = None):
                 f"layout of {tuple(logical_axes)} is {block}")
         return x
 
-    split = (axis is not None and cache_len is not None and bool(
-        resolve_pspec((cache_len,), ("cache_seq",), model_rules, mesh)))
+    def splits(length):
+        return (axis is not None and length is not None and bool(
+            resolve_pspec((length,), ("cache_seq",), model_rules, mesh)))
 
-    def positions(local: int):
-        if not split:
+    split = {False: splits(cache_len), True: splits(cross_len)}
+
+    def positions(local: int, cross: bool = False):
+        whole = cross_len if cross else cache_len
+        if not split[cross]:
             return 0, local
-        if local * n != cache_len:
+        if local * n != whole:
             raise ValueError(f"a cache of {local} slots is not 1/{n} of "
-                             f"the plan's {cache_len}")
-        return axis.index * local, cache_len
+                             f"the plan's {whole}")
+        return axis.index * local, whole
 
     hook.positions = positions
     return hook

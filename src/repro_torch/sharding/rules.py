@@ -27,6 +27,7 @@ JAX state into one) is placed on the mesh with ``shard_tree``.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -288,10 +289,13 @@ class NamedSharding:
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the global ``x`` (a contiguous copy; no
-        communication)."""
+        communication).  Always a copy, also where the block is a
+        contiguous slice: a view would keep the whole tensor's storage
+        alive beside the block."""
         if not spec_axes(self.spec):
             return x
-        return x[self.slices(x.shape)].contiguous()
+        return x[self.slices(x.shape)].clone(
+            memory_format=torch.contiguous_format)
 
     @property
     def axes(self) -> Tuple[str, ...]:
@@ -299,8 +303,8 @@ class NamedSharding:
         used = spec_axes(self.spec)
         return tuple(a for a in self.mesh.axis_names if a in used)
 
-    def gather(self, x_local: torch.Tensor, tag: str = "gather"
-               ) -> torch.Tensor:
+    def gather(self, x_local: torch.Tensor, tag: str = "gather",
+               dst: Optional[int] = None) -> Optional[torch.Tensor]:
         """The global tensor from every rank's block: a collective over
         the group of the spec's axes, which every rank of the mesh calls.
 
@@ -308,8 +312,16 @@ class NamedSharding:
         device (nccl, or gloo on the CPU); else (gloo on CUDA tensors,
         which it reduces only in ``all_reduce`` and ``broadcast``) the
         sum of a zero-filled global buffer that holds this rank's block,
-        exact because every other term is zero."""
+        exact because every other term is zero.
+
+        With ``dst`` (a rank of the mesh) the global tensor is made on
+        that rank alone, on the CPU: every rank sends a host copy of its
+        block there over the mesh's ``cpu_group`` (each block crosses
+        once, where the zero-filled sum moves the whole tensor through
+        every rank's host); the other ranks get None."""
         axes = self.axes
+        if dst is not None:
+            return self._gather_to(x_local.detach().cpu(), tag, dst)
         if not axes or self.mesh.axes_size(axes) == 1:
             return x_local
         shape = tuple(d * self._count(a) for d, a in zip(
@@ -327,6 +339,26 @@ class NamedSharding:
             for a, n in zip(reversed(axes), reversed(sizes)):
                 coords[a] = r % n
                 r //= n
+            peer = NamedSharding(_AtCoords(self.mesh, coords), self.spec)
+            out[peer.slices(shape)] = part
+        return out
+
+    def _gather_to(self, block: torch.Tensor, tag: str, dst: int
+                   ) -> Optional[torch.Tensor]:
+        """:meth:`gather` to rank ``dst`` of a CPU ``block``."""
+        if not self.axes:
+            return block if self.mesh.rank == dst else None
+        parts = self.mesh.gather_cpu(block, dst, tag)
+        if parts is None:
+            return None
+        shape = tuple(d * self._count(a) for d, a in zip(
+            block.shape, self._entries(block.ndim)))
+        out = block.new_empty(shape)
+        names, sizes = self.mesh.axis_names, self.mesh.axis_sizes
+        for r, part in enumerate(parts):
+            # rank r's coordinates, row-major over the mesh's axes
+            coords = {a: (r // math.prod(sizes[i + 1:])) % sizes[i]
+                      for i, a in enumerate(names)}
             peer = NamedSharding(_AtCoords(self.mesh, coords), self.spec)
             out[peer.slices(shape)] = part
         return out
@@ -357,8 +389,18 @@ def shard_tree(tree, shardings):
                     else sh.local(x), shardings, tree)
 
 
-def gather_tree(tree, shardings, tag: str = "gather"):
+def gather_tree(tree, shardings, tag: str = "gather",
+                dst: Optional[int] = None):
     """The global tree from every rank's blocks (a collective per
-    sharded leaf, which every rank calls in the same order)."""
-    return tree_map(lambda sh, x: x if sh is None or x is None
-                    else sh.gather(x, tag), shardings, tree)
+    sharded leaf, which every rank calls in the same order); with
+    ``dst``, on that rank's CPU alone (:meth:`NamedSharding.gather`),
+    None on the other ranks (a leaf without a sharding is copied to the
+    CPU on every rank)."""
+    def one(sh, x):
+        if x is None:
+            return None
+        if sh is None:
+            return x if dst is None else x.detach().cpu()
+        return sh.gather(x, tag, dst)
+
+    return tree_map(one, shardings, tree)

@@ -32,6 +32,7 @@ own tests' gaps over the step's largest update (hybrid 2.5e-4, xlstm
 2.5e-5, whisper 1e-5 of the whole step: its cross-attention's
 cancellation).
 """
+import dataclasses
 import functools
 import json
 import os
@@ -81,9 +82,10 @@ FAMILIES = {"mixtral-8x7b": 1e-5, "zamba2-1.2b": 2.5e-4,
 
 
 def _job(policy, fsdp, fleet, *, arch="smollm-135m", cfg=None, model=2,
-         m=2, steps=STEPS, remat=False):
+         m=2, steps=STEPS, remat=False, seq=SEQ):
     return dict(arch=arch, cfg=cfg or {}, model=model, m=m, policy=policy,
-                fsdp=fsdp, fleet_shard=fleet, steps=steps, remat=remat)
+                fsdp=fsdp, fleet_shard=fleet, steps=steps, remat=remat,
+                seq=seq)
 
 
 def _jobs():
@@ -107,29 +109,38 @@ def _jobs():
 JOBS = _jobs()
 
 
+def jax_config(arch, cfg_items):
+    """JAX's reduced ``arch`` with the overrides ``cfg_items`` (a
+    ``"moe"`` entry holds the moe sub-config's, as sorted items)."""
+    over = dict(cfg_items)
+    jcfg = jreduced(jget(arch))
+    if "moe" in over:
+        over["moe"] = dataclasses.replace(jcfg.moe, **dict(over["moe"]))
+    return jcfg.replace(**over)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(arch, cfg_items):
-    jcfg = jreduced(jget(arch)).replace(**dict(cfg_items))
-    jm = jbuild(jcfg)
+    jm = jbuild(jax_config(arch, cfg_items))
     return jm, jax.device_get(jm.init(jax.random.key(0))[0])
 
 
 def _key(job):
     return (job["arch"], tuple(sorted(job["cfg"].items())), job["policy"],
-            job["m"])
+            job["m"], job["seq"])
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_chain(key):
     """The JAX package's unsharded step from its initial state over STEPS
     batches: ``(batches, states, metrics)``."""
-    arch, cfg_items, policy, m = key
+    arch, cfg_items, policy, m, seq = key
     jm, jp = _jax_model(arch, cfg_items)
     jcfg = JTrainConfig(lr=LR, optimizer="sgd", num_agents=m, comm=policy)
     jo = jopt.from_config(jcfg)
     step = jax.jit(jmake(jm.loss_fn, jo, jcfg,
                          options=JStepOptions(agent_metrics=True)))
-    shape = JShape("mesh", SEQ, m * PER, "train")
+    shape = JShape("mesh", seq, m * PER, "train")
     batches, states, metrics = [], [jinit(jp, jo, jcfg)], []
     for k in range(STEPS):
         b = jax.device_get(JD.lm_batch(jm.cfg, shape,
@@ -146,7 +157,7 @@ def _jax_chain(key):
 def _jax_terms(key, k):
     """Each agent's ``g + ef`` and lookahead gain at the chain's state k
     (the JAX package's values, to vet an int8 element or a decision)."""
-    arch, cfg_items, _, _ = key
+    arch, cfg_items, _, _, _ = key
     jm, _ = _jax_model(arch, cfg_items)
     batches, states, _ = _jax_chain(key)
 
@@ -519,12 +530,13 @@ def test_named_sharding_gathers_by_both_methods(runs):
     neither.  It picks its collective by the backend and the tensor's
     device: gloo on these CPU tensors runs ``all_gather``, a replicated
     spec none (the zero-filled ``all_reduce``, gloo on CUDA tensors,
-    runs in the card's ``[mesh]`` phase)."""
+    runs in the card's ``[mesh]`` phase).  With ``dst`` the blocks go to
+    that rank alone (the card's holds gather so), None elsewhere."""
     for r in runs[0]:
         got = r["gather_methods"]
         assert len(got) == 5, got
-        for spec, (same, kinds) in got.items():
-            assert same, spec
+        for spec, (same, kinds, to_dst) in got.items():
+            assert same and to_dst, spec
             assert kinds == ([] if spec == "PartitionSpec()"
                              else ["all-gather"]), (spec, kinds)
 

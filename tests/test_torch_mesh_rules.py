@@ -229,18 +229,53 @@ def test_constraint_hooks_without_a_mesh_are_no_ops():
 
 
 def test_tensor_parallelism_beyond_dense_raises_with_its_pointer():
-    """A model axis > 1 with a family other than dense: the next item."""
+    """A model axis > 1 with the hybrid or the ssm family (the families
+    whose tensor parallelism is not ported yet): the next item."""
     from repro_torch.configs import reduced
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps as S
 
     mesh = Mesh(("data", "model"), (2, 2), (0, 0))
     shape = InputShape("t", 16, 4, "train")
-    for arch in ("mixtral-8x7b", "zamba2-1.2b", "whisper-medium"):
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
         plan = S.plan_run(reduced(get_config(arch)), shape, mesh)
         with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
             S.build_train_step(plan, compute_dtype="float32", device="cpu",
                                mesh=mesh)
+
+
+@pytest.mark.parametrize("arch,seq,cfg,split", [
+    ("whisper-medium", 449, {}, None),   # 448 tokens divide, frames not
+    ("whisper-medium", 450, {}, "seq"),
+    ("phi-3-vision-4.2b", 16, {"num_patches": 15}, None),   # 31 positions
+    ("phi-3-vision-4.2b", 16, {}, "seq"),
+])
+def test_seq_shard_guard_takes_the_whole_sequence(arch, seq, cfg, split):
+    """``seq_shard`` chunks a family's sequence only where the model axis
+    divides all of it (whisper's frames and tokens; the vlm's patches
+    and tokens together): elsewhere the train and prefill steps keep
+    every sequence of the batch whole on the model ranks."""
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as S
+
+    mesh = Mesh(("data", "model"), (2, 2), (0, 1))
+    plan = S.plan_run(reduced(get_config(arch)).replace(**cfg),
+                      InputShape("t", seq, 4, "train"), mesh, num_agents=2,
+                      seq_shard=True)
+    train = S.build_train_step(plan, compute_dtype="float32", device="cpu",
+                               mesh=mesh)
+    prefill, _, _ = S.build_prefill_step(plan, compute_dtype="float32",
+                                         device="meta", mesh=mesh,
+                                         init_params=False)
+    assert prefill.split == split
+    for step in (train, prefill):
+        chunked = {k for k, sh in step.batch_shardings.items()
+                   if "model" in tuple(sh.spec)}
+        assert chunked == (set() if split is None else
+                           {"tokens", "labels"} | ({"frame_embeds"}
+                                                   if "whisper" in arch
+                                                   else set())), chunked
 
 
 def test_collectives_are_identities_without_a_model_axis():

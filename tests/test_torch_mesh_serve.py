@@ -364,8 +364,8 @@ def test_jax_decode_on_the_explicit_mesh_is_pinned(runs):
 def test_plan_and_one_rank_mesh():
     """``plan_run(cache_seq_shard=True)`` moves the cache's positions onto
     "model" and takes it from ``decode_heads``; a mesh of one rank keeps
-    the one-card steps; a model axis with another family than the dense
-    raises, as training does."""
+    the one-card steps; a model axis with the hybrid family (whose
+    tensor parallelism is not ported) raises, as training does."""
     cfg = reduced(get_config("smollm-135m"))
     mesh = Mesh(("data", "model"), (2, 2))
     plan = S.plan_run(cfg, InputShape("d", CACHE, B, "decode"), mesh,
@@ -374,16 +374,16 @@ def test_plan_and_one_rank_mesh():
     assert plan.rules["decode_heads"] is None
     assert plan.rules == resolve_rules(mesh, cache_seq_shard=True)
     one = Mesh(("data", "model"), (1, 1))
-    moe = reduced(get_config("mixtral-8x7b"))
+    hybrid = reduced(get_config("zamba2-1.2b"))
     for build in (S.build_prefill_step, S.build_serve_step):
         kind = "prefill" if build is S.build_prefill_step else "decode"
         step, params, _ = build(S.plan_run(cfg, InputShape(
             "d", CACHE, B, kind)), compute_dtype="float32", device="meta",
             mesh=one)
         assert not isinstance(step, S.MeshServeStep)
-        # tensor parallelism outside the dense family: the next item
+        # tensor parallelism for the hybrid family: the next item
         with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
-            build(S.plan_run(moe, InputShape("d", CACHE, B, kind), mesh),
+            build(S.plan_run(hybrid, InputShape("d", CACHE, B, kind), mesh),
                   compute_dtype="float32", device="meta", mesh=mesh)
 
 

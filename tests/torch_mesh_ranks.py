@@ -8,6 +8,8 @@ mesh), imports nothing of JAX, and returns numpy copies of the gathered
 package.  Inputs arrive as numpy arrays drawn by the test from JAX's
 keys: the global parameters and the global batches.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -69,6 +71,16 @@ def _np_tree(tree):
         for path, x in tree_flatten_with_path(tree)}
 
 
+def config(arch, overrides):
+    """The port's reduced ``arch`` with ``overrides`` (a ``"moe"`` entry
+    holds the moe sub-config's, as sorted items)."""
+    over = dict(overrides)
+    cfg = reduced(get_config(arch))
+    if "moe" in over:
+        over["moe"] = dataclasses.replace(cfg.moe, **dict(over["moe"]))
+    return cfg.replace(**over)
+
+
 def _rest_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
@@ -88,10 +100,11 @@ def train_run(base, job):
     coordinates."""
     _count_plain_calls()
     mesh = _mesh(base, job["model"])
-    cfg = reduced(get_config(job.get("arch", "smollm-135m"))).replace(
-        **job.get("cfg", {}))
+    cfg = config(job.get("arch", "smollm-135m"), job.get("cfg", {}))
     batches = job["batches"]
-    m, per, seq = batches[0]["labels"].shape
+    m, per = batches[0]["labels"].shape[:2]
+    # the shape's sequence: whisper's frames (its tokens are at most 448)
+    seq = batches[0].get("frame_embeds", batches[0]["labels"]).shape[2]
     shape = InputShape("mesh", seq, m * per, "train")
     plan = S.plan_run(cfg, shape, mesh, num_agents=m, comm=job["policy"],
                       lr=job["lr"], fsdp=job["fsdp"],
@@ -142,30 +155,35 @@ def train_run(base, job):
 
 
 def serve_run(base, job):
-    """``job``: cfg overrides, fsdp, cache_seq_shard, the global
-    parameters (numpy), the prompt ``(B, S)`` and the teacher-forced
-    decode tokens ``(B, T)`` and the cache length.  Runs the mesh
-    prefill (with its cache) and T decode steps.  Returns the prefill's
-    and each decode step's logits (gathered over the batch's rows), the
-    gathered cache and this rank's cache block after the prefill and
-    after the last step, the collectives by tag of the prefill and of
-    the last decode step, the kernel launches of each and this rank's
-    coordinates."""
+    """``job``: the arch (default smollm-135m) and cfg overrides, fsdp,
+    cache_seq_shard and, for the prefill, seq_shard; the global
+    parameters (numpy), the prompt ``(B, S)`` (for whisper the frames
+    ``(B, F, D)``, whose count is the cross cache's) and the
+    teacher-forced decode tokens ``(B, T)``, the cache length and the
+    first decode position (default S).  Runs the mesh prefill (with its
+    cache) and T decode steps.  Returns the prefill's and each decode
+    step's logits (gathered over the batch's rows; whisper's prefill
+    has none), the gathered cache and this rank's cache block after the
+    prefill and after the last step, the collectives by tag of the
+    prefill and of each decode step, the kernel launches of each and
+    this rank's coordinates."""
     _count_plain_calls()
     mesh = _mesh(base, 2)
-    cfg = reduced(get_config("smollm-135m")).replace(**job["cfg"])
+    cfg = config(job.get("arch", "smollm-135m"), job["cfg"])
     prompt = torch.from_numpy(job["prompt"])
     toks = torch.from_numpy(job["decode"])
-    b, s = prompt.shape
+    b, s = prompt.shape[:2]
+    audio = cfg.is_encoder_decoder
     knobs = dict(fsdp=job["fsdp"], cache_seq_shard=job["cache_seq_shard"])
     pstep, _, _ = S.build_prefill_step(
-        S.plan_run(cfg, InputShape("serve", s, b, "prefill"), mesh, **knobs),
+        S.plan_run(cfg, InputShape("serve", s, b, "prefill"), mesh,
+                   seq_shard=job.get("seq_shard", False), **knobs),
         compute_dtype="float32", device="cpu", mesh=mesh,
-        cache_len=job["cache_len"])
+        cache_len=job["cache_len"], init_params=False)
     dstep, _, _ = S.build_serve_step(
         S.plan_run(cfg, InputShape("serve", job["cache_len"], b, "decode"),
                    mesh, **knobs),
-        compute_dtype="float32", device="cpu", mesh=mesh)
+        compute_dtype="float32", device="cpu", mesh=mesh, init_params=False)
     params = shard_tree(convert.to_torch(job["params"], "cpu"),
                         pstep.param_shardings)
     out = {"coords": mesh.coords, "logits": [], "launches": [],
@@ -179,17 +197,54 @@ def serve_run(base, job):
         out["by_tag"].append(mesh.collectives.by_tag())
         return res
 
-    logits, cache = run(pstep, params, {"tokens": prompt})
+    logits, cache = run(pstep, params, {"frame_embeds" if audio
+                                        else "tokens": prompt})
     out["cache_prefill"] = _np_tree(gather_tree(cache, dstep.cache_shardings))
     out["block_prefill"] = _np_tree(cache)
-    out["logits"].append(pstep.logits_sharding.gather(logits).numpy())
+    if logits is not None:
+        out["logits"].append(pstep.logits_sharding.gather(logits).numpy())
+    pos0 = job.get("pos0", s)
     for t in range(toks.shape[1]):
         logits, cache = run(dstep, params, cache, toks[:, t:t + 1],
-                            torch.tensor(s + t, dtype=torch.int32))
+                            torch.tensor(pos0 + t, dtype=torch.int32))
         out["logits"].append(dstep.logits_sharding.gather(logits).numpy())
     out["cache"] = _np_tree(gather_tree(cache, dstep.cache_shardings))
     out["block"] = _np_tree(cache)
     return out
+
+
+def moe_drops_run(base, job):
+    """``job``: arch, cfg overrides, ``plan_run``'s knobs, the global
+    parameters and one global batch (numpy).  Runs the model's loss of
+    each of this rank's agents on its part of the tokens under the mesh
+    step's context (no ``torch.func`` transform, so the moe layers'
+    dropped pairs can be recorded) and returns, per agent, each layer's
+    (T, K) mask of the dropped (token, k) pairs over the agent's whole
+    token set, with the agents' indices and the step's split."""
+    from repro_torch.models import build
+    from repro_torch.models import moe as MOE
+
+    mesh = _mesh(base, 2)
+    cfg = config(job["arch"], job["cfg"])
+    batch = convert.to_torch(job["batch"], "cpu")
+    m, per, seq = batch["labels"].shape
+    plan = S.plan_run(cfg, InputShape("mesh", seq, m * per, "train"), mesh,
+                      num_agents=m, fsdp=False, **job["knobs"])
+    step = S.build_train_step(plan, compute_dtype="float32", device="cpu",
+                              mesh=mesh)
+    pl = step.placement
+    params = shard_tree(convert.to_torch(job["params"], "cpu"),
+                        pl.param_shardings)
+    local = pl.local_rows(batch)
+    model = build(cfg.replace(compute_dtype="float32"))
+    drops = []
+    for a in range(local["labels"].shape[0]):
+        with pl.active(), MOE.record_drops() as rec:
+            model.loss_fn(params, {k: v[a] for k, v in local.items()})
+        drops.append([r.numpy() for r in rec])
+    return {"agents": list(pl.agents), "drops": drops,
+            "split": pl.model_axis.split,
+            "tokens": list(local["tokens"].shape)}
 
 
 def prefill_run(base, job):
@@ -200,7 +255,7 @@ def prefill_run(base, job):
     split and this rank's tokens' shape."""
     _count_plain_calls()
     mesh = _mesh(base, 2)
-    cfg = reduced(get_config("smollm-135m")).replace(**job["cfg"])
+    cfg = config(job.get("arch", "smollm-135m"), job["cfg"])
     prompt = torch.from_numpy(job["prompt"])
     b, s = prompt.shape
     step, _, _ = S.build_prefill_step(
@@ -302,9 +357,15 @@ def epilogue_forms(base, job):
 def gather_methods(base, model):
     """Every rank's block of seeded global tensors under several specs,
     gathered back by ``NamedSharding.gather`` (on these CPU tensors
-    gloo's ``all_gather``); per spec, whether it gives the global tensor
-    and the collective kinds it logged."""
-    from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+    gloo's ``all_gather``) and by ``gather_tree(..., dst=1)`` (each
+    block sent to rank 1 alone); per spec, whether the first gives the
+    global tensor and the collective kinds it logged, and whether the
+    second gives it on rank 1 and None on the others."""
+    from repro_torch.sharding.rules import (
+        NamedSharding,
+        PartitionSpec,
+        gather_tree,
+    )
 
     mesh = _mesh(base, model)
     x = torch.randn(8, 4, 12, generator=torch.Generator().manual_seed(3))
@@ -317,7 +378,10 @@ def gather_methods(base, model):
         block = sh.local(x)
         mesh.collectives.reset()
         same = torch.equal(sh.gather(block), x)
-        out[repr(spec)] = (same, sorted(mesh.collectives.stats()))
+        kinds = sorted(mesh.collectives.stats())
+        to1 = gather_tree({"x": block}, {"x": sh}, dst=1)["x"]
+        out[repr(spec)] = (same, kinds, torch.equal(to1, x)
+                           if mesh.rank == 1 else to1 is None)
     return out
 
 
