@@ -15,10 +15,11 @@ one card or on one rank of a (data, model) mesh (port of
   dim over the data axes.  ``cache_seq_shard`` moves the KV cache's
   positions onto "model" (flash-decoding: the decode attention's heads
   give it up).  ``seq_shard`` puts the sequence on "model" (each model
-  rank holds its chunk: sequence parallelism in the dense, moe, vlm and
-  audio families, train and prefill, a prefill that fills a KV cache
-  too; a no-op where the whole sequence does not divide: whisper's
-  frames or tokens, the vlm's patches and tokens together) and
+  rank holds its chunk: sequence parallelism in every family, train
+  and prefill, a prefill that fills a KV cache too; a no-op where the
+  whole sequence does not divide: whisper's frames or tokens, the vlm's
+  patches and tokens together; and for the hybrid's and ssm's prefill
+  that fills a cache, which replays the whole prompt) and
   ``inner_batch_shard`` each agent's batch rows
   (each model rank computes on its rows with the weights gathered whole
   at use: the model axis as data parallelism within an agent).  With no
@@ -46,8 +47,7 @@ one card or on one rank of a (data, model) mesh (port of
 On a mesh the agents live on the data axes and the model ranks of one
 data coordinate hold the same agents; tensor parallelism over "model"
 splits the heads, kv heads, ``ff`` columns, experts and vocabulary of
-the dense, moe, vlm and audio families (the divisibility guard
-replicates what does not divide; the hybrid and ssm families raise);
+every family (the divisibility guard replicates what does not divide);
 the parameters and optimizer state at rest are each rank's blocks
 (:mod:`repro_torch.sharding.placement`).  Every agent's gradient and
 lookahead probe run batched on the rank's device, through the
@@ -93,7 +93,6 @@ from repro_torch.sharding.rules import (
     tree_shardings,
 )
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.todo import todo
 from repro_torch.utils.tree import tree_flatten_with_path, tree_map
 
 FSDP_PARAM_THRESHOLD = 20e9
@@ -225,20 +224,6 @@ def _tokens_split(batch_axes, batch_specs, batch_shardings, mesh):
     return None, out
 
 
-# the families whose blocks run tensor-parallel over a "model" axis
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "vlm", "audio")
-
-
-def _check_tensor_parallel(cfg: ModelConfig, mesh) -> None:
-    """Tensor parallelism is ported for the dense, moe (its experts or
-    their ``ff`` columns), vlm and audio families: a model axis with the
-    hybrid or ssm family raises."""
-    if (mesh.shape.get("model", 1) > 1
-            and cfg.arch_type not in TENSOR_PARALLEL_FAMILIES):
-        raise todo(f"tensor parallelism for the {cfg.arch_type} family",
-                   "queue 1 item 11.2")
-
-
 class MeshTrainStep:
     """A rank's ``step(state, batch, scale=None, chan_scale=None) ->
     (state, metrics)`` on a mesh, with the layouts the caller needs:
@@ -292,12 +277,12 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     the JAX package's, ``"switch"`` or ``"unroll"``), on one card and on
     the mesh.
 
-    Tensor parallelism (a "model" axis larger than 1) is ported for the
+    Tensor parallelism (a "model" axis larger than 1) runs every family:
     dense, moe (the expert axis, or each expert's ``ff`` where the guard
-    replicates it), vlm and audio families, with ``seq_shard`` and
-    ``inner_batch_shard``; the hybrid and ssm families run on a
-    data-only mesh (with ``fsdp`` or without), and a model axis with
-    them raises.
+    replicates it), vlm, audio, hybrid (zamba2's Mamba2 layers on the
+    rank's heads, its shared attention block as the dense one's) and ssm
+    (xlstm's mLSTM on the rank's heads, its sLSTM recurrence whole on
+    every rank), with ``seq_shard`` and ``inner_batch_shard``.
     ``fleet_shard=True`` runs the fleet-sharded step
     (:func:`repro_torch.sharding.agent_shard.make_sharded_train_step`):
     the gateways are the data coordinates.  ``agent_metrics`` adds the
@@ -315,7 +300,6 @@ def build_train_step(plan: RunPlan, *, compute_dtype: str,
     from repro_torch.sharding.placement import Placement
 
     dev = resolve_device(device)
-    _check_tensor_parallel(cfg, mesh)
     shapes, axes = model.init(abstract=True, dtype=pdt)
     tcfg = plan.train_cfg
     batch_axes = input_axes(cfg, plan.shape, num_agents=tcfg.num_agents)
@@ -549,7 +533,11 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
     too: the cache holds every position of the rank's kv heads, or
     under ``cache_seq_shard`` every head at its positions) and the
     logits are the whole sequence's.  A moe model routes the whole
-    batch (its rows gathered over the data axes)."""
+    batch (its rows gathered over the data axes).  The hybrid and ssm
+    families' prefill with ``cache_len`` replays the whole prompt through
+    the rank's decode step (``seq_shard`` chunks nothing there), and
+    fills the states and the shared block's KV cache in the plan's
+    layout."""
     cfg = plan.cfg.replace(compute_dtype=compute_dtype)
     model = build(cfg)
     dev = resolve_device(device)
@@ -570,7 +558,6 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
         params = _params(model, dtype, dev) if init_params else None
         batch = specs if gen is None else _materialize(specs, cfg, dev, gen)
         return prefill_step, params, batch
-    _check_tensor_parallel(cfg, mesh)
     shapes, axes = model.init(abstract=True, dtype=dtype)
     cache_kw = {}
     if cache_len is not None:
@@ -581,9 +568,15 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
             device="meta", dtype=dtype)
         cache_kw = dict(_cache_lens(cache), cache_axes=cache_axes,
                         cache_specs=cache)
+    batch_axes = input_axes(cfg, plan.shape)
+    if cache_len is not None and cfg.arch_type in ("hybrid", "ssm"):
+        # the recurrent prefill replays the prompt token by token: every
+        # model rank takes the whole prompt
+        batch_axes = {k: tuple(None if a == "seq" else a for a in ax)
+                      for k, ax in batch_axes.items()}
     step = MeshServeStep(prefill_step, 0, mesh, plan, axes, shapes,
-                         batch_axes=input_axes(cfg, plan.shape),
-                         batch_specs=specs, **cache_kw)
+                         batch_axes=batch_axes, batch_specs=specs,
+                         **cache_kw)
     params = (_rank_params(model, step.param_shardings, dtype, dev)
               if init_params else None)
     batch = (_meta_blocks(step.batch_shardings, specs) if gen is None
@@ -592,12 +585,19 @@ def build_prefill_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
 
 
 def _cache_lens(cache) -> dict:
-    """A serving mesh step's cache lengths: the KV cache's slots, and an
-    encoder-decoder's self-attention slots and cross-attention frames."""
-    if isinstance(cache, dict):
+    """A serving mesh step's cache lengths, from any layout
+    ``init_cache`` returns: the KV cache's slots; an encoder-decoder's
+    self-attention slots and cross-attention frames; the hybrid's shared
+    attention block's slots; none for the ssm, whose states hold no
+    positions."""
+    if not isinstance(cache, dict):
+        return dict(cache_len=cache.k.shape[2])
+    if "cross_k" in cache:
         return dict(cache_len=cache["self"].k.shape[2],
                     cross_len=cache["cross_k"].shape[2])
-    return dict(cache_len=cache.k.shape[2])
+    if "attn" in cache:
+        return dict(cache_len=cache["attn"].k.shape[2])
+    return {}
 
 
 def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
@@ -639,7 +639,6 @@ def build_serve_step(plan: RunPlan, *, compute_dtype: str = "bfloat16",
         return serve_step, (_params(model, dtype, dev) if init_params
                             else None), (
             inputs["cache"], inputs["tokens"], inputs["pos"])
-    _check_tensor_parallel(cfg, mesh)
     shapes, axes = model.init(abstract=True, dtype=dtype)
     in_axes = input_axes(cfg, plan.shape)
     step = MeshServeStep(serve_step, 1, mesh, plan, axes, shapes,

@@ -28,10 +28,14 @@ updates the cache in place (see
 On a rank of a serving mesh every attention runs on the rank's heads
 (or, with ``cache_seq_shard``, on its slice of the cache's positions or
 of whisper's frames: :func:`~repro_torch.models.attention.cross_decode`),
-and the cache is filled in the plan's layout.  Under ``seq_shard`` the
-prefill runs on each rank's chunk of the prompt: the chunk is gathered
-before each layer's projections, so the rank's K and V cover every
-position, which the cache takes; the logits are the whole sequence's.
+and the cache is filled in the plan's layout; so do zamba2's Mamba2
+layers and xlstm's mLSTM, whose states are the rank's heads (and ``ff``
+columns), while the sLSTM's states are whole on every rank.  Under
+``seq_shard`` the prefill runs on each rank's chunk of the prompt: the
+chunk is gathered before each layer's projections, so the rank's K and
+V cover every position, which the cache takes; the logits are the whole
+sequence's.  The recurrent prefill replays the whole prompt (the plan's
+``seq_shard`` chunks nothing there: ``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.constraint import constrain_act, constrain_params
+from repro_torch.sharding.rules import map_axes
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -152,12 +157,14 @@ def _attn_block_decode(lp, cfg, x, cache_l, pos):
 
 
 def _hybrid_decode(cfg, params, cache, x, pos):
-    shared = params["shared_attn"]
+    # sites the JAX package leaves to XLA: a mesh rank's data-split
+    # blocks are gathered where each layer and the shared block are read
+    shared = constrain_params(params["shared_attn"], "shared_attn")
     mamba = cache["mamba"]
     for site, (s, e) in enumerate(group_bounds(cfg.num_layers,
                                                cfg.shared_attn_every)):
         for i in range(s, e):
-            lp = layer(params["blocks"], i)
+            lp = constrain_params(layer(params["blocks"], i), "blocks")
             y, st = SSM.mamba2_decode_step(
                 lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps),
                 layer(mamba, i))
@@ -172,7 +179,9 @@ def _hybrid_decode(cfg, params, cache, x, pos):
 def _xlstm_decode(cfg, params, cache, x):
     mst, sst = cache["mlstm"], cache["slstm"]
     for i in range(cfg.num_layers // 2):
-        lp = layer(params["pairs"], i)
+        # JAX decode.py's scan body: a mesh rank's data-split blocks are
+        # gathered here
+        lp = constrain_params(layer(params["pairs"], i), "pairs")
         y, m_new = XL.mlstm_decode_step(
             lp["mlstm"], cfg, rms_norm(x, lp["ln_m"], cfg.norm_eps),
             layer(mst, i))
@@ -259,8 +268,14 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
         return None, _whisper_prefill(cfg, params, batch)
     if cfg.arch_type in ("hybrid", "ssm"):
         tokens = batch["tokens"]
-        cache, _ = init_cache(cfg, tokens.shape[0], cache_len,
-                              device=tokens.device)
+        cache, axes = init_cache(cfg, tokens.shape[0], cache_len,
+                                 device=tokens.device)
+        # on a rank of a serving mesh, the states and the shared block's
+        # KV cache in the plan's layout (the rank's heads, ff columns, kv
+        # heads or positions)
+        cache = map_axes(
+            lambda a, x: constrain_act(x, a, x.shape).contiguous(), axes,
+            cache)
         logits = None
         for t in range(tokens.shape[1]):
             logits, cache = decode_step(cfg, params, cache,

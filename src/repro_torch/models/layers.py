@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import collectives as C
 from repro_torch.utils.remat import checkpoint
 
 
@@ -20,6 +21,24 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, whole: int,
+                   tag: str, eps: float = 1e-5):
+    """``rms_norm`` over a last dim of size ``whole`` of which ``x`` and
+    ``weight`` hold this rank's block (a model axis splits it): the sum
+    of squares summed over "model", forward and backward
+    (:func:`repro_torch.sharding.collectives.sum_over_model`: each rank's
+    cotangent of it comes from its own block, so an identity backward
+    would give a right forward and a wrong gradient); ``rms_norm``
+    where ``x`` is whole."""
+    if x.shape[-1] == whole:
+        return rms_norm(x, weight, eps)
+    dt = x.dtype
+    xf = x.float()
+    var = C.sum_over_model(xf.square().sum(-1, keepdim=True), tag) / whole
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(dt)
 

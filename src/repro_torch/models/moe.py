@@ -145,8 +145,8 @@ def _router_logits(p, cfg, xt, xst, e0):
     if e0 is None:
         return (xt @ p["router"].to(xt.dtype)).float()
     part = xst @ p["router"].to(xst.dtype)
-    return C.gather_columns(part, e0, cfg.moe.num_experts,
-                            "moe_logits").float()
+    return C.gather_columns([(part, 1, cfg.moe.num_experts)],
+                            "moe_logits")[0].float()
 
 
 def _whole_tokens(x: torch.Tensor) -> torch.Tensor:

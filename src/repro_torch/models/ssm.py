@@ -11,6 +11,21 @@ its ``exp`` (see :func:`ssd_chunked`).
 Recurrence (per head h, state n, channel p):
     H_t = exp(dt_t A_h) H_{t-1} + dt_t B_t x_tᵀ
     y_t = C_tᵀ H_t + D_h x_t
+
+On a (data, model) mesh the layer runs on the rank's heads, which is
+the rules' layout: ``wz``, ``wx``, ``conv_w``, ``norm`` and ``w_out`` are
+split on ``ff`` and ``wdt``, ``dt_bias``, ``A_log``, ``D_skip`` on
+``heads``, and since ``inner`` is head-major a rank's ``ff`` block is
+exactly its heads' channels: the depthwise conv and the SSD need no
+other rank.  ``wB`` and ``wC`` are whole; each rank uses B and C for its
+heads only, so their cotangents are summed over "model"
+(``tp_mamba_bc``).  The gated norm over ``inner`` sums the squares over
+"model" forward and backward (:func:`~repro_torch.models.layers.
+rms_norm_split`), and ``w_out`` is row-parallel (``region_out``).
+Under ``seq_shard`` the layer gathers the rank's chunk of the sequence
+at its entry and reduce-scatters its output back to it.  The decode
+state follows the blocks: ``MambaState.ssm`` on the rank's heads,
+``conv`` on its ``ff`` columns.
 """
 from __future__ import annotations
 
@@ -19,7 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm_split
+from repro_torch.sharding import collectives as C
 
 
 def build_mamba2(scope, cfg):
@@ -59,6 +75,12 @@ def init_mamba_state(cfg, batch: int, dtype: torch.dtype,
     )
 
 
+def abstract_mamba_state(cfg, batch: int, dtype: torch.dtype) -> MambaState:
+    """The state's shapes and dtypes as empty ``meta`` tensors (the
+    JAX package's ``abstract_mamba_state``): nothing allocated."""
+    return init_mamba_state(cfg, batch, dtype, "meta")
+
+
 def mamba_state_axes() -> MambaState:
     return MambaState(ssm=("batch", "heads", "state", None),
                       conv=("batch", None, "ff"))
@@ -77,18 +99,52 @@ def _causal_conv(x, w, prev=None):
     return out, (xp[:, -(W - 1):, :] if W > 1 else prev)
 
 
+def _inner(cfg) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
+def _split(p, cfg) -> bool:
+    """Whether the layer's weights are this rank's block of the ``ff``
+    columns (and of the heads): a model axis splits them."""
+    return C.shard_offset(p["wz"].shape[1], _inner(cfg),
+                          "mamba2 ff") is not None
+
+
 def _project(p, cfg, x, conv_prev=None):
+    """The projections of the normed ``x``.  Where the weights are the
+    rank's blocks, the column-parallel ones read ``x`` through
+    ``region_in`` (its cotangent summed over "model"; under
+    ``seq_shard`` the chunk gathered over the sequence), and B and C,
+    which every rank computes whole, have their cotangent summed."""
     ssm = cfg.ssm
-    z = x @ p["wz"].to(x.dtype)
-    xin = x @ p["wx"].to(x.dtype)
+    split = _split(p, cfg)
+    xc = C.region_in(x, "mamba_in", split=split)
+    if C.tokens_split() == "seq":
+        x = xc
+    z = xc @ p["wz"].to(x.dtype)
+    xin = xc @ p["wx"].to(x.dtype)
     xin, conv_state = _causal_conv(xin, p["conv_w"].to(x.dtype), conv_prev)
     xin = F.silu(xin)
     B = x @ p["wB"].to(x.dtype)
-    C = x @ p["wC"].to(x.dtype)
-    dt = F.softplus((x @ p["wdt"].to(x.dtype)).float() + p["dt_bias"])
+    C_ = x @ p["wC"].to(x.dtype)
+    if split:
+        B, C_ = C.copy_to_model(torch.stack([B, C_]),
+                                "tp_mamba_bc").unbind(0)
+    dt = F.softplus((xc @ p["wdt"].to(x.dtype)).float() + p["dt_bias"])
     nheads = p["A_log"].shape[0]
-    xh = xin.reshape(*x.shape[:-1], nheads, ssm.head_dim)
-    return z, xh, B, C, dt, conv_state
+    xh = xin.reshape(*xin.shape[:-1], nheads, ssm.head_dim)
+    return z, xh, B, C_, dt, conv_state
+
+
+def _out(p, cfg, y, z, dtype):
+    """The gated norm over ``inner`` and the output projection of the
+    heads' ``y`` (B, S, H, P) (this rank's heads: the norm's sum and the
+    row-parallel output summed over "model")."""
+    y = y.reshape(*y.shape[:2], -1)
+    y = rms_norm_split(y * F.silu(z), p["norm"], _inner(cfg), "mamba_norm",
+                       cfg.norm_eps)
+    return C.region_out(y @ p["w_out"].to(dtype), "mamba_out",
+                        split=_split(p, cfg))
 
 
 def ssd_chunked(xh, dt, A, B, C, chunk: int,
@@ -138,31 +194,28 @@ def ssd_chunked(xh, dt, A, B, C, chunk: int,
 
 
 def mamba2_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Train/prefill path. x (B,S,D) -> (B,S,D)."""
+    """Train/prefill path. x (B,S,D) -> (B,S,D) (under ``seq_shard`` the
+    rank's chunk in and out)."""
     ssm = cfg.ssm
-    z, xh, B, C, dt, _ = _project(p, cfg, x)
+    z, xh, B, C_, dt, _ = _project(p, cfg, x)
     A = -torch.exp(p["A_log"].float())
-    y, _ = ssd_chunked(xh, dt, A, B, C, ssm.chunk_size)
+    y, _ = ssd_chunked(xh, dt, A, B, C_, ssm.chunk_size)
     y = y.to(x.dtype) + p["D_skip"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(x.shape[0], x.shape[1], -1)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(x.dtype)
+    return _out(p, cfg, y, z, x.dtype)
 
 
 def mamba2_decode_step(p, cfg, x: torch.Tensor,
                        state: MambaState) -> Tuple[torch.Tensor, MambaState]:
     """One-token recurrent step. x (B,1,D).  Returns (out (B,1,D), the
     new state)."""
-    z, xh, B, C, dt, conv_state = _project(p, cfg, x, conv_prev=state.conv)
+    z, xh, B, C_, dt, conv_state = _project(p, cfg, x, conv_prev=state.conv)
     A = -torch.exp(p["A_log"].float())
     lam = torch.exp(dt[:, 0] * A[None, :])  # (B,H)
     h = state.ssm.float()
     upd = torch.einsum("bh,bn,bhp->bhnp", dt[:, 0], B[:, 0].float(),
                        xh[:, 0].float())
     h_new = lam[:, :, None, None] * h + upd
-    y = torch.einsum("bn,bhnp->bhp", C[:, 0].float(), h_new)
+    y = torch.einsum("bn,bhnp->bhp", C_[:, 0].float(), h_new)
     y = y.to(x.dtype) + p["D_skip"].to(x.dtype)[None, :, None] * xh[:, 0]
-    y = y.reshape(x.shape[0], 1, -1)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(x.dtype), MambaState(
+    return _out(p, cfg, y[:, None], z, x.dtype), MambaState(
         ssm=h_new.to(state.ssm.dtype), conv=conv_state)

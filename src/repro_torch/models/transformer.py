@@ -25,8 +25,10 @@ no partitioner to move the rest, on every other leaf the model reads
 (the embedding lookup, ``final_norm``, vlm's ``vision_proj``, zamba2's
 ``shared_attn``, whisper's ``dec_pos`` and ``enc_norm``): with no hook
 installed it is a no-op.  On a (data, model) mesh the hook hands each
-site this rank's model block of the weights, and the dense, moe, vlm and
-audio families' layers run tensor-parallel by those blocks' shapes:
+site this rank's model block of the weights, and every family's layers
+run tensor-parallel by those blocks' shapes (zamba2's Mamba2 layers and
+xlstm's mLSTM on the rank's heads, the sLSTM's recurrence whole on every
+rank: :mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.xlstm`):
 attention column-parallel over the heads and row-parallel out (whisper's
 cross-attention too, over the encoder output made ready once a
 forward: :func:`decoder_memory`), the SwiGLU and the GELU MLP over their

@@ -15,6 +15,34 @@ sLSTM (port of ``repro.models.xlstm``).
   per layer.
 
 Blocks alternate mLSTM / sLSTM (``num_layers`` = 24 → 12 pairs).
+
+On a (data, model) mesh, in the rules' layout:
+
+* the mLSTM runs on the rank's heads.  ``w_up`` and ``w_gate`` are split
+  on ``ff`` and ``wq``/``wk``/``wv`` on their ``ff`` rows (heads whole:
+  the axis-reuse rule), so a rank's q, k and v are partial sums over
+  ``ff`` for every head: they are reduce-scattered onto the rank's heads
+  (``tp_mlstm_qkv``).  ``w_if``/``b_if`` (embed, 2h) are split on
+  ``heads``, which hands rank r the columns [r·2h/n, (r+1)·2h/n): input
+  gates of some heads or forget gates of others, never its own heads'
+  pair; they are gathered whole (``tp_mlstm_gates``, the backward summed:
+  each rank reads its heads' columns) and each rank takes its heads'
+  input and forget gates.  The cell output, head-major, is the rank's
+  ``ff`` block: the norm sums its squares over "model" and ``w_down`` is
+  row-parallel.
+* the sLSTM's recurrence runs whole on every model rank: ``w_in``'s
+  column split does not follow the gate layout (``chunk(4)`` over z, i,
+  f, o), and splitting the cells would need a collective at every
+  position.  ``w_in``, ``b_in`` and ``r`` are gathered once a forward
+  (:func:`repro_torch.sharding.collectives.gather_columns`: under
+  tensor parallelism each rank keeps its block of the gradient, which
+  is the same on every rank), so the collectives of a step do not grow
+  with the sequence.  The GELU MLP after it is column-parallel then
+  row-parallel, ``b_out`` added after the sum.
+* under ``seq_shard`` every recurrence sees the whole sequence: the
+  rank's chunk is gathered at the block's entry, and the mLSTM's output
+  reduce-scattered back to it (the sLSTM keeps its chunk of the
+  hidden states).
 """
 from __future__ import annotations
 
@@ -29,7 +57,9 @@ from repro_torch.models.layers import (
     build_rms_norm,
     gelu_mlp,
     rms_norm,
+    rms_norm_split,
 )
+from repro_torch.sharding import collectives as C
 
 I_GATE_CAP = 8.0
 
@@ -60,22 +90,67 @@ class MLSTMState(NamedTuple):
     n: torch.Tensor  # (B, H, hd) normalizer
 
 
-def _mlstm_gates(p, x):
-    """Returns (log_i capped, log_f), each (B, S, H) fp32."""
-    gf = (x @ p["w_if"].to(x.dtype)).float() + p["b_if"]
-    h = gf.shape[-1] // 2
+def _mlstm_inner(cfg) -> int:
+    return int(cfg.d_model * cfg.xlstm.mlstm_proj_factor)
+
+
+def _mlstm_split(p, cfg) -> bool:
+    """Whether the layer's weights are this rank's block of the ``ff``
+    columns (a model axis splits them); the rank then runs its heads."""
+    if C.shard_offset(p["w_up"].shape[1], _mlstm_inner(cfg),
+                      "mlstm ff") is None:
+        return False
+    if cfg.num_heads % C.model_size():
+        raise ValueError(f"the mLSTM's {cfg.num_heads} heads do not split "
+                         f"over a model axis of {C.model_size()} that "
+                         f"splits its ff columns")
+    return True
+
+
+def _mlstm_gates(p, cfg, x, split: bool):
+    """Returns (log_i capped, log_f), each (B, S, H) fp32: over the
+    rank's heads where ``split``."""
+    w, b = p["w_if"], p["b_if"]
+    h = cfg.num_heads
+    if w.shape[1] != 2 * h:
+        # the rank's columns of (embed, 2h) hold no head's pair: both
+        # gathered whole in one call, the gradient summed over "model"
+        d, c = w.shape
+        off = C.shard_offset(c, 2 * h, "mlstm gates")
+        wb = C.gather_model(torch.cat([w, b[None].to(w.dtype)]),
+                            (slice(0, d + 1), slice(off, off + c)),
+                            (d + 1, 2 * h), C.model_where("mlstm_gates"))
+        w, b = wb[:d], wb[d].to(b.dtype)
+    gf = (x @ w.to(x.dtype)).float() + b
     log_i = torch.clamp(gf[..., :h], max=I_GATE_CAP)
     log_f = F.logsigmoid(gf[..., h:])
+    if split:
+        return C.seq_chunk(log_i, -1), C.seq_chunk(log_f, -1)
     return log_i, log_f
 
 
-def _mlstm_qkv(p, cfg, x):
+def _mlstm_qkv(p, cfg, x, split: bool):
     inner = x @ p["w_up"].to(x.dtype)
     gate = x @ p["w_gate"].to(x.dtype)
     q = torch.einsum("bsf,fhk->bshk", inner, p["wq"].to(x.dtype))
     k = torch.einsum("bsf,fhk->bshk", inner, p["wk"].to(x.dtype))
     v = torch.einsum("bsf,fhk->bshk", inner, p["wv"].to(x.dtype))
+    if split:
+        # partial sums over the rank's ff rows, onto the rank's heads
+        q, k, v = C.reduce_scatter(torch.stack([q, k, v], 2), "mlstm_qkv",
+                                   3).unbind(2)
     return q, k, v, gate
+
+
+def _mlstm_in(p, cfg, x):
+    """The block's input, its projections, gates and split: ``x`` through
+    ``region_in`` (under tensor parallelism its cotangent summed over
+    "model", under ``seq_shard`` the chunk gathered)."""
+    split = _mlstm_split(p, cfg)
+    x = C.region_in(x, "mlstm_in", split=split)
+    q, k, v, gate = _mlstm_qkv(p, cfg, x, split)
+    log_i, log_f = _mlstm_gates(p, cfg, x, split)
+    return x, q, k, v, gate, log_i, log_f, split
 
 
 def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int,
@@ -130,40 +205,42 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int,
     return torch.cat(ys, dim=1), MLSTMState(C=C, n=n)
 
 
-def _mlstm_out(p, cfg, x, h_out, gate):
-    """(B, S, H, hd) cell outputs → the block's (B, S, D) output."""
-    b, s = x.shape[:2]
-    y = h_out.reshape(b, s, -1).to(x.dtype)
-    y = rms_norm(y, p["norm"], cfg.norm_eps) * F.silu(gate)
-    return y @ p["w_down"].to(x.dtype)
+def _mlstm_out(p, cfg, x, h_out, gate, split: bool):
+    """(B, S, H, hd) cell outputs → the block's (B, S, D) output (the
+    rank's heads: the norm's sum and ``w_down``'s output summed over
+    "model")."""
+    y = h_out.reshape(*h_out.shape[:2], -1).to(x.dtype)
+    y = rms_norm_split(y, p["norm"], _mlstm_inner(cfg), "mlstm_norm",
+                       cfg.norm_eps) * F.silu(gate)
+    return C.region_out(y @ p["w_down"].to(x.dtype), "mlstm_out",
+                        split=split)
 
 
 def mlstm_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Train/prefill path.  x (B,S,D) -> (B,S,D)."""
-    q, k, v, gate = _mlstm_qkv(p, cfg, x)
-    log_i, log_f = _mlstm_gates(p, x)
+    """Train/prefill path.  x (B,S,D) -> (B,S,D) (under ``seq_shard`` the
+    rank's chunk in and out)."""
+    x, q, k, v, gate, log_i, log_f, split = _mlstm_in(p, cfg, x)
     y, _ = mlstm_chunkwise(q, k, v, log_i, log_f, cfg.xlstm.chunk_size)
-    return _mlstm_out(p, cfg, x, y, gate)
+    return _mlstm_out(p, cfg, x, y, gate, split)
 
 
 def mlstm_decode_step(p, cfg, x: torch.Tensor, state: MLSTMState
                       ) -> Tuple[torch.Tensor, MLSTMState]:
     """x (B,1,D): the one-token recurrent update.  Returns (out (B,1,D),
     the new state)."""
-    q, k, v, gate = _mlstm_qkv(p, cfg, x)
-    log_i, log_f = _mlstm_gates(p, x)
+    x, q, k, v, gate, log_i, log_f, split = _mlstm_in(p, cfg, x)
     i_ = torch.exp(log_i[:, 0])                       # (B,H)
     f_ = torch.exp(log_f[:, 0])
     qf, kf, vf = (t[:, 0].float() for t in (q, k, v))
-    C = f_[:, :, None, None] * state.C.float() + i_[:, :, None, None] * \
+    C_ = f_[:, :, None, None] * state.C.float() + i_[:, :, None, None] * \
         torch.einsum("bhp,bhv->bhpv", kf, vf)
     n = f_[:, :, None] * state.n.float() + i_[:, :, None] * kf
     scale = 1.0 / math.sqrt(q.shape[-1])
-    num = torch.einsum("bhp,bhpv->bhv", qf, C) * scale
+    num = torch.einsum("bhp,bhpv->bhv", qf, C_) * scale
     den = torch.einsum("bhp,bhp->bh", qf, n) * scale
     h_out = num / torch.clamp(den.abs(), min=1.0)[..., None]
-    return _mlstm_out(p, cfg, x, h_out[:, None], gate), MLSTMState(
-        C=C.to(state.C.dtype), n=n.to(state.n.dtype))
+    return _mlstm_out(p, cfg, x, h_out[:, None], gate, split), MLSTMState(
+        C=C_.to(state.C.dtype), n=n.to(state.n.dtype))
 
 
 # ======================================================================
@@ -197,13 +274,34 @@ def init_slstm_state(cfg, batch: int, device) -> SLSTMState:
     return SLSTMState(c=z, n=z, m=z - 20.0, h=z)
 
 
+def abstract_slstm_state(cfg, batch: int,
+                         dtype: torch.dtype = torch.float32) -> SLSTMState:
+    """The state's shapes and dtypes as empty ``meta`` tensors (the JAX
+    package's ``abstract_slstm_state``: fp32 whatever ``dtype``)."""
+    z = torch.empty((batch, cfg.d_model), dtype=torch.float32,
+                    device="meta")
+    return SLSTMState(c=z, n=z, m=z, h=z)
+
+
 def slstm_state_axes() -> SLSTMState:
     a = ("batch", "embed")
     return SLSTMState(c=a, n=a, m=a, h=a)
 
 
+def _slstm_weights(p, cfg):
+    """``p`` with ``w_in``, ``b_in`` and ``r`` whole: a model axis's
+    blocks gathered in one call (:func:`repro_torch.sharding.
+    collectives.gather_columns`)."""
+    d = cfg.d_model
+    w_in, b_in, r = C.gather_columns(
+        [(p["w_in"], 1, 4 * d), (p["b_in"], 0, 4 * d),
+         (p["r"], 0, cfg.num_heads)], "slstm_weights")
+    return dict(p, w_in=w_in, b_in=b_in, r=r)
+
+
 def _slstm_cell(p, cfg, x_t: torch.Tensor, state: SLSTMState) -> SLSTMState:
-    """One timestep.  x_t (B,D): the input projection is applied here."""
+    """One timestep.  x_t (B,D): the input projection is applied here
+    (``p``'s recurrent weights whole: :func:`_slstm_weights`)."""
     b, d = x_t.shape
     h_ = cfg.num_heads
     dh = d // h_
@@ -228,21 +326,35 @@ def _slstm_out(p, cfg, x, hs):
 
 
 def slstm_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x (B,S,D): a Python loop over time (the sLSTM's nature)."""
-    state = init_slstm_state(cfg, x.shape[0], x.device)
+    """x (B,S,D): a Python loop over time (the sLSTM's nature).  Under
+    ``seq_shard`` the rank's chunk is gathered whole, the recurrence runs
+    over the whole sequence, and the rank keeps its chunk."""
+    seq = C.tokens_split() == "seq"
+    xs = C.gather_seq(x, "sp_slstm_in") if seq else x
+    w = _slstm_weights(p, cfg)
+    state = init_slstm_state(cfg, xs.shape[0], xs.device)
     hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_cell(p, cfg, x[:, t], state)
+    for t in range(xs.shape[1]):
+        state = _slstm_cell(w, cfg, xs[:, t], state)
         hs.append(state.h)
-    return _slstm_out(p, cfg, x, torch.stack(hs, dim=1))
+    hs = torch.stack(hs, dim=1)
+    return _slstm_out(p, cfg, x, C.seq_chunk(hs) if seq else hs)
 
 
 def slstm_decode_step(p, cfg, x: torch.Tensor, state: SLSTMState
                       ) -> Tuple[torch.Tensor, SLSTMState]:
-    st = _slstm_cell(p, cfg, x[:, 0], state)
+    st = _slstm_cell(_slstm_weights(p, cfg), cfg, x[:, 0], state)
     return _slstm_out(p, cfg, x, st.h[:, None, :]), st
 
 
 def slstm_block_mlp(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """The sLSTM block's post-recurrence MLP (pre-norm residual)."""
-    return gelu_mlp(p["mlp"], rms_norm(x, p["mlp_norm"], cfg.norm_eps))
+    """The sLSTM block's post-recurrence MLP (pre-norm residual); over a
+    model axis that splits its ``ff`` columns, column-parallel then
+    row-parallel with ``b_out`` added after the sum."""
+    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if C.shard_offset(p["mlp"]["w_in"].shape[1],
+                      int(cfg.d_model * cfg.xlstm.slstm_proj_factor),
+                      "slstm mlp") is None:
+        return gelu_mlp(p["mlp"], h)
+    out = gelu_mlp(p["mlp"], C.region_in(h, "mlp_in"), out_bias=False)
+    return C.region_out(out, "mlp_out") + p["mlp"]["b_out"]

@@ -33,17 +33,25 @@ forward mode), so they run inside the train step's per-agent
   sequence parallelism's;
 * :func:`gather_model` — a weight's model block made whole for a rank
   that computes on its own tokens (``inner_batch_shard``): the gather,
-  whose backward sums the ranks' cotangents and keeps the block;
+  whose backward sums the ranks' cotangents and keeps the block (also
+  the mLSTM's gate columns, of which each rank uses its own heads');
+* :func:`sum_over_model` — a sum over a dim that the model ranks split
+  (a gated norm's sum of squares over the ``ff`` columns), its cotangent
+  summed too (each rank's comes from its own columns);
+  :func:`reduce_scatter` — a partial sum over the model axis, each rank
+  keeping its block of one dim (the mLSTM's q, k and v: partial over
+  ``ff``, kept on the rank's heads), the backward the gather;
 * :func:`vocab_parallel_nll` — the cross-entropy over a vocabulary split
   over the model axis: each rank runs the ``fused_ce`` kernel on its
   block of the table, and the ranks combine the logsumexps and the gold
   logits;
 * :func:`gather_vocab` — a serving step's logits over the rank's block
   of the vocabulary, made whole over the model axis;
-* :func:`gather_columns` — a moe router's logits over the rank's
-  experts made whole (its backward keeps the rank's block of the
-  cotangent, or where the ranks split the tokens sums their shares
-  first); :func:`whole_term` — a term every rank computes whole from
+* :func:`gather_columns` — blocks made whole, in one call, for a
+  computation that every model rank repeats (a moe router's logits over
+  the rank's experts, the sLSTM's recurrent weights): its backward keeps
+  the rank's block of the cotangent, or where the ranks split the
+  tokens sums their shares first; :func:`whole_term` — a term every rank computes whole from
   all of an agent's tokens (the router's aux loss) with 1/n of its
   cotangent on each rank, so the split modes' sums count it once;
 * :func:`gather_rows` / :func:`own_rows` — a serving batch's rows made
@@ -413,6 +421,36 @@ def gather_model(x: torch.Tensor, index: Tuple[slice, ...],
     return _sum_both(F.pad(x, pad), where)
 
 
+def _prefixed_tag(tag: str) -> str:
+    return ("sp_" if tokens_split() == "seq" else "tp_") + tag
+
+
+def model_where(tag: str) -> Where:
+    """The running step's model axis, tagged ``tp_<tag>`` (``sp_<tag>``
+    under ``seq_shard``)."""
+    return _need_axis(tag).where(_prefixed_tag(tag))
+
+
+def sum_over_model(x: torch.Tensor, tag: str) -> torch.Tensor:
+    """``x``, each rank's partial sum over its block of a dim that the
+    model ranks split, summed over "model"; its cotangent summed over
+    "model" too, since each rank's comes from its own block (tag
+    ``tp_<tag>``, ``sp_<tag>`` under ``seq_shard``, and ``…_grad``);
+    ``x`` itself where no model axis runs."""
+    axis = _TP.get()
+    if axis is None or axis.size == 1:
+        return x
+    return _sum_both(x, axis.where(_prefixed_tag(tag)))
+
+
+def reduce_scatter(x: torch.Tensor, tag: str, dim: int) -> torch.Tensor:
+    """Each rank's partial sum ``x`` summed over "model", the rank
+    keeping its block of ``dim`` (tag ``tp_<tag>`` or ``sp_<tag>``); the
+    backward gathers the blocks' cotangents whole (:func:`scatter_seq`
+    along any dim)."""
+    return scatter_seq(x, _prefixed_tag(tag), dim)
+
+
 def copy_over(x: torch.Tensor, where: Where) -> torch.Tensor:
     """``x`` itself, its cotangent summed over ``where``'s axes: a weight
     that every rank holds whole and uses on its own tokens."""
@@ -480,18 +518,40 @@ def own_rows(x: torch.Tensor) -> torch.Tensor:
     return x.narrow(0, i * b, b)
 
 
-def gather_columns(x: torch.Tensor, offset: int, whole: int, tag: str
-                   ) -> torch.Tensor:
-    """``x`` ``(T, c)``, this rank's columns ``offset … offset + c − 1``
-    of a ``(T, whole)`` tensor, made whole over "model" (the zero-padded
-    block summed: exact).  Under tensor parallelism every rank's loss is
-    the whole one, and the backward keeps the rank's block of the
-    cotangent (tag ``tp_<tag>``); where the ranks split the tokens each
-    rank's cotangent is its share, and the backward sums them first
-    (``sp_<tag>``)."""
-    axis = _need_axis("gather_columns")
-    t, c = x.shape
-    index, shape = (slice(0, t), slice(offset, offset + c)), (t, whole)
+def gather_columns(blocks, tag: str):
+    """Tensors made whole over "model" from this rank's blocks, for a
+    computation that every model rank repeats on the same tokens (a moe
+    router's logits over the rank's experts, the sLSTM's recurrent
+    weights, which a model rank cannot split without a collective per
+    position): ``blocks`` is a list of ``(x, dim, whole)``, this rank's
+    block ``x`` of a tensor whose ``dim`` has size ``whole`` (``x``
+    itself where it is whole here).  The split ones go through ONE
+    ``all_reduce`` of their zero-padded blocks, flattened together
+    (exact).  Under tensor parallelism every rank's loss is the whole
+    one, so the cotangent is the same on every rank and the backward
+    keeps the rank's block of it (tag ``tp_<tag>``: summed, the gradient
+    would be n× too large); where the ranks split the tokens each rank's
+    cotangent is its share, and the backward sums them first
+    (``sp_<tag>``, ``…_grad``).  Returns the whole tensors."""
+    out = [x for x, _, _ in blocks]
+    split = [i for i, (x, dim, whole) in enumerate(blocks)
+             if x.shape[dim] != whole]
+    if not split:
+        return out
+    flat, shapes = [], []
+    for i in split:
+        x, dim, whole = blocks[i]
+        s = x.shape[dim]
+        off = shard_offset(s, whole, "gather_columns")
+        x = _pad_dim(x, dim, off, whole - off - s)
+        flat.append(x.reshape(-1))
+        shapes.append(x.shape)
+    buf, axis = torch.cat(flat), _need_axis("gather_columns")
     if tokens_split() is None:
-        return gather_from_data(x, index, shape, axis.where("tp_" + tag))
-    return gather_model(x, index, shape, axis.where("sp_" + tag))
+        buf = _AllReduce.apply(buf, axis.where("tp_" + tag))
+    else:
+        buf = _sum_both(buf, axis.where("sp_" + tag))
+    for i, part, shape in zip(split, buf.split([f.numel() for f in flat]),
+                              shapes):
+        out[i] = part.reshape(shape)
+    return out

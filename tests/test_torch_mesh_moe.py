@@ -25,8 +25,8 @@ shared expert) at (data 2, model 2), m = 2 agents × 2 rows × 16 tokens:
 * prefill and 4 decode steps in both cache layouts, and the prefill
   under ``seq_shard`` that fills the cache decode reads (smollm, the
   dense family, and mixtral);
-* ``_check_tensor_parallel`` raises for the hybrid and ssm families
-  only.
+* every family's train, prefill and serve steps build on a model axis
+  (the hybrid and ssm families': tests/test_torch_mesh_recurrent.py).
 
 The train jobs are held under tests/test_torch_mesh_lm.py's contract
 (``check_job``: metrics and parameters within ``rtol = 1e-5, atol =
@@ -174,7 +174,7 @@ def _rank_args():
 
 
 JAX_SHARDED_SCRIPT = r"""
-import json, os, sys
+import dataclasses, json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax, numpy as np
@@ -193,6 +193,9 @@ auto = jax.make_mesh((2, 2), ("data", "model"),
 out, arrays = {{}}, {{}}
 for arch in {archs!r}:
     cfg = reduced(get_config(arch))
+    for sub, items in {subs!r}.get(arch, ()):
+        cfg = cfg.replace(**{{sub: dataclasses.replace(getattr(cfg, sub),
+                                                      **dict(items))}})
     shape = InputShape("mesh", {seq}, {m} * {per}, "train")
     plan = S.plan_run(cfg, shape, auto, comm={policy!r}, lr={lr},
                       fsdp=False)
@@ -215,18 +218,21 @@ print(json.dumps(out))
 """
 
 
-def start_jax_sharded(archs, tmp):
+def start_jax_sharded(archs, tmp, subs=None, policy=P1):
     """JAX's own sharded ``build_train_step`` for each reduced arch on an
     ``AxisType.Auto`` (data 2, model 2) mesh of 4 forced host devices,
-    fsdp off, one ``gain_lookahead(lam=0.01)`` step from seed 0's weights
-    and the first batch of tests/test_torch_mesh_lm.py's chain: a
-    subprocess started beside the spawn.  ``finish_jax_sharded`` reads
-    its results."""
+    fsdp off, one ``policy`` step (``gain_lookahead(lam=0.01)``) from
+    seed 0's weights and the first batch of tests/test_torch_mesh_lm.py's
+    chain: a subprocess started beside the spawn.  ``subs`` maps an arch
+    to its
+    sub-config overrides (``(("xlstm", (("slstm_proj_factor", 1.5),)),)``).
+    ``finish_jax_sharded`` reads its results."""
     root = pathlib.Path(__file__).resolve().parents[1]
     npz = tmp / "sharded.npz"
     code = JAX_SHARDED_SCRIPT.format(src=str(root / "src"), archs=archs,
-                                     seq=lm.SEQ, m=2, per=lm.PER,
-                                     policy=P1, lr=lm.LR, npz=str(npz))
+                                     subs=subs or {}, seq=lm.SEQ, m=2,
+                                     per=lm.PER, policy=policy, lr=lm.LR,
+                                     npz=str(npz))
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     env.pop("XLA_FLAGS", None)
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
@@ -437,27 +443,25 @@ def test_mesh_serving_matches_jax(runs, name):
 
 
 def test_tensor_parallel_families():
-    """``_check_tensor_parallel`` takes the dense, moe, vlm and audio
-    families on a model axis and raises for hybrid and ssm (the next
-    item); a data-only mesh takes every family."""
-    mesh = Mesh(("data", "model"), (2, 2))
-    data = Mesh(("data", "model"), (4, 1))
-    raised = []
-    for arch in ("smollm-135m", MIX, KIMI, "phi-3-vision-4.2b",
-                 "whisper-medium", "zamba2-1.2b", "xlstm-350m"):
-        cfg = reduced(get_config(arch))
-        S._check_tensor_parallel(cfg, data)
-        try:
-            S._check_tensor_parallel(cfg, mesh)
-        except NotImplementedError as e:
-            assert "queue 1 item 11.2" in str(e), e
-            raised.append(cfg.arch_type)
-    assert raised == ["hybrid", "ssm"], raised
-    plan = S.plan_run(reduced(get_config("zamba2-1.2b")),
-                      InputShape("t", 16, 4, "train"), mesh)
-    with pytest.raises(NotImplementedError, match="hybrid family"):
-        S.build_train_step(plan, compute_dtype="float32", device="meta",
-                           mesh=mesh)
+    """Tensor parallelism takes every family (the guard that raised for
+    the hybrid and ssm families is gone): the train, prefill and serve
+    steps of each reduced arch build on ``meta`` at (data 2, model 2),
+    and on a data-only mesh."""
+    for mesh in (Mesh(("data", "model"), (2, 2), (0, 1)),
+                 Mesh(("data", "model"), (4, 1), (1, 0))):
+        for arch in ("smollm-135m", MIX, KIMI, "phi-3-vision-4.2b",
+                     "whisper-medium", "zamba2-1.2b", "xlstm-350m"):
+            cfg = reduced(get_config(arch))
+            step = S.build_train_step(S.plan_run(cfg, InputShape(
+                "t", 16, 4, "train"), mesh), compute_dtype="float32",
+                device="meta", mesh=mesh)
+            assert isinstance(step, S.MeshTrainStep), arch
+            for build, kind in ((S.build_prefill_step, "prefill"),
+                                (S.build_serve_step, "decode")):
+                got, _, _ = build(S.plan_run(cfg, InputShape(
+                    "d", 16, 4, kind), mesh), compute_dtype="float32",
+                    device="meta", mesh=mesh)
+                assert isinstance(got, S.MeshServeStep), (arch, kind)
 
 
 def test_a_rank_block_owns_its_storage():

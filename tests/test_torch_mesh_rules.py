@@ -228,22 +228,6 @@ def test_constraint_hooks_without_a_mesh_are_no_ops():
         Mesh(("pod", "data", "model"), (2, 2, 2)), fsdp=True))["embed"] is None
 
 
-def test_tensor_parallelism_beyond_dense_raises_with_its_pointer():
-    """A model axis > 1 with the hybrid or the ssm family (the families
-    whose tensor parallelism is not ported yet): the next item."""
-    from repro_torch.configs import reduced
-    from repro_torch.configs.base import InputShape
-    from repro_torch.launch import steps as S
-
-    mesh = Mesh(("data", "model"), (2, 2), (0, 0))
-    shape = InputShape("t", 16, 4, "train")
-    for arch in ("zamba2-1.2b", "xlstm-350m"):
-        plan = S.plan_run(reduced(get_config(arch)), shape, mesh)
-        with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
-            S.build_train_step(plan, compute_dtype="float32", device="cpu",
-                               mesh=mesh)
-
-
 @pytest.mark.parametrize("arch,seq,cfg,split", [
     ("whisper-medium", 449, {}, None),   # 448 tokens divide, frames not
     ("whisper-medium", 450, {}, "seq"),

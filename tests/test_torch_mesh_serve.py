@@ -364,8 +364,9 @@ def test_jax_decode_on_the_explicit_mesh_is_pinned(runs):
 def test_plan_and_one_rank_mesh():
     """``plan_run(cache_seq_shard=True)`` moves the cache's positions onto
     "model" and takes it from ``decode_heads``; a mesh of one rank keeps
-    the one-card steps; a model axis with the hybrid family (whose
-    tensor parallelism is not ported) raises, as training does."""
+    the one-card steps; a model axis takes the hybrid family too: its
+    ``MeshServeStep`` builds on ``meta``, the cache laid out by its
+    logical axes and the shared block's slots its cache length."""
     cfg = reduced(get_config("smollm-135m"))
     mesh = Mesh(("data", "model"), (2, 2))
     plan = S.plan_run(cfg, InputShape("d", CACHE, B, "decode"), mesh,
@@ -381,10 +382,16 @@ def test_plan_and_one_rank_mesh():
             "d", CACHE, B, kind)), compute_dtype="float32", device="meta",
             mesh=one)
         assert not isinstance(step, S.MeshServeStep)
-        # tensor parallelism for the hybrid family: the next item
-        with pytest.raises(NotImplementedError, match="queue 1 item 11.2"):
-            build(S.plan_run(hybrid, InputShape("d", CACHE, B, kind), mesh),
-                  compute_dtype="float32", device="meta", mesh=mesh)
+        kw = {"cache_len": CACHE} if kind == "prefill" else {}
+        step, params, _ = build(S.plan_run(hybrid, InputShape(
+            "d", CACHE, B, kind), mesh), compute_dtype="float32",
+            device="meta", mesh=mesh, **kw)
+        assert isinstance(step, S.MeshServeStep)
+        assert step._act.positions(CACHE) == (0, CACHE)
+        cache = step.cache_shardings["attn"].k
+        assert tuple(cache.spec) == (None, "data", None, "model"), cache
+        assert params["blocks"]["mamba"]["wz"].shape[-1] == (
+            hybrid.ssm.expand * hybrid.d_model // 2)
 
 
 def test_act_hook_layouts_on_one_rank():

@@ -71,13 +71,18 @@ def _np_tree(tree):
         for path, x in tree_flatten_with_path(tree)}
 
 
+SUB_CONFIGS = ("moe", "xlstm")
+
+
 def config(arch, overrides):
-    """The port's reduced ``arch`` with ``overrides`` (a ``"moe"`` entry
-    holds the moe sub-config's, as sorted items)."""
+    """The port's reduced ``arch`` with ``overrides`` (a ``"moe"`` or
+    ``"xlstm"`` entry holds that sub-config's, as sorted items)."""
     over = dict(overrides)
     cfg = reduced(get_config(arch))
-    if "moe" in over:
-        over["moe"] = dataclasses.replace(cfg.moe, **dict(over["moe"]))
+    for sub in SUB_CONFIGS:
+        if sub in over:
+            over[sub] = dataclasses.replace(getattr(cfg, sub),
+                                            **dict(over[sub]))
     return cfg.replace(**over)
 
 
@@ -97,7 +102,9 @@ def train_run(base, job):
     the last two, the collectives by tag and by axis and the kernel
     launches and this rank's bytes of EF memory at rest; and this rank's
     bytes of parameters and optimizer state at rest and its mesh
-    coordinates."""
+    coordinates.  With ``job["grads"]`` the first step's record also
+    holds every agent's gradient at the start state, computed on the
+    mesh (the rank's blocks of its agents', gathered)."""
     _count_plain_calls()
     mesh = _mesh(base, job["model"])
     cfg = config(job.get("arch", "smollm-135m"), job.get("cfg", {}))
@@ -126,6 +133,8 @@ def train_run(base, job):
         if k == 0:
             out["param_bytes"] = _rest_bytes(state.params)
             out["global_param_bytes"] = _rest_bytes(start.params)
+        grads = (_agent_grads(step, cfg, state, b)
+                 if k == 0 and job.get("grads") else None)
         mesh.collectives.reset()
         swa0, ce0 = swa_ops.swa_attention.launches, ce_ops.fused_ce.launches
         with MemoryTracker() as tracker:
@@ -138,6 +147,8 @@ def train_run(base, job):
         if job["fleet_shard"]:
             # the sharded step's per-agent vectors are its gateway's
             met = gather_agents(met, mesh)
+        if grads is not None:
+            rec["grads"] = grads
         rec["metrics"] = {k: v.detach().cpu().numpy() for k, v in met.items()}
         rec["params"] = _np_tree(gather_tree(state.params, shardings.params))
         for key, slot in (("ef", "ef_memory"), ("ctrl", "ctrl_state"),
@@ -154,8 +165,29 @@ def train_run(base, job):
     return out
 
 
+def _agent_grads(step, cfg, state, batch):
+    """Every agent's gradient of the loss at ``state``'s parameters on
+    the mesh step's layout (the rank's blocks of its agents' gradients,
+    as the step's prologue computes them), gathered whole."""
+    from repro_torch.comm.bank import batch_prologue
+    from repro_torch.models import build
+    from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+
+    pl = step.placement
+    model = build(cfg.replace(compute_dtype="float32"))
+    with pl.active():
+        _, grads = batch_prologue(model.loss_fn)(
+            pl.gather_params(state.params),
+            pl.local_rows(convert.to_torch(batch, "cpu")))
+    lead = tuple(pl.agent_sharding.spec)[:1] or (None,)
+    shardings = tree_map(lambda sh: NamedSharding(
+        pl.mesh, PartitionSpec(*lead, *sh.spec)), pl.model_shardings)
+    return _np_tree(gather_tree(grads, shardings))
+
+
 def serve_run(base, job):
-    """``job``: the arch (default smollm-135m) and cfg overrides, fsdp,
+    """``job``: the arch (default smollm-135m) and cfg overrides, the
+    model axis's size (default 2), fsdp,
     cache_seq_shard and, for the prefill, seq_shard; the global
     parameters (numpy), the prompt ``(B, S)`` (for whisper the frames
     ``(B, F, D)``, whose count is the cross cache's) and the
@@ -168,7 +200,7 @@ def serve_run(base, job):
     prefill and of each decode step, the kernel launches of each and
     this rank's coordinates."""
     _count_plain_calls()
-    mesh = _mesh(base, 2)
+    mesh = _mesh(base, job.get("model", 2))
     cfg = config(job.get("arch", "smollm-135m"), job["cfg"])
     prompt = torch.from_numpy(job["prompt"])
     toks = torch.from_numpy(job["decode"])
